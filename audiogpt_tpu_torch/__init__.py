@@ -1,0 +1,15 @@
+"""audiogpt_tpu_torch — the PyTorch/CUDA port of ``audiogpt_tpu`` for an
+NVIDIA H100.
+
+The JAX package stays the reference; this package grows beside it slice by
+slice and imports nothing from it (nor JAX). Plain tensor code is PyTorch;
+each Pallas kernel of the JAX package is a CUDA C++ kernel written for
+Hopper (``csrc/``), built with ``nvcc`` at first use (``ops/_build.py``) and
+launched through a wrapper that keeps a plain PyTorch version beside it.
+Engines run on the card unless the caller passes ``device="cpu"``.
+
+Ported so far: the text-to-audio tool call (``engines/t2a.py``) with its
+CLAP text tower, UNet, VAE, samplers and BigVGAN vocoder.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,3 @@
+from audiogpt_tpu_torch.engines.base import Bucketer, resolve_device  # noqa: F401
+from audiogpt_tpu_torch.engines.t2a import T2AConfig, T2AEngine  # noqa: F401
+from audiogpt_tpu_torch.engines.vocoder import VocoderEngine  # noqa: F401

@@ -1,0 +1,46 @@
+"""Multi-head attention: the shared op of the UNet and the text towers.
+
+Counterpart of ``audiogpt_tpu/ops/attention.py:43-74``, with the same
+dispatch rule: long sequences (Tq·Tk ≥ 256²) with no dense mask go to the
+flash kernel when the tensors are on the card; everything else is the plain
+product and softmax below. The KV cache comes with the ASR slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from audiogpt_tpu_torch.ops.flash_attention import flash_attention
+
+NEG_INF = -1e30
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: torch.Tensor | None = None, is_causal: bool = False,
+              kv_mask: torch.Tensor | None = None,
+              use_flash: bool | None = None) -> torch.Tensor:
+    """q [B, Tq, H, D], k/v [B, Tk, H, D] → [B, Tq, H, D].
+
+    ``mask`` broadcasts to [B, H, Tq, Tk] (True = keep); ``kv_mask`` [B, Tk]
+    (1 = valid) is a key-padding mask, which the flash path takes."""
+    if use_flash is None:
+        use_flash = (q.is_cuda and mask is None
+                     and q.shape[1] * k.shape[1] >= 256 * 256)
+    if use_flash and mask is None:
+        return flash_attention(q, k, v, kv_mask=kv_mask, causal=is_causal)
+    if kv_mask is not None:
+        km = kv_mask[:, None, None, :] > 0
+        mask = km if mask is None else (mask & km)
+    # f32 logits whatever the input dtype (the JAX einsum's
+    # preferred_element_type)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        * q.shape[-1] ** -0.5
+    if is_causal:
+        tq, tk = q.shape[1], k.shape[1]
+        causal = torch.ones(tq, tk, dtype=torch.bool,
+                            device=q.device).tril(tk - tq)
+        logits = logits.masked_fill(~causal, NEG_INF)
+    if mask is not None:
+        logits = logits.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)

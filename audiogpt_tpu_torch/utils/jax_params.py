@@ -1,0 +1,65 @@
+"""Carry a JAX (flax) parameter tree into a port module.
+
+The tree arrives as numpy arrays (``jax.tree.map(np.asarray, params)`` on
+the JAX side), so this module never sees JAX. The port's submodules carry
+the flax scope names, so the mapping is mechanical: flatten the tree to
+dotted keys, rename the leaf, and lay out each kernel for the module type
+that owns it. Loading is strict: a missed or extra parameter raises.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from audiogpt_tpu_torch.ops.conv import ConvTranspose1d
+
+#: flax leaf name → torch parameter name
+_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    flat = {}
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            flat.update(_flatten(val, name + "."))
+        else:
+            flat[name] = np.asarray(val)
+    return flat
+
+
+def _kernel_layout(owner: nn.Module, kernel: np.ndarray) -> np.ndarray:
+    """A flax kernel in the layout of the torch module that owns it."""
+    if isinstance(owner, nn.Linear):
+        return kernel.T                         # [in, out] → [out, in]
+    if isinstance(owner, nn.Conv2d):
+        return kernel.transpose(3, 2, 0, 1)     # HWIO → OIHW
+    if isinstance(owner, (nn.Conv1d, ConvTranspose1d)):
+        # Conv1d WIO → OIW; ConvTranspose1d [W, O, I] → [I, O, W], no flip
+        return kernel.transpose(2, 1, 0)
+    raise TypeError(f"no kernel layout for {type(owner).__name__}")
+
+
+def load_jax_params(module: nn.Module, tree: Mapping) -> None:
+    """Copy a flax param tree (numpy leaves; an outer ``{"params": ...}``
+    collection is unwrapped) into ``module``, strictly."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    state = {}
+    for key, arr in _flatten(tree).items():
+        prefix, _, leaf = key.rpartition(".")
+        name = f"{prefix}.{_LEAF.get(leaf, leaf)}" if prefix else \
+            _LEAF.get(leaf, leaf)
+        if leaf == "kernel":
+            try:
+                owner = module.get_submodule(prefix)
+            except AttributeError:
+                owner = None   # no such submodule: strict loading reports it
+            if owner is not None:
+                arr = _kernel_layout(owner, arr)
+        state[name] = torch.tensor(arr, dtype=torch.float32)
+    module.load_state_dict(state, strict=True)

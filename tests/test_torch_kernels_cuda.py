@@ -1,0 +1,117 @@
+"""The port's CUDA kernels against their plain versions, on the card, at the
+edges of what each kernel takes: head dims that are and are not multiples
+of 16, unaligned and unequal sequence lengths, causal masking with
+Tq != Tk, fully masked rows, rows shorter than one tile, bf16.
+
+These tests need an NVIDIA card and ``nvcc``; elsewhere they skip. They
+import neither JAX nor the JAX package, so they run where only PyTorch is
+installed::
+
+    python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
+"""
+
+import pytest
+import torch
+
+from audiogpt_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_reference,
+)
+from audiogpt_tpu_torch.ops.snake_aa import snake_aa, snake_aa_reference
+
+
+@pytest.fixture(scope="module")
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.Generator("cuda").manual_seed(0)
+
+
+def _qkv(gen, b, tq, tk, h, d):
+    return (torch.randn(b, tq, h, d, generator=gen, device="cuda"),
+            torch.randn(b, tk, h, d, generator=gen, device="cuda"),
+            torch.randn(b, tk, h, d, generator=gen, device="cuda"))
+
+
+def _flash_err(q, k, v, kv_mask=None, causal=False):
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, kv_mask=kv_mask, causal=causal)
+    ref = flash_attention_reference(q, k, v, kv_mask=kv_mask, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    return out, (out - ref).abs().max().item()
+
+
+#: f32 softmax-weighted sums of O(1) values, blockwise against full rows
+FLASH_ATOL = 1e-4
+
+
+@pytest.mark.parametrize("d", [8, 16, 32, 40, 48, 64, 80, 96, 128])
+def test_flash_head_dims_unaligned(gen, d):
+    _, err = _flash_err(*_qkv(gen, 2, 100, 200, 3, d))
+    assert err <= FLASH_ATOL
+
+
+@pytest.mark.parametrize("tq,tk", [(150, 150), (100, 200), (200, 70), (1, 65)])
+def test_flash_causal_top_left(gen, tq, tk):
+    _, err = _flash_err(*_qkv(gen, 2, tq, tk, 2, 64), causal=True)
+    assert err <= FLASH_ATOL
+
+
+def test_flash_kv_mask_with_fully_masked_row(gen):
+    q, k, v = _qkv(gen, 3, 130, 300, 2, 40)
+    lens = torch.tensor([300, 17, 0], device="cuda")
+    mask = (torch.arange(300, device="cuda")[None] < lens[:, None]).float()
+    out, err = _flash_err(q, k, v, kv_mask=mask)
+    assert err <= FLASH_ATOL
+    assert torch.all(out[2] == 0)
+
+
+def test_flash_rejects_what_the_kernel_does_not_take(gen):
+    q, k, v = _qkv(gen, 1, 16, 16, 1, 136)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v)
+    q, k, v = _qkv(gen, 1, 16, 16, 2, 32)
+    with pytest.raises(TypeError):
+        flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    with pytest.raises(ValueError):
+        flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+
+
+@pytest.mark.parametrize("t", [1, 3, 37, 1024, 1025, 5003])
+def test_snake_f32_lengths(gen, t):
+    x = torch.randn(2, 5, t, generator=gen, device="cuda")
+    alpha = torch.exp(0.3 * torch.randn(5, generator=gen, device="cuda"))
+    beta = torch.exp(0.3 * torch.randn(5, generator=gen, device="cuda"))
+    before = snake_aa.launches
+    out = snake_aa(x, alpha, beta)
+    ref = snake_aa_reference(x, alpha, beta)
+    torch.cuda.synchronize()
+    assert snake_aa.launches == before + 1
+    # f32 FIR taps summed in another order than cuDNN's depthwise convs
+    assert (out - ref).abs().max().item() <= 1e-5
+
+
+def test_snake_bf16_keeps_dtype(gen):
+    x = torch.randn(2, 7, 2049, generator=gen, device="cuda").bfloat16()
+    alpha = torch.exp(0.3 * torch.randn(7, generator=gen, device="cuda"))
+    beta = torch.exp(0.3 * torch.randn(7, generator=gen, device="cuda"))
+    out = snake_aa(x, alpha, beta)
+    ref = snake_aa_reference(x, alpha, beta)
+    assert out.dtype == torch.bfloat16
+    # both compute in f32 and round once to bf16: one bf16 step apart at most
+    diff = (out.float() - ref.float()).abs()
+    assert torch.all(diff <= 2 ** -7 * ref.float().abs() + 1e-3)
+
+
+def test_snake_rejects_what_the_kernel_does_not_take(gen):
+    x = torch.randn(2, 4, 64, generator=gen, device="cuda")
+    ones = torch.ones(4, device="cuda")
+    with pytest.raises(ValueError):
+        snake_aa(x.transpose(1, 2), ones, ones)
+    with pytest.raises(TypeError):
+        snake_aa(x.half(), ones, ones)
+    with pytest.raises(ValueError):
+        snake_aa(x, torch.ones(3, device="cuda"), ones)

@@ -1,0 +1,131 @@
+"""The ported slice as a whole: a tiny JAX ``T2AEngine`` and its port, with
+the JAX parameters carried across, run the sampler → VAE decode → BigVGAN
+core on the same context and initial noise; then the port's
+``txt2audio_best`` runs end to end."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from audiogpt_tpu.engines.t2a import T2AConfig as JaxT2AConfig
+from audiogpt_tpu.engines.t2a import T2AEngine as JaxT2AEngine
+from audiogpt_tpu.engines.vocoder import VocoderEngine as JaxVocoderEngine
+from audiogpt_tpu.models.diffusion import UNetConfig as JaxUNetConfig
+from audiogpt_tpu.models.diffusion import VAEConfig as JaxVAEConfig
+from audiogpt_tpu.models.textenc import BertConfig as JaxBertConfig
+from audiogpt_tpu.models.textenc import CLAPTextConfig as JaxCLAPConfig
+from audiogpt_tpu.models.vocoder.bigvgan import BigVGANConfig as JaxVocConfig
+from audiogpt_tpu_torch.engines import T2AConfig, T2AEngine, VocoderEngine
+from audiogpt_tpu_torch.models.diffusion import UNetConfig, VAEConfig
+from audiogpt_tpu_torch.models.textenc import BertConfig, CLAPTextConfig
+from audiogpt_tpu_torch.models.vocoder import BigVGANConfig
+
+torch.set_num_threads(2)
+
+UNET = dict(in_channels=4, out_channels=4, model_channels=32,
+            num_res_blocks=1, channel_mult=(1, 2), num_heads=4,
+            context_dim=32)
+VAE = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(),
+           z_channels=4, embed_dim=4, resolution=64)
+BERT = dict(vocab_size=2000, hidden_size=32, num_layers=1, num_heads=2,
+            intermediate_size=64, max_position=80)
+VOC = dict(num_mels=16, upsample_initial_channel=16, upsample_rates=(4, 4),
+           upsample_kernel_sizes=(8, 8), resblock_kernel_sizes=(3,),
+           resblock_dilation_sizes=((1, 2),))
+T2A = dict(mel_bins=16, mel_len=32, timesteps=100)
+
+
+def _random_params(shapes, seed):
+    """numpy params for a flax param tree of ``jax.eval_shape`` leaves
+    (cheaper than compiling the init): kernels normal · fan_in^-½, norm
+    scales 1 + 0.1·N, every other vector (biases, log α/β) 0.1·N, so no
+    zero-initialised layer makes an output trivial."""
+    rng = np.random.RandomState(seed)
+
+    def leaf(path, s):
+        a = rng.randn(*s.shape)
+        if len(s.shape) >= 2:
+            a = a / np.sqrt(np.prod(s.shape[:-1]))
+        elif path[-1].key == "scale":
+            a = 1.0 + 0.1 * a
+        else:
+            a = 0.1 * a
+        return a.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+@pytest.fixture(scope="module")
+def engines():
+    # the JAX engines get numpy params of the shapes their init would give
+    jcfg = JaxVocConfig(aa_impl="literal", **VOC)
+    jvoc = JaxVocoderEngine("bigvgan", cfg=jcfg, params={},
+                            buckets=(T2A["mel_len"],))
+    jvoc.params = _random_params(jax.eval_shape(
+        jvoc.model.init, jax.random.PRNGKey(1),
+        jnp.zeros((1, 16, VOC["num_mels"]))), seed=1)
+    jeng = JaxT2AEngine(JaxT2AConfig(
+        unet=JaxUNetConfig(use_checkpoint=False, **UNET),
+        vae=JaxVAEConfig(**VAE),
+        clap=JaxCLAPConfig(bert=JaxBertConfig(**BERT), d_proj=32,
+                           max_length=16), **T2A), params={}, vocoder=jvoc)
+    jeng.params = _random_params(
+        jax.eval_shape(jeng.init_params, jax.random.PRNGKey(0)), seed=0)
+    voc = VocoderEngine("bigvgan", cfg=BigVGANConfig(**VOC),
+                        params=jvoc.params, buckets=(T2A["mel_len"],),
+                        device="cpu")
+    eng = T2AEngine(T2AConfig(
+        unet=UNetConfig(**UNET), vae=VAEConfig(**VAE),
+        clap=CLAPTextConfig(bert=BertConfig(**BERT), d_proj=32,
+                            max_length=16), **T2A),
+        params=jeng.params, vocoder=voc, device="cpu")
+    return jeng, eng
+
+
+def test_encode_text_matches_jax(engines):
+    jeng, eng = engines
+    texts = ["a dog barks in the rain", ""]
+    np.testing.assert_allclose(eng.encode_text(texts).numpy(),
+                               np.asarray(jeng.encode_text(texts)),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("sampler,steps", [("dpmpp", 4), ("ddim", 5)])
+def test_sample_vocode_core_matches_jax(engines, sampler, steps):
+    jeng, eng = engines
+    rng = np.random.RandomState(7)
+    n, (h, w) = 2, eng.cfg.latent_hw
+    ctx = rng.randn(n, 16, 32).astype(np.float32)
+    unc = rng.randn(n, 16, 32).astype(np.float32)
+    x_T = rng.randn(n, h, w, 4).astype(np.float32)               # NHWC
+    mel_ref, wav_ref = jeng._sample_vocode_fn(
+        jeng.params, jeng.vocoder.params, jnp.asarray(ctx), jnp.asarray(unc),
+        jax.random.PRNGKey(0), jnp.asarray(x_T), 1.5, steps, h, w, sampler)
+    mel = eng.sample_core(torch.from_numpy(ctx), torch.from_numpy(unc),
+                          torch.from_numpy(x_T.transpose(0, 3, 1, 2).copy()),
+                          1.5, steps, sampler)
+    wav = eng.vocoder.vocode(mel[:, 0])
+    # a chain of stacked f32 models (steps x 2N UNet evals, the VAE decoder,
+    # the vocoder) with shared weights: 2e-4 absolute on O(1) outputs
+    np.testing.assert_allclose(mel.numpy(),
+                               np.asarray(mel_ref).transpose(0, 3, 1, 2),
+                               atol=2e-4, rtol=0)
+    assert wav.shape == (n, w * 2 * eng.vocoder.hop_size)
+    np.testing.assert_allclose(wav.numpy(), np.asarray(wav_ref), atol=2e-4,
+                               rtol=0)
+
+
+def test_txt2audio_best_end_to_end(engines):
+    _, eng = engines
+    mel, wav, scores = eng.txt2audio_best("a dog barks in the rain",
+                                          n_samples=3, seed=0)
+    cfg = eng.cfg
+    assert mel.shape == (cfg.mel_len, cfg.mel_bins) and mel.dtype == np.float32
+    assert wav.shape == (cfg.mel_len * eng.vocoder.hop_size,)
+    assert wav.dtype == np.float32 and np.isfinite(wav).all()
+    assert np.isfinite(mel).all() and mel.min() >= 0.0 and mel.max() <= 1.0
+    np.testing.assert_array_equal(scores, np.zeros(3, np.float32))
+    again = eng.txt2audio_best("a dog barks in the rain", n_samples=3, seed=0)
+    np.testing.assert_array_equal(again[1], wav)   # the seed fixes the noise
