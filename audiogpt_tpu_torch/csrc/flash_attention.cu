@@ -1,216 +1,566 @@
-// Blockwise (flash) attention forward, f32, for q/k/v [B, T, H, D].
+// Blockwise (flash) attention forward on the tensor cores, for q/k/v
+// [B, T, H, D] in f32 or bf16.
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` / `_flash_forward` of
 // audiogpt_tpu/ops/flash_attention.py. Semantics follow `_flash_kernel`:
 // scale D^-0.5, an optional key-padding mask [B, Tk] (> 0 = valid), causal
 // masking aligned top-left (key j is visible to query i when j <= i), key
-// tiles wholly above the diagonal skipped, f32 accumulators. A query row
-// with no valid key returns 0 (the Pallas kernel's `l == 0` guard; here the
-// masked logits are -inf and never enter the sums, so the guard holds).
+// tiles wholly above the diagonal skipped, f32 running max, sum and output
+// accumulators. bf16 inputs multiply into f32 accumulators and the
+// probabilities are rounded to bf16 before P.V, as `_flash_kernel:75-77`
+// does. A query row with no valid key returns 0: masked logits are -inf and
+// never enter the sums, and the exponent base of such a row is taken as 0.
 //
 // Bound on the H100: operations. At the UNet shape [6, 780, 8, 40] the two
-// products do 4*B*H*Tq*Tk*D = 4.7 GFLOP on 22 MB of q/k/v/out, ~210 FLOP
-// per byte, and f32 has no tensor-core path, so the floor is the 67 TFLOP/s
-// of the FMA units. The design keeps the Tq x Tk scores out of device
-// memory and spends its shared-memory traffic on FMAs: a block of 128
-// threads owns a 64-row query tile and streams 64-key tiles of K and V
-// through shared memory (one pass over Tk, online softmax with the running
-// max and sum in registers). Each thread computes a 4 x 8 register tile of
-// the scores from float4 shared loads (3 loads per 32 FMAs), and a 4-row x
-// (DP/8)-column tile of the output. The head dim is padded inside the tile
-// to DP, a multiple of 8 (zeros add nothing to either product), so any
-// D <= 128 works, D = 40 and 80 included. Tensor cores (TF32/bf16 wgmma)
-// are left for a later change.
+// products do 4*B*H*Tq*Tk*D = 4.7 GFLOP on 24 MB (f32), ~195 FLOP per byte.
+// Both products run on the tensor cores with `mma.sync`:
+//  * bf16 entry: m16n8k16 bf16 -> f32, 989 TFLOP/s peak.
+//  * f32 entry: m16n8k8 TF32 -> f32, three products per tile pair ("3xTF32":
+//    each operand x = hi + lo, and a.b ~ hi.hi + hi.lo + lo.hi, dropping only
+//    lo.lo), so the f32 contract (1e-4 against the plain version) holds where
+//    one TF32 product (~2^-10 relative per operand) would not. The split
+//    truncates: hi = x with its low 13 mantissa bits cleared (one LOP), lo =
+//    x - hi (exact), which the tensor core reads as TF32 by dropping its own
+//    low 13 bits, so each product is off by ~2^-20 relative (5e-6 max abs
+//    at the UNet shape). Rounding both halves with cvt.rna.tf32 (~2^-22)
+//    takes 0.164 ms there against 0.115 (`kernel_variants.py`), for no need
+//    of the contract. Bound: 495/3 TFLOP/s.
+// `mma.sync` rather than `wgmma`: TF32 `wgmma` takes only K-major operands
+// from shared memory, so P.V would need V transposed on its way in (which a
+// 16-byte `cp.async` of a V row cannot do) and P written back to shared
+// memory; `mma.sync` takes A from registers in both types, so S = Q.K^T
+// stays in registers and becomes P, the A operand of P.V, with no round trip
+// (for TF32 the key order inside each 8-key step is permuted to match the
+// accumulator layout: logical k = c <-> key 2c, k = c + 4 <-> key 2c + 1).
+// bf16 `wgmma` could take P from registers and V from swizzled shared
+// memory; the bf16 entry keeps `mma.sync` so that both entries are one
+// kernel with one fragment layout, and `wgmma` is its next step.
+//
+// Design: a block of 4 warps owns 64 query rows (16 per warp, Q fragments
+// held in registers for the whole pass) and streams 64-key tiles of K and V
+// through a two-stage shared-memory ring filled by 16-byte `cp.async`, with
+// one barrier per tile, after which the copy of tile j+1 starts and overlaps
+// the products of tile j. Up to 5 blocks share an SM (`Layout::kMinBlocks`),
+// and tiles whose keys the mask drops entirely are skipped. The head dim is
+// padded with zeros in shared memory to DP, a multiple of the MMA's k step
+// (8 for TF32, 16 for bf16), so D = 40 or 80 work; rows are copied in
+// 16-byte pieces, so D * sizeof(T) must be a multiple of 16 (the wrapper
+// raises otherwise). Row strides in shared memory are padded so that every
+// fragment load is free of bank conflicts. The online softmax (running max
+// and sum per row) is computed on the accumulator fragments, with the row
+// max reduced over the 4 lanes that share a row.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kBQ = 64;         // query rows per block
-constexpr int kBK = 64;         // keys per tile
-constexpr int kThreads = 128;   // 16 row groups (ty) x 8 column groups (tx)
-constexpr int kQS = kBQ + 4;    // row stride of the transposed Q tile
-constexpr int kKS = kBK + 4;    // row stride of the transposed K tile
-constexpr int kPS = kBK + 1;    // row stride of the probability tile
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBQ = 16 * kWarps;  // query rows per block, 16 per warp
+constexpr int kBK = 64;           // keys per tile
+constexpr int kStages = 2;        // K/V tiles in flight
 
-template <int DP>
-constexpr int smem_floats() {
-  return DP * kQS + DP * kKS + kBK * DP + kBQ * kPS + kBK;
+using bf16 = __nv_bfloat16;
+
+// ---- copies -------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ kv_mask,
-                 float* __restrict__ out, int Tq, int Tk, int H, int D,
-                 float scale, int causal) {
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);  // [DP][kQS]  q^T
-  float* k_s = q_s + DP * kQS;                   // [DP][kKS]  k^T
-  float* v_s = k_s + DP * kKS;                   // [kBK][DP]
-  float* p_s = v_s + kBK * DP;                   // [kBQ][kPS] probabilities
-  float* m_s = p_s + kBQ * kPS;                  // [kBK] key validity
+// 16 bytes global -> shared; zero-filled when !valid (src must stay legal)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
 
-  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- tensor-core fragments ----------------------------------------------
+
+// x = hi + lo: hi is x truncated to TF32 (10 mantissa bits), lo the exact
+// rest, which the MMA truncates to TF32 in turn
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a . b, m16n8k8, TF32 operands, f32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a . b, m16n8k16, bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// 2^x, one MUFU op (ex2.approx: ~2^-22 relative; 2^-inf = 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&t);
+}
+
+// ---- shared-memory layout -----------------------------------------------
+
+// Per stage: K [kBK][SK] then V [kBK][SV] in T; after all stages, the tile's
+// key mask [kStages][kBK] in f32. Strides (in elements) keep fragment loads
+// conflict-free: f32 K is read as float2 by (key g, dims 2c..2c+1), which
+// needs SK = 8 or 24 mod 32; f32 V as scalars at (keys 2c, 2c+1, dim g),
+// which needs SV = 4 mod 8; bf16 rows are read by `ldmatrix` 16 bytes at a
+// time, which needs an odd number of 16-byte units per row.
+template <typename T, int DP>
+struct Layout {
+  static constexpr bool kF32 = std::is_same<T, float>::value;
+  static constexpr int kSK = kF32 ? (DP % 16 == 0 ? DP + 8 : DP) : DP + 8;
+  static constexpr int kSV = kF32 ? DP + 4 : DP + 8;
+  static constexpr int kStage = kBK * (kSK + kSV);
+  static constexpr int kBytes =
+      kStages * (kStage * (int)sizeof(T) + kBK * (int)sizeof(float));
+  // resident blocks asked of ptxas: as many as the SM's 228 KB of shared
+  // memory holds (1 KB reserved per block), at most 5. Five blocks of 4
+  // warps put the UNet's 624-block grid in one wave (3 would need 1.6), at
+  // the price of a few spilled registers. `kernel_variants.py` measures the
+  // rule against no request: bf16 at the UNet shape 0.040 against 0.051 ms,
+  // f32 at [2, 1500, 6, 64] 0.185 against 0.233; f32 at the UNet shape is
+  // 5 % faster without it, bf16 at [2, 1500, 6, 64] 10 %.
+  static constexpr int kFit = 233472 / (kBytes + 1024);
+  static constexpr int kMinBlocks = kFit < 5 ? (kFit < 1 ? 1 : kFit) : 5;
+};
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, Layout<T, DP>::kMinBlocks)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const float* __restrict__ kv_mask,
+                 T* __restrict__ out, int Tq, int Tk, int H, int D,
+                 float scale_log2, int causal) {
+  using L = Layout<T, DP>;
+  constexpr bool kF32 = L::kF32;
+  constexpr int kStep = kF32 ? 8 : 16;          // MMA k step (head dim)
+  constexpr int kPerChunk = 16 / sizeof(T);     // elements per 16-byte copy
+  static_assert(DP % kStep == 0, "head dim pad");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* kv_s = reinterpret_cast<T*>(smem);
+  float* mask_s = reinterpret_cast<float*>(
+      smem + kStages * L::kStage * sizeof(T));
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3;  // fragment row group, column pair
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int64_t rs = (int64_t)H * D;  // stride of one time step
-  const float* qb = q + (int64_t)b * Tq * rs + (int64_t)h * D;
-  const float* kb = k + (int64_t)b * Tk * rs + (int64_t)h * D;
-  const float* vb = v + (int64_t)b * Tk * rs + (int64_t)h * D;
-  float* ob = out + (int64_t)b * Tq * rs + (int64_t)h * D;
+  const int64_t rs = (int64_t)H * D;      // stride of one time step
+  const T* qb = q + (int64_t)b * Tq * rs + (int64_t)h * D;
+  const T* kb = k + (int64_t)b * Tk * rs + (int64_t)h * D;
+  const T* vb = v + (int64_t)b * Tk * rs + (int64_t)h * D;
+  T* ob = out + (int64_t)b * Tq * rs + (int64_t)h * D;
   const float* mb = kv_mask ? kv_mask + (int64_t)b * Tk : nullptr;
+  const int chunks = D / kPerChunk;       // 16-byte copies per row
 
-  for (int idx = tid; idx < kBQ * DP; idx += kThreads) {
-    const int r = idx / DP, d = idx % DP;
-    q_s[d * kQS + r] = (q0 + r < Tq && d < D) ? qb[(q0 + r) * rs + d] : 0.f;
+  // the head-dim pad [D, DP) of every stage is zeroed once; no copy touches it
+  const int pad = DP / kPerChunk - chunks;
+  for (int i = tid; i < kStages * 2 * kBK * pad; i += kThreads) {
+    const int row = i / pad, ch = chunks + i % pad;
+    const int st = row / (2 * kBK), r = row % kBK;
+    T* base = kv_s + st * L::kStage +
+              ((row / kBK) & 1 ? kBK * L::kSK + r * L::kSV : r * L::kSK);
+    *reinterpret_cast<float4*>(base + ch * kPerChunk) =
+        make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  float acc[4][DP / 8];
-  float m_run[4], l_run[4];
+  auto load_tile = [&](int tile, int st) {
+    const int k0 = tile * kBK;
+    T* ks = kv_s + st * L::kStage;
+    T* vs = ks + kBK * L::kSK;
+    for (int i = tid; i < kBK * chunks; i += kThreads) {
+      const int r = i / chunks, ch = i - r * chunks;
+      const bool in = k0 + r < Tk;  // the ragged tail is zero-filled
+      const int64_t off = (int64_t)(in ? k0 + r : 0) * rs + ch * kPerChunk;
+      cp_async16(ks + r * L::kSK + ch * kPerChunk, kb + off, in);
+      cp_async16(vs + r * L::kSV + ch * kPerChunk, vb + off, in);
+    }
+    if (mb != nullptr && tid < kBK) {
+      const bool in = k0 + tid < Tk;
+      cp_async4(mask_s + st * kBK + tid, mb + (in ? k0 + tid : 0), in);
+    }
+    cp_async_commit();
+  };
+
+  // this thread's two query rows
+  const int r_lo = q0 + warp * 16 + g, r_hi = r_lo + 8;
+
+  // Q fragments, held for the whole pass (A operand of S = Q.K^T): f32
+  // values for the f32 entry (split into TF32 halves once per k step and
+  // tile, which keeps 20 fewer registers live than holding both halves),
+  // packed bf16 pairs for the bf16 entry
+  constexpr int kQS = DP / kStep;
+  std::conditional_t<kF32, float, uint32_t> qa[kQS][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.f;
+  for (int s = 0; s < kQS; ++s) {
+    if constexpr (kF32) {
+      // a0 = (g, k=c) <-> dim 2c, a2 = (g, k=c+4) <-> dim 2c+1; a1, a3 row g+8
+      const int d = s * 8 + 2 * c;
+      float2 lo = make_float2(0.f, 0.f), hi = lo;
+      if (d < D && r_lo < Tq)
+        lo = *reinterpret_cast<const float2*>(qb + r_lo * rs + d);
+      if (d < D && r_hi < Tq)
+        hi = *reinterpret_cast<const float2*>(qb + r_hi * rs + d);
+      qa[s][0] = lo.x, qa[s][1] = hi.x, qa[s][2] = lo.y, qa[s][3] = hi.y;
+    } else {
+      // reg 2*half + (row g+8): dims 16s + 8*half + 2c, 2c+1
 #pragma unroll
-    for (int c = 0; c < DP / 8; ++c) acc[i][c] = 0.f;
+      for (int half = 0; half < 2; ++half) {
+        const int d = s * 16 + half * 8 + 2 * c;
+        qa[s][2 * half] =
+            d < D && r_lo < Tq
+                ? *reinterpret_cast<const uint32_t*>(qb + r_lo * rs + d)
+                : 0u;
+        qa[s][2 * half + 1] =
+            d < D && r_hi < Tq
+                ? *reinterpret_cast<const uint32_t*>(qb + r_hi * rs + d)
+                : 0u;
+      }
+    }
   }
+
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 
   int n_tiles = (Tk + kBK - 1) / kBK;
   if (causal) n_tiles = min(n_tiles, (q0 + kBQ - 1) / kBK + 1);
+  load_tile(0, 0);
 
+  // One barrier per tile: after it, tile `tile` is in stage st for every
+  // thread and every thread is done with tile - 1, so the copy of tile + 1
+  // into the other stage starts there and overlaps this tile's products.
   for (int tile = 0; tile < n_tiles; ++tile) {
-    const int k0 = tile * kBK;
-    __syncthreads();  // the previous tile's k_s / v_s / p_s are consumed
-    for (int idx = tid; idx < kBK * DP; idx += kThreads) {
-      const int c = idx / DP, d = idx % DP;
-      const bool in = k0 + c < Tk && d < D;
-      k_s[d * kKS + c] = in ? kb[(k0 + c) * rs + d] : 0.f;
-      v_s[c * DP + d] = in ? vb[(k0 + c) * rs + d] : 0.f;
+    const int st = tile & 1, k0 = tile * kBK;
+    cp_async_wait<0>();
+    // a tile whose keys the mask all drops adds nothing (alpha = 1, p = 0)
+    bool any = true;
+    if (mb == nullptr) {
+      __syncthreads();
+    } else {
+      any = __syncthreads_or(tid < kBK && k0 + tid < Tk &&
+                             mask_s[st * kBK + tid] > 0.f);
     }
-    for (int c = tid; c < kBK; c += kThreads) {
-      const int kp = k0 + c;
-      m_s[c] = (kp < Tk && (mb == nullptr || mb[kp] > 0.f)) ? 1.f : 0.f;
-    }
-    __syncthreads();
+    if (tile + 1 < n_tiles) load_tile(tile + 1, st ^ 1);
+    if (!any) continue;
+    const T* ks = kv_s + st * L::kStage;
+    const T* vs = ks + kBK * L::kSK;
 
-    // scores for rows ty*4+i, keys tx*8+j
-    float s[4][8];
+    // S = Q.K^T for this warp's 16 rows and the tile's 64 keys: s[n] is the
+    // accumulator of keys 8n..8n+7 (c0, c1: row g, keys 2c, 2c+1; c2, c3:
+    // row g+8)
+    float s[kBK / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < kBK / 8; ++n)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(q_s + d * kQS + ty * 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(k_s + d * kKS + tx * 8);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(k_s + d * kKS + tx * 8 + 4);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    if constexpr (kF32) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int t = 0; t < kQS; ++t) {
+        uint32_t ah[4], al[4];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+        for (int i = 0; i < 4; ++i) split_tf32(qa[t][i], ah[i], al[i]);
+#pragma unroll
+        for (int n = 0; n < kBK / 8; ++n) {
+          // b0 = (k=c, key g) <-> dim 2c, b1 = (k=c+4, key g) <-> dim 2c+1
+          const float2 kv = *reinterpret_cast<const float2*>(
+              ks + (n * 8 + g) * L::kSK + t * 8 + 2 * c);
+          uint32_t bh[2], bl[2];
+          split_tf32(kv.x, bh[0], bl[0]);
+          split_tf32(kv.y, bh[1], bl[1]);
+          mma_tf32(s[n], al, bh);
+          mma_tf32(s[n], ah, bl);
+          mma_tf32(s[n], ah, bh);
+        }
+      }
+    } else {
+      const int mat = lane >> 3, mrow = lane & 7;
+#pragma unroll
+      for (int np = 0; np < kBK / 16; ++np) {
+#pragma unroll
+        for (int t = 0; t < kQS; ++t) {
+          // matrices: (keys 16np+0..7 | +8..15) x (dims 16t+0..7 | +8..15)
+          uint32_t r[4];
+          ldmatrix_x4(r, ks + (np * 16 + 8 * (mat >> 1) + mrow) * L::kSK +
+                             t * 16 + 8 * (mat & 1));
+          const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+          mma_bf16(s[2 * np], qa[t], b0);
+          mma_bf16(s[2 * np + 1], qa[t], b1);
+        }
+      }
     }
 
-    // mask, online softmax; a row's 64 keys live on the 8 lanes sharing ty
+    // mask (ragged tail, key padding, causal) and the online softmax in
+    // base 2: p = 2^(s * scale * log2(e) - m), m the running max in the
+    // same units (the max is taken on s: the scale is positive)
+    const bool edge = mb != nullptr || k0 + kBK > Tk ||
+                      (causal && k0 + kBK - 1 > q0 + warp * 16);
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty * 4 + i;
-      float mx = -INFINITY;
+    for (int n = 0; n < kBK / 8; ++n) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = tx * 8 + j;
-        const bool valid = m_s[c] > 0.f && (!causal || k0 + c <= qp);
-        s[i][j] = valid ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        if (edge) {
+          const int col = n * 8 + 2 * c + (e & 1);
+          const int key = k0 + col, row = e >> 1 ? r_hi : r_lo;
+          const bool ok = key < Tk &&
+                          (mb == nullptr || mask_s[st * kBK + col] > 0.f) &&
+                          (!causal || key <= row);
+          if (!ok) s[n][e] = -INFINITY;
+        }
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
       }
+    }
+    float base[2], alpha[2];
 #pragma unroll
-      for (int off = 1; off < 8; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_run[i], mx);
-      const bool none = m_new == -INFINITY;  // no valid key yet in this row
-      const float alpha = none ? 1.f : expf(m_run[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float p = none ? 0.f : expf(s[i][j] - m_new);
-        p_s[(ty * 4 + i) * kPS + tx * 8 + j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l_run[i] = alpha * l_run[i] + sum;
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m_run[i], mx[i] * scale_log2);
+      base[i] = m_new == -INFINITY ? 0.f : m_new;  // no valid key yet
+      alpha[i] = fast_exp2(m_run[i] - base[i]);
       m_run[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DP / 8; ++c) acc[i][c] *= alpha;
     }
-    __syncthreads();
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = fast_exp2(fmaf(s[n][e], scale_log2, -base[e >> 1]));
+        sum[e >> 1] += s[n][e];
+      }
+    }
+    // l is kept per lane (the row's 4 lanes are summed once at the end)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l_run[i] = alpha[i] * l_run[i] + sum[i];
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
 
-    // acc[rows ty*4+i][cols tx+8c] += p[rows][keys] @ v[keys][cols]
-    const int n_keys = min(kBK, Tk - k0);
-    for (int kk = 0; kk < n_keys; ++kk) {
-      float pr[4];
+    // acc += P.V; P (the S accumulators) is the A operand, from registers
+    if constexpr (kF32) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = p_s[(ty * 4 + i) * kPS + kk];
+      for (int n = 0; n < kBK / 8; ++n) {
+        // logical k = c <-> key 8n+2c, k = c+4 <-> key 8n+2c+1
+        uint32_t ah[4], al[4];
+        split_tf32(s[n][0], ah[0], al[0]);
+        split_tf32(s[n][2], ah[1], al[1]);
+        split_tf32(s[n][1], ah[2], al[2]);
+        split_tf32(s[n][3], ah[3], al[3]);
+        const T* v0 = vs + (n * 8 + 2 * c) * L::kSV + g;
 #pragma unroll
-      for (int c = 0; c < DP / 8; ++c) {
-        const float vv = v_s[kk * DP + tx + 8 * c];
+        for (int j = 0; j < DP / 8; ++j) {
+          uint32_t bh[2], bl[2];
+          split_tf32(v0[j * 8], bh[0], bl[0]);
+          split_tf32(v0[L::kSV + j * 8], bh[1], bl[1]);
+          mma_tf32(acc[j], al, bh);
+          mma_tf32(acc[j], ah, bl);
+          mma_tf32(acc[j], ah, bh);
+        }
+      }
+    } else {
+      const int mat = lane >> 3, mrow = lane & 7;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pr[i], vv, acc[i][c]);
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        // P rounded to bf16 (`_flash_kernel:76`); regs: (g, keys 2c..) of
+        // n-tile 2kk, (g+8, ..), then the same of n-tile 2kk+1
+        const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int jp = 0; jp < DP / 16; ++jp) {
+          // matrices: (keys 16kk+0..7 | +8..15) x (dims 16jp+0..7 | +8..15),
+          // transposed into (key pair, dim) fragments
+          uint32_t r[4];
+          ldmatrix_x4_trans(r, vs + (kk * 16 + 8 * (mat & 1) + mrow) * L::kSV +
+                                   jp * 16 + 8 * (mat >> 1));
+          const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+          mma_bf16(acc[2 * jp], a, b0);
+          mma_bf16(acc[2 * jp + 1], a, b1);
+        }
       }
     }
   }
 
+  float inv[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty * 4 + i;
-    if (qp >= Tq) continue;
-    const float inv_l = l_run[i] == 0.f ? 0.f : 1.f / l_run[i];
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[i] = l == 0.f ? 0.f : 1.f / l;
+  }
 #pragma unroll
-    for (int c = 0; c < DP / 8; ++c) {
-      const int d = tx + 8 * c;
-      if (d < D) ob[qp * rs + d] = acc[i][c] * inv_l;
+  for (int j = 0; j < DP / 8; ++j) {
+    const int d = j * 8 + 2 * c;
+    if (d >= D) continue;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = i ? r_hi : r_lo;
+      if (row >= Tq) continue;
+      const float o0 = acc[j][2 * i] * inv[i], o1 = acc[j][2 * i + 1] * inv[i];
+      if constexpr (kF32) {
+        *reinterpret_cast<float2*>(ob + row * rs + d) = make_float2(o0, o1);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(ob + row * rs + d) =
+            __floats2bfloat162_rn(o0, o1);
+      }
     }
   }
 }
 
-template <int DP>
-int launch(const void* q, const void* k, const void* v, const void* kv_mask,
-           void* out, int B, int Tq, int Tk, int H, int D, float scale,
-           int causal, cudaStream_t stream) {
-  const int smem = smem_floats<DP>() * (int)sizeof(float);
+struct Args {
+  const void *q, *k, *v;
+  const float* mask;
+  void* out;
+  int B, Tq, Tk, H, D;
+  float scale_log2;
+  int causal;
+  cudaStream_t stream;
+  int* blocks_per_sm;  // set: report occupancy instead of launching
+};
+
+template <typename T, int DP>
+int run(const Args& a) {
+  constexpr int smem = Layout<T, DP>::kBytes;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v,
-      (const float*)kv_mask, (float*)out, Tq, Tk, H, D, scale, causal);
+  if (a.blocks_per_sm != nullptr)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        a.blocks_per_sm, flash_fwd_kernel<T, DP>, kThreads, smem);
+  const dim3 grid((a.Tq + kBQ - 1) / kBQ, a.H, a.B);
+  flash_fwd_kernel<T, DP><<<grid, kThreads, smem, a.stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, a.mask, (T*)a.out, a.Tq,
+      a.Tk, a.H, a.D, a.scale_log2, a.causal);
   return (int)cudaGetLastError();
+}
+
+// the head dim padded up to one of the compiled widths
+int dispatch_f32(const Args& a) {
+  if (a.D <= 8) return run<float, 8>(a);
+  if (a.D <= 16) return run<float, 16>(a);
+  if (a.D <= 32) return run<float, 32>(a);
+  if (a.D <= 40) return run<float, 40>(a);
+  if (a.D <= 48) return run<float, 48>(a);
+  if (a.D <= 64) return run<float, 64>(a);
+  if (a.D <= 80) return run<float, 80>(a);
+  if (a.D <= 96) return run<float, 96>(a);
+  if (a.D <= 128) return run<float, 128>(a);
+  return (int)cudaErrorInvalidValue;
+}
+
+int dispatch_bf16(const Args& a) {
+  if (a.D <= 16) return run<bf16, 16>(a);
+  if (a.D <= 32) return run<bf16, 32>(a);
+  if (a.D <= 48) return run<bf16, 48>(a);
+  if (a.D <= 64) return run<bf16, 64>(a);
+  if (a.D <= 80) return run<bf16, 80>(a);
+  if (a.D <= 96) return run<bf16, 96>(a);
+  if (a.D <= 128) return run<bf16, 128>(a);
+  return (int)cudaErrorInvalidValue;
+}
+
+Args make_args(const void* q, const void* k, const void* v,
+               const void* kv_mask, void* out, int B, int Tq, int Tk, int H,
+               int D, float scale, int causal, void* stream) {
+  return Args{q, k, v, (const float*)kv_mask, out, B, Tq, Tk, H, D,
+              scale * 1.4426950408889634f, causal, (cudaStream_t)stream,
+              nullptr};
 }
 
 }  // namespace
 
-extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
-                                   const void* kv_mask, void* out, int B,
-                                   int Tq, int Tk, int H, int D, float scale,
-                                   int causal, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (D <= 32) return launch<32>(q, k, v, kv_mask, out, B, Tq, Tk, H, D, scale, causal, s);
-  if (D <= 40) return launch<40>(q, k, v, kv_mask, out, B, Tq, Tk, H, D, scale, causal, s);
-  if (D <= 48) return launch<48>(q, k, v, kv_mask, out, B, Tq, Tk, H, D, scale, causal, s);
-  if (D <= 64) return launch<64>(q, k, v, kv_mask, out, B, Tq, Tk, H, D, scale, causal, s);
-  if (D <= 80) return launch<80>(q, k, v, kv_mask, out, B, Tq, Tk, H, D, scale, causal, s);
-  if (D <= 96) return launch<96>(q, k, v, kv_mask, out, B, Tq, Tk, H, D, scale, causal, s);
-  if (D <= 128) return launch<128>(q, k, v, kv_mask, out, B, Tq, Tk, H, D, scale, causal, s);
-  return (int)cudaErrorInvalidValue;
+extern "C" {
+
+int flash_attention_f32(const void* q, const void* k, const void* v,
+                        const void* kv_mask, void* out, int B, int Tq, int Tk,
+                        int H, int D, float scale, int causal, void* stream) {
+  return dispatch_f32(make_args(q, k, v, kv_mask, out, B, Tq, Tk, H, D, scale,
+                                causal, stream));
 }
+
+int flash_attention_bf16(const void* q, const void* k, const void* v,
+                         const void* kv_mask, void* out, int B, int Tq, int Tk,
+                         int H, int D, float scale, int causal, void* stream) {
+  return dispatch_bf16(make_args(q, k, v, kv_mask, out, B, Tq, Tk, H, D,
+                                 scale, causal, stream));
+}
+
+// resident blocks per SM of the kernel that takes head dim D (bf16 != 0:
+// the bf16 entry's), for the launch report (blocks and waves)
+int flash_attention_occupancy(int D, int bf16, int* blocks_per_sm) {
+  Args a{};
+  a.D = D;
+  a.blocks_per_sm = blocks_per_sm;
+  return bf16 ? dispatch_bf16(a) : dispatch_f32(a);
+}
+
+}  // extern "C"

@@ -48,6 +48,13 @@ class T2AConfig:
     timesteps: int = 1000
     linear_start: float = 0.00085
     linear_end: float = 0.0120
+    #: run the UNet denoiser in bfloat16 (``audiogpt_tpu/engines/t2a.py``'s
+    #: ``unet_bf16``): its f32 parameters are cast to bf16 once, ``x`` and
+    #: the contexts go in as bf16 and ``eps`` comes back as f32; GroupNorm
+    #: statistics stay f32 inside the model, the scheduler arithmetic and the
+    #: VAE decode stay f32. The level-0 attention then takes the flash
+    #: kernel's bf16 entry.
+    unet_bf16: bool = False
     #: sampler of the agent tool call: DPM-Solver++(2M)-12, measured
     #: output-equivalent to the reference's DDIM-100 on this schedule by the
     #: JAX package (tools/sampler_equivalence.py)
@@ -86,6 +93,8 @@ class T2AEngine:
                 load_jax_params(getattr(self, key), params[key])
         for m in (self.unet, self.vae, self.clap):
             m.to(self.device).eval()
+        if cfg.unet_bf16:
+            self.unet.to(torch.bfloat16)
         self.schedule = DiffusionSchedule.linear(
             cfg.timesteps, cfg.linear_start, cfg.linear_end)
         self.tokenizer = WordPieceTokenizer(vocab_size=cfg.clap.bert.vocab_size)
@@ -103,6 +112,14 @@ class T2AEngine:
         return self.clap(ids, masks)
 
     # -- core ---------------------------------------------------------------
+    def eps(self, x: torch.Tensor, t: torch.Tensor,
+            context: torch.Tensor) -> torch.Tensor:
+        """The denoiser as the samplers call it: f32 ``x`` in, f32 ``eps``
+        out, in bf16 inside under ``cfg.unet_bf16``."""
+        if not self.cfg.unet_bf16:
+            return self.unet(x, t, context)
+        return self.unet(x.bfloat16(), t, context.bfloat16()).float()
+
     @torch.inference_mode()
     def sample_core(self, context: torch.Tensor, uncond: torch.Tensor,
                     x_T: torch.Tensor, guidance: float, n_steps: int,
@@ -110,7 +127,7 @@ class T2AEngine:
         """Sampler loop → VAE decode → mel01 [B, 1, mel_bins, frames] in [0, 1]
         (the JAX engine's ``_sample_core``)."""
         cfg = self.cfg
-        z = SAMPLERS[sampler](self.unet, self.schedule, x_T, context, uncond,
+        z = SAMPLERS[sampler](self.eps, self.schedule, x_T, context, uncond,
                               n_steps=n_steps, guidance_scale=guidance)
         mel = self.vae.decode(z / cfg.scale_factor)
         return ((mel + 1.0) / 2.0).clamp(0.0, 1.0)

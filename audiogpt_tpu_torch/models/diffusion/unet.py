@@ -58,9 +58,15 @@ class GroupNorm32(nn.Module):
         self.GroupNorm_0 = nn.GroupNorm(min(32, channels), channels, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # f32 statistics and f32 affine parameters (bf16-rounded ones under
+        # the engine's bf16 mode, as flax's f32 GroupNorm takes them)
         gn = self.GroupNorm_0
-        return F.group_norm(x.float(), gn.num_groups, gn.weight, gn.bias,
-                            gn.eps).to(x.dtype)
+        return F.group_norm(x.float(), gn.num_groups, gn.weight.float(),
+                            gn.bias.float(), gn.eps).to(x.dtype)
+
+
+def _linear_f32(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    return F.linear(x, layer.weight.float(), layer.bias.float())
 
 
 def conv3x3(cin: int, cout: int) -> nn.Conv2d:
@@ -240,8 +246,11 @@ class UNetModel(nn.Module):
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 context: torch.Tensor | None = None) -> torch.Tensor:
         cfg = self.cfg
+        # the sinusoid stays f32 through both projections (with bf16
+        # parameters too, as flax promotes them), then takes x's dtype
         emb = timestep_embedding(t, cfg.model_channels)
-        emb = self.time_embed_2(F.silu(self.time_embed_0(emb))).to(x.dtype)
+        emb = _linear_f32(self.time_embed_0, emb)
+        emb = _linear_f32(self.time_embed_2, F.silu(emb)).to(x.dtype)
         if context is not None:
             context = context.to(x.dtype)
 

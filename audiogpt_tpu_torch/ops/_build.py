@@ -33,6 +33,10 @@ SIGNATURES = {
     # q, k, v, kv_mask (nullable), out, B, Tq, Tk, H, D, scale, causal, stream
     "flash_attention_f32": (_VOID_P,) * 5 + (_INT,) * 5 + (_FLOAT, _INT,
                                                            _VOID_P),
+    "flash_attention_bf16": (_VOID_P,) * 5 + (_INT,) * 5 + (_FLOAT, _INT,
+                                                            _VOID_P),
+    # D, is_bf16, &blocks_per_sm
+    "flash_attention_occupancy": (_INT, _INT, ctypes.POINTER(ctypes.c_int)),
     # x, alpha, beta, out, B, C, T, stream
     "snake_aa_f32": (_VOID_P,) * 4 + (_INT,) * 3 + (_VOID_P,),
     "snake_aa_bf16": (_VOID_P,) * 4 + (_INT,) * 3 + (_VOID_P,),

@@ -5,21 +5,34 @@ Counterpart of ``audiogpt_tpu/ops/flash_attention.py``. Both versions follow
 the Pallas kernel's semantics: scale ``D^-0.5``, an optional key-padding mask
 ``[B, Tk]`` (> 0 = valid), causal masking aligned top-left (key ``j`` visible
 to query ``i`` when ``j <= i``), and 0 for a query row with no valid key.
-Forward only: serving needs no gradient.
+f32 and bf16: the logits and the softmax are f32 whatever the input type,
+and for bf16 the probabilities are rounded to bf16 before the product with
+``v`` (``_flash_kernel:76``, ``_reference:173``). Forward only: serving
+needs no gradient.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from audiogpt_tpu_torch.ops import _build
+
+_ENTRY = {torch.float32: "flash_attention_f32",
+          torch.bfloat16: "flash_attention_bf16"}
+#: rows per block of the kernel (4 warps of 16 query rows)
+BLOCK_Q = 64
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor,
                               kv_mask: torch.Tensor | None = None,
                               causal: bool = False) -> torch.Tensor:
-    """Plain version: the full score matrix, masked, softmaxed. → [B,Tq,H,D]."""
+    """Plain version: the full score matrix, masked, softmaxed. → [B,Tq,H,D].
+
+    f32 logits and softmax; the probabilities are rounded to the input type
+    and multiplied with ``v`` in f32 (a no-op rounding for f32 inputs)."""
     tq, tk, d = q.shape[1], k.shape[1], q.shape[-1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * d ** -0.5
     valid = torch.ones(q.shape[0], 1, tq, tk, dtype=torch.bool, device=q.device)
@@ -32,6 +45,7 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     logits = logits.masked_fill(~valid, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     probs = torch.where(valid.any(-1, keepdim=True), probs, 0.0)
+    probs = probs.to(v.dtype).float()
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
 
 
@@ -41,7 +55,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B, Tq, H, D], k/v [B, Tk, H, D], kv_mask [B, Tk] → [B, Tq, H, D].
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (f32, contiguous, D <= 128) or raises."""
+    (f32 or bf16, contiguous, D <= 128 with rows of a multiple of 16 bytes)
+    or raises."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, kv_mask, causal)
     b, tq, h, d = q.shape
@@ -49,15 +64,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"flash_attention: tensors on {q.device}, "
                          f"{k.device}, {v.device}")
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
-        raise TypeError("flash_attention: the kernel takes float32 q/k/v")
-    if k.shape != (b, tk, h, d) or v.shape != k.shape:
+    if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: the kernel takes f32 or bf16 "
+                        f"q/k/v of one type, not {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if k.shape != (b, tk, h, d) or v.shape != k.shape or tq == 0 or tk == 0:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if d > 128:
-        raise ValueError(f"flash_attention: head dim {d} > 128")
-    if not all(t.is_contiguous() for t in (q, k, v)):
-        raise ValueError("flash_attention: q/k/v must be contiguous")
+    if d > 128 or d * q.element_size() % 16:
+        raise ValueError(f"flash_attention: head dim {d} ({q.dtype}): the "
+                         f"kernel copies rows of a multiple of 16 bytes, "
+                         f"at most 128 elements")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (q, k, v)):
+        raise ValueError("flash_attention: q/k/v must be contiguous and "
+                         "16-byte aligned")
     mask = None
     if kv_mask is not None:
         if kv_mask.shape != (b, tk) or kv_mask.device != q.device:
@@ -65,15 +86,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f" on {kv_mask.device}")
         mask = kv_mask.to(torch.float32).contiguous()
     out = torch.empty_like(q)
-    err = _build.library().flash_attention_f32(
+    name = _ENTRY[q.dtype]
+    err = getattr(_build.library(), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if mask is None else mask.data_ptr(), out.data_ptr(),
         b, tq, tk, h, d, d ** -0.5, int(causal),
         torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attention_f32")
+    _build.check(err, name)
     flash_attention.launches += 1
+    flash_attention.bf16_launches += q.dtype == torch.bfloat16
     return out
 
 
-#: launches of the CUDA kernel in this process (the main path's evidence)
+#: launches of the CUDA kernel in this process (the main path's evidence),
+#: of both entries and of the bf16 entry alone
 flash_attention.launches = 0
+flash_attention.bf16_launches = 0
+
+
+def launch_grid(b: int, tq: int, h: int, d: int, dtype: torch.dtype) -> dict:
+    """The kernel's grid at a shape: blocks, resident blocks per SM and the
+    waves they make on the current card."""
+    n = ctypes.c_int(0)
+    err = _build.library().flash_attention_occupancy(
+        d, int(dtype == torch.bfloat16), ctypes.byref(n))
+    _build.check(err, "flash_attention_occupancy")
+    blocks = -(-tq // BLOCK_Q) * h * b
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    return {"blocks": blocks, "blocks_per_sm": n.value, "sms": sms,
+            "waves": blocks / (n.value * sms) if n.value else None}

@@ -129,8 +129,11 @@ def snake_aa(x: torch.Tensor, alpha: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, name)
     snake_aa.launches += 1
+    snake_aa.bf16_launches += x.dtype == torch.bfloat16
     return out
 
 
-#: launches of the CUDA kernel in this process (the main path's evidence)
+#: launches of the CUDA kernel in this process (the main path's evidence),
+#: of both entries and of the bf16 entry alone
 snake_aa.launches = 0
+snake_aa.bf16_launches = 0

@@ -1,8 +1,11 @@
 """Port attention (``audiogpt_tpu_torch.ops.attention`` / ``flash_attention``)
 against the JAX package on the same numpy inputs: the plain flash version
 vs the Pallas kernel in interpret mode, and ``attention()`` on both
-dispatch branches. The CUDA kernel's tile loop (online softmax over 64-key
-tiles, causal tile skipping, -inf masking) is replayed in numpy here.
+dispatch branches, in f32 and bf16. The CUDA kernel's tile loop (64-row
+blocks, online softmax in base 2 over 64-key tiles, causal tile skipping,
+-inf masking, per-lane partial sums) is replayed in numpy here, with its
+tensor-core arithmetic emulated: 3xTF32 products for f32 inputs, p rounded
+to bf16 for bf16 inputs.
 
 JAX's two flash versions agree with each other only with no fully masked
 row and with causal at Tq == Tk, so the JAX comparisons stay there; the
@@ -27,6 +30,10 @@ torch.set_num_threads(2)
 #: f32 softmax-weighted sums of O(1) values over ≤ 200 keys, summed in
 #: another order (blockwise vs full rows): 1e-5 absolute holds with margin
 ATOL = 1e-5
+#: bf16 inputs: the Pallas kernel rounds p to bf16 before normalising, the
+#: plain versions after (2^-9 of each weight), and each side rounds its
+#: output to bf16 once (2^-7 of the value at most): 2^-7 relative + 1e-2
+BF16_TOL = dict(atol=1e-2, rtol=2 ** -7)
 
 
 def _qkv(b, tq, tk, h, d, seed):
@@ -36,12 +43,12 @@ def _qkv(b, tq, tk, h, d, seed):
             rng.randn(b, tk, h, d).astype(np.float32))
 
 
-def _t(*arrays):
-    return [torch.from_numpy(a) for a in arrays]
+def _t(*arrays, dtype=torch.float32):
+    return [torch.from_numpy(a).to(dtype) for a in arrays]
 
 
-def _j(*arrays):
-    return [jnp.asarray(a) for a in arrays]
+def _j(*arrays, dtype=jnp.float32):
+    return [jnp.asarray(a, dtype) for a in arrays]
 
 
 @pytest.mark.parametrize("d", [40, 64, 80])
@@ -50,6 +57,18 @@ def test_reference_matches_pallas_unaligned(d):
     ref = jax_flash_attention(*_j(q, k, v), interpret=True)
     got = flash_attention(*_t(q, k, v))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("d", [40, 64])
+def test_reference_matches_pallas_bf16(d):
+    q, k, v = _qkv(2, 100, 200, 2, d, seed=d)
+    ref = jax_flash_attention(*_j(q, k, v, dtype=jnp.bfloat16),
+                              interpret=True)
+    got = flash_attention(*_t(q, k, v, dtype=torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               **BF16_TOL)
 
 
 def test_reference_matches_pallas_kv_mask():
@@ -78,38 +97,78 @@ def test_fully_masked_row_is_zero():
     np.testing.assert_allclose(got[:1].numpy(), ref.numpy(), atol=1e-6)
 
 
-def _kernel_replay(q, k, v, kv_mask, causal, bq=64, bk=64):
+def _tf32(x):
+    """float32 → TF32 as the tensor core reads an f32 register: the low 13
+    mantissa bits dropped (a 10-bit mantissa, truncated). The kernel's split
+    takes hi the same way and passes lo = x - hi whole."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mma(a, b, mode):
+    """a [m, k] @ b [k, n] as the kernel's tensor-core products with f32
+    accumulators: "tf32x3" (hi·hi + hi·lo + lo·hi of the TF32 split, the f32
+    entry), "tf32x1" (one TF32 product) or "bf16" (operands already bf16)."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    if mode == "bf16":
+        return (a.astype(np.float64) @ b).astype(np.float32)
+    ah, bh = _tf32(a), _tf32(b)
+    out = ah.astype(np.float64) @ bh
+    if mode == "tf32x3":
+        al, bl = _tf32(a - ah), _tf32(b - bh)
+        out += ah.astype(np.float64) @ bl + al.astype(np.float64) @ bh
+    return out.astype(np.float32)
+
+
+def _bf16(x):
+    return torch.from_numpy(np.asarray(x, np.float32)).bfloat16().float() \
+        .numpy()
+
+
+def _kernel_replay(q, k, v, kv_mask, causal, mode="tf32x3", bq=64, bk=64):
     """numpy replay of ``csrc/flash_attention.cu`` for one (batch, head):
-    q [Tq, D], k/v [Tk, D], kv_mask [Tk] or None."""
+    q [Tq, D], k/v [Tk, D], kv_mask [Tk] or None. Per 64-row block, 64-key
+    tiles (the ragged tail zero-filled and masked), logits scaled to base 2,
+    the exponent base 0 while a row has no valid key, the row sum kept as 4
+    per-lane partials (lane c holds keys 8n + 2c, 2c + 1)."""
     tq, d = q.shape
     tk = k.shape[0]
-    out = np.zeros_like(q)
-    scale = np.float32(d ** -0.5)
+    out = np.zeros((tq, d), np.float32)
+    scale_log2 = np.float32(d ** -0.5) * np.float32(1.4426950408889634)
+    lane = (np.arange(bk) % 8) // 2
     for q0 in range(0, tq, bq):
         rows = np.arange(q0, min(q0 + bq, tq))
         acc = np.zeros((len(rows), d), np.float32)
         m = np.full(len(rows), -np.inf, np.float32)
-        l = np.zeros(len(rows), np.float32)
+        l_part = np.zeros((len(rows), 4), np.float32)
         n_tiles = -(-tk // bk)
         if causal:
             n_tiles = min(n_tiles, (q0 + bq - 1) // bk + 1)
         for k0 in range(0, n_tiles * bk, bk):
-            cols = np.arange(k0, min(k0 + bk, tk))
-            valid = np.ones((len(rows), len(cols)), bool)
+            cols = np.arange(k0, k0 + bk)
+            inside = cols < tk
+            kt = np.where(inside[:, None], k[np.minimum(cols, tk - 1)], 0)
+            vt = np.where(inside[:, None], v[np.minimum(cols, tk - 1)], 0)
+            valid = np.broadcast_to(inside, (len(rows), bk)).copy()
             if kv_mask is not None:
-                valid &= kv_mask[cols][None] > 0
+                valid &= kv_mask[np.minimum(cols, tk - 1)][None] > 0
             if causal:
                 valid &= cols[None] <= rows[:, None]
-            s = np.where(valid, (q[rows] @ k[cols].T) * scale, -np.inf)
-            m_new = np.maximum(m, s.max(axis=1))
-            none = m_new == -np.inf
-            with np.errstate(invalid="ignore"):
-                alpha = np.where(none, 1.0, np.exp(m - m_new))
-                p = np.where(none[:, None], 0.0, np.exp(s - m_new[:, None]))
-            l = alpha * l + p.sum(axis=1)
-            acc = acc * alpha[:, None] + p @ v[cols]
+            x = np.where(valid, _mma(q[rows], kt.T, mode) * scale_log2,
+                         np.float32(-np.inf))
+            m_new = np.maximum(m, x.max(axis=1))
+            base = np.where(m_new == -np.inf, np.float32(0), m_new)
+            alpha = np.exp2(m - base)
+            p = np.exp2(x - base[:, None])
+            l_part = alpha[:, None] * l_part + np.stack(
+                [p[:, lane == c].sum(axis=1) for c in range(4)], axis=1)
+            if mode == "bf16":
+                p = _bf16(p)
+            acc = acc * alpha[:, None] + _mma(p, vt, mode)
             m = m_new
-        out[rows] = acc / np.where(l == 0, 1.0, l)[:, None]
+        l = l_part.sum(axis=1)
+        out[rows] = acc * np.where(l == 0, 0, 1 / np.where(l == 0, 1, l))[
+            :, None]
     return out
 
 
@@ -128,6 +187,45 @@ def test_kernel_tile_loop_matches_reference(tq, tk, causal, masked):
         *_t(q, k, v), kv_mask=None if mask is None else torch.from_numpy(mask),
         causal=causal)
     np.testing.assert_allclose(got, ref[0, :, 0].numpy(), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("causal,masked", [(False, False), (True, True)])
+def test_kernel_tile_loop_bf16_matches_reference(causal, masked):
+    """The bf16 entry's replay (bf16 operands, p rounded to bf16 before the
+    product, f32 sums) against the plain version on the same bf16 inputs,
+    with a fully masked row."""
+    q, k, v = (_bf16(a) for a in _qkv(1, 130, 200, 1, 48, seed=11))
+    mask = None
+    if masked:
+        mask = (np.random.RandomState(1).rand(1, 200) > 0.5).astype(np.float32)
+        mask[0, :2] = [0.0, 1.0]   # query row 0 sees no key under causal
+    got = _kernel_replay(q[0, :, 0], k[0, :, 0], v[0, :, 0],
+                         None if mask is None else mask[0], causal, "bf16")
+    ref = flash_attention_reference(
+        *_t(q, k, v, dtype=torch.bfloat16),
+        kv_mask=None if mask is None else torch.from_numpy(mask),
+        causal=causal)
+    if masked:
+        assert np.all(got[0] == 0) and torch.all(ref[0, 0, 0] == 0)
+    np.testing.assert_allclose(_bf16(got), ref[0, :, 0].float().numpy(),
+                               **BF16_TOL)
+
+
+@pytest.mark.parametrize("mode", ["tf32x3", "tf32x1"])
+@pytest.mark.parametrize("d", [40, 64, 80])
+def test_tf32_split_error_against_f64(d, mode):
+    """The f32 entry's 3xTF32 products keep the replay within 1e-5 of the
+    float64 softmax at the UNet's 780 keys; one TF32 product (~2^-10 per
+    operand) does not, which is why the kernel pays for three."""
+    q, k, v = (a[0, :, 0].astype(np.float64) for a in
+               _qkv(1, 128, 780, 1, d, seed=d + 1))
+    logits = q @ k.T * d ** -0.5
+    w = np.exp(logits - logits.max(axis=1, keepdims=True))
+    ref = (w / w.sum(axis=1, keepdims=True)) @ v
+    got = _kernel_replay(*(a.astype(np.float32) for a in (q, k, v)), None,
+                         False, mode)
+    err = np.abs(got - ref).max()
+    assert (err <= 1e-5) == (mode == "tf32x3"), err
 
 
 @pytest.mark.parametrize("case", ["plain", "mask", "kv_mask", "causal"])

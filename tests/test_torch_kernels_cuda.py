@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card, at the
 edges of what each kernel takes: head dims that are and are not multiples
 of 16, unaligned and unequal sequence lengths, causal masking with
-Tq != Tk, fully masked rows, rows shorter than one tile, bf16.
+Tq != Tk, fully masked rows, rows shorter than one tile, rows whose length
+is not a multiple of 16 bytes or is shorter than one thread's run, f32 and
+bf16.
 
 These tests need an NVIDIA card and ``nvcc``; elsewhere they skip. They
 import neither JAX nor the JAX package, so they run where only PyTorch is
@@ -29,43 +31,51 @@ def gen():
     return torch.Generator("cuda").manual_seed(0)
 
 
-def _qkv(gen, b, tq, tk, h, d):
-    return (torch.randn(b, tq, h, d, generator=gen, device="cuda"),
-            torch.randn(b, tk, h, d, generator=gen, device="cuda"),
-            torch.randn(b, tk, h, d, generator=gen, device="cuda"))
+def _qkv(gen, b, tq, tk, h, d, dtype=torch.float32):
+    return (torch.randn(b, tq, h, d, generator=gen, device="cuda").to(dtype),
+            torch.randn(b, tk, h, d, generator=gen, device="cuda").to(dtype),
+            torch.randn(b, tk, h, d, generator=gen, device="cuda").to(dtype))
 
 
-def _flash_err(q, k, v, kv_mask=None, causal=False):
+#: f32 (3xTF32 products, f32 softmax): blockwise against full rows, 1e-4
+#: absolute. bf16: both sides round the output to bf16 (one step, 2^-7 of
+#: the value) and round p to bf16 at another point (the kernel before
+#: normalising, the plain version after: 2^-9 of each weight, over values
+#: of O(1)), so 2^-7 relative + 1e-2 absolute.
+FLASH_TOL = {torch.float32: dict(atol=1e-4, rtol=0.0),
+             torch.bfloat16: dict(atol=1e-2, rtol=2 ** -7)}
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _flash_check(q, k, v, kv_mask=None, causal=False):
     before = flash_attention.launches
     out = flash_attention(q, k, v, kv_mask=kv_mask, causal=causal)
     ref = flash_attention_reference(q, k, v, kv_mask=kv_mask, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
-    return out, (out - ref).abs().max().item()
+    assert out.dtype == q.dtype
+    torch.testing.assert_close(out.float(), ref.float(), **FLASH_TOL[q.dtype])
+    return out
 
 
-#: f32 softmax-weighted sums of O(1) values, blockwise against full rows
-FLASH_ATOL = 1e-4
-
-
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", [8, 16, 32, 40, 48, 64, 80, 96, 128])
-def test_flash_head_dims_unaligned(gen, d):
-    _, err = _flash_err(*_qkv(gen, 2, 100, 200, 3, d))
-    assert err <= FLASH_ATOL
+def test_flash_head_dims_unaligned(gen, d, dtype):
+    _flash_check(*_qkv(gen, 2, 100, 200, 3, d, dtype))
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("tq,tk", [(150, 150), (100, 200), (200, 70), (1, 65)])
-def test_flash_causal_top_left(gen, tq, tk):
-    _, err = _flash_err(*_qkv(gen, 2, tq, tk, 2, 64), causal=True)
-    assert err <= FLASH_ATOL
+def test_flash_causal_top_left(gen, tq, tk, dtype):
+    _flash_check(*_qkv(gen, 2, tq, tk, 2, 64, dtype), causal=True)
 
 
-def test_flash_kv_mask_with_fully_masked_row(gen):
-    q, k, v = _qkv(gen, 3, 130, 300, 2, 40)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kv_mask_with_fully_masked_row(gen, dtype):
+    q, k, v = _qkv(gen, 3, 130, 300, 2, 40, dtype)
     lens = torch.tensor([300, 17, 0], device="cuda")
     mask = (torch.arange(300, device="cuda")[None] < lens[:, None]).float()
-    out, err = _flash_err(q, k, v, kv_mask=mask)
-    assert err <= FLASH_ATOL
+    out = _flash_check(q, k, v, kv_mask=mask)
     assert torch.all(out[2] == 0)
 
 
@@ -75,14 +85,31 @@ def test_flash_rejects_what_the_kernel_does_not_take(gen):
         flash_attention(q, k, v)
     q, k, v = _qkv(gen, 1, 16, 16, 2, 32)
     with pytest.raises(TypeError):
-        flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):
+        flash_attention(q.bfloat16(), k, v)
     with pytest.raises(ValueError):
         flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    q, k, v = _qkv(gen, 1, 16, 16, 2, 6)    # 24-byte rows: no 16-byte copies
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v)
 
 
-@pytest.mark.parametrize("t", [1, 3, 37, 1024, 1025, 5003])
+SNAKE_LENGTHS = [1, 3, 5, 37, 1024, 1025, 5003]
+
+
+@pytest.mark.parametrize("t", SNAKE_LENGTHS)
 def test_snake_f32_lengths(gen, t):
-    x = torch.randn(2, 5, t, generator=gen, device="cuda")
+    _snake_check(gen, t, torch.float32)
+
+
+@pytest.mark.parametrize("t", SNAKE_LENGTHS)
+def test_snake_bf16_lengths(gen, t):
+    _snake_check(gen, t, torch.bfloat16)
+
+
+def _snake_check(gen, t, dtype):
+    x = torch.randn(2, 5, t, generator=gen, device="cuda").to(dtype)
     alpha = torch.exp(0.3 * torch.randn(5, generator=gen, device="cuda"))
     beta = torch.exp(0.3 * torch.randn(5, generator=gen, device="cuda"))
     before = snake_aa.launches
@@ -90,8 +117,15 @@ def test_snake_f32_lengths(gen, t):
     ref = snake_aa_reference(x, alpha, beta)
     torch.cuda.synchronize()
     assert snake_aa.launches == before + 1
-    # f32 FIR taps summed in another order than cuDNN's depthwise convs
-    assert (out - ref).abs().max().item() <= 1e-5
+    assert out.dtype == dtype
+    if dtype == torch.float32:
+        # f32 FIR taps summed in another order than cuDNN's depthwise convs,
+        # and the range-reduced __sinf (~1e-6 / beta)
+        assert (out - ref).abs().max().item() <= 1e-5
+    else:
+        # both compute in f32 and round once to bf16: one bf16 step apart
+        diff = (out.float() - ref.float()).abs()
+        assert torch.all(diff <= 2 ** -7 * ref.float().abs() + 1e-3)
 
 
 def test_snake_bf16_keeps_dtype(gen):
@@ -104,6 +138,18 @@ def test_snake_bf16_keeps_dtype(gen):
     # both compute in f32 and round once to bf16: one bf16 step apart at most
     diff = (out.float() - ref.float()).abs()
     assert torch.all(diff <= 2 ** -7 * ref.float().abs() + 1e-3)
+
+
+def test_snake_unaligned_storage(gen):
+    """A view that starts off a 16-byte boundary takes the scalar path."""
+    base = torch.randn(2 * 3 * 1001 + 1, generator=gen, device="cuda")
+    x = base[1:].view(2, 3, 1001)
+    alpha = torch.exp(0.3 * torch.randn(3, generator=gen, device="cuda"))
+    beta = torch.exp(0.3 * torch.randn(3, generator=gen, device="cuda"))
+    out = snake_aa(x, alpha, beta)
+    ref = snake_aa_reference(x, alpha, beta)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-5
 
 
 def test_snake_rejects_what_the_kernel_does_not_take(gen):

@@ -2,7 +2,8 @@
 package: the Pallas kernel in interpret mode and the literal ``SnakeAA``
 chain, on the same numpy inputs. On the CPU the port's wrapper runs its
 plain version; the CUDA kernel's index math is checked here through a
-float64 numpy replay of its tiles, halos and edge clamps."""
+float64 numpy replay of its per-lane runs, warp-shuffle neighbour exchange
+and edge substitutions."""
 
 import re
 from pathlib import Path
@@ -94,40 +95,68 @@ def test_module_matches_jax_literal(variant):
                                atol=ATOL, rtol=0)
 
 
-def _kernel_replay(x, alpha, beta, tile):
-    """float64 replay of ``csrc/snake_aa.cu`` on x [B, C, T]: per tile, the
-    clamped halo load, both phases at the clamped positions with the edge
-    substitutions, and the down FIR."""
+def _kernel_replay(x, alpha, beta, seg, run=8):
+    """float64 replay of ``csrc/snake_aa.cu`` on x [B, C, T]. A warp writes
+    ``seg`` outputs with ``seg // run`` storing lanes; lane l of the warp at
+    s0 owns the run starting at p0 = s0 + (l - 1)·run (lane 0 and the last
+    lane are halos and store nothing), loads it clamped to the row, takes 3
+    samples on each side and the 2-3 phase values its down FIR reaches from
+    the neighbouring lanes (a shuffle from past the warp's ends returns the
+    lane's own value), and applies the edge substitutions."""
     dn = kaiser_sinc_filter1d(0.25, 0.3, 12).astype(np.float64)
     up = 2.0 * dn
-    b, c, t_len = x.shape
-    out = np.empty_like(x)
-    a = alpha[None, :, None]
-    inv_b = 1.0 / (beta[None, :, None] + 1e-9)
-    for t0 in range(0, t_len, tile):
-        xs = x[..., np.clip(np.arange(t0 - 6, t0 + tile + 6), 0, t_len - 1)]
-        u = np.arange(t0 - 3, t0 + tile + 3)
-        uu = np.clip(u, 0, t_len - 1)
-        base = uu - t0 + 6                      # xs index of x[uu]
-        e = sum(up[2 * k] * xs[..., base + k - 3] for k in range(6))
-        o = sum(up[2 * k + 1] * xs[..., base + k - 2] for k in range(6))
-        s_e = e + inv_b * np.sin(e * a) ** 2
-        s_o = o + inv_b * np.sin(o * a) ** 2
-        se = np.where(u > t_len - 1, s_o, s_e)
-        so = np.where(u < 0, s_e, s_o)
-        n = min(tile, t_len - t0)
-        i = np.arange(n)
-        out[..., t0:t0 + n] = sum(dn[2 * k + 1] * se[..., i + k + 1]
-                                  + dn[2 * k] * so[..., i + k]
-                                  for k in range(6))
+    t_len = x.shape[-1]
+    lanes = seg // run + 2
+    out = np.full_like(x, np.nan)
+    a = alpha[None, :, None, None]
+    inv_b = 1.0 / (beta[None, :, None, None] + 1e-9)
+
+    def from_left(v):       # __shfl_up_sync(v, 1): lane l reads lane l - 1
+        return np.concatenate([v[..., :1, :], v[..., :-1, :]], axis=-2)
+
+    def from_right(v):      # __shfl_down_sync(v, 1): lane l reads lane l + 1
+        return np.concatenate([v[..., 1:, :], v[..., -1:, :]], axis=-2)
+
+    def snake(v):
+        return v + inv_b * np.sin(v * a) ** 2
+
+    for s0 in range(0, t_len, seg):
+        p0 = s0 + (np.arange(lanes) - 1) * run                 # [lanes]
+        pos = p0[:, None] + np.arange(run)                       # [lanes, run]
+        xv = x[..., np.clip(pos, 0, t_len - 1)]                  # [B,C,L,run]
+        xw = np.concatenate([from_left(xv)[..., -3:], xv,
+                             from_right(xv)[..., :3]], axis=-1)
+        e = sum(up[2 * k] * xw[..., k:k + run] for k in range(6))
+        o = sum(up[2 * k + 1] * xw[..., k + 1:k + 1 + run] for k in range(6))
+        se, so = snake(e), snake(o)
+        # sew[i] = SE[p0 - 2 + i], sow[i] = SO[p0 - 3 + i]
+        sew = np.concatenate([from_left(se)[..., -2:], se,
+                              from_right(se)[..., :3]], axis=-1)
+        sow = np.concatenate([from_left(so)[..., -3:], so,
+                              from_right(so)[..., :2]], axis=-1)
+        pe = p0[:, None] - 2 + np.arange(run + 5)
+        po = p0[:, None] - 3 + np.arange(run + 5)
+        sew = np.where(pe < 0, se[..., :1], sew)
+        sow = np.where(po < 0, se[..., :1], sow)
+        last = np.where(po == t_len - 1, sow, 0.0).sum(-1, keepdims=True)
+        sew = np.where(pe > t_len - 1, last, sew)
+        sow = np.where(po > t_len - 1, last, sow)
+        y = sum(dn[2 * b + 1] * sew[..., b:b + run]
+                + dn[2 * b] * sow[..., b:b + run] for b in range(6))
+        for lane in range(1, lanes - 1):
+            n = min(run, t_len - p0[lane])
+            if n > 0:
+                out[..., p0[lane]:p0[lane] + n] = y[..., lane, :n]
     return out
 
 
-@pytest.mark.parametrize("t,tile", [(37, 16), (53, 1024), (64, 16), (3, 16)])
+@pytest.mark.parametrize("t,tile", [(37, 16), (53, 1024), (64, 16), (3, 16),
+                                    (1, 240), (241, 240), (500, 240)])
 def test_kernel_index_math_float64(t, tile):
-    """The kernel's tiling and edge clamps reproduce the literal chain (with
-    its replicate pads) in float64, including tiles that end within 6
-    samples of either edge."""
+    """The kernel's runs, neighbour exchange and edge substitutions
+    reproduce the literal chain (with its replicate pads) in float64, with
+    warps of ``tile`` outputs (240 on the card), including warps that end
+    within 6 samples of either edge and rows shorter than one run."""
     rng = np.random.RandomState(t)
     x = rng.randn(2, 3, t)
     alpha = np.exp(0.3 * rng.randn(3))

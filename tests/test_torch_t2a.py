@@ -3,6 +3,8 @@ the JAX parameters carried across, run the sampler → VAE decode → BigVGAN
 core on the same context and initial noise; then the port's
 ``txt2audio_best`` runs end to end."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -115,6 +117,37 @@ def test_sample_vocode_core_matches_jax(engines, sampler, steps):
     assert wav.shape == (n, w * 2 * eng.vocoder.hop_size)
     np.testing.assert_allclose(wav.numpy(), np.asarray(wav_ref), atol=2e-4,
                                rtol=0)
+
+
+def test_unet_bf16_matches_jax(engines):
+    """``unet_bf16``: both engines cast the same f32 UNet parameters to bf16
+    and run the sampler → VAE core on the same inputs."""
+    jeng, eng = engines
+    jb = JaxT2AEngine(dataclasses.replace(jeng.cfg, unet_bf16=True),
+                      params=jeng.params)
+    pb = T2AEngine(dataclasses.replace(eng.cfg, unet_bf16=True),
+                   params=jeng.params, device="cpu")
+    assert all(p.dtype == torch.bfloat16 for p in pb.unet.parameters())
+    rng = np.random.RandomState(8)
+    n, (h, w) = 2, eng.cfg.latent_hw
+    ctx = rng.randn(n, 16, 32).astype(np.float32)
+    unc = rng.randn(n, 16, 32).astype(np.float32)
+    x_T = rng.randn(n, h, w, 4).astype(np.float32)               # NHWC
+    mel_ref = jb._sample_fn(jb.params, jnp.asarray(ctx), jnp.asarray(unc),
+                            jax.random.PRNGKey(0), jnp.asarray(x_T), 1.5, 3,
+                            h, w, "dpmpp")
+    mel = pb.sample_core(torch.from_numpy(ctx), torch.from_numpy(unc),
+                         torch.from_numpy(x_T.transpose(0, 3, 1, 2).copy()),
+                         1.5, 3, "dpmpp")
+    assert mel.dtype == torch.float32
+    # each UNet layer rounds to bf16 (2^-9 relative) in both frameworks, at
+    # other points (XLA fuses elementwise chains and drops roundings inside
+    # them, PyTorch rounds after every op), so the two bf16 runs differ by
+    # about what bf16 differs from f32 (1.6e-2 and 1.2e-2 at this seed);
+    # 3e-2 absolute on outputs in [0, 1]
+    np.testing.assert_allclose(mel.numpy(),
+                               np.asarray(mel_ref).transpose(0, 3, 1, 2),
+                               atol=3e-2, rtol=0)
 
 
 def test_txt2audio_best_end_to_end(engines):
