@@ -8,8 +8,10 @@ Hopper (``csrc/``), built with ``nvcc`` at first use (``ops/_build.py``) and
 launched through a wrapper that keeps a plain PyTorch version beside it.
 Engines run on the card unless the caller passes ``device="cpu"``.
 
-Ported so far: the text-to-audio tool call (``engines/t2a.py``) with its
-CLAP text tower, UNet, VAE, samplers and BigVGAN vocoder.
+Ported so far: the T2A engine (``engines/t2a.py``): the ranked
+text-to-audio call and inpainting, with the CLAP text tower and scorer
+(Cnn14 audio tower, ``dsp/`` log-mel frontend), UNet, VAE, samplers and the
+BigVGAN vocoder (f32 or bf16).
 """
 
 __version__ = "0.1.0"

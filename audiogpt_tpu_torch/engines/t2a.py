@@ -1,11 +1,12 @@
 """Text → audio latent-diffusion engine (Make-An-Audio class).
 
-Counterpart of ``audiogpt_tpu/engines/t2a.py:44-392``. The reference flow
-(``audio-chatgpt.py:158-199``): CLAP text context → sampler with the CFG
-pair batched → VAE decode → (x+1)/2 mel → BigVGAN → best-of-n CLAP ranking.
-The n candidates are the batch axis. The ranking needs the CLAP audio tower,
-which comes with a later slice; until then ``txt2audio_best`` returns
-candidate 0 with zero scores, as the JAX engine does with no scorer.
+Counterpart of ``audiogpt_tpu/engines/t2a.py:44-455`` without the mesh
+branches. The reference flow (``audio-chatgpt.py:158-199``): CLAP text
+context → sampler with the CFG pair batched → VAE decode → (x+1)/2 mel →
+BigVGAN → best-of-n CLAP ranking; the n candidates are the batch axis, and
+only the winner and the scores leave the device. Inpainting
+(``audio-chatgpt.py:418-559``) encodes the original's mel with the VAE and
+regenerates the masked region with the samplers' mask blend.
 """
 
 from __future__ import annotations
@@ -15,10 +16,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from audiogpt_tpu_torch.dsp.mel import LDM_MEL_16K, ldm_normalize, log_mel
 from audiogpt_tpu_torch.engines.base import resolve_device
 from audiogpt_tpu_torch.engines.vocoder import VocoderEngine
 from audiogpt_tpu_torch.models.diffusion.samplers import (
     DiffusionSchedule,
+    Noise,
     ddim_sample,
     dpmpp_sample,
     plms_sample,
@@ -26,6 +29,7 @@ from audiogpt_tpu_torch.models.diffusion.samplers import (
 from audiogpt_tpu_torch.models.diffusion.unet import UNetConfig, UNetModel
 from audiogpt_tpu_torch.models.diffusion.vae import AutoencoderKL, VAEConfig
 from audiogpt_tpu_torch.models.textenc.clap import (
+    CLAPScorer,
     CLAPTextConfig,
     CLAPTextEncoder,
     WordPieceTokenizer,
@@ -33,6 +37,8 @@ from audiogpt_tpu_torch.models.textenc.clap import (
 from audiogpt_tpu_torch.utils.jax_params import load_jax_params
 
 SAMPLERS = {"ddim": ddim_sample, "plms": plms_sample, "dpmpp": dpmpp_sample}
+#: the samplers that take the inpaint mask blend
+INPAINT_SAMPLERS = {"ddim": ddim_sample, "dpmpp": dpmpp_sample}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +48,7 @@ class T2AConfig:
     clap: CLAPTextConfig = CLAPTextConfig()
     mel_bins: int = 80
     mel_len: int = 624           # 10 s canvas (audio-chatgpt.py:202)
+    inpaint_mel_len: int = 848   # inpaint canvas (audio-chatgpt.py:463)
     sample_rate: int = 16000
     hop: int = 256
     scale_factor: float = 1.0    # LDM latent scaling (ddpm_audio.py:104)
@@ -75,13 +82,19 @@ class T2AEngine:
 
     def __init__(self, cfg: T2AConfig | None = None, params: dict | None = None,
                  vocoder: VocoderEngine | None = None,
+                 scorer: CLAPScorer | None = None,
                  rng_seed: int = 0,
                  device: str | torch.device | None = None):
         """``params``: the JAX engine's ``{"unet", "vae", "clap"}`` trees as
         numpy arrays (loaded with :func:`load_jax_params`); ``None`` keeps a
-        seeded random init. ``device=None`` is the card, and raises without
-        one."""
+        seeded random init. ``scorer``: the CLAP scorer that ranks
+        ``txt2audio_best``'s candidates, on the engine's device.
+        ``device=None`` is the card, and raises without one."""
         self.device = resolve_device(device)
+        for part in (vocoder, scorer):
+            if part is not None and part.device != self.device:
+                raise ValueError(f"{type(part).__name__} on {part.device}, "
+                                 f"engine on {self.device}")
         self.cfg = cfg = cfg or T2AConfig()
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(rng_seed)
@@ -99,6 +112,7 @@ class T2AEngine:
             cfg.timesteps, cfg.linear_start, cfg.linear_end)
         self.tokenizer = WordPieceTokenizer(vocab_size=cfg.clap.bert.vocab_size)
         self.vocoder = vocoder
+        self.scorer = scorer
         self._generator = torch.Generator(self.device).manual_seed(rng_seed)
 
     # -- conditioning -------------------------------------------------------
@@ -158,22 +172,135 @@ class T2AEngine:
             return mels
         return mels, self.vocoder.vocode(mel01).cpu().numpy()
 
+    @torch.inference_mode()
+    def sample_vocode_rank(self, text: str, context: torch.Tensor,
+                           uncond: torch.Tensor, x_T: torch.Tensor,
+                           guidance: float, n_steps: int,
+                           sampler: str = "ddim"):
+        """The ranked core (the JAX engine's ``_sample_vocode_rank_fn``):
+        sampler → VAE decode → vocoder → CLAP scores of all candidates at
+        their full length → argmax. → ``(mel01 [mel_bins, frames], wav [T])``
+        of the winner and ``scores [n]``, on the device."""
+        mel01 = self.sample_core(context, uncond, x_T, guidance, n_steps,
+                                 sampler)[:, 0]
+        wavs = self.vocoder.vocode(mel01)
+        scores = self.scorer.similarity(text, wavs)
+        best = scores.argmax()
+        return mel01[best], wavs[best], scores
+
+    def select_best(self, text: str, wavs) -> int:
+        """Best-of-n CLAP re-ranking (``select_best_audio``,
+        audio-chatgpt.py:185-199); index 0 when no scorer is attached."""
+        if self.scorer is None:
+            return 0
+        return self.scorer.select_best(text, wavs)
+
     def txt2audio_best(self, text: str, n_samples: int = 3,
                        ddim_steps: int | None = None, scale: float = 1.5,
                        seed: int | None = None, sampler: str | None = None):
         """The best-of-n tool call (audio-chatgpt.py:158-199) with the
         engine's production sampler (``cfg.tool_sampler`` /
         ``cfg.tool_steps``). → ``(mel [frames, mel_bins], wav [T] or None,
-        scores [n])`` as numpy; with no scorer yet the scores are zeros and
-        candidate 0 is returned."""
+        scores [n])`` as numpy; ``scores`` are the candidates' CLAP
+        similarities. Without a vocoder or a scorer it returns candidate 0
+        with zero scores, as the JAX engine does."""
         cfg = self.cfg
-        out = self.txt2audio(
-            text, n_samples=n_samples,
-            ddim_steps=cfg.tool_steps if ddim_steps is None else ddim_steps,
-            scale=scale, seed=seed,
-            sampler=cfg.tool_sampler if sampler is None else sampler)
-        scores = np.zeros(n_samples, np.float32)
+        ddim_steps = cfg.tool_steps if ddim_steps is None else ddim_steps
+        sampler = cfg.tool_sampler if sampler is None else sampler
+        if self.vocoder is None or self.scorer is None:
+            out = self.txt2audio(text, n_samples=n_samples,
+                                 ddim_steps=ddim_steps, scale=scale,
+                                 seed=seed, sampler=sampler)
+            scores = np.zeros(n_samples, np.float32)
+            if self.vocoder is None:
+                return out[0], None, scores
+            return out[0][0], out[1][0], scores
+        ctx, uc, x_T = self._prep_candidates(text, n_samples, seed)
+        mel01, wav, scores = self.sample_vocode_rank(
+            text, ctx, uc, x_T, scale, ddim_steps, sampler)
+        return (mel01.T.cpu().numpy(), wav.cpu().numpy(),
+                scores.cpu().numpy())
+
+    # -- inpaint ------------------------------------------------------------
+    @torch.inference_mode()
+    def inpaint_core(self, mel01: torch.Tensor, mask_latent: torch.Tensor,
+                     context: torch.Tensor, uncond: torch.Tensor,
+                     x_T: torch.Tensor, noise: Noise, guidance: float,
+                     n_steps: int, sampler: str = "ddim") -> torch.Tensor:
+        """mel01 [1, 1, mel_bins, frames] in [0, 1] and the latent mask
+        (1 = keep) → regenerated mel01 (the JAX engine's ``_inpaint_core``):
+        VAE encode (the posterior's mode), the sampler with the mask blend
+        from ``x_T`` with per-step ``noise``, VAE decode. The UNet runs in
+        f32, as the JAX core runs it whatever ``unet_bf16`` says."""
+        cfg = self.cfg
+        if cfg.unet_bf16:
+            raise ValueError(
+                "inpaint runs the UNet in f32 (the JAX engine's inpaint core "
+                "ignores unet_bf16), but this engine cast its UNet to bf16: "
+                "build one with unet_bf16=False to inpaint")
+        if sampler not in INPAINT_SAMPLERS:
+            raise ValueError(f"inpaint sampler {sampler!r}: one of "
+                             f"{sorted(INPAINT_SAMPLERS)}")
+        z0 = self.vae.encode(mel01 * 2.0 - 1.0).mode() * cfg.scale_factor
+        z = INPAINT_SAMPLERS[sampler](
+            self.eps, self.schedule, x_T, context, uncond, n_steps=n_steps,
+            guidance_scale=guidance, mask=mask_latent, x0=z0, noise=noise)
+        mel = self.vae.decode(z / cfg.scale_factor)
+        return ((mel + 1.0) / 2.0).clamp(0.0, 1.0)
+
+    def inpaint_inputs(self, wav: np.ndarray, mask_time: np.ndarray):
+        """The original and the mask on the inpaint canvas
+        (``cfg.inpaint_mel_len`` frames, audio-chatgpt.py:463-470): the wav
+        padded or cut to it, its normalised mel, and the mask pooled to the
+        latent grid. → ``(mel01 [1, 1, mel_bins, frames], mask_latent
+        [1, C, mel_bins/f, frames/f])`` on the device."""
+        cfg = self.cfg
+        frames, f = cfg.inpaint_mel_len, cfg.vae_factor
+        n = frames * cfg.hop
+        wav = np.asarray(wav, np.float32)
+        wav = np.pad(wav, (0, max(0, n - len(wav))))[:n]
+        spec = dataclasses.replace(LDM_MEL_16K, sr=cfg.sample_rate,
+                                   hop=cfg.hop, n_mels=cfg.mel_bins)
+        mel = ldm_normalize(log_mel(torch.from_numpy(wav).to(self.device),
+                                    spec))[:frames]        # [frames, bins]
+        mel01 = mel.T[None, None].contiguous()
+
+        mask = np.asarray(mask_time, np.float32)
+        lat_h, lat_w = cfg.mel_bins // f, frames // f
+        if mask.ndim == 1:
+            # a time mask: max-pooled by the VAE factor, broadcast over
+            # frequency
+            mask = np.pad(mask, (0, max(0, frames - len(mask))))[:frames]
+            m = np.broadcast_to(mask.reshape(lat_w, f).max(axis=1),
+                                (lat_h, lat_w))
+        else:
+            # a [frames, mel_bins] sketch mask (keep where not drawn): the
+            # time axis padded with keep, area-mean pooled to the latent
+            # grid
+            mask = np.pad(mask, ((0, max(0, frames - mask.shape[0])), (0, 0)),
+                          constant_values=1.0)[:frames]
+            m = mask.T.reshape(lat_h, f, lat_w, f).mean(axis=(1, 3))
+        mask_latent = torch.from_numpy(np.ascontiguousarray(m)).to(
+            self.device).expand(1, cfg.unet.in_channels, lat_h, lat_w)
+        return mel01, mask_latent
+
+    def inpaint(self, wav: np.ndarray, mask_time: np.ndarray,
+                text: str = "", ddim_steps: int = 100, scale: float = 1.0,
+                sampler: str = "ddim") -> np.ndarray:
+        """``mask_time`` with 1 = keep the original; regenerates the rest.
+        A 1-D time mask ``[frames]`` (text-specified ranges) or a 2-D
+        time-frequency mask ``[frames, mel_bins]`` (the UI's sketch).
+        → wav [inpaint_mel_len · hop] with a vocoder attached, else the mel
+        [frames, mel_bins], as numpy."""
+        mel01, mask_latent = self.inpaint_inputs(wav, mask_time)
+        if scale != 1.0:
+            ctx, uc = self.encode_text([text, ""]).chunk(2)
+        else:
+            ctx = uc = self.encode_text([text])
+        x_T = torch.randn((1,) + mask_latent.shape[1:],
+                          generator=self._generator, device=self.device)
+        out = self.inpaint_core(mel01, mask_latent, ctx, uc, x_T,
+                                self._generator, scale, ddim_steps, sampler)
         if self.vocoder is None:
-            return out[0], None, scores
-        mels, wavs = out
-        return mels[0], wavs[0], scores
+            return out[0, 0].T.cpu().numpy()
+        return self.vocoder.vocode(out[:, 0])[0].cpu().numpy()

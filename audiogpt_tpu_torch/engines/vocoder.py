@@ -1,11 +1,13 @@
 """Vocoder engine: mel → wav, static-shape bucketed.
 
 Counterpart of ``audiogpt_tpu/engines/vocoder.py:29-146`` for the BigVGAN
-generator. HiFi-GAN, PWG and MelGAN come with later slices.
+generator, with its bf16 mode. HiFi-GAN, PWG and MelGAN come with later
+slices.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any
 
 import numpy as np
@@ -26,11 +28,17 @@ class VocoderEngine:
 
     def __init__(self, kind: str = "bigvgan", cfg: BigVGANConfig | None = None,
                  params: Any = None, buckets=DEFAULT_BUCKETS,
-                 rng_seed: int = 0,
+                 rng_seed: int = 0, bf16: bool = False,
                  device: str | torch.device | None = None):
         """``params``: a JAX parameter tree as numpy arrays (loaded with
         :func:`load_jax_params`); ``None`` keeps a seeded random init.
-        ``device=None`` is the card, and raises without one."""
+        ``device=None`` is the card, and raises without one.
+
+        ``bf16``: the JAX engine's throughput mode (its ``bf16``): the
+        generator is cast to bf16 once (the snake log-α/β too), the mel goes
+        in as bf16 and the wav comes out as f32, so every AMP activation
+        takes ``snake_aa``'s bf16 entry. ``model`` keeps the f32 parameters;
+        :meth:`load_state_dict` loads into it and casts again."""
         if kind != "bigvgan":
             raise ValueError(f"vocoder kind {kind!r} is not ported yet")
         self.kind = kind
@@ -42,7 +50,19 @@ class VocoderEngine:
         if params is not None:
             load_jax_params(self.model, params)
         self.model.to(self.device).eval()
+        self.bf16 = bf16
+        self._cast()
         self.bucketer = Bucketer(buckets)
+
+    def _cast(self) -> None:
+        """The generator that runs: the f32 model, or its bf16 copy."""
+        self._run = (copy.deepcopy(self.model).to(torch.bfloat16)
+                     if self.bf16 else self.model)
+
+    def load_state_dict(self, state: dict) -> None:
+        """Load f32 parameters (a ``model.state_dict()``), strictly."""
+        self.model.load_state_dict(state)
+        self._cast()
 
     @property
     def hop_size(self) -> int:
@@ -50,10 +70,12 @@ class VocoderEngine:
 
     @torch.inference_mode()
     def vocode(self, mel: torch.Tensor) -> torch.Tensor:
-        """mel [B, n_mels, frames] on the engine's device → wav
+        """mel [B, n_mels, frames] on the engine's device → f32 wav
         [B, frames · hop], run at the frames' bucket and trimmed."""
         padded, true_len = self.bucketer.pad_to_bucket(mel, axis=-1)
-        return self.model(padded)[:, : true_len * self.hop_size]
+        dtype = torch.bfloat16 if self.bf16 else torch.float32
+        wav = self._run(padded.to(dtype)).float()
+        return wav[:, : true_len * self.hop_size]
 
     def __call__(self, mel: np.ndarray) -> np.ndarray:
         """mel [frames, n_mels] (or [B, frames, n_mels]) → wav [samples]

@@ -1,0 +1,5 @@
+from audiogpt_tpu_torch.models.caption.cnn14 import (  # noqa: F401
+    Cnn14Config,
+    Cnn14Encoder,
+    ConvBlock,
+)

@@ -5,14 +5,15 @@ schedule math is the JAX package's numpy, unchanged. The JAX ``lax.scan``
 step loops are Python loops here; the per-step scalars are computed in
 float32 on the host, as the JAX scan computed them in float32 on the device.
 Classifier-free guidance batches the (uncond, cond) pair into one 2N-batch
-``eps_fn`` call per step. Inpainting's mask blend, the cosine schedule and
-DDPM come with the slices that use them.
+``eps_fn`` call per step. DDIM and DPM-Solver++ take inpainting's mask
+blend (ddim.py:148-151). The cosine schedule and DDPM come with the slices
+that use them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -37,6 +38,15 @@ class DiffusionSchedule:
     @property
     def num_timesteps(self) -> int:
         return len(self.betas)
+
+    def q_sample(self, x0: torch.Tensor, t: int,
+                 noise: torch.Tensor) -> torch.Tensor:
+        """Forward noising of the batch at timestep ``t``:
+        √ᾱ_t·x0 + √(1−ᾱ_t)·noise, the scalars in float32 on the host (a
+        device gather would need a host-to-device copy, which synchronises
+        the stream, at every sampler step)."""
+        a = self.alphas_cumprod[t]
+        return np.sqrt(a) * x0 + np.sqrt(_f32(1.0) - a) * noise
 
     def ddim_steps(self, n_steps: int, eta: float = 0.0):
         """(timesteps, alphas, alphas_prev, sigmas) for a DDIM run
@@ -70,6 +80,24 @@ def _guided(eps_fn: Callable, context: torch.Tensor,
     return eps
 
 
+#: the per-step noise of the inpaint blend: a generator to draw it from, or
+#: one tensor per step (a replay of another sampler's draws)
+Noise = torch.Generator | Sequence[torch.Tensor]
+
+
+def _inpaint_blend(schedule: DiffusionSchedule, img: torch.Tensor, t: int,
+                   i: int, mask: torch.Tensor, x0: torch.Tensor,
+                   noise: Noise) -> torch.Tensor:
+    """Step ``i`` at timestep ``t``: the known region (mask 1 = keep) is
+    replaced by x0 noised to t (ddim.py:148-151)."""
+    if isinstance(noise, torch.Generator):
+        nz = torch.randn(img.shape, generator=noise, device=img.device,
+                         dtype=img.dtype)
+    else:
+        nz = noise[i]
+    return schedule.q_sample(x0, t, nz) * mask + (1.0 - mask) * img
+
+
 def ddim_sample(
     eps_fn: Callable,                  # (x, t[B], context) -> eps
     schedule: DiffusionSchedule,
@@ -78,18 +106,28 @@ def ddim_sample(
     uncond_context: torch.Tensor | None,
     n_steps: int = 100,
     guidance_scale: float = 1.0,
+    mask: torch.Tensor | None = None,  # inpaint: 1 = keep original
+    x0: torch.Tensor | None = None,    # inpaint: original latent
+    noise: Noise | None = None,        # inpaint: per-step blend noise
 ) -> torch.Tensor:
     """Deterministic DDIM (η = 0, as every engine calls it) from the
     noisiest step down (ddim.py:118); CFG doubles the batch inside each
-    eps_fn call."""
+    eps_fn call. With ``mask`` and ``x0``, each step first blends in x0
+    noised to its timestep, and the result keeps x0 where mask is 1."""
     ts, a, a_prev, _ = schedule.ddim_steps(n_steps, eta=0.0)
     eps = _guided(eps_fn, context, uncond_context, guidance_scale)
+    inpaint = mask is not None and x0 is not None
     img = x_T
-    for t, at, at_prev in zip(ts[::-1], a[::-1], a_prev[::-1]):
+    for i, (t, at, at_prev) in enumerate(zip(ts[::-1], a[::-1],
+                                             a_prev[::-1])):
+        if inpaint:
+            img = _inpaint_blend(schedule, img, t, i, mask, x0, noise)
         e_t = eps(img, t)
         pred_x0 = (img - np.sqrt(_f32(1.0) - at) * e_t) / np.sqrt(at)
         img = (np.sqrt(at_prev) * pred_x0
                + np.sqrt(np.maximum(_f32(1.0) - at_prev, _f32(0.0))) * e_t)
+    if inpaint:
+        img = x0 * mask + (1.0 - mask) * img
     return img
 
 
@@ -134,8 +172,12 @@ def dpmpp_sample(
     uncond_context: torch.Tensor | None,
     n_steps: int = 15,
     guidance_scale: float = 1.0,
+    mask: torch.Tensor | None = None,  # inpaint: 1 = keep original
+    x0: torch.Tensor | None = None,    # inpaint: original latent
+    noise: Noise | None = None,        # inpaint: per-step blend noise
 ) -> torch.Tensor:
-    """DPM-Solver++(2M) (Lu et al. 2022, multistep data-prediction form).
+    """DPM-Solver++(2M) (Lu et al. 2022, multistep data-prediction form),
+    with the inpaint blend of :func:`ddim_sample`.
 
     Math (VP, λ = log(α/σ), h_i = λ_{i} − λ_{i-1}, r = h_{i-1}/h_i):
       x0_i = (x − σ_i ε_θ)/α_i
@@ -149,8 +191,12 @@ def dpmpp_sample(
     def lam(acum):
         return _f32(0.5) * (np.log(acum) - np.log1p(-acum))
 
+    inpaint = mask is not None and x0 is not None
     x0_prev, h_prev = None, _f32(1.0)
-    for t, at, at_next in zip(ts[::-1], a[::-1], a_prev[::-1]):
+    for i, (t, at, at_next) in enumerate(zip(ts[::-1], a[::-1],
+                                             a_prev[::-1])):
+        if inpaint:
+            img = _inpaint_blend(schedule, img, t, i, mask, x0, noise)
         al, sg = np.sqrt(at), np.sqrt(_f32(1.0) - at)
         al_n, sg_n = np.sqrt(at_next), np.sqrt(_f32(1.0) - at_next)
         h = lam(at_next) - lam(at)
@@ -164,4 +210,6 @@ def dpmpp_sample(
             d = (_f32(1.0) + c) * x0_hat - c * x0_prev
         img = (sg_n / sg) * img - (al_n * np.expm1(-h)) * d
         x0_prev, h_prev = x0_hat, h
+    if inpaint:
+        img = x0 * mask + (1.0 - mask) * img
     return img

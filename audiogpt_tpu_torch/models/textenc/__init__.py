@@ -1,5 +1,7 @@
 from audiogpt_tpu_torch.models.textenc.bert import BertConfig, BertEncoder  # noqa: F401
 from audiogpt_tpu_torch.models.textenc.clap import (  # noqa: F401
+    CLAPAudioEncoder,
+    CLAPScorer,
     CLAPTextConfig,
     CLAPTextEncoder,
     Projection,

@@ -5,8 +5,9 @@ Counterpart of ``audiogpt_tpu/models/textenc/clap.py:22-193``:
 bert-base-uncased last hidden state through a per-token ``Projection``
 (768 → 1024, ``CLAP/clap.py:8``); the T2A UNet cross-attends to that
 sequence ([B, 77, 1024]). The tokenizer is this package's own copy, with its
-own copy of the bundled vocab. The audio tower and the best-of-n scorer come
-with a later slice.
+own copy of the bundled vocab. :class:`CLAPScorer` (``clap.py:201-301``)
+ranks best-of-n candidates with the CLS projection against the PANN
+(Cnn14) audio tower; the HTSAT tower comes with a later slice.
 """
 
 from __future__ import annotations
@@ -22,7 +23,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from audiogpt_tpu_torch.models.caption.cnn14 import Cnn14Config, Cnn14Encoder
 from audiogpt_tpu_torch.models.textenc.bert import BertConfig, BertEncoder
+from audiogpt_tpu_torch.utils.jax_params import load_jax_params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,3 +163,98 @@ class WordPieceTokenizer:
         pad = max_length - len(toks)
         return (np.asarray(toks + [0] * pad, np.int32),
                 np.asarray(mask + [0] * pad, np.int32))
+
+
+# ---------------------------------------------------------------------------
+# CLAP audio tower + retrieval scorer (best-of-n re-ranking)
+# ---------------------------------------------------------------------------
+
+
+class CLAPAudioEncoder(nn.Module):
+    """PANN (Cnn14) CLAP audio tower (``open_clap/pann_model.py``): the
+    Cnn14 ``fc_emb`` through a ``Projection`` → ``[B, d_proj]``."""
+
+    def __init__(self, d_proj: int = 1024, cnn14: Cnn14Config | None = None):
+        super().__init__()
+        if cnn14 is not None and not isinstance(cnn14, Cnn14Config):
+            raise TypeError(f"CLAPAudioEncoder.cnn14 must be a Cnn14Config "
+                            f"(got {type(cnn14).__name__})")
+        cfg = cnn14 if cnn14 is not None else Cnn14Config()
+        self.backbone = Cnn14Encoder(cfg)
+        self.projection = Projection(cfg.channels[-1], d_proj)
+
+    def forward(self, wav: torch.Tensor,
+                wav_len: torch.Tensor | None = None) -> torch.Tensor:
+        return self.projection(self.backbone(wav, wav_len)["fc_emb"])
+
+
+class CLAPScorer:
+    """Text ↔ audio cosine similarity: the reference's ``CLAPWrapper``
+    (``wav_evaluation/models/CLAPWrapper.py:208``), built once. Its own text
+    tower (scored by the CLS projection) and tokenizer, and the PANN audio
+    tower."""
+
+    def __init__(self, text_cfg: CLAPTextConfig | None = None,
+                 text_params=None, audio_params=None,
+                 tokenizer: WordPieceTokenizer | None = None,
+                 sample_rate: int = 32000, audio_tower: str = "pann",
+                 audio_cfg: Cnn14Config | None = None, rng_seed: int = 0,
+                 device: str | torch.device | None = None):
+        """``text_params`` / ``audio_params``: the JAX scorer's flax trees as
+        numpy arrays (the audio tree with its ``batch_stats``); ``None``
+        keeps a seeded random init. ``sample_rate`` is the candidates' rate,
+        kept for callers: the PANN tower applies its 32 kHz frontend to any
+        waveform, as the JAX tower does. ``device=None`` is the card, and
+        raises without one."""
+        # imported here: engines/ imports this module
+        from audiogpt_tpu_torch.engines.base import resolve_device
+
+        if audio_tower != "pann":
+            raise ValueError(f"CLAPScorer audio_tower {audio_tower!r} is not "
+                             f"ported yet")
+        if audio_cfg is not None and not isinstance(audio_cfg, Cnn14Config):
+            raise TypeError(f"audio_tower='pann' takes a Cnn14Config "
+                            f"audio_cfg (got {type(audio_cfg).__name__})")
+        self.device = resolve_device(device)
+        self.cfg = text_cfg or CLAPTextConfig()
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(rng_seed)
+            self.text = CLAPTextEncoder(self.cfg)
+            self.audio = CLAPAudioEncoder(self.cfg.d_proj, audio_cfg)
+        if text_params is not None:
+            load_jax_params(self.text, text_params)
+        if audio_params is not None:
+            load_jax_params(self.audio, audio_params)
+        for m in (self.text, self.audio):
+            m.to(self.device).eval()
+        self.tokenizer = tokenizer or WordPieceTokenizer(
+            vocab_size=self.cfg.bert.vocab_size)
+        self.sample_rate = sample_rate
+
+    @torch.inference_mode()
+    def similarity(self, text: str, wavs: torch.Tensor) -> torch.Tensor:
+        """wavs [n, T] on the scorer's device → cosine similarity [n] there,
+        each candidate's length taken as T."""
+        # non_blocking: the candidates' work is still queued, and a blocking
+        # host-to-device copy would wait for it before the towers are queued
+        ids, mask = (torch.from_numpy(a).long()[None].to(self.device,
+                                                         non_blocking=True)
+                     for a in self.tokenizer.encode(text, self.cfg.max_length))
+        t = self.text.cls_embedding(ids, mask)
+        wav_len = torch.full((wavs.shape[0],), wavs.shape[1],
+                             dtype=torch.int64, device=wavs.device)
+        a = self.audio(wavs, wav_len)
+        t = t / torch.linalg.vector_norm(t, dim=-1, keepdim=True)
+        a = a / torch.linalg.vector_norm(a, dim=-1, keepdim=True)
+        return (a @ t.T)[:, 0]
+
+    def score(self, text: str, wavs) -> np.ndarray:
+        """→ similarity per candidate waveform ([n, T] or [T], numpy)."""
+        wavs = np.asarray(wavs, np.float32)
+        if wavs.ndim == 1:
+            wavs = wavs[None]
+        return self.similarity(
+            text, torch.from_numpy(wavs).to(self.device)).cpu().numpy()
+
+    def select_best(self, text: str, wavs) -> int:
+        return int(self.score(text, wavs).argmax())

@@ -13,6 +13,8 @@ import torch
 from audiogpt_tpu_torch.ops.flash_attention import flash_attention
 
 NEG_INF = -1e30
+#: an attention goes to the flash kernel from this many (query, key) pairs
+FLASH_MIN_PAIRS = 256 * 256
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -25,7 +27,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (1 = valid) is a key-padding mask, which the flash path takes."""
     if use_flash is None:
         use_flash = (q.is_cuda and mask is None
-                     and q.shape[1] * k.shape[1] >= 256 * 256)
+                     and q.shape[1] * k.shape[1] >= FLASH_MIN_PAIRS)
     if use_flash and mask is None:
         return flash_attention(q, k, v, kv_mask=kv_mask, causal=is_causal)
     if kv_mask is not None:

@@ -19,6 +19,8 @@ from audiogpt_tpu_torch.ops.conv import ConvTranspose1d
 
 #: flax leaf name → torch parameter name
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
+#: flax BatchNorm statistic → torch buffer name
+_STAT = {"mean": "running_mean", "var": "running_var"}
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -45,11 +47,22 @@ def _kernel_layout(owner: nn.Module, kernel: np.ndarray) -> np.ndarray:
 
 
 def load_jax_params(module: nn.Module, tree: Mapping) -> None:
-    """Copy a flax param tree (numpy leaves; an outer ``{"params": ...}``
-    collection is unwrapped) into ``module``, strictly."""
-    if set(tree) == {"params"}:
+    """Copy a flax variable tree (numpy leaves) into ``module``, strictly.
+
+    ``tree`` is a param tree, ``{"params": ...}``, or a model with
+    BatchNorm's ``{"params": ..., "batch_stats": ...}``: the statistics
+    ``mean`` / ``var`` become the ``running_mean`` / ``running_var`` buffers
+    (``num_batches_tracked`` is set to 0, which eval mode never reads)."""
+    stats = {}
+    if set(tree) in ({"params"}, {"params", "batch_stats"}):
+        stats = tree.get("batch_stats", {})
         tree = tree["params"]
     state = {}
+    for key, arr in _flatten(stats).items():
+        prefix, _, leaf = key.rpartition(".")
+        state[f"{prefix}.{_STAT[leaf]}"] = torch.tensor(arr,
+                                                        dtype=torch.float32)
+        state[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
     for key, arr in _flatten(tree).items():
         prefix, _, leaf = key.rpartition(".")
         name = f"{prefix}.{_LEAF.get(leaf, leaf)}" if prefix else \

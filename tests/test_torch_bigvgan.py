@@ -106,3 +106,35 @@ def test_engine_without_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError):
         VocoderEngine("bigvgan", cfg=BigVGANConfig(**TINY))
+
+
+def test_bf16_engine_matches_jax_bf16():
+    """``bf16=True`` in both engines on the same f32 parameters: generator
+    and snake log-α/β cast to bf16 once, mel in as bf16, wav out as f32."""
+    jcfg = JaxConfig(aa_impl="literal", **TINY)
+    params = _jax_params(jcfg, seed=4)
+    mel = _mel(20, seed=5)
+    ref_f32 = JaxVocoderEngine("bigvgan", cfg=jcfg, params=params,
+                               buckets=(32,))(mel)
+    ref = JaxVocoderEngine("bigvgan", cfg=jcfg, params=params, buckets=(32,),
+                           bf16=True)(mel)
+    eng = VocoderEngine("bigvgan", cfg=BigVGANConfig(**TINY), params=params,
+                        buckets=(32,), bf16=True, device="cpu")
+    assert all(p.dtype == torch.float32 for p in eng.model.parameters())
+    assert all(p.dtype == torch.bfloat16 for p in eng._run.parameters())
+    got = eng(mel)
+    assert got.dtype == np.float32 and got.shape == ref.shape
+    # the two bf16 runs round at other points (the JAX literal chain runs
+    # its FIRs in bf16, the port's snake computes in f32 and rounds once),
+    # so they may differ by as much as bf16 differs from f32, not more: the
+    # tolerance is the JAX engine's own f32-vs-bf16 gap (7.1e-2 here)
+    gap = np.abs(ref_f32 - ref).max()
+    assert 0.0 < np.abs(got - ref).max() <= gap
+    # loading f32 weights refreshes the bf16 copy
+    other = _jax_params(jcfg, seed=6)
+    gen = BigVGANGenerator(BigVGANConfig(**TINY))
+    load_jax_params(gen, other)
+    eng.load_state_dict(gen.state_dict())
+    want = VocoderEngine("bigvgan", cfg=BigVGANConfig(**TINY), params=other,
+                         buckets=(32,), bf16=True, device="cpu")(mel)
+    np.testing.assert_array_equal(eng(mel), want)

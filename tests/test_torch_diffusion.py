@@ -147,3 +147,40 @@ def test_sampler_matches_jax(name, steps, guidance):
     # f32 step arithmetic over ≤ 10 steps of O(1) values
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
                                rtol=0)
+
+
+@pytest.mark.parametrize("name", ["ddim", "dpmpp"])
+def test_inpaint_blend_matches_jax(name):
+    """The mask blend with the toy denoiser: a partial mask, x0, and JAX's
+    initial and per-step noise replayed from its key splits."""
+    rng = np.random.RandomState(5)
+    shape = (1, 4, 5, 6)
+    x0 = rng.randn(*shape).astype(np.float32)
+    mask = (rng.rand(*shape) > 0.5).astype(np.float32)
+    ctx = rng.randn(1, 3, 8).astype(np.float32)
+    sched, jsched = DiffusionSchedule.linear(100), JaxSchedule.linear(100)
+    steps = 7
+    key = jax.random.PRNGKey(3)
+    ref = getattr(jax_samplers, f"{name}_sample")(
+        _eps(jnp), jsched, shape, jnp.asarray(ctx), None, key,
+        n_steps=steps, mask=jnp.asarray(mask), x0=jnp.asarray(x0))
+    key, k0 = jax.random.split(key)
+    keys = jax.random.split(key, len(sched.ddim_steps(steps)[0]))
+    if name == "ddim":
+        keys = [jax.random.split(k)[0] for k in keys]
+    noise = [torch.from_numpy(np.asarray(jax.random.normal(k, shape)))
+             for k in keys]
+    x_T = torch.from_numpy(np.asarray(jax.random.normal(k0, shape)))
+    got = getattr(samplers, f"{name}_sample")(
+        _eps(torch), sched, x_T, torch.from_numpy(ctx), None, n_steps=steps,
+        mask=torch.from_numpy(mask), x0=torch.from_numpy(x0), noise=noise)
+    # f32 step arithmetic over 8 steps of O(1) values; the kept region is x0
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_array_equal(got.numpy()[mask == 1], x0[mask == 1])
+    t = 40
+    np.testing.assert_allclose(
+        sched.q_sample(torch.from_numpy(x0), t, noise[0]).numpy(),
+        np.asarray(jsched.q_sample(jnp.asarray(x0), jnp.full((1,), t),
+                                   jnp.asarray(noise[0].numpy()))),
+        atol=1e-6, rtol=0)

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from audiogpt_tpu_torch.engines import T2AEngine, VocoderEngine, resolve_device
+from audiogpt_tpu_torch.models.textenc import CLAPScorer
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -33,6 +34,8 @@ def test_import_loads_no_jax_and_no_jax_package():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert "audiogpt_tpu_torch.engines.t2a" in result["modules"]
     assert "audiogpt_tpu_torch.ops.flash_attention" in result["modules"]
+    assert "audiogpt_tpu_torch.dsp.mel" in result["modules"]
+    assert "audiogpt_tpu_torch.models.caption.cnn14" in result["modules"]
     assert result["bad"] == []
 
 
@@ -43,6 +46,9 @@ def test_entry_points_need_cuda_without_device(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         VocoderEngine("bigvgan")
     with pytest.raises(RuntimeError, match="CUDA"):
+        VocoderEngine("bigvgan", bf16=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CLAPScorer()
+    with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
-

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card, at the
 edges of what each kernel takes: head dims that are and are not multiples
-of 16, unaligned and unequal sequence lengths, causal masking with
+of 16, unaligned and unequal sequence lengths (the inpaint path's
+cross-attention of 1060 queries on 77 keys among them), causal masking with
 Tq != Tk, fully masked rows, rows shorter than one tile, rows whose length
 is not a multiple of 16 bytes or is shorter than one thread's run, f32 and
 bf16.
@@ -68,6 +69,21 @@ def test_flash_head_dims_unaligned(gen, d, dtype):
 @pytest.mark.parametrize("tq,tk", [(150, 150), (100, 200), (200, 70), (1, 65)])
 def test_flash_causal_top_left(gen, tq, tk, dtype):
     _flash_check(*_qkv(gen, 2, tq, tk, 2, 64, dtype), causal=True)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tq,tk", [(1060, 77), (300, 77), (77, 300),
+                                   (130, 1), (65, 1000)])
+def test_flash_unequal_lengths(gen, tq, tk, dtype):
+    """Non-causal Tq != Tk with a partial last key tile (the inpaint path's
+    level-0 cross-attention is [1, 1060, 8, 40] on 77 keys)."""
+    _flash_check(*_qkv(gen, 1, tq, tk, 8, 40, dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_inpaint_level1_head_dim_80(gen, dtype):
+    """The inpaint path's level-1 self-attention, [1, 265, 8, 80]."""
+    _flash_check(*_qkv(gen, 1, 265, 265, 8, 80, dtype))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -1,7 +1,8 @@
 """The ported slice as a whole: a tiny JAX ``T2AEngine`` and its port, with
 the JAX parameters carried across, run the sampler → VAE decode → BigVGAN
-core on the same context and initial noise; then the port's
-``txt2audio_best`` runs end to end."""
+core on the same context and initial noise, and the ranked core with a CLAP
+scorer; then the port's ``txt2audio_best`` runs end to end, unranked and
+ranked."""
 
 import dataclasses
 
@@ -23,6 +24,7 @@ from audiogpt_tpu_torch.engines import T2AConfig, T2AEngine, VocoderEngine
 from audiogpt_tpu_torch.models.diffusion import UNetConfig, VAEConfig
 from audiogpt_tpu_torch.models.textenc import BertConfig, CLAPTextConfig
 from audiogpt_tpu_torch.models.vocoder import BigVGANConfig
+from test_torch_clap_scorer import make_scorers
 
 torch.set_num_threads(2)
 
@@ -162,3 +164,88 @@ def test_txt2audio_best_end_to_end(engines):
     np.testing.assert_array_equal(scores, np.zeros(3, np.float32))
     again = eng.txt2audio_best("a dog barks in the rain", n_samples=3, seed=0)
     np.testing.assert_array_equal(again[1], wav)   # the seed fixes the noise
+
+
+#: the ranked fixture's clips are 16384 samples (64 frames at hop 256), long
+#: enough for the scorer's 32 kHz Cnn14 frontend to keep one frame after its
+#: five pools
+RANK_VOC = dict(VOC, upsample_rates=(8, 8, 4),
+                upsample_kernel_sizes=(16, 16, 8))
+RANK_T2A = dict(T2A, mel_len=64)
+
+
+@pytest.fixture(scope="module")
+def ranked_engines():
+    jvoc = JaxVocoderEngine("bigvgan", cfg=JaxVocConfig(aa_impl="literal",
+                                                        **RANK_VOC),
+                            params={}, buckets=(RANK_T2A["mel_len"],))
+    jvoc.params = _random_params(jax.eval_shape(
+        jvoc.model.init, jax.random.PRNGKey(1),
+        jnp.zeros((1, 16, VOC["num_mels"]))), seed=3)
+    jsc, sc = make_scorers(seed=4)
+    jeng = JaxT2AEngine(JaxT2AConfig(
+        unet=JaxUNetConfig(use_checkpoint=False, **UNET),
+        vae=JaxVAEConfig(**VAE),
+        clap=JaxCLAPConfig(bert=JaxBertConfig(**BERT), d_proj=32,
+                           max_length=16), **RANK_T2A), params={},
+        vocoder=jvoc, scorer=jsc)
+    jeng.params = _random_params(
+        jax.eval_shape(jeng.init_params, jax.random.PRNGKey(0)), seed=5)
+    voc = VocoderEngine("bigvgan", cfg=BigVGANConfig(**RANK_VOC),
+                        params=jvoc.params, buckets=(RANK_T2A["mel_len"],),
+                        device="cpu")
+    eng = T2AEngine(T2AConfig(
+        unet=UNetConfig(**UNET), vae=VAEConfig(**VAE),
+        clap=CLAPTextConfig(bert=BertConfig(**BERT), d_proj=32,
+                            max_length=16), **RANK_T2A),
+        params=jeng.params, vocoder=voc, scorer=sc, device="cpu")
+    return jeng, eng
+
+
+def test_ranked_core_matches_jax(ranked_engines):
+    """The port's ``sample_vocode_rank`` against ``_sample_vocode_rank_fn``
+    on the same context and initial noise: scores, winner, its mel and
+    wav."""
+    jeng, eng = ranked_engines
+    text = "a dog barks in the rain"
+    rng = np.random.RandomState(9)
+    n, (h, w) = 3, eng.cfg.latent_hw
+    ctx = rng.randn(n, 16, 32).astype(np.float32)
+    unc = rng.randn(n, 16, 32).astype(np.float32)
+    x_T = rng.randn(n, h, w, 4).astype(np.float32)               # NHWC
+    sc = jeng.scorer
+    ids, mask = sc.tokenizer.encode(text, sc.cfg.max_length)
+    mel_ref, wav_ref, scores_ref = jeng._sample_vocode_rank_fn(
+        jeng.params, jeng.vocoder.params, sc.text_params, sc.audio_params,
+        jnp.asarray(ids)[None], jnp.asarray(mask)[None], jnp.asarray(ctx),
+        jnp.asarray(unc), jax.random.PRNGKey(0), jnp.asarray(x_T), 1.5, 3, h,
+        w, "dpmpp")
+    mel, wav, scores = eng.sample_vocode_rank(
+        text, torch.from_numpy(ctx), torch.from_numpy(unc),
+        torch.from_numpy(x_T.transpose(0, 3, 1, 2).copy()), 1.5, 3, "dpmpp")
+    scores_ref = np.asarray(scores_ref)
+    # cosine similarities at the end of the whole f32 chain: 1e-5 absolute,
+    # well below the gap between the candidates' scores
+    np.testing.assert_allclose(scores.numpy(), scores_ref, atol=1e-5, rtol=0)
+    assert np.ptp(scores_ref) > 1e-4
+    assert int(scores.argmax()) == int(scores_ref.argmax())
+    np.testing.assert_allclose(mel.numpy(), np.asarray(mel_ref)[..., 0],
+                               atol=2e-4, rtol=0)
+    np.testing.assert_allclose(wav.numpy(), np.asarray(wav_ref), atol=2e-4,
+                               rtol=0)
+
+
+def test_ranked_txt2audio_best_returns_the_argmax(ranked_engines):
+    _, eng = ranked_engines
+    text = "a dog barks in the rain"
+    mel, wav, scores = eng.txt2audio_best(text, n_samples=3, seed=1)
+    mels, wavs = eng.txt2audio(text, n_samples=3, seed=1,
+                               ddim_steps=eng.cfg.tool_steps,
+                               sampler=eng.cfg.tool_sampler)
+    assert scores.shape == (3,) and np.isfinite(scores).all()
+    np.testing.assert_allclose(scores, eng.scorer.score(text, wavs),
+                               atol=1e-6, rtol=0)
+    best = int(scores.argmax())
+    assert eng.select_best(text, wavs) == best
+    np.testing.assert_array_equal(wav, wavs[best])
+    np.testing.assert_array_equal(mel, mels[best])
