@@ -11,7 +11,10 @@ Engines run on the card unless the caller passes ``device="cpu"``.
 Ported so far: the T2A engine (``engines/t2a.py``): the ranked
 text-to-audio call and inpainting, with the CLAP text tower and scorer
 (Cnn14 audio tower, ``dsp/`` log-mel frontend), UNet, VAE, samplers and the
-BigVGAN vocoder (f32 or bf16).
+BigVGAN vocoder (f32 or bf16); the ASR engine (``engines/asr.py``):
+whisper with its KV-cache decode and fallback ladder, the BPE
+detokenizer (``text/``), wav I/O with resampling (``utils/audio_io.py``)
+and ``BatchedASR`` (``serving/``).
 """
 
 __version__ = "0.1.0"

@@ -1,3 +1,4 @@
 from audiogpt_tpu_torch.engines.base import Bucketer, resolve_device  # noqa: F401
 from audiogpt_tpu_torch.engines.t2a import T2AConfig, T2AEngine  # noqa: F401
 from audiogpt_tpu_torch.engines.vocoder import VocoderEngine  # noqa: F401
+from audiogpt_tpu_torch.engines.asr import ASREngine  # noqa: F401

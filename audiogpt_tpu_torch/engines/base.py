@@ -8,6 +8,7 @@ workarounds for its TPU tunnel and have no counterpart here.
 
 from __future__ import annotations
 
+import copy
 from typing import Sequence
 
 import torch
@@ -22,6 +23,13 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def run_copy(model: torch.nn.Module, bf16: bool) -> torch.nn.Module:
+    """The module an engine runs: ``model`` itself, or with ``bf16`` a
+    bfloat16 copy of it. The engine keeps ``model`` in f32 and calls this
+    once per weight load, so the copy never re-reads the f32 weights."""
+    return copy.deepcopy(model).to(torch.bfloat16) if bf16 else model
 
 
 class Bucketer:

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from audiogpt_tpu_torch.dsp.mel import LDM_MEL_16K, ldm_normalize, log_mel
-from audiogpt_tpu_torch.engines.base import resolve_device
+from audiogpt_tpu_torch.engines.base import resolve_device, run_copy
 from audiogpt_tpu_torch.engines.vocoder import VocoderEngine
 from audiogpt_tpu_torch.models.diffusion.samplers import (
     DiffusionSchedule,
@@ -56,11 +56,12 @@ class T2AConfig:
     linear_start: float = 0.00085
     linear_end: float = 0.0120
     #: run the UNet denoiser in bfloat16 (``audiogpt_tpu/engines/t2a.py``'s
-    #: ``unet_bf16``): its f32 parameters are cast to bf16 once, ``x`` and
+    #: ``unet_bf16``): a bf16 copy of the f32 UNet is cast once, ``x`` and
     #: the contexts go in as bf16 and ``eps`` comes back as f32; GroupNorm
     #: statistics stay f32 inside the model, the scheduler arithmetic and the
     #: VAE decode stay f32. The level-0 attention then takes the flash
-    #: kernel's bf16 entry.
+    #: kernel's bf16 entry. Inpainting runs the f32 UNet, as the JAX
+    #: engine's inpaint core does.
     unet_bf16: bool = False
     #: sampler of the agent tool call: DPM-Solver++(2M)-12, measured
     #: output-equivalent to the reference's DDIM-100 on this schedule by the
@@ -101,19 +102,33 @@ class T2AEngine:
             self.unet = UNetModel(cfg.unet)
             self.vae = AutoencoderKL(cfg.vae)
             self.clap = CLAPTextEncoder(cfg.clap)
-        if params is not None:
-            for key in ("unet", "vae", "clap"):
-                load_jax_params(getattr(self, key), params[key])
         for m in (self.unet, self.vae, self.clap):
             m.to(self.device).eval()
-        if cfg.unet_bf16:
-            self.unet.to(torch.bfloat16)
+        if params is not None:
+            self.load_jax_params(params)
+        else:
+            # the UNet the samplers of txt2audio run (inpaint runs ``unet``)
+            self._run = run_copy(self.unet, cfg.unet_bf16)
         self.schedule = DiffusionSchedule.linear(
             cfg.timesteps, cfg.linear_start, cfg.linear_end)
         self.tokenizer = WordPieceTokenizer(vocab_size=cfg.clap.bert.vocab_size)
         self.vocoder = vocoder
         self.scorer = scorer
         self._generator = torch.Generator(self.device).manual_seed(rng_seed)
+
+    def load_jax_params(self, params: dict) -> None:
+        """Load the JAX engine's ``{"unet", "vae", "clap"}`` trees (numpy
+        leaves), strictly."""
+        for key in ("unet", "vae", "clap"):
+            load_jax_params(getattr(self, key), params[key])
+        self._run = run_copy(self.unet, self.cfg.unet_bf16)
+
+    def load_state_dict(self, states: dict) -> None:
+        """Load f32 parameters: ``{"unet": ..., "vae": ..., "clap": ...}``
+        state dicts (any subset), strictly."""
+        for key, state in states.items():
+            getattr(self, key).load_state_dict(state)
+        self._run = run_copy(self.unet, self.cfg.unet_bf16)
 
     # -- conditioning -------------------------------------------------------
     @torch.inference_mode()
@@ -132,7 +147,7 @@ class T2AEngine:
         out, in bf16 inside under ``cfg.unet_bf16``."""
         if not self.cfg.unet_bf16:
             return self.unet(x, t, context)
-        return self.unet(x.bfloat16(), t, context.bfloat16()).float()
+        return self._run(x.bfloat16(), t, context.bfloat16()).float()
 
     @torch.inference_mode()
     def sample_core(self, context: torch.Tensor, uncond: torch.Tensor,
@@ -231,19 +246,14 @@ class T2AEngine:
         (1 = keep) → regenerated mel01 (the JAX engine's ``_inpaint_core``):
         VAE encode (the posterior's mode), the sampler with the mask blend
         from ``x_T`` with per-step ``noise``, VAE decode. The UNet runs in
-        f32, as the JAX core runs it whatever ``unet_bf16`` says."""
+        f32 whatever ``unet_bf16`` says, as the JAX core does."""
         cfg = self.cfg
-        if cfg.unet_bf16:
-            raise ValueError(
-                "inpaint runs the UNet in f32 (the JAX engine's inpaint core "
-                "ignores unet_bf16), but this engine cast its UNet to bf16: "
-                "build one with unet_bf16=False to inpaint")
         if sampler not in INPAINT_SAMPLERS:
             raise ValueError(f"inpaint sampler {sampler!r}: one of "
                              f"{sorted(INPAINT_SAMPLERS)}")
         z0 = self.vae.encode(mel01 * 2.0 - 1.0).mode() * cfg.scale_factor
         z = INPAINT_SAMPLERS[sampler](
-            self.eps, self.schedule, x_T, context, uncond, n_steps=n_steps,
+            self.unet, self.schedule, x_T, context, uncond, n_steps=n_steps,
             guidance_scale=guidance, mask=mask_latent, x0=z0, noise=noise)
         mel = self.vae.decode(z / cfg.scale_factor)
         return ((mel + 1.0) / 2.0).clamp(0.0, 1.0)

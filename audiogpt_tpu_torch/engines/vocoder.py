@@ -7,13 +7,16 @@ slices.
 
 from __future__ import annotations
 
-import copy
 from typing import Any
 
 import numpy as np
 import torch
 
-from audiogpt_tpu_torch.engines.base import Bucketer, resolve_device
+from audiogpt_tpu_torch.engines.base import (
+    Bucketer,
+    resolve_device,
+    run_copy,
+)
 from audiogpt_tpu_torch.models.vocoder.bigvgan import (
     BigVGANConfig,
     BigVGANGenerator,
@@ -51,18 +54,13 @@ class VocoderEngine:
             load_jax_params(self.model, params)
         self.model.to(self.device).eval()
         self.bf16 = bf16
-        self._cast()
+        self._run = run_copy(self.model, bf16)
         self.bucketer = Bucketer(buckets)
-
-    def _cast(self) -> None:
-        """The generator that runs: the f32 model, or its bf16 copy."""
-        self._run = (copy.deepcopy(self.model).to(torch.bfloat16)
-                     if self.bf16 else self.model)
 
     def load_state_dict(self, state: dict) -> None:
         """Load f32 parameters (a ``model.state_dict()``), strictly."""
         self.model.load_state_dict(state)
-        self._cast()
+        self._run = run_copy(self.model, self.bf16)
 
     @property
     def hop_size(self) -> int:

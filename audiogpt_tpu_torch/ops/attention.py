@@ -1,9 +1,11 @@
-"""Multi-head attention: the shared op of the UNet and the text towers.
+"""Multi-head attention: the shared op of the UNet, the text towers and
+whisper, and the decode's KV cache.
 
-Counterpart of ``audiogpt_tpu/ops/attention.py:43-74``, with the same
+Counterpart of ``audiogpt_tpu/ops/attention.py:22-74``, with the same
 dispatch rule: long sequences (Tq·Tk ≥ 256²) with no dense mask go to the
 flash kernel when the tensors are on the card; everything else is the plain
-product and softmax below. The KV cache comes with the ASR slice.
+product and softmax below. :class:`KVCache` is the static-length cache of
+autoregressive decode: its shape stays fixed for the whole decode.
 """
 
 from __future__ import annotations
@@ -15,6 +17,36 @@ from audiogpt_tpu_torch.ops.flash_attention import flash_attention
 NEG_INF = -1e30
 #: an attention goes to the flash kernel from this many (query, key) pairs
 FLASH_MIN_PAIRS = 256 * 256
+
+
+class KVCache:
+    """Static-length key/value cache ``[B, max_len, H, D]`` in the compute
+    dtype; ``index`` (a host int) is the next write position. ``update``
+    writes in place, so the tensors keep their storage for the whole
+    decode."""
+
+    def __init__(self, k: torch.Tensor, v: torch.Tensor, index: int = 0):
+        self.k, self.v, self.index = k, v, index
+
+    @classmethod
+    def create(cls, batch: int, max_len: int, heads: int, dim: int,
+               dtype: torch.dtype = torch.float32,
+               device: str | torch.device = "cpu") -> "KVCache":
+        return cls(torch.zeros(batch, max_len, heads, dim, dtype=dtype,
+                               device=device),
+                   torch.zeros(batch, max_len, heads, dim, dtype=dtype,
+                               device=device))
+
+    def update(self, k_new: torch.Tensor, v_new: torch.Tensor) -> "KVCache":
+        """Write ``[B, t, H, D]`` at ``index`` and advance it by t."""
+        t = k_new.shape[1]
+        if self.index + t > self.k.shape[1]:
+            raise ValueError(f"KV cache of {self.k.shape[1]} positions: "
+                             f"cannot write {t} at {self.index}")
+        self.k[:, self.index:self.index + t] = k_new
+        self.v[:, self.index:self.index + t] = v_new
+        self.index += t
+        return self
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

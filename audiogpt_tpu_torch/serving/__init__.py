@@ -1,0 +1,3 @@
+"""Serving: cross-request micro-batching (``batcher``)."""
+
+from audiogpt_tpu_torch.serving.batcher import BatchedASR, MicroBatcher  # noqa: F401

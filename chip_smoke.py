@@ -11,8 +11,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    instructions (HMMA / HGMMA) in the flash kernel.
 3. flash_attention: both entries (f32, bf16) against their plain versions at
    the T2A UNet shape, the three inpaint shapes (level-0 self- and
-   cross-attention, level-1 self-attention at D = 80) and two more (a key
-   mask, causal); kernel, plain and ``scaled_dot_product_attention`` (same
+   cross-attention, level-1 self-attention at D = 80), whisper-base's
+   encoder shape at batch 1 and 4, and two more (a key mask, causal); kernel, plain and ``scaled_dot_product_attention`` (same
    dtype) times; the grid's blocks and waves; bounds at the route's rate
    (3xTF32 or bf16 tensor cores) and at the f32 FMA rate.
 4. snake_aa: both entries against the plain up → snake → down chain at the
@@ -47,6 +47,26 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    untraced warm median), then the time of each layer (text tower, sampler,
    VAE decode, vocoder, CLAP ranking) between CUDA events, and the host's
    time to queue the sampler, median of 5 runs.
+11. asr: the agent's "Transcribe Speech" tool at whisper-base width
+   (``ASREngine(WhisperConfig())``, seeded random weights): a 30 s seeded
+   speech-like signal written as a 44.1 kHz wav, loaded with
+   ``load_wav(path, 16000)`` and transcribed with ``temperatures=(0.0,)``;
+   cold and warm (median of 5) times, RTF, peak memory, one call of the
+   six-rung fallback ladder, one ``return_segments`` call, one
+   ``detect_language`` (encoder + prime only); flash launches checked
+   against 6 per encoder pass; then the layer times (mel, encoder, prime,
+   decode per token), the launches per decode step and one traced call.
+12. asr_long: a 60 s clip, three windows in one batch of 4, warm median of
+   3.
+13. asr_bf16: ``ASREngine(bf16=True)`` with the same weights: K1's bf16
+   entry, warm median of 3, the encoder output's distance from the f32
+   one.
+14. asr_batched: ``BatchedASR`` with 4 concurrent calls riding one decode.
+15. asr_small_reference: a narrow whisper on the card (its encoder takes
+   K1) against the same weights on the CPU.
+
+The ``unet_bf16`` engine of phase 6 also inpaints (``inpaint_unet_bf16``):
+its f32 UNet gives the f32 engine's wav with the same draws.
 
 Before the last line: ``{"kernels": [...]}`` (each kernel with every path
 that launches it: its launches and per-call times) and the card's name and
@@ -84,6 +104,10 @@ TEXT = "a dog barks in the rain"
 WARM_CALLS = 10                       # warm main-path calls timed
 INPAINT_WARM_CALLS = 3                # warm inpaint calls timed
 STAGE_RUNS = 5                        # per-layer timings, median taken
+ASR_SECONDS = 30.0                    # whisper's window: RTF is against it
+ASR_WARM_CALLS = 5                    # warm ASR tool calls timed
+ASR_LONG_WARM_CALLS = 3               # warm 60 s calls timed
+ASR_BF16_WARM_CALLS = 3               # warm bf16 ASR calls timed
 
 
 def emit(obj: dict) -> None:
@@ -184,12 +208,16 @@ BF16_FLASH_TOL = (1e-2, 2 ** -7)          # absolute, relative
 #: flash cases: name → ((B, Tq, Tk, H, D), key lengths or None, causal). The
 #: T2A UNet's level-0 self-attention; the inpaint call's level-0 self- and
 #: cross-attention (77 keys: one partial key tile) and level-1
-#: self-attention (D = 80); the key-mask and causal code T2A does not reach
+#: self-attention (D = 80); whisper-base's encoder self-attention for one
+#: 30 s window and for the 4-window batch of a 60 s clip; the key-mask and
+#: causal code no path reaches
 FLASH_CASES = {
     "unet_level0": ((6, 780, 780, 8, 40), None, False),
     "inpaint_self_l0": ((1, 1060, 1060, 8, 40), None, False),
     "inpaint_cross_l0": ((1, 1060, 77, 8, 40), None, False),
     "inpaint_self_l1": ((1, 265, 265, 8, 80), None, False),
+    "asr_encoder": ((1, 1500, 1500, 8, 64), None, False),
+    "asr_long_encoder": ((4, 1500, 1500, 8, 64), None, False),
     "kv_mask": ((2, 1500, 1500, 6, 64), (1500, 1100), False),
     "causal": ((1, 256, 256, 2, 80), None, True),
 }
@@ -519,8 +547,8 @@ def phase_main_path_bf16(f32: dict) -> dict:
     base = f32["engine"]
     eng = T2AEngine(dataclasses.replace(base.cfg, unet_bf16=True),
                     vocoder=base.vocoder, scorer=base.scorer)
-    for name in ("unet", "vae", "clap"):
-        getattr(eng, name).load_state_dict(getattr(base, name).state_dict())
+    eng.load_state_dict({name: getattr(base, name).state_dict()
+                         for name in ("unet", "vae", "clap")})
     res = drive(eng)
     mel = res.pop("mel")
     res.pop("wav"), res.pop("mels")
@@ -530,7 +558,33 @@ def phase_main_path_bf16(f32: dict) -> dict:
     res["stages_ms"] = {k: statistics.median(r[k] for r in runs)
                         for k in runs[0]}
     emit({"phase": "main_path_bf16", "config": "unet_bf16", **res})
+    inpaint_bf16_engine(base, eng, f32["wav"])
     return {"launches": res["launches"], "warm_s": res["warm_s"]}
+
+
+def inpaint_bf16_engine(f32_eng, bf16_eng, wav) -> None:
+    """The inpaint tool's call on an engine built with ``unet_bf16`` runs
+    its f32 UNet: with the same draws its wav equals the f32 engine's."""
+    import torch
+
+    cfg = f32_eng.cfg
+    wavs, launches = [], []
+    for eng in (f32_eng, bf16_eng):
+        mel01, mask_latent = eng.inpaint_inputs(wav, tool_mask(cfg))
+        ctx = eng.encode_text([""])
+        gen = torch.Generator("cuda").manual_seed(11)
+        x_T = torch.randn(mask_latent.shape, generator=gen, device="cuda")
+        out, _, counts = counted(lambda: eng.vocoder.vocode(eng.inpaint_core(
+            mel01, mask_latent, ctx, ctx, x_T, gen, 1.0, 100, "ddim")[:, 0]))
+        wavs.append(out)
+        launches.append(counts)
+    diff = (wavs[0] - wavs[1]).abs().max().item()
+    emit({"phase": "inpaint_unet_bf16", "max_abs_diff_from_f32": diff,
+          "launches": launches[1]})
+    if diff > 1e-5 or launches[0] != launches[1] \
+            or launches[1]["flash_attention_bf16"]:
+        raise AssertionError(f"unet_bf16 engine's inpaint: {diff} from the "
+                             f"f32 engine's, launches {launches}")
 
 
 def inpaint_path(eng, steps: int = 100) -> dict:
@@ -870,6 +924,420 @@ def inpaint_stage_ms(eng, wav, mask) -> dict:
                                                        marks[1:])}}
 
 
+# ---------------------------------------------------------------------------
+# ASR: the agent's "Transcribe Speech" tool (whisper-base)
+# ---------------------------------------------------------------------------
+
+
+def speech_like(seconds: float, sr: int, seed: int):
+    """A seeded speech-like test signal: a voiced source (a gliding f0 with
+    12 harmonics) under a 4 Hz syllable envelope, over a noise floor."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = 140.0 + 40.0 * np.sin(2 * np.pi * 0.3 * t + 6.28 * rng.rand())
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    voiced = sum(np.sin(k * phase) / k for k in range(1, 13))
+    env = np.clip(np.sin(2 * np.pi * 4.0 * t + 6.28 * rng.rand()), 0, None)
+    return (0.2 * env ** 2 * voiced + 0.01 * rng.randn(t.size)).astype(
+        np.float32)
+
+
+def asr_flash_shapes(cfg, batches) -> Counter:
+    """Flash launches of the encoder passes whose batches are ``batches``:
+    every encoder layer's self-attention over ``n_audio_ctx`` positions
+    (``ops/attention.py``'s rule); the decoder's cached self-attention
+    carries a mask and its cross-attention has at most 4 queries, so
+    neither reaches the kernel."""
+    from audiogpt_tpu_torch.ops.attention import FLASH_MIN_PAIRS
+
+    ctx, h = cfg.n_audio_ctx, cfg.n_audio_head
+    if ctx * ctx < FLASH_MIN_PAIRS:
+        return Counter()
+    shapes = Counter()
+    for nb in batches:
+        shapes[(nb, ctx, ctx, h, cfg.n_audio_state // h)] += cfg.n_audio_layer
+    return shapes
+
+
+def asr_counted(eng, fn):
+    """:func:`counted` of ``fn``, and the batch of every encoder pass it
+    made; the launch counts must be those of the passes."""
+    batches = []
+    hook = eng._run.encoder.register_forward_hook(
+        lambda m, args, out: batches.append(int(args[0].shape[0])))
+    try:
+        out, seconds, counts = counted(fn)
+    finally:
+        hook.remove()
+    expected = expected_counts(asr_flash_shapes(eng.cfg, batches), Counter(),
+                               flash_bf16=eng.bf16)
+    if counts != expected:
+        raise AssertionError(f"ASR launches {counts} for encoder batches "
+                             f"{batches}, expected {expected}")
+    return out, seconds, counts, batches
+
+
+def device_launches(fn) -> int:
+    """Device activities (kernels, copies, sets) of one ``fn()``, traced."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+def asr_decode_parts(eng, wav):
+    """The engine's first decode of ``wav`` [T] taken apart: (the decode
+    function, mel, prompt, filter keywords) as ``_decode_stats`` passes
+    them."""
+    import torch
+
+    from audiogpt_tpu_torch.engines.asr import LANG_BASE, N_LANGS
+    from audiogpt_tpu_torch.models.asr import decode
+
+    mel = eng._mel(wav[None])
+    prompt = torch.from_numpy(eng._prompts(1, "translate", 0)).cuda()
+    sup, gte, blanks, nsid = eng._filters
+    kw = dict(eot_id=eng.eot, suppress=sup, suppress_gte=gte,
+              blank_ids=blanks, no_speech_id=nsid,
+              lang_range=(LANG_BASE, N_LANGS))
+    return decode, mel, prompt, kw
+
+
+def asr_stage_ms(eng, wav) -> dict:
+    """Time of each layer of one 30 s window's decode between CUDA events:
+    the log-mel, the encoder, the prime (a decode of 0 tokens: encoder,
+    prompt forward, first pick, less the encoder) and the decode per token
+    (a full decode less the 0-token one, over its decoder steps)."""
+    import torch
+
+    decode, _, prompt, kw = asr_decode_parts(eng, wav)
+    steps = []
+    hook = eng._run.decoder.register_forward_hook(
+        lambda *a: steps.append(1))
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    try:
+        with torch.inference_mode():
+            marks[0].record()
+            mel = eng._mel(wav[None])
+            marks[1].record()
+            eng._run.encode(mel.to(next(eng._run.parameters()).dtype))
+            marks[2].record()
+            decode(eng._run, mel, prompt, 0, **kw)
+            marks[3].record()
+            n0 = len(steps)
+            decode(eng._run, mel, prompt, eng.max_tokens, **kw)
+            marks[4].record()
+        marks[4].synchronize()
+    finally:
+        hook.remove()
+    n_steps = len(steps) - n0 - 1          # the prime's forward excluded
+    ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    return {"mel_ms": ms[0], "encoder_ms": ms[1],
+            "prime_ms": ms[2] - ms[1], "decode_ms": ms[3],
+            "decode_loop_ms": ms[3] - ms[2],
+            "decode_per_token_ms": (ms[3] - ms[2]) / n_steps,
+            "decode_steps": n_steps}
+
+
+def phase_asr(gen) -> dict:
+    """The ASR tool's call at whisper-base width: a 30 s seeded signal
+    written as a 44.1 kHz wav, loaded with ``load_wav(path, 16000)`` and
+    transcribed with ``temperatures=(0.0,)`` (auto language); cold and warm
+    times, peak memory, one call of the six-rung ladder, one
+    ``return_segments`` call, one ``detect_language``, the layer times, the
+    launches per decode step and one traced call."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.engines import ASREngine
+    from audiogpt_tpu_torch.models.asr import WhisperConfig
+    from audiogpt_tpu_torch.utils.audio_io import load_wav, save_wav
+
+    held = torch.cuda.memory_allocated()     # the T2A engines, still alive
+    t0 = time.perf_counter()
+    eng = ASREngine(WhisperConfig(), temperatures=(0.0,))
+    fill_random(eng.model, gen)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "speech_44k.wav")
+        save_wav(speech_like(ASR_SECONDS, 44100, 1), path, 44100)
+        loads = []
+        for _ in range(3):
+            t = time.perf_counter()
+            wav, sr = load_wav(path, 16000)
+            loads.append(time.perf_counter() - t)
+    if sr != 16000 or wav.shape != (480000,) or not np.isfinite(wav).all():
+        raise AssertionError(f"load_wav: {wav.shape} at {sr} Hz")
+
+    def call():
+        return eng.transcribe(wav)
+
+    cold = asr_counted(eng, call)
+    torch.cuda.reset_peak_memory_stats()
+    runs = [asr_counted(eng, call) for _ in range(ASR_WARM_CALLS)]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if any(r[0] != cold[0] for r in runs) or not isinstance(cold[0], str):
+        raise AssertionError("transcripts differ between calls")
+    toks = eng.transcribe_tokens(wav)
+    if toks.shape != (1, 4 + eng.max_tokens) or toks.min() < 0 \
+            or toks.max() >= eng.cfg.n_vocab:
+        raise AssertionError(f"tokens {toks.shape} in [{toks.min()}, "
+                             f"{toks.max()}]")
+    median = statistics.median(r[1] for r in runs)
+    redispatch = len(runs[0][3]) - 1      # the language re-dispatch
+    eng.temperatures = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
+    try:
+        ladder = asr_counted(eng, call)
+    finally:
+        eng.temperatures = (0.0,)
+    segs = asr_counted(eng, lambda: eng.transcribe(wav,
+                                                   return_segments=True))
+    if not all(0.0 <= s <= e <= ASR_SECONDS for s, e, _ in segs[0]):
+        raise AssertionError(f"segments {segs[0]}")
+    forwards = []
+    hook = eng._run.decoder.register_forward_hook(
+        lambda *a: forwards.append(1))
+    try:
+        det = asr_counted(eng, lambda: eng.detect_language(wav))
+    finally:
+        hook.remove()
+    probs = det[0][1]
+    if det[3] != [1] or forwards != [1] or probs.shape != (1, 99) \
+            or abs(float(probs.sum()) - 1.0) > 1e-4:
+        raise AssertionError(f"detect_language: encoder passes {det[3]}, "
+                             f"decoder forwards {len(forwards)}, probs "
+                             f"{probs.shape} summing to {probs.sum()}")
+    emit({"phase": "asr", "model": "whisper-base", "clip_s": ASR_SECONDS,
+          "file_sr": 44100, "setup_s": setup_s, "load_wav_s": loads[0],
+          "load_wav_warm_s": statistics.median(loads[1:]),
+          "cold_s": cold[1], "warm_s": median,
+          "warm_max_s": max(r[1] for r in runs), "warm_calls": len(runs),
+          "rtf": median / ASR_SECONDS, "peak_mem_gb": peak,
+          "asr_peak_mem_gb": peak - held / 1e9,
+          "launches": runs[-1][2], "encoder_batches": runs[-1][3],
+          "language_redispatch": bool(redispatch),
+          "max_tokens": eng.max_tokens, "text_chars": len(cold[0]),
+          "ladder": {"s": ladder[1], "rungs": len(ladder[3]) - redispatch,
+                     "encoder_passes": len(ladder[3]),
+                     "launches": ladder[2]},
+          "segments": {"s": segs[1], "n": len(segs[0]),
+                       "encoder_passes": len(segs[3])},
+          "detect_language": {"s": det[1], "language": int(det[0][0][0]),
+                              "p_max": float(probs.max()),
+                              "decoder_forwards": len(forwards)}})
+    runs_ms = [asr_stage_ms(eng, wav) for _ in range(3)]
+    stages = {k: statistics.median(r[k] for r in runs_ms)
+              for k in runs_ms[0]}
+    decode, mel, prompt, kw = asr_decode_parts(eng, wav)
+    steps = []
+    hook = eng._run.decoder.register_forward_hook(lambda *a: steps.append(1))
+    try:
+        n0 = device_launches(lambda: decode(eng._run, mel, prompt, 0, **kw))
+        s0 = len(steps)
+        n1 = device_launches(lambda: decode(eng._run, mel, prompt, 32, **kw))
+    finally:
+        hook.remove()
+    n_steps = len(steps) - 2 * s0
+    emit({"phase": "asr_stages", "runs": 3, **stages,
+          "decode_loop_share_of_call": stages["decode_loop_ms"] / 1e3
+          * len(runs[-1][3]) / median,
+          "launches_per_decode_step": (n1 - n0) / n_steps,
+          "launches_prime": n0, "steps_traced": n_steps})
+    profile_call("asr_profile", call, median)
+    return {"engine": eng, "wav": wav, "launches": runs[-1][2],
+            "batches": runs[-1][3], "warm_s": median, "held": held}
+
+
+def phase_asr_long(asr: dict) -> dict:
+    """A 60 s clip: three windows (1 s halo) in one padded batch of 4."""
+    import torch
+
+    eng = asr["engine"]
+    wav = speech_like(60.0, eng.cfg.sample_rate, 2)
+    n_windows = len(eng._windows(wav)[1])
+
+    def call():
+        return eng.transcribe(wav)
+
+    cold = asr_counted(eng, call)
+    torch.cuda.reset_peak_memory_stats()
+    runs = [asr_counted(eng, call) for _ in range(ASR_LONG_WARM_CALLS)]
+    if n_windows != 3 or any(b != [4] * len(b) for *_, b in runs):
+        raise AssertionError(f"{n_windows} windows, encoder batches "
+                             f"{[r[3] for r in runs]}")
+    median = statistics.median(r[1] for r in runs)
+    emit({"phase": "asr_long", "clip_s": 60.0, "windows": n_windows,
+          "cold_s": cold[1], "warm_s": median, "warm_calls": len(runs),
+          "rtf": median / 60.0,
+          "asr_peak_mem_gb": (torch.cuda.max_memory_allocated()
+                              - asr["held"]) / 1e9,
+          "launches": runs[-1][2], "encoder_batches": runs[-1][3],
+          "text_chars": len(runs[-1][0])})
+    return {"launches": runs[-1][2], "batches": runs[-1][3]}
+
+
+def phase_asr_bf16(asr: dict) -> dict:
+    """``ASREngine(bf16=True)`` with the f32 engine's weights on the same
+    clip: K1's bf16 entry in the encoder; the encoder output's distance
+    from the f32 engine's."""
+    import torch
+
+    from audiogpt_tpu_torch.engines import ASREngine
+
+    base, wav = asr["engine"], asr["wav"]
+    eng = ASREngine(base.cfg, temperatures=(0.0,), bf16=True)
+    eng.load_state_dict(base.model.state_dict())
+
+    def call():
+        return eng.transcribe(wav)
+
+    cold = asr_counted(eng, call)
+    torch.cuda.reset_peak_memory_stats()
+    runs = [asr_counted(eng, call) for _ in range(ASR_BF16_WARM_CALLS)]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with torch.inference_mode():
+        mel = base._mel(wav[None])
+        xa32 = base._run.encode(mel)
+        xa16 = eng._run.encode(mel.bfloat16()).float()
+    diff = (xa16 - xa32).abs()
+    rel = float(diff.max() / xa32.abs().max())
+    t32, t16 = base.transcribe_tokens(wav), eng.transcribe_tokens(wav)
+    median = statistics.median(r[1] for r in runs)
+    emit({"phase": "asr_bf16", "cold_s": cold[1], "warm_s": median,
+          "warm_s_f32": asr["warm_s"], "warm_calls": len(runs),
+          "rtf": median / ASR_SECONDS,
+          "asr_peak_mem_gb": peak - asr["held"] / 1e9,
+          "launches": runs[-1][2], "encoder_batches": runs[-1][3],
+          "encoder_max_abs_diff_from_f32": float(diff.max()),
+          "encoder_rms_diff_from_f32": float(diff.square().mean().sqrt()),
+          "encoder_max_rel_diff_from_f32": rel,
+          "tokens_equal_to_f32": int((t32 == t16).sum()),
+          "tokens": int(t32.size)})
+    # bf16 rounds each of 6 layers' outputs (2^-9 relative): the encoder
+    # stays within a few percent of the f32 engine's, far from a broken
+    # kernel or a mis-cast stream (O(1))
+    if not rel < 0.1:
+        raise AssertionError(f"bf16 encoder {rel} (relative) from f32")
+    return {"launches": runs[-1][2], "batches": runs[-1][3]}
+
+
+def phase_asr_batched(asr: dict) -> None:
+    """``BatchedASR`` with 4 concurrent ``transcribe`` calls (15–26 s
+    clips): they must ride one batched decode (encoder batch 4)."""
+    import threading
+
+    from audiogpt_tpu_torch.serving import BatchedASR
+
+    eng = asr["engine"]
+    wavs = [speech_like(ASR_SECONDS * (0.5 + 0.125 * i), 16000, 10 + i)
+            for i in range(4)]
+    proxy = BatchedASR(eng, max_batch=8, window_ms=200.0)
+    texts = [None] * len(wavs)
+
+    def request(i):
+        texts[i] = proxy.transcribe(wavs[i])
+
+    def run():
+        threads = [threading.Thread(target=request, args=(i,))
+                   for i in range(len(wavs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+
+    try:
+        _, wall, counts, batches = asr_counted(eng, run)
+    finally:
+        proxy.batcher.close()
+    emit({"phase": "asr_batched", "requests": len(wavs),
+          "dispatches": proxy.batcher.batches, "encoder_batches": batches,
+          "wall_s": wall, "single_warm_s": asr["warm_s"],
+          "launches": counts,
+          "batch_log": list(proxy.batcher.batch_log)})
+    if proxy.batcher.batches != 1 or proxy.batcher.items != len(wavs) \
+            or not batches or any(b != 4 for b in batches) \
+            or not all(isinstance(t, str) for t in texts):
+        raise AssertionError(f"{proxy.batcher.batches} batches for "
+                             f"{proxy.batcher.items} requests, encoder "
+                             f"batches {batches}")
+
+
+def phase_asr_small_reference() -> None:
+    """A narrow whisper on the card (the encoder's 300 positions take the
+    flash kernel) against the same weights on the CPU: the encoder output,
+    the prime's logits, and the t = 0 tokens at each step whose top-2
+    margin on the CPU exceeds 100× the logit error seen."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.engines import ASREngine
+    from audiogpt_tpu_torch.models.asr import WhisperConfig, whisper
+
+    cfg = WhisperConfig(n_audio_ctx=300, n_audio_state=128, n_audio_head=2,
+                        n_audio_layer=2, n_text_ctx=64, n_text_state=128,
+                        n_text_head=2, n_text_layer=2, chunk_length=6)
+    cpu = ASREngine(cfg, max_tokens=24, temperatures=(0.0,), device="cpu")
+    fill_random(cpu.model, torch.Generator().manual_seed(6))
+    card = ASREngine(cfg, max_tokens=24, temperatures=(0.0,))
+    card.load_state_dict(cpu.model.state_dict())
+    wav = speech_like(cfg.chunk_length, cfg.sample_rate, 3)
+    prompt = torch.tensor([card.sot_sequence()])
+    out, real = {}, whisper._pick
+    for name, eng in (("cpu", cpu), ("cuda", card)):
+        picks = []
+        whisper._pick = lambda lg, t, g, picks=picks: (
+            picks.append(lg.cpu()) or real(lg, t, g))
+        try:
+            mel = eng._mel(wav[None])
+            with torch.inference_mode():
+                xa, _, counts = counted(lambda: eng.model.encode(mel))
+            logits = whisper.prime(eng.model, mel, prompt.to(mel.device),
+                                   4)[2]
+            toks = eng.transcribe_tokens(wav)[0, 4:]
+        finally:
+            whisper._pick = real
+        out[name] = (xa.cpu(), logits.cpu(), toks, picks, counts)
+    enc_err = (out["cuda"][0] - out["cpu"][0]).abs().max().item()
+    err = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
+    prime_err, compared, equal = err, 0, True
+    n = len(out["cpu"][2])       # the last step's pick is not emitted
+    for step, (lg_cpu, lg_card) in enumerate(zip(out["cpu"][3][:n],
+                                                 out["cuda"][3][:n])):
+        kept = torch.isfinite(lg_cpu)          # suppressed ids are -inf
+        err = max(err, (lg_card - lg_cpu)[kept].abs().max().item())
+        top2 = torch.topk(lg_cpu, 2, dim=-1).values
+        if (top2[:, 0] - top2[:, 1]).min().item() <= 100 * err:
+            break
+        equal &= bool(out["cuda"][2][step] == out["cpu"][2][step])
+        compared += 1
+    emit({"phase": "asr_small_reference", "encoder_max_abs_err": enc_err,
+          "prime_logits_max_abs_err": prime_err, "logit_err_seen": err,
+          "steps_compared": compared, "steps": len(out["cpu"][2]),
+          "tokens_equal": equal, "cuda_launches": out["cuda"][4],
+          "cpu_launches": out["cpu"][4]})
+    expected = expected_counts(asr_flash_shapes(cfg, [1]), Counter())
+    if out["cuda"][4] != expected or any(out["cpu"][4].values()):
+        raise AssertionError(f"small whisper launches {out['cuda'][4]}, "
+                             f"expected {expected}; CPU {out['cpu'][4]}")
+    # f32 on both sides, TF32 off
+    if not (enc_err <= 1e-3 and prime_err <= 1e-3 and equal
+            and compared >= 1):
+        raise AssertionError(f"card vs CPU whisper: encoder {enc_err}, "
+                             f"logits {prime_err}, {compared} steps "
+                             f"compared, equal {equal}")
+
+
 def path_record(k: dict, path: str, shapes: Counter, launches: int) -> dict:
     """A kernel's share of one path: its launches, which the counters read
     and the configs must give (``shapes``), and per-call times, each the
@@ -944,10 +1412,16 @@ def main() -> int:
     vocoder_bf16 = phase_vocoder_bf16(main_path)
     phase_small_reference()
     phase_profile(main_path["engine"], main_path["warm_s"])
+    asr = phase_asr(gen)
+    asr_long = phase_asr_long(asr)
+    asr_bf16 = phase_asr_bf16(asr)
+    phase_asr_batched(asr)
+    phase_asr_small_reference()
 
     eng = main_path["engine"]
     t2a, inp = t2a_path(eng), inpaint_path(eng)
     counts, counts_bf16 = main_path["launches"], bf16_path["launches"]
+    wcfg = asr["engine"].cfg
     flash_src = "audiogpt_tpu_torch/csrc/flash_attention.cu"
     flash_tpu = "audiogpt_tpu/ops/flash_attention.py:143"
     snake_src = "audiogpt_tpu_torch/csrc/snake_aa.cu"
@@ -961,11 +1435,20 @@ def main() -> int:
             path_record(flash["float32"], "main_path", t2a["flash"],
                         f32(counts, "flash_attention")),
             path_record(flash["float32"], "inpaint", inp["flash"],
-                        f32(inpaint["launches"], "flash_attention"))],
+                        f32(inpaint["launches"], "flash_attention")),
+            path_record(flash["float32"], "asr",
+                        asr_flash_shapes(wcfg, asr["batches"]),
+                        f32(asr["launches"], "flash_attention")),
+            path_record(flash["float32"], "asr_long",
+                        asr_flash_shapes(wcfg, asr_long["batches"]),
+                        f32(asr_long["launches"], "flash_attention"))],
             flash_src, flash_tpu),
         kernel_entry(flash["bfloat16"], [
             path_record(flash["bfloat16"], "main_path_bf16", t2a["flash"],
-                        counts_bf16["flash_attention_bf16"])],
+                        counts_bf16["flash_attention_bf16"]),
+            path_record(flash["bfloat16"], "asr_bf16",
+                        asr_flash_shapes(wcfg, asr_bf16["batches"]),
+                        asr_bf16["launches"]["flash_attention_bf16"])],
             flash_src, flash_tpu),
         kernel_entry(snake["float32"], [
             path_record(snake["float32"], "main_path", t2a["snake"],

@@ -132,11 +132,26 @@ def test_inpaint_partial_mask_matches_jax(engines, sampler, two_d, scale):
 
 
 def test_inpaint_refuses_what_it_cannot_run(engines):
-    jeng, eng = engines
+    _, eng = engines
     mask = np.ones(T2A["inpaint_mel_len"], np.float32)
     with pytest.raises(ValueError, match="sampler"):
         eng.inpaint(_wav(2), mask, ddim_steps=STEPS, sampler="plms")
-    bf16 = T2AEngine(dataclasses.replace(eng.cfg, unet_bf16=True),
-                     params=jeng.params, device="cpu")
-    with pytest.raises(ValueError, match="unet_bf16"):
-        bf16.inpaint(_wav(2), mask, ddim_steps=STEPS)
+
+
+def test_inpaint_under_unet_bf16_equals_f32(engines):
+    """An engine built with ``unet_bf16`` keeps its f32 UNet and inpaints
+    with it, as the JAX engine's inpaint core does: the same weights and
+    draws give the f32 engine's wav, while its txt2audio samplers run the
+    bf16 copy."""
+    jeng, eng = engines
+    mask = np.ones(T2A["inpaint_mel_len"], np.float32)
+    mask[9:21] = 0.0
+    wavs = {}
+    for bf16 in (False, True):
+        e = T2AEngine(dataclasses.replace(eng.cfg, unet_bf16=bf16),
+                      params=jeng.params, vocoder=eng.vocoder, device="cpu")
+        assert (e._run is e.unet) != bf16
+        wavs[bf16] = e.inpaint(_wav(2), mask, text="a bell",
+                               ddim_steps=STEPS)
+    assert np.isfinite(wavs[True]).all() and wavs[True].std() > 0
+    np.testing.assert_array_equal(wavs[True], wavs[False])

@@ -10,7 +10,12 @@ from pathlib import Path
 import pytest
 import torch
 
-from audiogpt_tpu_torch.engines import T2AEngine, VocoderEngine, resolve_device
+from audiogpt_tpu_torch.engines import (
+    ASREngine,
+    T2AEngine,
+    VocoderEngine,
+    resolve_device,
+)
 from audiogpt_tpu_torch.models.textenc import CLAPScorer
 
 REPO = Path(__file__).resolve().parent.parent
@@ -23,7 +28,8 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "audiogpt_tpu"))
-print(json.dumps({"modules": names, "bad": bad}))
+print(json.dumps({"modules": names, "bad": bad,
+                  "regex": "regex" in sys.modules}))
 """
 
 
@@ -36,7 +42,13 @@ def test_import_loads_no_jax_and_no_jax_package():
     assert "audiogpt_tpu_torch.ops.flash_attention" in result["modules"]
     assert "audiogpt_tpu_torch.dsp.mel" in result["modules"]
     assert "audiogpt_tpu_torch.models.caption.cnn14" in result["modules"]
+    for name in ("models.asr.whisper", "engines.asr", "text.bpe",
+                 "dsp.resample", "utils.audio_io", "serving.batcher"):
+        assert f"audiogpt_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
+    # the BPE word splitters use the standard library's re: the card's
+    # machine has no third-party regex package
+    assert not result["regex"]
 
 
 def test_entry_points_need_cuda_without_device(monkeypatch):
@@ -49,6 +61,10 @@ def test_entry_points_need_cuda_without_device(monkeypatch):
         VocoderEngine("bigvgan", bf16=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         CLAPScorer()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ASREngine()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ASREngine(bf16=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")

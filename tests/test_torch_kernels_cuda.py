@@ -22,6 +22,12 @@ from audiogpt_tpu_torch.ops.flash_attention import (
 )
 from audiogpt_tpu_torch.ops.snake_aa import snake_aa, snake_aa_reference
 
+# the ASR engine card-vs-CPU check
+import numpy as np  # noqa: E402
+
+from audiogpt_tpu_torch.engines import ASREngine  # noqa: E402
+from audiogpt_tpu_torch.models.asr import WhisperConfig, whisper  # noqa: E402
+
 
 @pytest.fixture(scope="module")
 def gen():
@@ -84,6 +90,14 @@ def test_flash_unequal_lengths(gen, tq, tk, dtype):
 def test_flash_inpaint_level1_head_dim_80(gen, dtype):
     """The inpaint path's level-1 self-attention, [1, 265, 8, 80]."""
     _flash_check(*_qkv(gen, 1, 265, 265, 8, 80, dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [1, 4])
+def test_flash_whisper_encoder_shape(gen, b, dtype):
+    """whisper-base's encoder self-attention, [B, 1500, 8, 64]: one 30 s
+    window, and the 4-window batch of a 60 s clip."""
+    _flash_check(*_qkv(gen, b, 1500, 1500, 8, 64, dtype))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -177,3 +191,54 @@ def test_snake_rejects_what_the_kernel_does_not_take(gen):
         snake_aa(x.half(), ones, ones)
     with pytest.raises(ValueError):
         snake_aa(x, torch.ones(3, device="cuda"), ones)
+
+
+#: a narrow whisper whose encoder still takes the flash kernel on the card
+#: (300 positions: 300² pairs ≥ 256²), with the full vocab's blocks
+NARROW_WHISPER = dict(n_audio_ctx=300, n_audio_state=128, n_audio_head=2,
+                      n_audio_layer=2, n_text_ctx=64, n_text_state=128,
+                      n_text_head=2, n_text_layer=2, chunk_length=6)
+
+
+def test_asr_engine_on_the_card_matches_the_cpu(gen, monkeypatch):
+    """The same weights on the CPU (plain attention) and on the card (the
+    flash kernel in the encoder): the encoder output and the prime's logits
+    within 1e-3, and the t = 0 tokens equal at every step whose top-2 margin
+    on the CPU exceeds 100× the logit error seen."""
+    cfg = WhisperConfig(**NARROW_WHISPER)
+    cpu = ASREngine(cfg, max_tokens=16, temperatures=(0.0,), device="cpu")
+    card = ASREngine(cfg, max_tokens=16, temperatures=(0.0,))
+    card.load_state_dict(cpu.model.state_dict())
+    rng = np.random.RandomState(0)
+    wav = (0.1 * rng.randn(1, cfg.n_samples)).astype(np.float32)
+    prompt = torch.tensor([card.sot_sequence()])
+    out, real = {}, whisper._pick
+    for name, eng in (("cpu", cpu), ("cuda", card)):
+        picks = []
+        monkeypatch.setattr(whisper, "_pick", lambda lg, t, g, picks=picks: (
+            picks.append(lg.cpu()) or real(lg, t, g)))
+        before = flash_attention.launches
+        mel = eng._mel(wav)
+        with torch.inference_mode():
+            xa = eng.model.encode(mel)
+        launched = flash_attention.launches - before
+        logits = whisper.prime(eng.model, mel, prompt.to(mel.device), 4)[2]
+        toks = eng.transcribe_tokens(wav)[0, 4:]
+        out[name] = (xa.cpu(), logits.cpu(), toks, picks, launched)
+    assert out["cpu"][4] == 0 and out["cuda"][4] == cfg.n_audio_layer
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=1e-3,
+                               rtol=0)
+    err = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
+    assert err <= 1e-3
+    compared = 0
+    n = len(out["cpu"][2])       # the last step's pick is not emitted
+    for step, (lg_cpu, lg_card) in enumerate(zip(out["cpu"][3][:n],
+                                                 out["cuda"][3][:n])):
+        kept = torch.isfinite(lg_cpu)          # suppressed ids are -inf
+        err = max(err, (lg_card - lg_cpu)[kept].abs().max().item())
+        top2 = torch.topk(lg_cpu, 2, dim=-1).values
+        if (top2[:, 0] - top2[:, 1]).min().item() <= 100 * err:
+            break
+        assert out["cuda"][2][step] == out["cpu"][2][step]
+        compared += 1
+    assert compared >= 1

@@ -129,7 +129,8 @@ def test_unet_bf16_matches_jax(engines):
                       params=jeng.params)
     pb = T2AEngine(dataclasses.replace(eng.cfg, unet_bf16=True),
                    params=jeng.params, device="cpu")
-    assert all(p.dtype == torch.bfloat16 for p in pb.unet.parameters())
+    assert all(p.dtype == torch.bfloat16 for p in pb._run.parameters())
+    assert all(p.dtype == torch.float32 for p in pb.unet.parameters())
     rng = np.random.RandomState(8)
     n, (h, w) = 2, eng.cfg.latent_hw
     ctx = rng.randn(n, 16, 32).astype(np.float32)
