@@ -14,7 +14,10 @@ text-to-audio call and inpainting, with the CLAP text tower and scorer
 BigVGAN vocoder (f32 or bf16); the ASR engine (``engines/asr.py``):
 whisper with its KV-cache decode and fallback ladder, the BPE
 detokenizer (``text/``), wav I/O with resampling (``utils/audio_io.py``)
-and ``BatchedASR`` (``serving/``).
+and ``BatchedASR`` (``serving/``); the TTS engine (``engines/tts.py``): the
+English frontend (``text/``), FastSpeech2 and HiFi-GAN, with
+``BatchedTTS``; every ``VocoderEngine`` kind (HiFi-GAN with NSF, BigVGAN,
+PWG, MelGAN) and ``denoise``.
 """
 
 __version__ = "0.1.0"

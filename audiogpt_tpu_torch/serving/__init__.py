@@ -1,3 +1,4 @@
 """Serving: cross-request micro-batching (``batcher``)."""
 
-from audiogpt_tpu_torch.serving.batcher import BatchedASR, MicroBatcher  # noqa: F401
+from audiogpt_tpu_torch.serving.batcher import (BatchedASR,  # noqa: F401
+                                                BatchedTTS, MicroBatcher)

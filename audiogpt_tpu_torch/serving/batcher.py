@@ -1,12 +1,12 @@
 """Cross-request micro-batching for serving.
 
-Counterpart of ``audiogpt_tpu/serving/batcher.py:29-130, 174-210``.
+Counterpart of ``audiogpt_tpu/serving/batcher.py:29-210``.
 Concurrent requests for one engine ride one batched call: requests enqueue
 into a :class:`MicroBatcher`; a worker thread drains up to ``max_batch``
 items, waiting at most ``window_ms`` for stragglers after the first
 arrival; the engine's batch function runs once; each caller gets its own
 result through a future. Any callable ``list[item] -> list[result]`` can be
-wrapped. (``BatchedTTS`` comes with the TTS slice.)
+wrapped: ``BatchedTTS`` and ``BatchedASR`` wrap the engines' batch calls.
 """
 
 from __future__ import annotations
@@ -120,6 +120,41 @@ class MicroBatcher:
                         f.set_exception(err)
                 except Exception:
                     pass
+
+
+class BatchedTTS:
+    """Micro-batching proxy for a TTS engine: concurrent ``__call__``s ride
+    one FS2 pass (and one vocoder pass) through
+    :meth:`TTSEngine.batch_synthesize`. A text beyond the largest token
+    bucket runs the chunked long-form synthesis on the caller's thread, so
+    it does not hold up the batch worker; a frontend error reaches the
+    caller (the JAX proxy swallows it, ``batcher.py:160-167``). Every other
+    attribute proxies to the engine."""
+
+    def __init__(self, engine, max_batch: int = 8, window_ms: float = 8.0):
+        self.engine = engine
+        self.batcher = MicroBatcher(engine.batch_synthesize,
+                                    max_batch=max_batch, window_ms=window_ms,
+                                    name="tts")
+
+    def warmup(self, token_buckets=None) -> None:
+        """Run the engine over this batcher's batch ladder (1, 2, 4, …,
+        max_batch) at every token bucket."""
+        sizes, nb = [], 1
+        while nb <= self.batcher.max_batch:
+            sizes.append(nb)
+            nb *= 2
+        self.engine.warmup(batch_sizes=tuple(sizes),
+                           token_buckets=token_buckets)
+
+    def __call__(self, text: str):
+        ids = self.engine.frontend.encode(text)
+        if len(ids) > max(self.engine.bucketer.buckets):
+            return self.engine(text)
+        return self.batcher(text)
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
 
 
 class BatchedASR:

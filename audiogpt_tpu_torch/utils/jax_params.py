@@ -15,7 +15,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from audiogpt_tpu_torch.ops.conv import ConvTranspose1d
+from audiogpt_tpu_torch.ops.conv import ConvTranspose1d, FlaxConvTranspose1d
 
 #: flax leaf name → torch parameter name
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
@@ -43,6 +43,9 @@ def _kernel_layout(owner: nn.Module, kernel: np.ndarray) -> np.ndarray:
     if isinstance(owner, (nn.Conv1d, ConvTranspose1d)):
         # Conv1d WIO → OIW; ConvTranspose1d [W, O, I] → [I, O, W], no flip
         return kernel.transpose(2, 1, 0)
+    if isinstance(owner, FlaxConvTranspose1d):
+        # flax nn.ConvTranspose [W, I, O], applied unflipped → [I, O, W]
+        return np.ascontiguousarray(kernel[::-1].transpose(1, 2, 0))
     raise TypeError(f"no kernel layout for {type(owner).__name__}")
 
 

@@ -64,6 +64,24 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 14. asr_batched: ``BatchedASR`` with 4 concurrent calls riding one decode.
 15. asr_small_reference: a narrow whisper on the card (its encoder takes
    K1) against the same weights on the CPU.
+16. tts: the agent's "Synthesize Speech" tool at the app's width
+   (``TTSEngine()``: FastSpeech2 hidden 256, 4 + 4 layers, ``max_frames``
+   1024; HiFi-GAN V1; seeded random weights, the duration predictor's
+   output set to ≈ 6 frames a phone) on a 113-phone sentence: the fused
+   pass (FS2 on the 128 bucket, HiFi-GAN on the whole canvas, int16, the
+   valid samples copied); neither kernel may launch; cold and warm
+   (median of 10) times, RTF, set-up, peak memory, device launches per
+   call; the layer times (``tts_stages``) and one traced call
+   (``tts_profile``).
+17. tts_long: ``synthesize_long`` on a 446-phone text (two chunks, each
+   overrunning the canvas, whose tail is cut as in JAX).
+18. tts_batched: ``BatchedTTS`` with 4 concurrent requests (one batch of 4)
+   against the 4 texts as single calls.
+19. tts_vocoders: ``VocoderEngine`` kinds ``hifigan`` with NSF, ``pwg`` and
+   ``melgan`` at default widths on the 1024-frame canvas; the NSF source
+   on the card against the CPU; ``denoise`` of the TTS wav.
+20. tts_small_reference: a narrow FS2 + HiFi-GAN on the card against the
+   same weights on the CPU.
 
 The ``unet_bf16`` engine of phase 6 also inpaints (``inpaint_unet_bf16``):
 its f32 UNet gives the f32 engine's wav with the same draws.
@@ -108,6 +126,28 @@ ASR_SECONDS = 30.0                    # whisper's window: RTF is against it
 ASR_WARM_CALLS = 5                    # warm ASR tool calls timed
 ASR_LONG_WARM_CALLS = 3               # warm 60 s calls timed
 ASR_BF16_WARM_CALLS = 3               # warm bf16 ASR calls timed
+#: the TTS tool's sentence: 113 phones (token bucket 128)
+TTS_TEXT = ("The quick brown fox jumps over the lazy dog near the old river "
+            "bank, while the children sing songs about the long summer days.")
+#: 446 phones: two clause chunks (205 and 242 phones) in the 256 bucket
+TTS_LONG_TEXT = (
+    "Once upon a time, in a small village at the edge of a great forest, "
+    "there lived an old clockmaker and his daughter. Every morning, before "
+    "the sun had risen over the hills, the clockmaker would open his shop, "
+    "light the lamps, and wind each of the hundred clocks that hung upon the "
+    "walls. The daughter swept the floor, fed the cat, and listened to the "
+    "ticking, which she said sounded like rain on the roof; and when the "
+    "bells of the church rang at noon, every clock in the shop answered "
+    "them at once.")
+TTS_BATCH_TEXTS = (TTS_TEXT,
+                   "Hello, how can I help you with your audio today?",
+                   "The weather will be sunny with a light breeze.",
+                   "Please speak after the tone, then wait for the reply.")
+TTS_WARM_CALLS = 10                   # warm TTS tool calls timed
+#: the duration predictor's output layer: its weights scaled by 0.25 and
+#: its bias 1.9, so round(exp(d) − 1) ≈ 6 frames a phone (untouched random
+#: weights round most phones to 0 frames)
+TTS_DUR_SCALE, TTS_DUR_BIAS = 0.25, 1.9
 
 
 def emit(obj: dict) -> None:
@@ -1273,6 +1313,392 @@ def phase_asr_batched(asr: dict) -> None:
                              f"batches {batches}")
 
 
+# ---------------------------------------------------------------------------
+# TTS: the agent's "Synthesize Speech" tool (FastSpeech2 + HiFi-GAN V1)
+# ---------------------------------------------------------------------------
+
+
+def set_durations(model) -> None:
+    """Scale and bias the duration predictor's output layer (see
+    ``TTS_DUR_SCALE``)."""
+    import torch
+
+    out = model.dur_predictor.out
+    with torch.no_grad():
+        out.weight.mul_(TTS_DUR_SCALE)
+        out.bias.fill_(TTS_DUR_BIAS)
+
+
+def tts_durations(eng, text: str) -> dict:
+    """Phones, frames on the canvas, mean frames per phone and whether the
+    canvas cut the durations (their sum against ``max_frames``)."""
+    import torch
+
+    ids = eng.frontend.encode(text)
+    with torch.inference_mode():
+        out = eng.model(eng._tokens([ids]))
+    dur = (torch.exp(out["dur"][0, :len(ids)]) - 1.0).round().clamp_min(0)
+    total = int(dur.sum())
+    frames = int((out["mel2ph"] > 0).sum())
+    return {"phones": len(ids), "frames": frames,
+            "frames_per_phone": total / len(ids), "durations_sum": total,
+            "canvas": eng.cfg.max_frames,
+            "canvas_cut": total > eng.cfg.max_frames,
+            "audio_s": frames * eng.vocoder.hop_size / eng.sample_rate}
+
+
+def check_no_kernels(counts: dict, what: str) -> None:
+    """The TTS path launches neither kernel: FS2's attention passes a dense
+    mask (the plain path) and HiFi-GAN has no snake."""
+    if any(counts.values()):
+        raise AssertionError(f"{what}: kernel launches {counts}")
+
+
+def tts_stage_ms(eng, text: str) -> dict:
+    """Time of each layer of one warm fused TTS call, through the engine's
+    own steps (``_fs2``, ``_vocode16``, ``_valid_rows``): the frontend on
+    the host clock, then between CUDA events FS2 on the token bucket,
+    HiFi-GAN on the whole canvas with the int16 cast, and the copy of the
+    valid samples; and the host's time to queue FS2."""
+    import torch
+
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    t0 = time.perf_counter()
+    ids = eng.frontend.encode(text)
+    frontend_ms = (time.perf_counter() - t0) * 1e3
+    toks = eng._tokens([ids])
+    marks[0].record()
+    t0 = time.perf_counter()
+    mel, n = eng._fs2(toks)
+    fs2_host_ms = (time.perf_counter() - t0) * 1e3
+    marks[1].record()
+    wav16 = eng._vocode16(mel)
+    marks[2].record()
+    eng._valid_rows(wav16, n, 1)
+    marks[3].record()
+    marks[3].synchronize()
+    names = ("fs2_ms", "hifigan_int16_ms", "copy_ms")
+    return {"frontend_host_ms": frontend_ms, "fs2_host_ms": fs2_host_ms,
+            **{n: a.elapsed_time(b) for n, a, b in zip(names, marks,
+                                                       marks[1:])}}
+
+
+def phase_tts(gen) -> dict:
+    """The TTS tool's call at the app's width: ``TTSEngine()`` (FS2 hidden
+    256, 4 + 4 layers, 2 heads, FFN kernel 9, ``max_frames`` 1024;
+    HiFi-GAN V1) with seeded random weights and durations set to ≈ 6
+    frames a phone, on one 113-phone sentence: cold and warm times, RTF,
+    set-up, peak memory, launches (neither kernel), layer times, one traced
+    call."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.engines import TTSEngine
+
+    held = torch.cuda.memory_allocated()     # the earlier engines, alive
+    t0 = time.perf_counter()
+    eng = TTSEngine()
+    fill_random(eng.model, gen)
+    fill_random(eng.vocoder.model, gen)
+    set_durations(eng.model)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    info = tts_durations(eng, TTS_TEXT)
+    if not (80 <= info["phones"] <= 128 and not info["canvas_cut"]
+            and 4.0 <= info["frames_per_phone"] <= 10.0):
+        raise AssertionError(f"TTS sentence {info}")
+
+    def call():
+        return eng(TTS_TEXT)
+
+    cold = counted(call)
+    torch.cuda.reset_peak_memory_stats()
+    runs = [counted(call) for _ in range(TTS_WARM_CALLS)]
+    peak = torch.cuda.max_memory_allocated()
+    for wav, _, counts in [cold] + runs:
+        check_no_kernels(counts, "tts")
+    wav = cold[0]
+    n_samples = info["frames"] * eng.vocoder.hop_size
+    if wav.dtype != np.float32 or wav.shape != (n_samples,) \
+            or not np.isfinite(wav).all() or float(wav.std()) == 0.0:
+        raise AssertionError(f"TTS wav {wav.dtype} {wav.shape} (expected "
+                             f"{n_samples}), std {wav.std()}")
+    # the same kernels on the same inputs: equal within one int16 step
+    drift = max(float(np.abs(r[0] - wav).max()) for r in runs)
+    if drift > 1.5 / 32767:
+        raise AssertionError(f"TTS calls differ by {drift}")
+    warm = sorted(r[1] for r in runs)
+    median = statistics.median(warm)
+    launches = device_launches(call)
+    emit({"phase": "tts", "model": "fastspeech2+hifigan_v1",
+          "text_phones": info["phones"], "token_bucket":
+          eng.bucketer.bucket(info["phones"]),
+          "frames": info["frames"],
+          "frames_per_phone": info["frames_per_phone"],
+          "canvas": info["canvas"], "canvas_cut": info["canvas_cut"],
+          "audio_s": info["audio_s"], "samples": n_samples,
+          "canvas_samples": eng.cfg.max_frames * eng.vocoder.hop_size,
+          "setup_s": setup_s, "cold_s": cold[1], "warm_s": median,
+          "warm_max_s": warm[-1], "warm_calls": len(warm),
+          "rtf": median / info["audio_s"],
+          "tts_peak_mem_gb": (peak - held) / 1e9,
+          "params_m": sum(p.numel() for m in (eng.model, eng.vocoder.model)
+                          for p in m.parameters()) / 1e6,
+          "kernel_launches": runs[-1][2], "device_launches": launches,
+          "max_drift_between_calls": drift,
+          "wav_std": float(wav.std())})
+    runs_ms = [tts_stage_ms(eng, TTS_TEXT) for _ in range(STAGE_RUNS)]
+    stages = {k: statistics.median(r[k] for r in runs_ms)
+              for k in runs_ms[0]}
+    device = stages["fs2_ms"] + stages["hifigan_int16_ms"]
+    emit({"phase": "tts_stages", "runs": STAGE_RUNS, **stages,
+          "hifigan_share_of_fs2_plus_hifigan": stages["hifigan_int16_ms"]
+          / device})
+    profile_call("tts_profile", call, median)
+    return {"engine": eng, "wav": wav, "warm_s": median, "held": held,
+            "audio_s": info["audio_s"]}
+
+
+def phase_tts_long(tts: dict) -> None:
+    """``synthesize_long`` on a 446-phone text: clause chunks in the
+    256-phone bucket, joined with 0.1 s gaps. At ≈ 6 frames a phone a
+    chunk overruns the 1024-frame canvas and loses its tail, as in the JAX
+    package (only phones are checked)."""
+    import numpy as np
+
+    from audiogpt_tpu_torch.engines.tts import (split_for_buckets,
+                                                synthesize_long)
+
+    eng = tts["engine"]
+    chunks = split_for_buckets(
+        eng.frontend, TTS_LONG_TEXT,
+        lambda pt: len(pt.phones) <= max(eng.bucketer.buckets))
+    per_chunk = [tts_durations(eng, c) for c in chunks]
+
+    def call():
+        return synthesize_long(eng, TTS_LONG_TEXT)
+
+    cold = counted(call)
+    runs = [counted(call) for _ in range(3)]
+    for r in [cold] + runs:
+        check_no_kernels(r[2], "tts_long")
+    gap = int(0.1 * eng.sample_rate)
+    want = sum(c["frames"] for c in per_chunk) * eng.vocoder.hop_size \
+        + gap * (len(chunks) - 1)
+    if len(chunks) != 2 or cold[0].shape != (want,) \
+            or not np.isfinite(cold[0]).all():
+        raise AssertionError(f"{len(chunks)} chunks, wav {cold[0].shape}, "
+                             f"expected {want}")
+    median = statistics.median(r[1] for r in runs)
+    audio_s = len(cold[0]) / eng.sample_rate
+    emit({"phase": "tts_long", "phones": sum(c["phones"] for c in per_chunk),
+          "chunks": len(chunks), "chunk_phones":
+          [c["phones"] for c in per_chunk],
+          "chunk_durations_sum": [c["durations_sum"] for c in per_chunk],
+          "chunk_frames": [c["frames"] for c in per_chunk],
+          "canvas_cut": [c["canvas_cut"] for c in per_chunk],
+          "cold_s": cold[1], "warm_s": median, "audio_s": audio_s,
+          "rtf": median / audio_s})
+
+
+def phase_tts_batched(tts: dict) -> None:
+    """``BatchedTTS`` with 4 concurrent requests (one batch of 4 at the
+    128 bucket) against the same 4 texts as single calls."""
+    import threading
+
+    import numpy as np
+
+    from audiogpt_tpu_torch.serving import BatchedTTS
+
+    eng = tts["engine"]
+    proxy = BatchedTTS(eng, max_batch=8, window_ms=200.0)
+    proxy.warmup(token_buckets=(128,))
+    out = [None] * len(TTS_BATCH_TEXTS)
+
+    def request(i):
+        out[i] = proxy(TTS_BATCH_TEXTS[i])
+
+    def run():
+        threads = [threading.Thread(target=request, args=(i,))
+                   for i in range(len(TTS_BATCH_TEXTS))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+
+    try:
+        _, wall, counts = counted(run)
+    finally:
+        proxy.batcher.close()
+    singles, single_s, single_counts = counted(
+        lambda: [eng(t) for t in TTS_BATCH_TEXTS])
+    check_no_kernels(counts, "tts_batched")
+    check_no_kernels(single_counts, "tts_batched singles")
+    diff = max(float(np.abs(a - b).max()) if a.shape == b.shape else np.inf
+               for a, b in zip(out, singles))
+    emit({"phase": "tts_batched", "requests": len(out),
+          "dispatches": proxy.batcher.batches, "wall_s": wall,
+          "four_single_calls_s": single_s, "single_warm_s": tts["warm_s"],
+          "max_abs_diff_from_single_calls": diff,
+          "batch_log": list(proxy.batcher.batch_log)})
+    # a batch of 4 may take other cuDNN algorithms than batch 1: the int16
+    # wav may move by a step
+    if proxy.batcher.batches != 1 or proxy.batcher.items != len(out) \
+            or diff > 2.5 / 32767:
+        raise AssertionError(f"{proxy.batcher.batches} batches for "
+                             f"{proxy.batcher.items} requests, {diff} from "
+                             f"the single calls")
+
+
+def phase_tts_vocoders(tts: dict, gen) -> None:
+    """``VocoderEngine`` kinds ``hifigan`` with NSF, ``pwg`` and ``melgan``
+    at their default widths on a 1024-frame mel (the TTS canvas's, with its
+    f0 for NSF): warm ms and launches; the NSF source on the card against
+    the CPU for the same draws; ``denoise`` of the TTS wav."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.engines.vocoder import VocoderEngine, denoise
+    from audiogpt_tpu_torch.models.vocoder import HifiGANConfig
+    from audiogpt_tpu_torch.models.vocoder.hifigan import harmonic_source
+
+    eng = tts["engine"]
+    with torch.inference_mode():
+        out = eng.model(eng._tokens([eng.frontend.encode(TTS_TEXT)]))
+    mel = out["mel_out"].transpose(1, 2).contiguous()       # [1, 80, 1024]
+    f0 = out["f0_denorm"]
+    res = {}
+    for kind, cfg in (("hifigan", HifiGANConfig(use_nsf=True)),
+                      ("pwg", None), ("melgan", None)):
+        voc = VocoderEngine(kind, cfg, buckets=(eng.cfg.max_frames,))
+        fill_random(voc.model, gen)
+
+        def call(voc=voc):
+            return voc.vocode(mel, f0 if voc.use_nsf else None)
+
+        wav, _, counts = counted(call)
+        check_no_kernels(counts, f"vocoder {kind}")
+        if wav.shape != (1, eng.cfg.max_frames * voc.hop_size) \
+                or not bool(torch.isfinite(wav).all()):
+            raise AssertionError(f"{kind} wav {tuple(wav.shape)}")
+        res[kind] = {"ms": time_ms(call, 5, warmup=2),
+                     "device_launches": device_launches(call),
+                     "params_m": sum(p.numel() for p in voc.model.parameters())
+                     / 1e6, "hop": voc.hop_size}
+        del voc
+    cfg = HifiGANConfig(use_nsf=True)
+    cpu = torch.Generator().manual_seed(3)
+    h = cfg.harmonic_num + 1
+    s = f0.shape[1] * cfg.hop_size
+    draws = (torch.rand(1, 1, h, generator=cpu),
+             torch.randn(1, s, h, generator=cpu))
+    args = (cfg.hop_size, cfg.sample_rate, cfg.harmonic_num, cfg.sine_amp,
+            cfg.noise_std, cfg.voiced_threshold)
+    src_cpu = harmonic_source(f0.cpu(), *args, draws)
+    src_card = harmonic_source(f0, *args,
+                               tuple(d.to(f0.device) for d in draws))
+    nsf_diff = float((src_card.cpu() - src_cpu).abs().max())
+    wav = tts["wav"]
+    clean = denoise(wav)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        denoise(wav)
+        times.append(time.perf_counter() - t0)
+    den_diff = float(np.abs(clean - denoise(wav, device="cpu")).max())
+    emit({"phase": "tts_vocoders", "frames": eng.cfg.max_frames, **res,
+          "nsf_source_samples": s,
+          "nsf_source_card_vs_cpu_max_abs_diff": nsf_diff,
+          "denoise_ms": statistics.median(times) * 1e3,
+          "denoise_card_vs_cpu_max_abs_diff": den_diff})
+    if clean.shape != wav.shape or not np.isfinite(clean).all() \
+            or den_diff > 1e-4:
+        raise AssertionError(f"denoise {clean.shape} vs {wav.shape}, "
+                             f"{den_diff} from the CPU")
+
+
+def phase_tts_small_reference() -> None:
+    """A narrow FS2 + HiFi-GAN on the card against the same weights on the
+    CPU (TF32 off): ``mel2ph`` equal, mel and f32 wav within 1e-4, the int16
+    wav of the fused chunk within one step. The pitch output is held inside
+    one coarse bin (weights · 1e-3, bias mid-bin), so no pitch bin sits on
+    a rounding edge; each duration's margin is printed."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.engines import TTSEngine, VocoderEngine
+    from audiogpt_tpu_torch.models.tts import FastSpeech2Config
+    from audiogpt_tpu_torch.models.tts import fastspeech2 as fs
+    from audiogpt_tpu_torch.models.vocoder import HifiGANConfig
+
+    cfg = FastSpeech2Config(hidden_size=64, enc_layers=2, dec_layers=2,
+                            predictor_layers=2, max_frames=1024)
+    vcfg = HifiGANConfig(upsample_initial_channel=64,
+                         upsample_rates=(8, 8, 4),
+                         upsample_kernel_sizes=(16, 16, 8),
+                         resblock_kernel_sizes=(3, 7),
+                         resblock_dilation_sizes=((1, 3), (1, 3)))
+    engines = {}
+    for dev in ("cpu", "cuda"):
+        engines[dev] = TTSEngine(cfg, vocoder=VocoderEngine(
+            "hifigan", vcfg, buckets=(1024,), device=dev),
+            token_buckets=(128,), device=dev)
+    cpu, card = engines["cpu"], engines["cuda"]
+    # seed 9: the smallest distance of a duration from its rounding edge
+    # is 5.6e-3 (the card's durations differ from the CPU's by ~1e-6)
+    fill_random(cpu.model, torch.Generator().manual_seed(9))
+    fill_random(cpu.vocoder.model, torch.Generator().manual_seed(8))
+    set_durations(cpu.model)
+    mel_mid = 59 * (fs.F0_MEL_MAX - fs.F0_MEL_MIN) / (fs.F0_BIN - 2) \
+        + fs.F0_MEL_MIN
+    with torch.no_grad():
+        out_layer = cpu.model.pitch_predictor.out
+        out_layer.weight[0].mul_(1e-3)
+        out_layer.bias[0] = (700.0 * math.expm1(mel_mid / 1127.0)
+                             - cfg.f0_mean) / cfg.f0_std
+    card.model.load_state_dict(cpu.model.state_dict())
+    card.vocoder.load_state_dict(cpu.vocoder.model.state_dict())
+    toks = cpu._tokens([cpu.frontend.encode(TTS_TEXT)])
+    res, launches = {}, {}
+    for dev, eng in engines.items():
+        def run(eng=eng):
+            with torch.inference_mode():
+                out = eng.model(toks.to(eng.device))
+                wav = eng.vocoder.model(out["mel_out"].transpose(1, 2))
+            return {k: v.float().cpu() for k, v in out.items()}, wav.cpu()
+        (out, wav), _, counts = counted(run)
+        chunk, _, chunk_counts = counted(
+            lambda eng=eng: eng.synthesize_chunk(TTS_TEXT))
+        res[dev] = (out, wav, chunk)
+        launches[dev] = {k: counts[k] + chunk_counts[k] for k in counts}
+    (o_cpu, w_cpu, c_cpu), (o_card, w_card, c_card) = res["cpu"], res["cuda"]
+    d_cpu = torch.exp(o_cpu["dur"]) - 1
+    d_err = float((torch.exp(o_card["dur"]) - 1 - d_cpu).abs().max())
+    live = d_cpu > 0
+    margin = float(((d_cpu - d_cpu.floor()) - 0.5).abs()[live].min())
+    mel_err = float((o_card["mel_out"] - o_cpu["mel_out"]).abs().max())
+    wav_err = float((w_card - w_cpu).abs().max())
+    same = bool((o_card["mel2ph"] == o_cpu["mel2ph"]).all())
+    chunk_err = float(np.abs(c_card - c_cpu).max()) \
+        if c_card.shape == c_cpu.shape else float("inf")
+    emit({"phase": "tts_small_reference", "mel2ph_equal": same,
+          "frames": int((o_cpu["mel2ph"] > 0).sum()),
+          "duration_max_abs_err": d_err, "duration_min_margin": margin,
+          "mel_max_abs_err": mel_err, "wav_max_abs_err": wav_err,
+          "int16_chunk_max_abs_err_lsb": chunk_err * 32767,
+          "cuda_launches": launches["cuda"], "cpu_launches": launches["cpu"]})
+    check_no_kernels(launches["cuda"], "tts_small_reference")
+    check_no_kernels(launches["cpu"], "tts_small_reference CPU")
+    # f32 on both sides, TF32 off; mel2ph is compared only where no
+    # duration is within 10× the error of its rounding edge
+    if not (margin > 10 * d_err and same and mel_err <= 1e-4
+            and wav_err <= 1e-4 and chunk_err <= 1.0 / 32767 + 1e-6):
+        raise AssertionError(f"card vs CPU TTS: mel2ph equal {same}, mel "
+                             f"{mel_err}, wav {wav_err}, int16 "
+                             f"{chunk_err * 32767} steps (duration margin "
+                             f"{margin}, error {d_err})")
+
+
 def phase_asr_small_reference() -> None:
     """A narrow whisper on the card (the encoder's 300 positions take the
     flash kernel) against the same weights on the CPU: the encoder output,
@@ -1417,6 +1843,11 @@ def main() -> int:
     asr_bf16 = phase_asr_bf16(asr)
     phase_asr_batched(asr)
     phase_asr_small_reference()
+    tts = phase_tts(gen)
+    phase_tts_long(tts)
+    phase_tts_batched(tts)
+    phase_tts_vocoders(tts, gen)
+    phase_tts_small_reference()
 
     eng = main_path["engine"]
     t2a, inp = t2a_path(eng), inpaint_path(eng)

@@ -1,5 +1,6 @@
-"""Port DSP frontend (window, STFT, spectrogram, log-mel) against the JAX
-package on the same non-silent random waveforms."""
+"""Port DSP frontend (window, STFT, spectrogram, log-mel, the inverse STFT
+and the vocoder's ``denoise``) against the JAX package on the same
+non-silent random waveforms."""
 
 import dataclasses
 
@@ -9,11 +10,14 @@ import pytest
 import torch
 
 from audiogpt_tpu.dsp import mel as jax_mel
+from audiogpt_tpu.dsp.stft import istft as jax_istft
 from audiogpt_tpu.dsp.stft import spectrogram as jax_spectrogram
 from audiogpt_tpu.dsp.stft import stft as jax_stft
 from audiogpt_tpu.dsp.window import hann_window as jax_hann
+from audiogpt_tpu.engines.vocoder import denoise as jax_denoise
 from audiogpt_tpu_torch.dsp import mel, stft
 from audiogpt_tpu_torch.dsp.window import hann_window, pad_center
+from audiogpt_tpu_torch.engines.vocoder import denoise
 
 torch.set_num_threads(2)
 
@@ -95,3 +99,65 @@ def test_ldm_mel_and_normalize_match_jax():
     np.testing.assert_allclose(
         mel.ldm_denormalize(torch.from_numpy(got)).numpy(),
         np.asarray(jax_mel.ldm_denormalize(jnp.asarray(got))), atol=1e-6)
+
+
+@pytest.mark.parametrize("n_fft,hop,win_length,length", [
+    (256, 64, None, 3000), (128, 32, 100, 2900), (256, 64, None, 3100),
+    (256, 64, None, None)])
+def test_istft_matches_jax(n_fft, hop, win_length, length):
+    """Overlap-add with window-sum-square normalisation, centre trim, and
+    ``length`` cutting or zero-padding the end; a round trip of the STFT
+    returns the signal where the frames cover it."""
+    x = _wav(3000, seed=4)
+    spec = np.asarray(jax_stft(jnp.asarray(x), n_fft, hop, win_length))
+    ref = np.asarray(jax_istft(jnp.asarray(spec), n_fft, hop, win_length,
+                               length=length))
+    got = stft.istft(torch.from_numpy(spec), n_fft, hop, win_length,
+                     length=length).numpy()
+    assert got.dtype == np.float32 and got.shape == ref.shape
+    # ≈ 1.6 in amplitude through an inverse FFT and a division
+    np.testing.assert_allclose(got, ref, atol=2e-6, rtol=0)
+    covered = min((3000 + 2 * (n_fft // 2) - n_fft) // hop * hop,
+                  got.shape[-1])
+    np.testing.assert_allclose(got[:, :covered], x[:, :covered], atol=2e-6)
+
+
+def test_istft_uncentred_matches_jax():
+    """``center=False`` keeps the edge samples, where the window sum falls
+    towards 0 and the division amplifies each framework's last-digit error
+    of the inverse FFT (3e-4 at the last sample): those are compared where
+    the window-sum-square is at least 1 % of its peak."""
+    n_fft, hop = 256, 64
+    x = _wav(3000, seed=5)
+    spec = np.asarray(jax_stft(jnp.asarray(x), n_fft, hop))
+    ref = np.asarray(jax_istft(jnp.asarray(spec), n_fft, hop, center=False))
+    got = stft.istft(torch.from_numpy(spec), n_fft, hop,
+                     center=False).numpy()
+    assert got.shape == ref.shape == (2, n_fft + hop * (spec.shape[1] - 1))
+    w2 = pad_center(hann_window(n_fft), n_fft) ** 2
+    wss = np.zeros(got.shape[-1])
+    for i in range(spec.shape[1]):
+        wss[i * hop: i * hop + n_fft] += w2
+    kept = wss >= 0.01 * wss.max()
+    assert kept.sum() >= 0.95 * got.shape[-1]
+    np.testing.assert_allclose(got[:, kept], ref[:, kept], atol=2e-6, rtol=0)
+
+
+def test_denoise_matches_jax():
+    """Magnitude subtraction with the mixture's phase: a tone in noise
+    keeps the tone and loses noise energy."""
+    rng = np.random.RandomState(6)
+    t = np.arange(16000) / 22050.0
+    tone = 0.5 * np.sin(2 * np.pi * 220.0 * t)
+    wav = (tone + 0.02 * rng.randn(t.size)).astype(np.float32)
+    ref = jax_denoise(wav)
+    got = denoise(wav, device="cpu")
+    assert got.dtype == np.float32 and got.shape == ref.shape == wav.shape
+    np.testing.assert_allclose(got, ref, atol=2e-6, rtol=0)
+    mid = slice(2048, -2048)
+    assert np.abs(got - tone)[mid].std() < np.abs(wav - tone)[mid].std()
+    got2 = denoise(wav, v=0.05, n_fft=512, hop=128, win_length=400,
+                   device="cpu")
+    np.testing.assert_allclose(
+        got2, jax_denoise(wav, v=0.05, n_fft=512, hop=128, win_length=400),
+        atol=2e-6, rtol=0)

@@ -13,6 +13,7 @@ import torch
 from audiogpt_tpu_torch.engines import (
     ASREngine,
     T2AEngine,
+    TTSEngine,
     VocoderEngine,
     resolve_device,
 )
@@ -43,7 +44,11 @@ def test_import_loads_no_jax_and_no_jax_package():
     assert "audiogpt_tpu_torch.dsp.mel" in result["modules"]
     assert "audiogpt_tpu_torch.models.caption.cnn14" in result["modules"]
     for name in ("models.asr.whisper", "engines.asr", "text.bpe",
-                 "dsp.resample", "utils.audio_io", "serving.batcher"):
+                 "dsp.resample", "utils.audio_io", "serving.batcher",
+                 "text.encoder", "text.norm_en", "text.en_g2p",
+                 "text.frontend", "models.tts.fastspeech2",
+                 "models.vocoder.hifigan", "models.vocoder.pwg",
+                 "engines.tts"):
         assert f"audiogpt_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
     # the BPE word splitters use the standard library's re: the card's
@@ -65,6 +70,11 @@ def test_entry_points_need_cuda_without_device(monkeypatch):
         ASREngine()
     with pytest.raises(RuntimeError, match="CUDA"):
         ASREngine(bf16=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TTSEngine()
+    for kind in ("hifigan", "pwg", "melgan"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            VocoderEngine(kind)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
