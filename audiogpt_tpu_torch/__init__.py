@@ -17,7 +17,11 @@ detokenizer (``text/``), wav I/O with resampling (``utils/audio_io.py``)
 and ``BatchedASR`` (``serving/``); the TTS engine (``engines/tts.py``): the
 English frontend (``text/``), FastSpeech2 and HiFi-GAN, with
 ``BatchedTTS``; every ``VocoderEngine`` kind (HiFi-GAN with NSF, BigVGAN,
-PWG, MelGAN) and ``denoise``.
+PWG, MelGAN) and ``denoise``; the I2A engine (``engines/i2a.py``: CLIP
+ViT-H/14 on the T2A engine's sampler); and the agent (``agent/``: tools,
+LLM clients, the ReAct loop, the toolset over these engines) served over
+HTTP (``serving/server.py``, ``app.py``, ``python -m
+audiogpt_tpu_torch.serve``).
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,175 @@
+"""Application assembly: build the engine set and launch the chat app.
+
+Counterpart of ``audiogpt_tpu/app.py:1-362`` for the engines ported so far
+(``tts``, ``asr``, ``t2a``, ``i2a``). Engines are built per requested
+capability with seeded random weights (no checkpoint is loaded yet), on the
+card. The JAX app's ``--compile-cache`` (an XLA cache) has no counterpart,
+and ``--ckpt`` / ``--vocab`` wait for the checkpoint import.
+
+CLI:  python -m audiogpt_tpu_torch.serve --engines t2a,asr,tts,i2a --asr-fast
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Any, Callable, Mapping
+
+#: capability name → zero-arg factory. Lazy so `--engines tts` doesn't build
+#: the diffusion stack. Extend via register_engine().
+_FACTORIES: dict[str, Callable[[], Any]] = {}
+
+
+def register_engine(name: str):
+    def deco(fn):
+        _FACTORIES[name] = fn
+        return fn
+
+    return deco
+
+
+@register_engine("tts")
+def _tts():
+    from audiogpt_tpu_torch.engines.tts import TTSEngine
+
+    return TTSEngine()
+
+
+@register_engine("asr")
+def _asr():
+    from audiogpt_tpu_torch.engines.asr import ASREngine
+
+    return ASREngine()
+
+
+@register_engine("t2a")
+def _t2a():
+    from audiogpt_tpu_torch.engines.t2a import T2AEngine
+    from audiogpt_tpu_torch.engines.vocoder import VocoderEngine
+    from audiogpt_tpu_torch.models.textenc.clap import CLAPScorer
+
+    # buckets = the two diffusion canvases (10 s generation + inpaint)
+    return T2AEngine(vocoder=VocoderEngine("bigvgan", buckets=(624, 848)),
+                     scorer=CLAPScorer(sample_rate=16000))
+
+
+@register_engine("i2a")
+def _i2a():
+    from audiogpt_tpu_torch.engines.i2a import I2AEngine
+
+    return I2AEngine(_FACTORIES["t2a"]())
+
+
+ALL_ENGINES = tuple(sorted(_FACTORIES))
+
+
+def build_engines(names: Mapping[str, Any] | list[str] | str = "all"
+                  ) -> dict[str, Any]:
+    """Build engines by capability name. ``names`` may be 'all', a list, or a
+    mapping name→already-constructed engine (passed through)."""
+    if isinstance(names, str):
+        names = list(ALL_ENGINES) if names == "all" else \
+            [n.strip() for n in names.split(",") if n.strip()]
+    if isinstance(names, Mapping):
+        return dict(names)
+    out: dict[str, Any] = {}
+    for n in names:
+        if n not in _FACTORIES:
+            raise KeyError(f"unknown engine {n!r}; have {ALL_ENGINES}")
+        out[n] = _FACTORIES[n]()
+    return out
+
+
+def speech_callables(engines: Mapping[str, Any], media_root: str):
+    """The speech loop's ``(asr, tts)`` callables over ``engines`` (each
+    ``None`` without its engine): ``asr(path)`` → transcript of the file
+    loaded at 16 kHz on the ASR engine's device; ``tts(text)`` → the path
+    of the spoken reply under ``media_root``."""
+    from audiogpt_tpu_torch.agent.tools import new_media_path
+    from audiogpt_tpu_torch.utils.audio_io import load_wav, save_wav
+
+    asr_fn = tts_fn = None
+    if "asr" in engines:
+        def asr_fn(path):
+            eng = engines["asr"]
+            wav, _ = load_wav(path, sr=16000, device=eng.device)
+            return eng.transcribe(wav)
+    if "tts" in engines:
+        def tts_fn(text):
+            eng = engines["tts"]
+            out = new_media_path("audio", root=media_root)
+            save_wav(eng(text), out, eng.sample_rate)
+            return out
+    return asr_fn, tts_fn
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--engines", default="t2a,asr,tts",
+                    help=f"comma list or 'all' of {ALL_ENGINES}")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=7860)
+    ap.add_argument("--media-root", default=".")
+    ap.add_argument("--llm-base-url", default=None,
+                    help="OpenAI-compatible endpoint; scripted echo otherwise")
+    ap.add_argument("--llm-model", default="gpt-3.5-turbo")
+    ap.add_argument("--llm-api-key", default=None)
+    ap.add_argument("--warmup", action="store_true",
+                    help="run each engine's warmup (every bucket once) "
+                         "before accepting traffic")
+    ap.add_argument("--microbatch", type=float, default=None, metavar="MS",
+                    help="enable cross-request micro-batching for the tts "
+                         "and asr engines with the given linger window in "
+                         "ms. Coalescing happens when multiple sessions "
+                         "(AppServers) share engine objects — within ONE "
+                         "chat conversation the agent turn is serialized, "
+                         "so requests reach the batcher one at a time and "
+                         "the flag only adds the linger window")
+    ap.add_argument("--asr-fast", action="store_true",
+                    help="single-pass ASR decode (temperatures=(0.0,)): "
+                         "skips whisper's temperature-fallback ladder. Use "
+                         "for demos on random/untrained weights, where "
+                         "every decode fails the trained-model logprob bar "
+                         "by construction and the default ladder pays all "
+                         "6 rungs per speech turn")
+    args = ap.parse_args(argv)
+
+    from audiogpt_tpu_torch.serving import AppServer, make_server
+
+    if args.llm_base_url:
+        from audiogpt_tpu_torch.agent.llm import OpenAICompatLLM
+
+        llm = OpenAICompatLLM(base_url=args.llm_base_url,
+                              model=args.llm_model,
+                              api_key=args.llm_api_key or "")
+    else:
+        from audiogpt_tpu_torch.agent.llm import ScriptedLLM
+
+        llm = ScriptedLLM([])  # echo/demo mode: always answers directly
+    engines = build_engines(args.engines)
+    if args.asr_fast and "asr" in engines:
+        engines["asr"].temperatures = (0.0,)
+    if args.microbatch is not None:
+        from audiogpt_tpu_torch.serving.batcher import BatchedASR, BatchedTTS
+
+        if "tts" in engines:
+            engines["tts"] = BatchedTTS(engines["tts"],
+                                        window_ms=args.microbatch)
+        if "asr" in engines:
+            engines["asr"] = BatchedASR(engines["asr"],
+                                        window_ms=args.microbatch)
+    asr_fn, tts_fn = speech_callables(engines, args.media_root)
+    app = AppServer(llm, engines, media_root=args.media_root,
+                    asr=asr_fn, tts=tts_fn)
+    if args.warmup:
+        for name, eng in engines.items():
+            if hasattr(eng, "warmup"):
+                print(f"| warmup: {name}", flush=True)
+                # on the thread the requests' engine calls will run on
+                app.run_on_engine_thread(eng.warmup)
+    httpd = make_server(app, args.host, args.port)
+    print(f"| serving {sorted(app.engines)} on http://{args.host}:{args.port}")
+    httpd.serve_forever()
+
+
+if __name__ == "__main__":
+    main()

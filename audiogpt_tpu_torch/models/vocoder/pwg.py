@@ -131,15 +131,16 @@ class PWGGenerator(nn.Module):
         cfg = self.cfg
         b, _, frames = mel.shape
         if not isinstance(noise, torch.Tensor):
+            # f32 normals whatever the run dtype, as the JAX model draws them
             gen = noise if noise is not None else \
                 torch.Generator(mel.device).manual_seed(0)
             noise = torch.randn((b, frames * cfg.hop_size), generator=gen,
-                                dtype=mel.dtype, device=mel.device)
+                                device=mel.device)
         if cfg.upsample == "conv_in":
             c = self.upsample_net(mel)                         # [B, A, T]
         else:
             c = self.aux_context(mel).repeat_interleave(cfg.hop_size, dim=-1)
-        x = self.first_conv(noise[:, None, :])
+        x = self.first_conv(noise[:, None, :].to(self.first_conv.weight.dtype))
         skips = 0.0
         for i in range(cfg.layers):
             x, s = getattr(self, f"block{i}")(x, c)

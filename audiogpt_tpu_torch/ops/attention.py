@@ -1,18 +1,21 @@
 """Multi-head attention: the shared op of the UNet, the text towers and
 whisper, and the decode's KV cache.
 
-Counterpart of ``audiogpt_tpu/ops/attention.py:22-74``, with the same
-dispatch rule: long sequences (Tq·Tk ≥ 256²) with no dense mask go to the
-flash kernel when the tensors are on the card; everything else is the plain
-product and softmax below. :class:`KVCache` is the static-length cache of
-autoregressive decode: its shape stays fixed for the whole decode.
+Counterpart of ``audiogpt_tpu/ops/attention.py:22-74``. Its dispatch rule
+is JAX's wherever the kernel takes the call: a long sequence (Tq·Tk ≥ 256²)
+with no dense mask goes to the flash kernel when the tensors are on the
+card and :func:`flash_takes` accepts their dtypes and head dim. Everything
+else is the plain product and softmax below (the Pallas kernel takes any
+head dim). :class:`KVCache` is the static-length cache of autoregressive
+decode: its shape stays fixed for the whole decode.
 """
 
 from __future__ import annotations
 
 import torch
 
-from audiogpt_tpu_torch.ops.flash_attention import flash_attention
+from audiogpt_tpu_torch.ops.flash_attention import (flash_attention,
+                                                    kernel_takes)
 
 NEG_INF = -1e30
 #: an attention goes to the flash kernel from this many (query, key) pairs
@@ -49,6 +52,16 @@ class KVCache:
         return self
 
 
+def flash_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                mask: torch.Tensor | None = None) -> bool:
+    """Whether the flash kernel takes this call, wherever the tensors lie:
+    no dense mask, Tq·Tk ≥ ``FLASH_MIN_PAIRS``, and dtypes and a head dim
+    that the kernel takes (:func:`kernel_takes`)."""
+    return (mask is None
+            and q.shape[1] * k.shape[1] >= FLASH_MIN_PAIRS
+            and kernel_takes(q, k, v))
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: torch.Tensor | None = None, is_causal: bool = False,
               kv_mask: torch.Tensor | None = None,
@@ -56,12 +69,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B, Tq, H, D], k/v [B, Tk, H, D] → [B, Tq, H, D].
 
     ``mask`` broadcasts to [B, H, Tq, Tk] (True = keep); ``kv_mask`` [B, Tk]
-    (1 = valid) is a key-padding mask, which the flash path takes."""
+    (1 = valid) is a key-padding mask, which the flash path takes. With
+    ``use_flash=None`` a call on the card goes to the kernel where
+    :func:`flash_takes` says it may; ``use_flash=True`` forces the kernel,
+    which raises for a shape it does not take. The kernel gets contiguous
+    q/k/v (a split of a fused projection is a strided view): a copy only
+    where one is needed."""
     if use_flash is None:
-        use_flash = (q.is_cuda and mask is None
-                     and q.shape[1] * k.shape[1] >= FLASH_MIN_PAIRS)
+        use_flash = q.is_cuda and flash_takes(q, k, v, mask)
     if use_flash and mask is None:
-        return flash_attention(q, k, v, kv_mask=kv_mask, causal=is_causal)
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               kv_mask=kv_mask, causal=is_causal)
     if kv_mask is not None:
         km = kv_mask[:, None, None, :] > 0
         mask = km if mask is None else (mask & km)

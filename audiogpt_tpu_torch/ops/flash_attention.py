@@ -25,6 +25,23 @@ _ENTRY = {torch.float32: "flash_attention_f32",
 BLOCK_Q = 64
 
 
+def _dtypes_taken(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    return q.dtype in _ENTRY and k.dtype == q.dtype and v.dtype == q.dtype
+
+
+def _head_dim_taken(q: torch.Tensor) -> bool:
+    d = q.shape[-1]
+    return d <= 128 and d * q.element_size() % 16 == 0
+
+
+def kernel_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether the kernel's dtypes and head dim take q/k/v, wherever they
+    lie: all f32 or all bf16, a head dim of at most 128 whose rows are a
+    multiple of 16 bytes. :func:`flash_attention` raises where this is
+    false; ``ops/attention.py``'s dispatch builds on it."""
+    return _dtypes_taken(q, k, v) and _head_dim_taken(q)
+
+
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor,
                               kv_mask: torch.Tensor | None = None,
@@ -64,14 +81,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"flash_attention: tensors on {q.device}, "
                          f"{k.device}, {v.device}")
-    if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
+    if not _dtypes_taken(q, k, v):
         raise TypeError(f"flash_attention: the kernel takes f32 or bf16 "
                         f"q/k/v of one type, not {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
     if k.shape != (b, tk, h, d) or v.shape != k.shape or tq == 0 or tk == 0:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if d > 128 or d * q.element_size() % 16:
+    if not _head_dim_taken(q):
         raise ValueError(f"flash_attention: head dim {d} ({q.dtype}): the "
                          f"kernel copies rows of a multiple of 16 bytes, "
                          f"at most 128 elements")

@@ -1,11 +1,13 @@
-"""WAV I/O: ``save_wav``, and ``load_wav`` with mixdown and resampling
-(librosa.load semantics).
+"""WAV I/O: ``save_wav``, ``load_wav`` with mixdown and resampling
+(librosa.load semantics), and the streaming header ``wav_stream_header``.
 
-Counterpart of ``audiogpt_tpu/utils/audio_io.py``, resampling through the
+Counterpart of ``audiogpt_tpu/utils/audio_io.py:1-56``, resampling through the
 port's ``dsp/resample.py``, so the ASR tool's load path imports no JAX.
 """
 
 from __future__ import annotations
+
+import struct
 
 import numpy as np
 import torch
@@ -44,3 +46,14 @@ def load_wav(path: str, sr: int | None = None,
         file_sr = sr
     return wav, file_sr
 
+
+def wav_stream_header(sr: int, channels: int = 1, bits: int = 16) -> bytes:
+    """RIFF/WAVE header for a PCM stream of unknown length (chunk sizes
+    0xFFFFFFFF, the streaming-WAV convention players accept); the server's
+    ``/tts/stream`` writes it once, then raw PCM as it is synthesized."""
+    byte_rate = sr * channels * bits // 8
+    block_align = channels * bits // 8
+    return (b"RIFF" + struct.pack("<I", 0xFFFFFFFF) + b"WAVE"
+            + b"fmt " + struct.pack("<IHHIIHH", 16, 1, channels, sr,
+                                    byte_rate, block_align, bits)
+            + b"data" + struct.pack("<I", 0xFFFFFFFF))

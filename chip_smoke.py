@@ -12,13 +12,15 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 3. flash_attention: both entries (f32, bf16) against their plain versions at
    the T2A UNet shape, the three inpaint shapes (level-0 self- and
    cross-attention, level-1 self-attention at D = 80), whisper-base's
-   encoder shape at batch 1 and 4, and two more (a key mask, causal); kernel, plain and ``scaled_dot_product_attention`` (same
+   encoder shape at batch 1 and 4, the I2A call's CLIP ViT-H/14 shape
+   [1, 257, 16, 80] and UNet shape [2, 780, 8, 40], and two more (a key
+   mask, causal); kernel, plain and ``scaled_dot_product_attention`` (same
    dtype) times; the grid's blocks and waves; bounds at the route's rate
    (3xTF32 or bf16 tensor cores) and at the f32 FMA rate.
 4. snake_aa: both entries against the plain up → snake → down chain at the
-   four BigVGAN stage shapes of the T2A call (624 frames, batch 3) and of
-   the inpaint call (848 frames, batch 1); kernel, plain and ``x.clone()``
-   times.
+   four BigVGAN stage shapes of the T2A call (624 frames, batch 3), the
+   inpaint call (848 frames, batch 1) and the I2A call (624 frames, batch
+   1); kernel, plain and ``x.clone()`` times.
 5. main_path: the JAX app's engine, ``T2AEngine(T2AConfig(),
    vocoder=VocoderEngine("bigvgan", buckets=(624, 848)),
    scorer=CLAPScorer(sample_rate=16000))``, at full width with seeded
@@ -82,6 +84,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    on the card against the CPU; ``denoise`` of the TTS wav.
 20. tts_small_reference: a narrow FS2 + HiFi-GAN on the card against the
    same weights on the CPU.
+21. i2a: the agent's "Generate Audio From The Image" tool at full width:
+   ``I2AEngine`` (CLIP ViT-H/14, seeded random weights) on the main path's
+   T2A engine, one seeded 224 × 224 PNG by path, DDIM-100 at scale 3; K1
+   at [1, 257, 16, 80] (32 per image) and [2, 780, 8, 40] (500), K2 73,
+   all derived from the configs; the embedding's norm; cold and warm
+   (median of 3) times, RTF, set-up, peak memory; the time of each layer
+   (``i2a_stages``).
+22. i2a_small_reference: a narrow CLIP (257 tokens) and T2A engine on the
+   card against the same weights and draws on the CPU.
+23. served: the agent behind ``AppServer`` and ``make_server`` on
+   127.0.0.1 with the engines above passed as a mapping: one HTTP
+   ``/chat`` turn per tool (t2a, inpaint, asr, tts, i2a), a ``/speech``
+   turn, ``/stats``, one ``/tts/stream``; each turn's wall time and
+   launches, equal to the direct call's; and what a warm T2A call costs
+   as the first call of a new thread (``served_thread_cost``).
 
 The ``unet_bf16`` engine of phase 6 also inpaints (``inpaint_unet_bf16``):
 its f32 UNet gives the f32 engine's wav with the same draws.
@@ -105,6 +122,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from pathlib import Path
@@ -144,6 +162,8 @@ TTS_BATCH_TEXTS = (TTS_TEXT,
                    "The weather will be sunny with a light breeze.",
                    "Please speak after the tone, then wait for the reply.")
 TTS_WARM_CALLS = 10                   # warm TTS tool calls timed
+I2A_STEPS = 100                       # the I2A tool's DDIM steps
+I2A_WARM_CALLS = 3                    # warm I2A tool calls timed
 #: the duration predictor's output layer: its weights scaled by 0.25 and
 #: its bias 1.9, so round(exp(d) − 1) ≈ 6 frames a phone (untouched random
 #: weights round most phones to 0 frames)
@@ -249,8 +269,10 @@ BF16_FLASH_TOL = (1e-2, 2 ** -7)          # absolute, relative
 #: T2A UNet's level-0 self-attention; the inpaint call's level-0 self- and
 #: cross-attention (77 keys: one partial key tile) and level-1
 #: self-attention (D = 80); whisper-base's encoder self-attention for one
-#: 30 s window and for the 4-window batch of a 60 s clip; the key-mask and
-#: causal code no path reaches
+#: 30 s window and for the 4-window batch of a 60 s clip; the I2A call's
+#: CLIP ViT-H/14 self-attention (257 tokens, D = 80) and its UNet's level-0
+#: self-attention (the CFG pair of one candidate); the key-mask and causal
+#: code no path reaches
 FLASH_CASES = {
     "unet_level0": ((6, 780, 780, 8, 40), None, False),
     "inpaint_self_l0": ((1, 1060, 1060, 8, 40), None, False),
@@ -258,6 +280,8 @@ FLASH_CASES = {
     "inpaint_self_l1": ((1, 265, 265, 8, 80), None, False),
     "asr_encoder": ((1, 1500, 1500, 8, 64), None, False),
     "asr_long_encoder": ((4, 1500, 1500, 8, 64), None, False),
+    "clip_vision": ((1, 257, 257, 16, 80), None, False),
+    "i2a_unet_level0": ((2, 780, 780, 8, 40), None, False),
     "kv_mask": ((2, 1500, 1500, 6, 64), (1500, 1100), False),
     "causal": ((1, 256, 256, 2, 80), None, True),
 }
@@ -340,8 +364,8 @@ def phase_flash(gen) -> dict:
 
 
 def phase_snake(gen) -> dict:
-    """Both snake entries at the BigVGAN stage shapes of the T2A call and of
-    the inpaint call; → {dtype name: kernel record}."""
+    """Both snake entries at the BigVGAN stage shapes of the T2A call, the
+    inpaint call and the I2A call; → {dtype name: kernel record}."""
     import torch
 
     from audiogpt_tpu_torch.models.vocoder import BigVGANConfig
@@ -349,7 +373,8 @@ def phase_snake(gen) -> dict:
 
     cases = {}
     for prefix, batch, frames in (("stage", 3, 624),
-                                  ("inpaint_stage", 1, 848)):
+                                  ("inpaint_stage", 1, 848),
+                                  ("i2a_stage", 1, 624)):
         for i, shape in enumerate(snake_shapes(BigVGANConfig(), batch,
                                                frames)):
             cases[f"{prefix}{i}"] = shape
@@ -417,7 +442,8 @@ def fill_random(module, gen) -> None:
                     p.copy_(0.1 * noise)
 
 
-def flash_shapes(cfg, batch: int, frames: int, steps: int) -> Counter:
+def flash_shapes(cfg, batch: int, frames: int, steps: int,
+                 context: int) -> Counter:
     """Flash launches of one sampler run, by shape (B, Tq, Tk, H, D), from
     the configs: the sampler's UNet evals (``ddim_steps(n)`` spaces
     ``range(0, T, T // n)``: 13 timesteps for n = 12) times, at each UNet
@@ -425,7 +451,8 @@ def flash_shapes(cfg, batch: int, frames: int, steps: int) -> Counter:
     up path's where the level has attention, the middle block at the
     deepest) whose self- or cross-attention reaches the dispatch rule's
     pair count (``ops/attention.py``). ``batch`` is the UNet's batch (the
-    CFG pair doubles it)."""
+    CFG pair doubles it); ``context`` the cross-attention's keys (the CLAP
+    tokens of T2A, I2A's one image embedding)."""
     from audiogpt_tpu_torch.models.diffusion import DiffusionSchedule
     from audiogpt_tpu_torch.ops.attention import FLASH_MIN_PAIRS
 
@@ -437,7 +464,7 @@ def flash_shapes(cfg, batch: int, frames: int, steps: int) -> Counter:
         blocks = (2 * u.num_res_blocks + 1) * (ds in u.attention_resolutions) \
             + (level == len(u.channel_mult) - 1)
         tokens, dim = h * w, mult * u.model_channels // u.num_heads
-        keys = [tokens] + ([cfg.clap.max_length] if u.context_dim else [])
+        keys = [tokens] + ([context] if u.context_dim else [])
         for tk in keys:
             if tokens * tk >= FLASH_MIN_PAIRS:
                 shapes[(batch, tokens, tk, u.num_heads, dim)] += \
@@ -493,7 +520,8 @@ def counted(fn):
 def t2a_path(eng) -> dict:
     """The launches of one ``txt2audio_best`` call by shape, and its counts."""
     cfg = eng.cfg
-    flash = flash_shapes(cfg, 6, cfg.mel_len, cfg.tool_steps)
+    flash = flash_shapes(cfg, 6, cfg.mel_len, cfg.tool_steps,
+                         cfg.clap.max_length)
     snake = snake_shapes(eng.vocoder.cfg, 3, cfg.mel_len)
     return {"flash": flash, "snake": snake,
             "counts": expected_counts(flash, snake, cfg.unet_bf16)}
@@ -631,7 +659,8 @@ def inpaint_path(eng, steps: int = 100) -> dict:
     """The launches of one inpaint call at scale 1 (no CFG pair: batch 1) by
     shape, and its counts."""
     cfg = eng.cfg
-    flash = flash_shapes(cfg, 1, cfg.inpaint_mel_len, steps)
+    flash = flash_shapes(cfg, 1, cfg.inpaint_mel_len, steps,
+                         cfg.clap.max_length)
     snake = snake_shapes(eng.vocoder.cfg, 1, cfg.inpaint_mel_len)
     return {"flash": flash, "snake": snake,
             "counts": expected_counts(flash, snake)}
@@ -815,7 +844,8 @@ def phase_small_reference() -> None:
             "core": t2a_path(eng)["counts"],
             "ranked": t2a_path(eng)["counts"],
             "inpaint": expected_counts(
-                flash_shapes(cfg, 1, cfg.inpaint_mel_len, inpaint_steps),
+                flash_shapes(cfg, 1, cfg.inpaint_mel_len, inpaint_steps,
+                             cfg.clap.max_length),
                 snake_shapes(vcfg, 1, cfg.inpaint_mel_len))}
     cpu, card = outs["cpu"], outs["cuda"]
     best = int(card[2].argmax())
@@ -1001,9 +1031,12 @@ def asr_flash_shapes(cfg, batches) -> Counter:
     return shapes
 
 
-def asr_counted(eng, fn):
-    """:func:`counted` of ``fn``, and the batch of every encoder pass it
-    made; the launch counts must be those of the passes."""
+def encoder_counted(eng, fn, tool_counts: dict | None = None):
+    """:func:`counted` of ``fn``, the launches it should make and the batch
+    of every whisper encoder pass of ``eng`` it made (a forward hook counts
+    them): 6 flash launches per pass, plus ``tool_counts`` (the launches of
+    another engine's call in ``fn``). → (output, seconds, counts, expected,
+    batches)."""
     batches = []
     hook = eng._run.encoder.register_forward_hook(
         lambda m, args, out: batches.append(int(args[0].shape[0])))
@@ -1013,6 +1046,15 @@ def asr_counted(eng, fn):
         hook.remove()
     expected = expected_counts(asr_flash_shapes(eng.cfg, batches), Counter(),
                                flash_bf16=eng.bf16)
+    for key, n in (tool_counts or {}).items():
+        expected[key] += n
+    return out, seconds, counts, expected, batches
+
+
+def asr_counted(eng, fn):
+    """:func:`counted` of ``fn``, and the batch of every encoder pass it
+    made; the launch counts must be those of the passes."""
+    out, seconds, counts, expected, batches = encoder_counted(eng, fn)
     if counts != expected:
         raise AssertionError(f"ASR launches {counts} for encoder batches "
                              f"{batches}, expected {expected}")
@@ -1764,6 +1806,485 @@ def phase_asr_small_reference() -> None:
                              f"compared, equal {equal}")
 
 
+# ---------------------------------------------------------------------------
+# I2A: the agent's "Generate Audio From The Image" tool (CLIP ViT-H/14)
+# ---------------------------------------------------------------------------
+
+
+def clip_flash_shapes(vcfg, batch: int) -> Counter:
+    """Flash launches of one CLIP vision pass, by shape: every block's
+    self-attention over the patches and the class token, when their pairs
+    reach the dispatch rule's count (``ops/attention.py``)."""
+    from audiogpt_tpu_torch.ops.attention import FLASH_MIN_PAIRS
+
+    t = vcfg.tokens
+    if t * t < FLASH_MIN_PAIRS:
+        return Counter()
+    return Counter({(batch, t, t, vcfg.heads, vcfg.width // vcfg.heads):
+                    vcfg.layers})
+
+
+def i2a_path(eng, steps: int = I2A_STEPS) -> dict:
+    """The launches of one ``img2audio`` call by shape, and its counts: the
+    vision tower on one image, DDIM with the CFG pair (UNet batch 2, one
+    context token: cross-attention stays plain), the vocoder on one mel.
+    The ``""`` embedding is computed once per weight load."""
+    cfg = eng.t2a.cfg
+    flash = clip_flash_shapes(eng.vision_cfg, 1) \
+        + flash_shapes(cfg, 2, cfg.mel_len, steps, context=1)
+    snake = snake_shapes(eng.t2a.vocoder.cfg, 1, cfg.mel_len)
+    return {"flash": flash, "snake": snake,
+            "counts": expected_counts(flash, snake)}
+
+
+def seeded_image(path: str, size: int, seed: int) -> None:
+    """A seeded [size, size, 3] uint8 image written as a PNG."""
+    import numpy as np
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    Image.fromarray(rs.randint(0, 256, (size, size, 3)).astype(
+        np.uint8)).save(path)
+
+
+def i2a_stage_ms(eng, image: str) -> dict:
+    """Time of each layer of one warm ``img2audio`` call (as
+    :func:`stage_ms`): the host's image preprocessing, the vision tower,
+    the DDIM sampler with its UNet (and the host's time to queue it), VAE
+    decode, vocoder."""
+    import torch
+
+    from audiogpt_tpu_torch.models.diffusion import ddim_sample
+    from audiogpt_tpu_torch.models.textenc.clip import preprocess_image
+
+    t2a = eng.t2a
+    cfg = t2a.cfg
+    h, w = cfg.latent_hw
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        img = torch.from_numpy(preprocess_image(
+            image, eng.vision_cfg.image_size)).cuda()
+        prep_s = time.perf_counter() - t0
+        marks[0].record()
+        ctx = eng.vision(img)[:, None, :]
+        marks[1].record()
+        gen = torch.Generator("cuda").manual_seed(55)
+        x_T = torch.randn((1, cfg.unet.in_channels, h, w), generator=gen,
+                          device="cuda")
+        t0 = time.perf_counter()
+        z = ddim_sample(t2a.eps, t2a.schedule, x_T, ctx, eng.uncond,
+                        n_steps=I2A_STEPS, guidance_scale=3.0)
+        host_s = time.perf_counter() - t0
+        marks[2].record()
+        mel = ((t2a.vae.decode(z / cfg.scale_factor) + 1.0) / 2.0).clamp(
+            0, 1)
+        marks[3].record()
+        t2a.vocoder.vocode(mel[:, 0])
+        marks[4].record()
+    marks[4].synchronize()
+    names = ("clip_vision_ms", "unet_sampler_ms", "vae_decode_ms",
+             "bigvgan_ms")
+    return {"preprocess_host_ms": prep_s * 1e3,
+            "unet_sampler_host_ms": host_s * 1e3,
+            **{n: a.elapsed_time(b) for n, a, b in zip(names, marks,
+                                                       marks[1:])}}
+
+
+def phase_i2a(main: dict, gen, tmp: str) -> dict:
+    """The I2A tool's call at full width: ``I2AEngine`` (CLIP ViT-H/14 and
+    the text tower of ``""``, seeded random weights) on the main path's
+    T2A engine, one seeded 224 × 224 PNG by path, DDIM-100 at scale 3,
+    seed 55: cold and warm (median of 3) times, RTF, set-up, peak memory,
+    launches derived from the configs, and the layer times."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.engines import I2AEngine
+
+    held = torch.cuda.memory_allocated()     # the earlier engines, alive
+    t0 = time.perf_counter()
+    eng = I2AEngine(main["engine"])
+    fill_random(eng.vision, gen)
+    fill_random(eng.text, gen)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    image = str(Path(tmp) / "photo.png")
+    seeded_image(image, eng.vision_cfg.image_size, 7)
+    with torch.inference_mode():
+        norm = float(eng.embed_image(image).norm(dim=-1).max())
+    if abs(norm - 1.0) > 1e-5:
+        raise AssertionError(f"image embedding norm {norm}")
+
+    def call():
+        return eng.img2audio(image)
+
+    expected = i2a_path(eng)["counts"]
+    (cold_wav, sr), cold_s, cold_counts = counted(call)
+    torch.cuda.reset_peak_memory_stats()
+    runs = [counted(call) for _ in range(I2A_WARM_CALLS)]
+    peak = torch.cuda.max_memory_allocated()
+    for counts in [cold_counts] + [r[2] for r in runs]:
+        if counts != expected:
+            raise AssertionError(f"i2a launches {counts}, expected "
+                                 f"{expected}")
+    wav = runs[-1][0][0]
+    n = main["engine"].cfg.mel_len * main["engine"].vocoder.hop_size
+    if sr != 16000 or wav.shape != (n,) or not np.isfinite(wav).all() \
+            or float(wav.std()) == 0.0:
+        raise AssertionError(f"i2a wav {wav.shape} at {sr}, std {wav.std()}")
+    # one seed, the same kernels on the same inputs: equal up to the order
+    # in which a library kernel may sum
+    drift = max(float(np.abs(r[0][0] - cold_wav).max()) for r in runs)
+    if drift > 1e-5:
+        raise AssertionError(f"i2a calls differ by {drift}")
+    warm = sorted(r[1] for r in runs)
+    median = statistics.median(warm)
+    emit({"phase": "i2a", "call": "img2audio", "image": "224x224 png",
+          "sampler": "ddim", "steps": I2A_STEPS, "scale": 3.0, "seed": 55,
+          "embedding_norm": norm, "setup_s": setup_s, "cold_s": cold_s,
+          "warm_s": median, "warm_max_s": warm[-1], "warm_calls": len(warm),
+          "rtf": median / CLIP_SECONDS, "clip_s": CLIP_SECONDS,
+          "peak_mem_gb": peak / 1e9, "i2a_peak_mem_gb": (peak - held) / 1e9,
+          "params_m": sum(p.numel() for m in (eng.vision, eng.text)
+                          for p in m.parameters()) / 1e6,
+          "launches": runs[-1][2], "max_drift_between_calls": drift,
+          "wav_std": float(wav.std())})
+    stages = [i2a_stage_ms(eng, image) for _ in range(I2A_WARM_CALLS)]
+    emit({"phase": "i2a_stages", "runs": I2A_WARM_CALLS,
+          **{k: statistics.median(r[k] for r in stages) for k in stages[0]}})
+    return {"engine": eng, "image": image, "wav": wav,
+            "launches": runs[-1][2]}
+
+
+def phase_i2a_small_reference() -> None:
+    """A narrow CLIP (224 px, 257 tokens: its self-attention takes the
+    kernel) and a narrow T2A engine on the card against the same weights on
+    the CPU, with the same image and initial noise: the image context, the
+    DDIM-100 core with the CFG pair, and the vocoder's wav."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.engines import (I2AEngine, T2AConfig, T2AEngine,
+                                            VocoderEngine)
+    from audiogpt_tpu_torch.models.diffusion import UNetConfig, VAEConfig
+    from audiogpt_tpu_torch.models.textenc import BertConfig, CLAPTextConfig
+    from audiogpt_tpu_torch.models.textenc.clip import (CLIPTextConfig,
+                                                        CLIPVisionConfig)
+    from audiogpt_tpu_torch.models.vocoder import BigVGANConfig
+
+    cfg = T2AConfig(
+        unet=UNetConfig(model_channels=64, num_res_blocks=1, num_heads=2,
+                        context_dim=64),
+        vae=VAEConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1,
+                      attn_resolutions=(), resolution=64),
+        clap=CLAPTextConfig(bert=BertConfig(
+            vocab_size=30522, hidden_size=64, num_layers=1, num_heads=2,
+            intermediate_size=128), d_proj=64),
+        mel_bins=32, mel_len=64, timesteps=1000)
+    vcfg = BigVGANConfig(num_mels=32, upsample_initial_channel=64,
+                         upsample_rates=(8, 8, 4),
+                         upsample_kernel_sizes=(16, 16, 8))
+    vision = CLIPVisionConfig(width=128, layers=2, heads=2, embed_dim=64)
+    text = CLIPTextConfig(width=64, layers=1, heads=2, embed_dim=64)
+    rs = np.random.RandomState(8)
+    image = rs.randint(0, 256, (224, 224, 3)).astype(np.uint8)
+    outs, launches = {}, {}
+    for dev in ("cpu", "cuda"):
+        voc = VocoderEngine("bigvgan", cfg=vcfg, buckets=(64,), device=dev)
+        t2a = T2AEngine(cfg, vocoder=voc, device=dev)
+        eng = I2AEngine(t2a, vision, text, device=dev)
+        modules = (t2a.unet, t2a.vae, voc.model, eng.vision, eng.text)
+        if dev == "cpu":
+            g = torch.Generator().manual_seed(9)
+            for m in modules:
+                fill_random(m, g)
+            state = [m.state_dict() for m in modules]
+            x_T = torch.randn(1, 4, 16, 32, generator=g)
+        else:
+            for m, sd in zip(modules, state):
+                m.load_state_dict(sd)
+
+        def core(eng=eng, voc=voc, x=x_T.to(dev)):
+            ctx = eng.embed_image(image)
+            mel = eng.sample(ctx, x, 3.0, I2A_STEPS)
+            return ctx, mel, voc.vocode(mel[:, 0])
+
+        out, _, launches[dev] = counted(core)
+        outs[dev] = [t.cpu() for t in out]
+        expected = expected_counts(
+            clip_flash_shapes(vision, 1)
+            + flash_shapes(cfg, 2, cfg.mel_len, I2A_STEPS, context=1),
+            snake_shapes(vcfg, 1, cfg.mel_len))
+    errs = {name: (a - b).abs().max().item() for name, a, b in zip(
+        ("context", "mel", "wav"), outs["cpu"], outs["cuda"])}
+    emit({"phase": "i2a_small_reference",
+          **{f"{k}_max_abs_err": v for k, v in errs.items()},
+          "cuda_launches": launches["cuda"], "cpu_launches": launches["cpu"]})
+    # f32 on both sides, TF32 off: 1e-3 absolute on outputs in [-1, 1]
+    bad = {k: v for k, v in errs.items() if not v <= 1e-3}
+    if bad:
+        raise AssertionError(f"card vs CPU I2A: {bad}")
+    if launches["cuda"] != expected or any(launches["cpu"].values()):
+        raise AssertionError(f"small I2A launches {launches['cuda']}, "
+                             f"expected {expected}; CPU {launches['cpu']}")
+
+
+# ---------------------------------------------------------------------------
+# served: the agent behind the HTTP server, one turn per tool
+# ---------------------------------------------------------------------------
+
+
+def http_json(port: int, path: str, body=None) -> dict:
+    """One request to the server on 127.0.0.1: a JSON object, raw bytes or
+    nothing (GET) → the JSON reply; a status other than 200 raises."""
+    import urllib.request
+
+    data = body if isinstance(body, (bytes, type(None))) \
+        else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        if r.status != 200:
+            raise AssertionError(f"{path}: HTTP {r.status}")
+        return json.loads(r.read())
+
+
+def served_tts_stream(port: int, sr: int) -> None:
+    """``GET /tts/stream`` of the TTS sentence in clause chunks of at most
+    64 phones: the time to the first PCM sample (the header goes out first,
+    then each chunk as it is synthesised) and to the end of the stream."""
+    import http.client
+    import urllib.parse
+
+    import numpy as np
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        t0 = time.perf_counter()
+        conn.request("GET", "/tts/stream?text="
+                     + urllib.parse.quote(TTS_TEXT))
+        r = conn.getresponse()
+        head = r.read(46)                      # the header, one sample
+        first_s = time.perf_counter() - t0
+        raw = head + r.read()
+        wall = time.perf_counter() - t0
+    finally:
+        conn.close()
+    pcm = np.frombuffer(raw[44:], "<i2")
+    if r.status != 200 or raw[:4] != b"RIFF" or raw[8:12] != b"WAVE" \
+            or int.from_bytes(raw[24:28], "little") != sr or pcm.size == 0:
+        raise AssertionError(f"/tts/stream: HTTP {r.status}, {len(raw)} "
+                             f"bytes")
+    emit({"phase": "served_tts_stream", "first_audio_s": first_s,
+          "wall_s": wall, "audio_s": pcm.size / sr,
+          "rtf": wall / (pcm.size / sr)})
+
+
+def thread_cost(eng) -> None:
+    """One warm ``txt2audio_best`` as the first call of a new thread, and
+    on a thread that has run it before (median of 3 each). PyTorch builds
+    its per-thread state (cuDNN's execution plans among it) again on each
+    new thread, which is why ``AppServer`` runs every engine call on one
+    thread of its own and not on the HTTP server's thread per request."""
+    import threading
+
+    import torch
+
+    def timed():
+        t = time.perf_counter()
+        eng.txt2audio_best(TEXT, n_samples=3, seed=0)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    fresh = []
+    for _ in range(3):
+        thread = threading.Thread(target=lambda: fresh.append(timed()))
+        thread.start()
+        thread.join(timeout=120)
+    same = [timed() for _ in range(3)]
+    if len(fresh) != 3:
+        raise AssertionError(f"{len(fresh)} of 3 threaded calls finished")
+    emit({"phase": "served_thread_cost", "call": "txt2audio_best",
+          "new_thread_first_call_s": statistics.median(fresh),
+          "same_thread_call_s": statistics.median(same),
+          "new_thread": fresh, "same_thread": same})
+
+
+def asr_split(app, port: int, asr_eng, speech: str, turns: int) -> None:
+    """The ASR tool's served turn taken apart, each part timed ``turns``
+    times in turn with the others (the median and every time): the HTTP
+    ``/chat`` turn, the tool called in this process, the tool's file load
+    and ``transcribe`` on the server's engine thread, and ``transcribe``
+    on this thread. All transcribe the server's file (int16, as the
+    served turn does), and the transcript's length says how far the
+    decode ran."""
+    import torch
+
+    from audiogpt_tpu_torch.utils.audio_io import load_wav
+
+    wav16, _ = load_wav(speech, 16000)
+    tool = app.tools.get("Transcribe Speech")
+    on_engine = app.run_on_engine_thread
+    parts = {
+        "http_turn": lambda: http_json(port, "/chat", {"text": "use asr"}),
+        "tool_call": lambda: tool(speech),
+        "load_on_engine_thread": lambda: on_engine(
+            lambda: load_wav(speech, sr=16000, device=asr_eng.device)),
+        "transcribe_on_engine_thread": lambda: on_engine(
+            asr_eng.transcribe, wav16),
+        "transcribe_here": lambda: asr_eng.transcribe(wav16),
+    }
+    times = {name: [] for name in parts}
+    for _ in range(turns):
+        for name, fn in parts.items():
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t)
+    emit({"phase": "served_asr_split",
+          "transcript_chars": len(asr_eng.transcribe(wav16)),
+          **{f"{name}_s": statistics.median(ts) for name, ts in
+             times.items()}, "times": times})
+
+
+def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
+                 i2a: dict, tmp: str) -> None:
+    """``AppServer(ScriptedLLM(script), build_engines({...}))`` behind
+    ``make_server`` on 127.0.0.1 (an OS-chosen port), the built engines of
+    the earlier phases passed as a mapping: one ``/chat`` turn per tool
+    (t2a; inpaint of the t2a turn's wav; asr of the ASR phase's clip; tts;
+    i2a of the I2A phase's PNG by path), each twice (its first call on
+    the server's engine thread, then warm), then ``/mode`` speech and one
+    ``/speech`` turn (ASR → agent → the t2a tool → TTS → merge), then
+    ``/stats`` and one ``/tts/stream``; first the cost of a new thread
+    (:func:`thread_cost`), and before the mode switch the ASR turn taken
+    apart (:func:`asr_split`). Each turn's wall time (the HTTP round trip) and
+    launches, which must be the tool's derived ones and equal to the
+    direct call's; the t2a, tts and i2a files hold the direct calls'
+    wavs."""
+    import shutil
+    import threading
+
+    import numpy as np
+
+    from audiogpt_tpu_torch.agent import ScriptedLLM
+    from audiogpt_tpu_torch.app import build_engines, speech_callables
+    from audiogpt_tpu_torch.serving import AppServer, make_server
+    from audiogpt_tpu_torch.utils.audio_io import load_wav, save_wav
+
+    t2a, asr_eng, tts_eng = main["engine"], asr["engine"], tts["engine"]
+    thread_cost(t2a)
+    root = Path(tmp) / "media"
+    (root / "audio").mkdir(parents=True)
+    speech = str(root / "audio" / "speech.wav")
+    save_wav(asr["wav"], speech, 16000)
+    t2a_wav = str(root / "audio" / "t2a_turn.wav")
+    turns = [
+        ("t2a", "Generate Audio From User Input Text", TEXT),
+        ("inpaint", "Audio Inpainting", f"{t2a_wav}, 1.0, 3.0"),
+        ("asr", "Transcribe Speech", speech),
+        ("tts", "Synthesize Speech Given the User Input Text", TTS_TEXT),
+        ("i2a", "Generate Audio From The Image", i2a["image"]),
+    ]
+    script = []
+    split_turns = 3
+    # each tool twice (the engine thread's first call of it, then warm),
+    # the ASR turns of ``asr_split``, then the speech turn's tool
+    for _, tool, arg in 2 * turns + split_turns * [turns[2]] + [turns[0]]:
+        script += [f"Thought: Do I need to use a tool? Yes\nAction: {tool}\n"
+                   f"Action Input: {arg}",
+                   "Thought: Do I need to use a tool? No\nAI: Done."]
+    engines = build_engines({"t2a": t2a, "asr": asr_eng, "tts": tts_eng,
+                             "i2a": i2a["engine"]})
+    asr_fn, tts_fn = speech_callables(engines, str(root))
+    app = AppServer(ScriptedLLM(script), engines, media_root=str(root),
+                    asr=asr_fn, tts=tts_fn)
+    httpd = make_server(app, "127.0.0.1", 0)
+    port = httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        wav16, _ = load_wav(speech, 16000)
+        direct = {
+            "t2a": main["launches"], "inpaint": inpaint["launches"],
+            "asr": asr_counted(asr_eng,
+                               lambda: asr_eng.transcribe(wav16))[2],
+            "tts": expected_counts(Counter(), Counter()),
+            "i2a": i2a["launches"]}
+        tool_counts = {"t2a": t2a_path(t2a)["counts"],
+                       "inpaint": inpaint_path(t2a)["counts"],
+                       "asr": None, "tts": None,
+                       "i2a": i2a_path(i2a["engine"])["counts"]}
+        refs = {"t2a": main["wav"], "tts": tts["wav"], "i2a": i2a["wav"]}
+        first_wall = {}
+        for n, (key, tool, _) in enumerate(2 * turns):
+            if key == "t2a":
+                t2a._generator.manual_seed(0)  # the main path's draws
+            # a served turn's launches: its tool's, and the ASR engine's
+            # 6 per encoder pass
+            reply, wall, counts, expected, _ = encoder_counted(
+                asr_eng, lambda: http_json(port, "/chat",
+                                           {"text": f"use {key}"}),
+                tool_counts[key])
+            step = reply["steps"][0]
+            if step["tool"] != tool or counts != expected \
+                    or counts != direct[key]:
+                raise AssertionError(f"served {key}: {step}, launches "
+                                     f"{counts}, expected {expected}, "
+                                     f"direct {direct[key]}")
+            res = {"tool": key, "wall_s": wall,
+                   "first_call_wall_s": first_wall.setdefault(key, wall),
+                   "launches": counts}
+            if key == "asr":
+                res["transcript_chars"] = len(step["observation"])
+            else:
+                out, sr = load_wav(step["observation"])
+                if not (reply["media"] and np.isfinite(out).all()
+                        and out.std() > 0):
+                    raise AssertionError(f"served {key}: {reply}")
+                res.update(sr=sr, samples=int(out.size))
+                if key in refs:
+                    ref = np.clip(refs[key], -1.0, 1.0)
+                    # the int16 file against the f32 wav: one step, each
+                    # way of rounding
+                    diff = float(np.abs(out - ref).max()) \
+                        if out.shape == ref.shape else math.inf
+                    res["max_abs_diff_from_direct"] = diff
+                    if diff > 2.0 / 32767:
+                        raise AssertionError(f"served {key} wav differs "
+                                             f"from the direct call by "
+                                             f"{diff}")
+                if key == "t2a":
+                    shutil.copy(step["observation"], t2a_wav)
+            if n >= len(turns):                     # the warm turn
+                emit({"phase": "served_turn", **res})
+        asr_split(app, port, asr_eng, speech, split_turns)
+        http_json(port, "/mode", {"mode": "speech"})
+        with open(speech, "rb") as f:
+            body = f.read()
+        reply, wall, counts, expected, _ = encoder_counted(
+            asr_eng, lambda: http_json(port, "/speech", body),
+            tool_counts["t2a"])
+        if counts != expected or not reply["audio"].startswith("/media/"):
+            raise AssertionError(f"speech turn: {reply}, launches {counts}, "
+                                 f"expected {expected}")
+        out, sr = load_wav(str(root / reply["audio"][len("/media/"):]))
+        emit({"phase": "served_speech", "wall_s": wall, "launches": counts,
+              "transcript_chars": len(reply["transcript"]),
+              "reply_sr": sr, "reply_s": out.size / sr})
+        stats = http_json(port, "/stats")
+        emit({"phase": "served_stats", "stats": stats})
+        if sorted(stats) != sorted(tool for _, tool, _ in turns):
+            raise AssertionError(f"/stats tools {sorted(stats)}")
+        served_tts_stream(port, tts_eng.sample_rate)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        app.close()
+        thread.join(timeout=60)
+
+
 def path_record(k: dict, path: str, shapes: Counter, launches: int) -> dict:
     """A kernel's share of one path: its launches, which the counters read
     and the configs must give (``shapes``), and per-call times, each the
@@ -1848,9 +2369,14 @@ def main() -> int:
     phase_tts_batched(tts)
     phase_tts_vocoders(tts, gen)
     phase_tts_small_reference()
+    with tempfile.TemporaryDirectory() as tmp:
+        i2a = phase_i2a(main_path, gen, tmp)
+        phase_i2a_small_reference()
+        phase_served(main_path, inpaint, asr, tts, i2a, tmp)
 
     eng = main_path["engine"]
     t2a, inp = t2a_path(eng), inpaint_path(eng)
+    i2a_p = i2a_path(i2a["engine"])
     counts, counts_bf16 = main_path["launches"], bf16_path["launches"]
     wcfg = asr["engine"].cfg
     flash_src = "audiogpt_tpu_torch/csrc/flash_attention.cu"
@@ -1872,7 +2398,9 @@ def main() -> int:
                         f32(asr["launches"], "flash_attention")),
             path_record(flash["float32"], "asr_long",
                         asr_flash_shapes(wcfg, asr_long["batches"]),
-                        f32(asr_long["launches"], "flash_attention"))],
+                        f32(asr_long["launches"], "flash_attention")),
+            path_record(flash["float32"], "i2a", i2a_p["flash"],
+                        f32(i2a["launches"], "flash_attention"))],
             flash_src, flash_tpu),
         kernel_entry(flash["bfloat16"], [
             path_record(flash["bfloat16"], "main_path_bf16", t2a["flash"],
@@ -1887,7 +2415,9 @@ def main() -> int:
             path_record(snake["float32"], "main_path_bf16", t2a["snake"],
                         f32(counts_bf16, "snake_aa")),
             path_record(snake["float32"], "inpaint", inp["snake"],
-                        f32(inpaint["launches"], "snake_aa"))],
+                        f32(inpaint["launches"], "snake_aa")),
+            path_record(snake["float32"], "i2a", i2a_p["snake"],
+                        f32(i2a["launches"], "snake_aa"))],
             snake_src, snake_tpu),
         kernel_entry(snake["bfloat16"], [
             path_record(snake["bfloat16"], "vocoder_bf16", t2a["snake"],

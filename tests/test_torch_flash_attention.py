@@ -11,6 +11,8 @@ JAX's two flash versions agree with each other only with no fully masked
 row and with causal at Tq == Tk, so the JAX comparisons stay there; the
 port's own semantics for a fully masked row (0) are tested separately."""
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,7 +21,7 @@ import torch
 from audiogpt_tpu.ops.attention import attention as jax_attention
 from audiogpt_tpu.ops.flash_attention import \
     flash_attention as jax_flash_attention
-from audiogpt_tpu_torch.ops.attention import attention
+from audiogpt_tpu_torch.ops.attention import attention, flash_takes
 from audiogpt_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
@@ -273,3 +275,70 @@ def test_non_cpu_tensor_never_falls_back():
     q = torch.empty(1, 16, 1, 8, device="meta")
     with pytest.raises(ValueError):
         flash_attention(q, q, q)
+
+
+def _meta(b, t, h, d, dtype=torch.float32):
+    return torch.empty(b, t, h, d, dtype=dtype, device="meta")
+
+
+def _clip_views(dtype=torch.float32, device="meta"):
+    """q/k/v of CLIP ViT-H/14's block: strided views of one fused
+    projection, [1, 257, 16, 80]."""
+    qkv = torch.empty(1, 257, 3 * 1280, dtype=dtype, device=device)
+    return tuple(u.reshape(1, 257, 16, 80) for u in qkv.chunk(3, dim=-1))
+
+
+@pytest.mark.parametrize("case,takes", [
+    ("d160", False), ("row_24_bytes", False), ("dense_mask", False),
+    ("f16", False), ("mixed_dtypes", False), ("below_min_pairs", False),
+    ("clip_chunked_views", True), ("clip_chunked_bf16", True),
+    ("whisper_encoder", True)])
+def test_flash_takes_only_what_the_kernel_takes(case, takes):
+    """The dispatch's shape and dtype rule, device aside: the kernel's own
+    limits (``ops/flash_attention.py``) and the pair count. A strided view
+    passes: ``attention()`` copies it contiguous for the kernel."""
+    mask = None
+    if case == "d160":
+        q = k = v = _meta(2, 256, 8, 160)
+    elif case == "row_24_bytes":
+        q = k = v = _meta(1, 300, 2, 12, torch.bfloat16)
+    elif case == "dense_mask":
+        q = k = v = _meta(1, 300, 2, 64)
+        mask = torch.ones(1, 1, 300, 300, dtype=torch.bool, device="meta")
+    elif case == "f16":
+        q = k = v = _meta(1, 300, 2, 64, torch.float16)
+    elif case == "mixed_dtypes":
+        q, k, v = (_meta(1, 300, 2, 64, torch.bfloat16), _meta(1, 300, 2, 64),
+                   _meta(1, 300, 2, 64))
+    elif case == "below_min_pairs":
+        q = k = v = _meta(1, 255, 2, 64)
+    elif case == "clip_chunked_views":
+        q, k, v = _clip_views()
+        assert not q.is_contiguous()
+    elif case == "clip_chunked_bf16":
+        q, k, v = _clip_views(torch.bfloat16)
+    else:
+        q = k = v = _meta(1, 1500, 8, 64)
+    assert flash_takes(q, k, v, mask) is takes
+
+
+def test_forced_flash_gets_contiguous_copies(monkeypatch):
+    """``attention(use_flash=True)`` hands the kernel's wrapper contiguous
+    q/k/v; the CLIP block's strided views give the plain path's result."""
+    seen = []
+
+    def recorder(q, k, v, kv_mask=None, causal=False):
+        seen.append([t.is_contiguous() for t in (q, k, v)])
+        return flash_attention(q, k, v, kv_mask=kv_mask, causal=causal)
+
+    # the module (``ops/__init__.py`` exports a function of the same name)
+    module = importlib.import_module("audiogpt_tpu_torch.ops.attention")
+    monkeypatch.setattr(module, "flash_attention", recorder)
+    gen = torch.Generator().manual_seed(9)
+    qkv = torch.randn(1, 257, 3 * 160, generator=gen)
+    q, k, v = (u.reshape(1, 257, 2, 80) for u in qkv.chunk(3, dim=-1))
+    got = attention(q, k, v, use_flash=True)
+    assert seen == [[True, True, True]]
+    np.testing.assert_allclose(got.numpy(),
+                               attention(q, k, v, use_flash=False).numpy(),
+                               atol=ATOL, rtol=0)

@@ -203,12 +203,14 @@ def test_engine_default_kind_and_nsf_calls():
     assert a(m).shape == (20 * 16,)               # f0 defaults to zeros
 
 
-@pytest.mark.parametrize("kind", ["hifigan", "melgan"])
+@pytest.mark.parametrize("kind", ["hifigan", "melgan", "pwg"])
 def test_bf16_engine_matches_jax_bf16(kind):
     """bf16 in both engines on the same f32 parameters: each rounds at
     other points, so they may differ by as much as bf16 differs from f32
     (the JAX engine's own gap), plus one bf16 step of the output (2^-7 for
-    |wav| < 1), where the two roundings of the last layer straddle."""
+    |wav| < 1), where the two roundings of the last layer straddle. PWG
+    takes the JAX engine's f32 noise (``PRNGKey(0)`` at the bucket's
+    length, drawn in f32 inside its bf16 program), replayed as f32."""
     jcfg, cfg = KINDS[kind]
     params = engine_params(kind, jcfg, seed=14)
     jeng = JaxVocoderEngine(kind, cfg=jcfg, params=params, buckets=(32,))
@@ -220,7 +222,12 @@ def test_bf16_engine_matches_jax_bf16(kind):
     assert all(p.dtype == torch.bfloat16 for p in eng._run.parameters())
     m = mel(20, seed=12)
     ref_f32, ref = jeng(m), jbf(m)
-    got = eng(m)
+    if kind == "pwg":
+        noise = np.array(jax.random.normal(jax.random.PRNGKey(0),
+                                           (2, 32 * 16)))
+        got = eng.vocode(ncw(m), noise=torch.from_numpy(noise)).numpy()
+    else:
+        got = eng(m)
     gap = np.abs(ref_f32 - ref).max()
     assert got.dtype == np.float32 and got.shape == ref.shape
     assert 0.0 < np.abs(got - ref).max() <= gap + 2.0 ** -7

@@ -5,19 +5,25 @@ refuse to run without CUDA unless the caller asks for the CPU."""
 import json
 import subprocess
 import sys
+import types
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
+from audiogpt_tpu_torch.agent.tools import merge_audio
 from audiogpt_tpu_torch.engines import (
     ASREngine,
+    I2AEngine,
     T2AEngine,
     TTSEngine,
     VocoderEngine,
     resolve_device,
 )
 from audiogpt_tpu_torch.models.textenc import CLAPScorer
+from audiogpt_tpu_torch.serving.inpaint import compute_mel
+from audiogpt_tpu_torch.utils.audio_io import save_wav
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -30,7 +36,9 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "audiogpt_tpu"))
 print(json.dumps({"modules": names, "bad": bad,
-                  "regex": "regex" in sys.modules}))
+                  "regex": "regex" in sys.modules,
+                  "images": sorted(m for m in ("PIL", "matplotlib")
+                                   if m in sys.modules)}))
 """
 
 
@@ -48,12 +56,18 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "text.encoder", "text.norm_en", "text.en_g2p",
                  "text.frontend", "models.tts.fastspeech2",
                  "models.vocoder.hifigan", "models.vocoder.pwg",
-                 "engines.tts"):
+                 "engines.tts", "utils.profiling", "agent.tools",
+                 "agent.llm", "agent.agent", "agent.toolset",
+                 "serving.inpaint", "serving.server",
+                 "models.textenc.clip", "engines.i2a", "app", "serve"):
         assert f"audiogpt_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
     # the BPE word splitters use the standard library's re: the card's
     # machine has no third-party regex package
     assert not result["regex"]
+    # the image helpers import PIL and matplotlib only when called: the
+    # card's machine may lack them
+    assert result["images"] == []
 
 
 def test_entry_points_need_cuda_without_device(monkeypatch):
@@ -76,5 +90,23 @@ def test_entry_points_need_cuda_without_device(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             VocoderEngine(kind)
     with pytest.raises(RuntimeError, match="CUDA"):
+        I2AEngine(types.SimpleNamespace(device=torch.device("cpu")))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compute_mel(np.zeros(256, np.float32), types.SimpleNamespace(
+            inpaint_mel_len=1, hop=256, sample_rate=16000, mel_bins=80))
+    with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_merge_across_rates_needs_cuda_without_device(tmp_path, monkeypatch):
+    """``merge_audio`` resamples on the card unless the caller asks for the
+    CPU; two files at one rate need no device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a, b, c = (str(tmp_path / n) for n in ("a.wav", "b.wav", "c.wav"))
+    save_wav(np.zeros(800, np.float32), a, 22050)
+    save_wav(np.zeros(800, np.float32), b, 16000)
+    save_wav(np.zeros(800, np.float32), c, 16000)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        merge_audio(a, b, root=str(tmp_path))
+    assert merge_audio(c, b, root=str(tmp_path)).endswith(".wav")

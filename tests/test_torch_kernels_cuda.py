@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card, at the
-edges of what each kernel takes: head dims that are and are not multiples
+edges of what each kernel takes, and ``attention()``'s dispatch around
+them: head dims that are and are not multiples
 of 16, unaligned and unequal sequence lengths (the inpaint path's
 cross-attention of 1060 queries on 77 keys among them), causal masking with
 Tq != Tk, fully masked rows, rows shorter than one tile, rows whose length
@@ -16,6 +17,7 @@ installed::
 import pytest
 import torch
 
+from audiogpt_tpu_torch.ops.attention import attention
 from audiogpt_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
@@ -123,6 +125,38 @@ def test_flash_rejects_what_the_kernel_does_not_take(gen):
     q, k, v = _qkv(gen, 1, 16, 16, 2, 6)    # 24-byte rows: no 16-byte copies
     with pytest.raises(ValueError):
         flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_takes_chunked_clip_views_to_the_kernel(gen, dtype):
+    """CLIP ViT-H/14's self-attention: q/k/v are strided views of one fused
+    projection, 257 tokens at D = 80; ``attention()`` launches the kernel
+    on contiguous copies."""
+    qkv = torch.randn(1, 257, 3 * 1280, generator=gen, device="cuda").to(
+        dtype)
+    q, k, v = (u.reshape(1, 257, 16, 80) for u in qkv.chunk(3, dim=-1))
+    assert not q.is_contiguous()
+    before = flash_attention.launches
+    out = attention(q, k, v)
+    ref = flash_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), **FLASH_TOL[dtype])
+
+
+def test_attention_head_dim_160_takes_the_plain_path(gen):
+    """D = 160 (the T2I UNet's ds-4 level) is more than the kernel takes:
+    the automatic dispatch runs the plain product; forcing the kernel
+    raises."""
+    q, k, v = _qkv(gen, 2, 256, 256, 8, 160)
+    before = flash_attention.launches
+    out = attention(q, k, v)
+    ref = flash_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before
+    torch.testing.assert_close(out, ref, **FLASH_TOL[torch.float32])
+    with pytest.raises(ValueError):
+        attention(q, k, v, use_flash=True)
 
 
 SNAKE_LENGTHS = [1, 3, 5, 37, 1024, 1025, 5003]

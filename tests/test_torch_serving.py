@@ -1,0 +1,526 @@
+"""Port serving (``audiogpt_tpu_torch/serving``) over HTTP on the CPU: the
+engine-agnostic cases of ``tests/test_serving.py`` with stub engines and
+``ScriptedLLM``; served agent turns through small port engines (T2A, I2A,
+TTS, inpaint) that must give what the engine gives when called directly;
+the reference defects the port does not copy (a negative ``chunk_phones``
+is a 400; the speech loop merges the generated file from the media root;
+a client's path cannot leave the media root); engine calls that run while
+a turn waits on its LLM; and the sketch-mask helpers against the JAX
+package's."""
+
+import base64
+import concurrent.futures
+import http.client
+import io
+import json
+import os
+import struct
+import threading
+import types
+import urllib.error
+import urllib.parse
+import urllib.request
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+from scipy.io import wavfile
+
+from audiogpt_tpu.serving import inpaint as jinpaint
+from audiogpt_tpu_torch.agent import ScriptedLLM
+from audiogpt_tpu_torch.app import build_engines, speech_callables
+from audiogpt_tpu_torch.dsp.resample import output_length
+from audiogpt_tpu_torch.engines import (I2AEngine, T2AConfig, T2AEngine,
+                                        TTSEngine, VocoderEngine)
+from audiogpt_tpu_torch.models.diffusion import UNetConfig, VAEConfig
+from audiogpt_tpu_torch.models.textenc import BertConfig, CLAPTextConfig
+from audiogpt_tpu_torch.models.textenc.clip import (CLIPTextConfig,
+                                                    CLIPVisionConfig)
+from audiogpt_tpu_torch.models.tts.fastspeech2 import FastSpeech2Config
+from audiogpt_tpu_torch.models.vocoder import BigVGANConfig, HifiGANConfig
+from audiogpt_tpu_torch.serving import AppServer, BatchedTTS, make_server
+from audiogpt_tpu_torch.serving import inpaint as pinpaint
+from audiogpt_tpu_torch.utils.audio_io import load_wav, save_wav
+from test_torch_agent import _act, _answer, stub_engines
+from test_torch_t2a import BERT, T2A, UNET, VAE, VOC
+
+torch.set_num_threads(2)
+
+ENHANCE = "Speech Enhancement In Single-Channel"
+T2A_TOOL = "Generate Audio From User Input Text"
+TTS_TOOL = "Synthesize Speech Given the User Input Text"
+#: two int16 quantisations of one f32 wav: the file's and the reference's
+LSB = 1.0 / 32767 + 1e-6
+
+
+def _req(port, path, data=None, headers=None, method=None):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers=headers or {}, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+
+def _post(port, path, obj):
+    return _req(port, path, json.dumps(obj).encode(),
+                {"Content-Type": "application/json"})
+
+
+class Served:
+    """An AppServer behind ``make_server`` on an OS-chosen port, served
+    from a thread until ``close``."""
+
+    def __init__(self, llm, engines, root, **kw):
+        self.app = AppServer(llm, engines, media_root=str(root), **kw)
+        self.httpd = make_server(self.app, port=0)
+        self.port = self.httpd.server_address[1]
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.app.close()
+        self.thread.join(timeout=10)
+        assert not self.thread.is_alive()
+
+
+@pytest.fixture(scope="module")
+def server(tmp_path_factory):
+    root = tmp_path_factory.mktemp("media")
+    src = str(root / "noisy.wav")
+    save_wav(0.2 * np.sin(np.arange(16000) / 7.0).astype(np.float32), src,
+             16000)
+    llm = ScriptedLLM([_act(ENHANCE, src), _answer("Enhanced audio ready."),
+                       _answer("You are welcome!")])
+    s = Served(llm, {"enhance": stub_engines()["enhance"]}, root,
+               device="cpu")
+    yield s, src
+    s.close()
+
+
+def test_health_and_ui(server):
+    s, _ = server
+    code, body, _ = _req(s.port, "/health")
+    data = json.loads(body)
+    assert code == 200 and data["status"] == "ok" and data["mode"] == "text"
+    assert data["tools"] == [ENHANCE]
+    code, body, headers = _req(s.port, "/")
+    assert code == 200 and b"AudioGPT" in body
+    assert "text/html" in headers["Content-Type"]
+
+
+def test_chat_tool_turn_and_media(server):
+    s, src = server
+    code, body, _ = _post(s.port, "/chat", {"text": "enhance " + src})
+    data = json.loads(body)
+    assert code == 200 and data["response"] == "Enhanced audio ready."
+    assert data["steps"][0]["tool"] == ENHANCE
+    assert data["media"] and data["media"][0]["kind"] == "audio"
+    code, wav, headers = _req(s.port, data["media"][0]["url"])
+    assert code == 200 and headers["Content-Type"] == "audio/wav"
+    assert len(wav) > 1000
+    code, body, _ = _post(s.port, "/chat", {"text": "thanks"})
+    data = json.loads(body)
+    assert data["response"] == "You are welcome!" and not data["media"]
+    # /stats: the tool's calls, wall time, audio seconds and RTF
+    stats = json.loads(_req(s.port, "/stats")[1])[ENHANCE]
+    assert stats["calls"] >= 1 and stats["wall_s"] > 0
+    assert stats["audio_s"] > 0 and stats["rtf"] is not None
+
+
+@pytest.mark.parametrize("method,path,body,code", [
+    ("POST", "/chat", {}, 400),
+    # ``..`` enough to reach / from any media root, and an absolute path
+    pytest.param("GET", "/media/" + "../" * 40 + "etc/passwd", None, 404,
+                 id="media-dotdot-to-root"),
+    pytest.param("GET", "/media//etc/passwd", None, 404,
+                 id="media-absolute"),
+    ("GET", "/tts/stream?text=hi", None, 404),          # no tts engine
+    ("POST", "/inpaint", {}, 400),
+    ("POST", "/inpaint/show", {}, 400),
+    ("POST", "/mode", {"mode": "bogus"}, 500),
+    ("GET", "/nowhere", None, 404),
+])
+def test_error_answers(server, method, path, body, code):
+    s, _ = server
+    got, raw, _ = (_post(s.port, path, body) if method == "POST"
+                   else _req(s.port, path))
+    assert got == code and "error" in json.loads(raw)
+
+
+def test_upload_and_clear(server):
+    s, _ = server
+    buf = io.BytesIO()
+    wavfile.write(buf, 16000, np.zeros(16000, np.int16))
+    code, body, _ = _req(s.port, "/upload", buf.getvalue(),
+                         {"X-Filename": "clip.wav"})
+    assert code == 200 and json.loads(body)["kind"] == "audio"
+    assert "provide a new audio file" in s.app.agent.history
+    code, _, _ = _req(s.port, "/clear", b"", method="POST")
+    assert code == 200 and s.app.agent.history == ""
+
+
+def test_mode_switch(server):
+    s, _ = server
+    code, body, _ = _post(s.port, "/mode", {"mode": "speech"})
+    assert code == 200 and json.loads(body)["mode"] == "speech"
+    # enhancement is a text-mode tool (audio-chatgpt.py:1153+)
+    assert ENHANCE not in s.app.tools.names()
+    _post(s.port, "/mode", {"mode": "text"})
+    assert s.app.tools.names() == [ENHANCE]
+
+
+def test_concurrent_chat_requests(tmp_path):
+    """The threading server and the agent lock serialise turns without
+    dropping or interleaving conversations."""
+    llm = ScriptedLLM([_answer(f"answer-{i}") for i in range(8)])
+    s = Served(llm, {}, tmp_path, device="cpu")
+    try:
+        def ask(i):
+            code, body, _ = _post(s.port, "/chat", {"text": f"q{i}"})
+            return code, json.loads(body)["response"]
+
+        with concurrent.futures.ThreadPoolExecutor(8) as ex:
+            results = list(ex.map(ask, range(8)))
+        assert all(code == 200 for code, _ in results)
+        assert sorted(r for _, r in results) == [f"answer-{i}"
+                                                 for i in range(8)]
+    finally:
+        s.close()
+
+
+def test_engine_calls_share_one_thread(tmp_path):
+    """Every tool call runs on the server's one engine thread, whichever
+    handler thread took the request, so PyTorch's per-thread state
+    (cuDNN's execution plans) is built once, not once per request."""
+    seen = []
+
+    class Recorder:
+        """A TTS engine's surface that notes the thread of each call."""
+        sample_rate, device = 16000, "cpu"
+
+        def __call__(self, text):
+            seen.append(threading.get_ident())
+            return np.zeros(160, np.float32)
+
+    llm = ScriptedLLM([_act(TTS_TOOL, "hi"), _answer("ok")] * 3)
+    s = Served(llm, {"tts": Recorder()}, tmp_path, device="cpu")
+    try:
+        for i in range(3):
+            assert _post(s.port, "/chat", {"text": f"q{i}"})[0] == 200
+    finally:
+        s.close()
+    assert len(seen) == 3 and len(set(seen)) == 1
+    assert seen[0] not in (threading.get_ident(), s.thread.ident)
+
+
+def test_engines_answer_while_a_turn_waits_on_its_llm(tmp_path,
+                                                      small_engines):
+    """The agent and its LLM call run on the request's thread, only the
+    engine calls on the engine thread: a ``/tts/stream`` is answered while
+    a chat turn waits on a slow LLM."""
+    entered, release = threading.Event(), threading.Event()
+
+    class SlowLLM(ScriptedLLM):
+        def complete(self, prompt, stop=None):
+            entered.set()
+            assert release.wait(60)
+            return super().complete(prompt, stop)
+
+    s = Served(SlowLLM([_answer("ok")]), {"tts": small_engines["tts"]},
+               tmp_path, device="cpu")
+    try:
+        with concurrent.futures.ThreadPoolExecutor(1) as ex:
+            turn = ex.submit(_post, s.port, "/chat", {"text": "hi"})
+            assert entered.wait(60)
+            conn = http.client.HTTPConnection("127.0.0.1", s.port,
+                                              timeout=20)
+            conn.request("GET", "/tts/stream?text=hello")
+            r = conn.getresponse()
+            raw = r.read()
+            conn.close()
+            assert r.status == 200 and len(raw) > 44
+            assert not turn.done()
+            release.set()
+            code, body, _ = turn.result()
+        assert code == 200 and json.loads(body)["response"] == "ok"
+    finally:
+        release.set()
+        s.close()
+
+
+@pytest.mark.parametrize("endpoint", ["/inpaint/show", "/inpaint"])
+@pytest.mark.parametrize("audio", ["../" * 40 + "etc/passwd", "/etc/passwd",
+                                   "audio/missing.wav"],
+                         ids=["dotdot-to-root", "absolute", "missing"])
+def test_inpaint_endpoints_refuse_paths_outside_the_media_root(
+        tmp_path, small_engines, endpoint, audio):
+    """The inpaint endpoints read ``audio`` only from a file under the
+    media root, ``..`` resolved: anything else is a 404."""
+    s = Served(ScriptedLLM([]), {"t2a": small_engines["t2a"]}, tmp_path,
+               device="cpu")
+    try:
+        code, body, _ = _post(s.port, endpoint,
+                              {"audio": audio, "mask": "AAAA"})
+        assert code == 404, body
+        assert "no media file" in json.loads(body)["error"]
+    finally:
+        s.close()
+
+
+@pytest.mark.parametrize("tool_turn", [False, True])
+def test_speech_endpoint(tmp_path, tool_turn):
+    """ASR → agent → TTS over HTTP (reference ``speech``, 1294). With a tool
+    turn, the 22.05 kHz reply is merged with the tool's 16 kHz clip, which
+    the agent names relative to the media root (the server is run from
+    another directory)."""
+    root = tmp_path / "media"
+    engines = stub_engines()
+    asr_fn, tts_fn = speech_callables(engines, str(root))
+    script = [_act(T2A_TOOL, "a bark")] if tool_turn else []
+    llm = ScriptedLLM(script + [_answer("Sunny, probably.")])
+    s = Served(llm, engines, root, mode="speech", asr=asr_fn, tts=tts_fn,
+               device="cpu")
+    try:
+        buf = io.BytesIO()
+        wavfile.write(buf, 16000, np.zeros(12000, np.int16))
+        code, body, _ = _req(s.port, "/speech", buf.getvalue())
+        assert code == 200, body
+        data = json.loads(body)
+        assert data["transcript"] == "12000 samples"
+        assert data["response"] == "Sunny, probably."
+        code, wav_bytes, _ = _req(s.port, data["audio"])
+        assert code == 200
+        wav, sr = load_wav(io.BytesIO(wav_bytes))
+        speech = output_length(8000, 22050, 16000)   # the reply at 16 kHz
+        n = speech + 8000 if tool_turn else 8000
+        assert (sr, len(wav)) == ((16000, n) if tool_turn else (22050, n))
+    finally:
+        s.close()
+
+
+# -- served turns through small port engines --------------------------------
+
+def _t2a_engine():
+    gen = torch.Generator().manual_seed(40)
+    voc = VocoderEngine("bigvgan", cfg=BigVGANConfig(**VOC),
+                        buckets=(T2A["mel_len"],), device="cpu")
+    eng = T2AEngine(T2AConfig(
+        unet=UNetConfig(**UNET), vae=VAEConfig(**VAE),
+        clap=CLAPTextConfig(bert=BertConfig(**BERT), d_proj=32,
+                            max_length=16), inpaint_mel_len=32, **T2A),
+        vocoder=voc, device="cpu")
+    with torch.no_grad():
+        for p in eng.unet.parameters():     # the zero-initialised out convs
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    return eng
+
+
+@pytest.fixture(scope="module")
+def small_engines():
+    t2a = _t2a_engine()
+    i2a = I2AEngine(t2a, CLIPVisionConfig(image_size=32, patch_size=8,
+                                          width=16, layers=1, heads=2,
+                                          embed_dim=32),
+                    CLIPTextConfig(vocab_size=100, context_length=16,
+                                   width=16, layers=1, heads=2,
+                                   embed_dim=32), device="cpu")
+    voc = VocoderEngine("hifigan", HifiGANConfig(
+        upsample_initial_channel=32, resblock_kernel_sizes=(3,),
+        resblock_dilation_sizes=((1, 3),)), buckets=(64, 128), device="cpu")
+    tts = TTSEngine(FastSpeech2Config(
+        vocab_size=128, hidden_size=32, enc_layers=1, dec_layers=1,
+        predictor_layers=2, max_frames=128), vocoder=voc,
+        token_buckets=(16, 32), device="cpu")
+    return build_engines({"t2a": t2a, "i2a": i2a, "tts": tts})
+
+
+def test_build_engines_passes_a_mapping_through(small_engines):
+    again = build_engines(small_engines)
+    assert again == small_engines and again is not small_engines
+    with pytest.raises(KeyError):
+        build_engines("svs,t2a")        # svs is not ported
+
+
+def test_served_turns_equal_direct_engine_calls(tmp_path, small_engines):
+    """One /chat turn per tool through the small engines; each saved file
+    holds what the engine returns when called directly (the int16 file
+    within two quantisations of it)."""
+    root = tmp_path / "media"
+    image = str(tmp_path / "photo.png")
+    Image.fromarray(np.random.RandomState(41).randint(
+        0, 255, (40, 56, 3)).astype(np.uint8)).save(image)
+    clip = str(tmp_path / "clip.wav")
+    save_wav(0.2 * np.sin(np.arange(32 * 256) / 9.0).astype(np.float32),
+             clip, 16000)
+    t2a, i2a, tts = (small_engines[k] for k in ("t2a", "i2a", "tts"))
+    turns = [
+        (T2A_TOOL, "a dog barks", lambda: t2a.txt2audio_best(
+            "a dog barks", seed=0)[1], 16000),
+        ("Generate Audio From The Image", image,
+         lambda: i2a.img2audio(image)[0], 16000),
+        (TTS_TOOL, "hello there", lambda: tts("hello there"),
+         tts.sample_rate),
+        ("Audio Inpainting", f"{clip}, 0.1, 0.3", None, 16000),
+    ]
+    script = []
+    for tool, arg, _, _ in turns:
+        script += [_act(tool, arg), _answer("done")]
+    s = Served(ScriptedLLM(script), small_engines, root, device="cpu")
+    t2a._generator.manual_seed(0)          # the tool's draws: seed 0
+    try:
+        for tool, arg, direct, sr in turns:
+            code, body, _ = _post(s.port, "/chat", {"text": tool})
+            assert code == 200, body
+            data = json.loads(body)
+            assert data["steps"][0]["tool"] == tool
+            assert data["media"][0]["kind"] == "audio"
+            got, got_sr = load_wav(data["steps"][0]["observation"])
+            assert got_sr == sr and np.isfinite(got).all()
+            if direct is None:     # inpaint: the canvas, 0.1-0.3 s redrawn
+                assert got.shape == (32 * t2a.vocoder.hop_size,)
+                continue
+            ref = np.clip(direct(), -1.0, 1.0)
+            assert got.shape == ref.shape
+            np.testing.assert_allclose(got, ref, atol=2 * LSB, rtol=0)
+    finally:
+        s.close()
+
+
+def test_tts_stream_endpoint(tmp_path, small_engines):
+    """GET /tts/stream: the streaming RIFF header, then int16 PCM per
+    clause chunk, equal to the engine's whole synthesis within one int16
+    step; an empty text and a negative ``chunk_phones`` are 400s (the JAX
+    server answers the latter with a 500)."""
+    tts = small_engines["tts"]
+    s = Served(ScriptedLLM([]), {"tts": tts}, tmp_path, device="cpu")
+    try:
+        text = "hello there. this is a second clause for chunking."
+        conn = http.client.HTTPConnection("127.0.0.1", s.port, timeout=120)
+        conn.request("GET", "/tts/stream?text=" + urllib.parse.quote(text))
+        r = conn.getresponse()
+        assert r.status == 200 and r.headers["Content-Type"] == "audio/wav"
+        assert r.headers.get("Content-Length") is None    # EOF-delimited
+        raw = r.read()
+        conn.close()
+        assert raw[:4] == b"RIFF" and raw[8:12] == b"WAVE"
+        assert struct.unpack("<I", raw[24:28])[0] == tts.sample_rate
+        pcm = np.frombuffer(raw[44:], "<i2").astype(np.float32) / 32767.0
+        ref = tts(text)
+        assert pcm.shape == ref.shape
+        assert np.abs(pcm - ref).max() <= 1.5 / 32767.0
+        for query in ("text=%20", "text=hi&chunk_phones=-1"):
+            code, body, _ = _req(s.port, "/tts/stream?" + query)
+            assert code == 400, body
+    finally:
+        s.close()
+
+
+def test_microbatched_tts_server(tmp_path, small_engines):
+    """The ``--microbatch`` shape: the TTS engine behind ``BatchedTTS``
+    answers concurrent tool turns, and every turn rides the batcher."""
+    proxy = BatchedTTS(small_engines["tts"], window_ms=20.0)
+    n = 3
+    llm = ScriptedLLM([_act(TTS_TOOL, "microbatched hello"),
+                       _answer("spoken.")] * n)
+    s = Served(llm, {"tts": proxy}, tmp_path, device="cpu")
+    try:
+        with concurrent.futures.ThreadPoolExecutor(n) as ex:
+            results = list(ex.map(lambda i: _post(
+                s.port, "/chat", {"text": f"say hi {i}"}), range(n)))
+        for code, raw, _ in results:
+            assert code == 200 and json.loads(raw)["steps"]
+        assert proxy.batcher.items == n
+    finally:
+        s.close()
+        proxy.batcher.close()
+
+
+def test_sketch_mask_inpaint_roundtrip(tmp_path, small_engines):
+    """The drawn-mask inpaint loop (audio-chatgpt.py:418-540, 1351-1374)
+    over HTTP: /inpaint/show returns a drawable mel PNG; POST /inpaint with
+    a sketch PNG (alpha = regenerate) returns the regenerated wav."""
+    t2a = small_engines["t2a"]
+    cfg = t2a.cfg
+    s = Served(ScriptedLLM([]), {"t2a": t2a}, tmp_path, device="cpu")
+    try:
+        os.makedirs(tmp_path / "audio", exist_ok=True)
+        save_wav(0.2 * np.sin(np.arange(cfg.inpaint_mel_len * cfg.hop) / 9.0)
+                 .astype(np.float32), str(tmp_path / "audio/clip.wav"), 16000)
+        code, body, _ = _post(s.port, "/inpaint/show",
+                              {"audio": "audio/clip.wav"})
+        assert code == 200, body
+        meta = json.loads(body)
+        assert (meta["mel_bins"], meta["frames"]) == (cfg.mel_bins,
+                                                      cfg.inpaint_mel_len)
+        code, png, hdrs = _req(s.port, meta["image"])
+        assert code == 200 and hdrs["Content-Type"] == "image/png"
+        img = Image.open(io.BytesIO(png))
+        assert img.size == (cfg.inpaint_mel_len, cfg.mel_bins)
+        mask = Image.new("RGBA", img.size, (0, 0, 0, 0))
+        for x in range(8, 16):
+            for y in range(4, 12):
+                mask.putpixel((x, y), (255, 255, 255, 255))
+        buf = io.BytesIO()
+        mask.save(buf, format="PNG")
+        url = "data:image/png;base64," + base64.b64encode(
+            buf.getvalue()).decode()
+        code, body, _ = _post(s.port, "/inpaint", {
+            "audio": "audio/clip.wav", "mask": url, "text": "birds",
+            "ddim_steps": 3})
+        assert code == 200, body
+        code, wav_bytes, _ = _req(s.port, json.loads(body)["audio"])
+        wav, sr = load_wav(io.BytesIO(wav_bytes))
+        assert code == 200 and sr == 16000
+        assert wav.shape == (cfg.inpaint_mel_len * t2a.vocoder.hop_size,)
+    finally:
+        s.close()
+
+
+def test_compute_mel_matches_jax():
+    cfg = types.SimpleNamespace(inpaint_mel_len=40, hop=256,
+                                sample_rate=16000, mel_bins=80)
+    wav = 0.3 * np.random.RandomState(42).randn(9000).astype(np.float32)
+    got = pinpaint.compute_mel(wav, cfg, device="cpu")
+    ref = jinpaint.compute_mel(wav, cfg)
+    assert got.shape == ref.shape == (40, 80)
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+
+
+def _png(img):
+    buf = io.BytesIO()
+    img.save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def _strokes(mode, background, stroke):
+    img = Image.new(mode, (32, 16), background)
+    for x in range(4, 8):
+        for y in range(2, 6):
+            img.putpixel((x, y), stroke)
+    return img
+
+
+@pytest.mark.parametrize("png", [
+    _png(_strokes("RGBA", (0, 0, 0, 0), (255, 255, 255, 255))),   # overlay
+    _png(_strokes("RGBA", (0, 0, 0, 255), (255, 255, 255, 255))),  # opaque
+    _png(_strokes("L", 0, 255)),                                   # gray
+    _png(_strokes("L", 0, 255).resize((32, 8))),                   # scaled
+], ids=["overlay", "opaque", "gray", "scaled"])
+def test_decode_mask_png_matches_jax(png):
+    """Alpha is the mask only where it varies; an opaque upload and a
+    grayscale one use luminance; a canvas of another height is resized."""
+    got = pinpaint.decode_mask_png(png, mel_bins=16)
+    np.testing.assert_array_equal(got, jinpaint.decode_mask_png(png,
+                                                                mel_bins=16))
+    assert got.shape == (32, 16) and got[5, 3] == 1.0 and got[0, 0] == 0.0
+
+
+def test_render_mel_png_matches_jax():
+    mel = np.random.RandomState(43).rand(40, 16).astype(np.float32)
+    assert pinpaint.render_mel_png(mel) == jinpaint.render_mel_png(mel)
