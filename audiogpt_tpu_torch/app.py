@@ -1,12 +1,14 @@
 """Application assembly: build the engine set and launch the chat app.
 
 Counterpart of ``audiogpt_tpu/app.py:1-362`` for the engines ported so far
-(``tts``, ``asr``, ``t2a``, ``i2a``). Engines are built per requested
-capability with seeded random weights (no checkpoint is loaded yet), on the
-card. The JAX app's ``--compile-cache`` (an XLA cache) has no counterpart,
-and ``--ckpt`` / ``--vocab`` wait for the checkpoint import.
+(``tts``, ``asr``, ``t2a``, ``i2a``, ``t2i``, ``i2t``). Engines are built
+per requested capability with seeded random weights (no checkpoint is
+loaded yet), on the card. The JAX app's ``--compile-cache`` (an XLA cache)
+has no counterpart, and ``--ckpt`` / ``--vocab`` wait for the checkpoint
+import (the T2I prompt refiner, ``--ckpt t2i_refiner=DIR``, among them).
 
-CLI:  python -m audiogpt_tpu_torch.serve --engines t2a,asr,tts,i2a --asr-fast
+CLI:  python -m audiogpt_tpu_torch.serve --engines t2a,asr,tts,i2a,t2i,i2t \
+          --asr-fast
 """
 
 from __future__ import annotations
@@ -57,6 +59,20 @@ def _i2a():
     from audiogpt_tpu_torch.engines.i2a import I2AEngine
 
     return I2AEngine(_FACTORIES["t2a"]())
+
+
+@register_engine("t2i")
+def _t2i():
+    from audiogpt_tpu_torch.engines.t2i import T2IEngine
+
+    return T2IEngine()
+
+
+@register_engine("i2t")
+def _i2t():
+    from audiogpt_tpu_torch.engines.analysis import ImageCaptionEngine
+
+    return ImageCaptionEngine()
 
 
 ALL_ENGINES = tuple(sorted(_FACTORIES))

@@ -37,18 +37,33 @@
 // kernel with one fragment layout, and `wgmma` is its next step.
 //
 // Design: a block of 4 warps owns 64 query rows (16 per warp, Q fragments
-// held in registers for the whole pass) and streams 64-key tiles of K and V
+// held in registers for the whole pass, but see D > 128 below) and streams
+// 64-key tiles of K and V
 // through a two-stage shared-memory ring filled by 16-byte `cp.async`, with
 // one barrier per tile, after which the copy of tile j+1 starts and overlaps
 // the products of tile j. Up to 5 blocks share an SM (`Layout::kMinBlocks`),
 // and tiles whose keys the mask drops entirely are skipped. The head dim is
 // padded with zeros in shared memory to DP, a multiple of the MMA's k step
-// (8 for TF32, 16 for bf16), so D = 40 or 80 work; rows are copied in
+// (8 for TF32, 16 for bf16), so D = 40, 80 or 160 work; rows are copied in
 // 16-byte pieces, so D * sizeof(T) must be a multiple of 16 (the wrapper
 // raises otherwise). Row strides in shared memory are padded so that every
 // fragment load is free of bank conflicts. The online softmax (running max
 // and sum per row) is computed on the accumulator fragments, with the row
 // max reduced over the 4 lanes that share a row.
+//
+// D > 128 (DP = 160, the SD UNet's 1280-channel level at 8 heads): the f32
+// entry would hold Q (20 k steps x 4 = 80 registers), the O accumulator
+// (160 / 8 x 4 = 80) and the S tile (32) live together, 192 registers
+// before any address or split temporary, which ptxas can hold only by
+// spilling at 255. So for f32 at DP > 128 the block copies its 64 Q rows
+// into shared memory once, with the first K/V tile (64 x 168 x 4 B = 42 KB
+// beside the ring's 2 x 85 KB: 209 KB of the 227 KB a block may take, one
+// block per SM), and each warp reads its A fragments from there at every
+// key tile, as it reads K: 10 KB a tile against K's 40 KB, read with the
+// same conflict-free stride. The bf16 entry keeps Q in registers at every
+// width (40 at DP = 160). Nothing wider than 160 is compiled: no path of
+// the JAX package runs a wider head (whisper 64, CLIP 80, UNet 40/80/160,
+// BLIP 64/96).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -169,8 +184,13 @@ struct Layout {
   static constexpr int kSK = kF32 ? (DP % 16 == 0 ? DP + 8 : DP) : DP + 8;
   static constexpr int kSV = kF32 ? DP + 4 : DP + 8;
   static constexpr int kStage = kBK * (kSK + kSV);
-  static constexpr int kBytes =
+  // f32 at DP > 128 keeps Q in shared memory (rows read like K's)
+  static constexpr bool kQSmem = kF32 && DP > 128;
+  static constexpr int kSQ = kSK;
+  static constexpr int kQOffset =
       kStages * (kStage * (int)sizeof(T) + kBK * (int)sizeof(float));
+  static constexpr int kBytes =
+      kQOffset + (kQSmem ? kBQ * kSQ * (int)sizeof(float) : 0);
   // resident blocks asked of ptxas: as many as the SM's 228 KB of shared
   // memory holds (1 KB reserved per block), at most 5. Five blocks of 4
   // warps put the UNet's 624-block grid in one wave (3 would need 1.6), at
@@ -198,6 +218,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* kv_s = reinterpret_cast<T*>(smem);
   float* mask_s = reinterpret_cast<float*>(
       smem + kStages * L::kStage * sizeof(T));
+  [[maybe_unused]] float* q_s =
+      reinterpret_cast<float*>(smem + L::kQOffset);  // kQSmem only
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;  // fragment row group, column pair
@@ -219,6 +241,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
               ((row / kBK) & 1 ? kBK * L::kSK + r * L::kSV : r * L::kSK);
     *reinterpret_cast<float4*>(base + ch * kPerChunk) =
         make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  if constexpr (L::kQSmem) {
+    // Q's pad, then its rows (zero-filled past Tq), in tile 0's copy group
+    for (int i = tid; i < kBQ * pad; i += kThreads)
+      *reinterpret_cast<float4*>(q_s + (i / pad) * L::kSQ +
+                                 (chunks + i % pad) * kPerChunk) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = tid; i < kBQ * chunks; i += kThreads) {
+      const int r = i / chunks, ch = i - r * chunks;
+      const bool in = q0 + r < Tq;
+      cp_async16(q_s + r * L::kSQ + ch * kPerChunk,
+                 qb + (int64_t)(in ? q0 + r : 0) * rs + ch * kPerChunk, in);
+    }
   }
 
   auto load_tile = [&](int tile, int st) {
@@ -245,11 +280,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // Q fragments, held for the whole pass (A operand of S = Q.K^T): f32
   // values for the f32 entry (split into TF32 halves once per k step and
   // tile, which keeps 20 fewer registers live than holding both halves),
-  // packed bf16 pairs for the bf16 entry
+  // packed bf16 pairs for the bf16 entry; none where Q is in shared memory
   constexpr int kQS = DP / kStep;
-  std::conditional_t<kF32, float, uint32_t> qa[kQS][4];
+  std::conditional_t<kF32, float, uint32_t> qa[L::kQSmem ? 1 : kQS][4];
 #pragma unroll
-  for (int s = 0; s < kQS; ++s) {
+  for (int s = 0; s < (L::kQSmem ? 0 : kQS); ++s) {
     if constexpr (kF32) {
       // a0 = (g, k=c) <-> dim 2c, a2 = (g, k=c+4) <-> dim 2c+1; a1, a3 row g+8
       const int d = s * 8 + 2 * c;
@@ -317,9 +352,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if constexpr (kF32) {
 #pragma unroll
       for (int t = 0; t < kQS; ++t) {
+        float qf[4];
+        if constexpr (L::kQSmem) {
+          // the a0..a3 layout of the register path, from this warp's rows
+          const float* qr = q_s + (warp * 16 + g) * L::kSQ + t * 8 + 2 * c;
+          const float2 lo = *reinterpret_cast<const float2*>(qr);
+          const float2 hi = *reinterpret_cast<const float2*>(qr + 8 * L::kSQ);
+          qf[0] = lo.x, qf[1] = hi.x, qf[2] = lo.y, qf[3] = hi.y;
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qf[i] = qa[t][i];
+        }
         uint32_t ah[4], al[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) split_tf32(qa[t][i], ah[i], al[i]);
+        for (int i = 0; i < 4; ++i) split_tf32(qf[i], ah[i], al[i]);
 #pragma unroll
         for (int n = 0; n < kBK / 8; ++n) {
           // b0 = (k=c, key g) <-> dim 2c, b1 = (k=c+4, key g) <-> dim 2c+1
@@ -514,6 +560,7 @@ int dispatch_f32(const Args& a) {
   if (a.D <= 80) return run<float, 80>(a);
   if (a.D <= 96) return run<float, 96>(a);
   if (a.D <= 128) return run<float, 128>(a);
+  if (a.D <= 160) return run<float, 160>(a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -525,6 +572,7 @@ int dispatch_bf16(const Args& a) {
   if (a.D <= 80) return run<bf16, 80>(a);
   if (a.D <= 96) return run<bf16, 96>(a);
   if (a.D <= 128) return run<bf16, 128>(a);
+  if (a.D <= 160) return run<bf16, 160>(a);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -4,3 +4,5 @@ from audiogpt_tpu_torch.engines.vocoder import VocoderEngine  # noqa: F401
 from audiogpt_tpu_torch.engines.asr import ASREngine  # noqa: F401
 from audiogpt_tpu_torch.engines.tts import TTSEngine  # noqa: F401
 from audiogpt_tpu_torch.engines.i2a import I2AEngine  # noqa: F401
+from audiogpt_tpu_torch.engines.t2i import T2IConfig, T2IEngine  # noqa: F401
+from audiogpt_tpu_torch.engines.analysis import ImageCaptionEngine  # noqa: F401

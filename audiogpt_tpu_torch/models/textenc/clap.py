@@ -164,6 +164,28 @@ class WordPieceTokenizer:
         return (np.asarray(toks + [0] * pad, np.int32),
                 np.asarray(mask + [0] * pad, np.int32))
 
+    def decode(self, ids) -> str:
+        """ids → text: specials skipped, ``##`` pieces merged (BERT
+        ``convert_tokens_to_string``), as the JAX tokenizer decodes; without
+        a vocab, ``<id>`` placeholders."""
+        if not self.vocab:
+            self._warn_no_vocab()
+            return " ".join(f"<{int(i)}>" for i in ids)
+        inv = getattr(self, "_inv", None)
+        if inv is None:
+            inv = self._inv = {v: k for k, v in self.vocab.items()}
+        words: list[str] = []
+        special = {self.CLS, self.SEP, self.PAD, "[MASK]"}
+        for i in ids:
+            t = inv.get(int(i), self.UNK)
+            if t in special or t.startswith("[unused"):
+                continue
+            if t.startswith("##") and words:
+                words[-1] += t[2:]
+            else:
+                words.append(t)
+        return " ".join(words)
+
 
 # ---------------------------------------------------------------------------
 # CLAP audio tower + retrieval scorer (best-of-n re-ranking)

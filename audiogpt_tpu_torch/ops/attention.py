@@ -4,9 +4,10 @@ whisper, and the decode's KV cache.
 Counterpart of ``audiogpt_tpu/ops/attention.py:22-74``. Its dispatch rule
 is JAX's wherever the kernel takes the call: a long sequence (Tq·Tk ≥ 256²)
 with no dense mask goes to the flash kernel when the tensors are on the
-card and :func:`flash_takes` accepts their dtypes and head dim. Everything
-else is the plain product and softmax below (the Pallas kernel takes any
-head dim). :class:`KVCache` is the static-length cache of autoregressive
+card and :func:`flash_takes` accepts their dtypes and head dim (at most
+160, the widest head of any path: the SD UNet's ds-4 level; the Pallas
+kernel takes any). Everything else is the plain product and softmax below.
+:class:`KVCache` is the static-length cache of autoregressive
 decode: its shape stays fixed for the whole decode.
 """
 

@@ -29,14 +29,18 @@ def _dtypes_taken(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     return q.dtype in _ENTRY and k.dtype == q.dtype and v.dtype == q.dtype
 
 
+#: the widest head dim the kernel is compiled for (the SD UNet's ds-4 level)
+MAX_HEAD_DIM = 160
+
+
 def _head_dim_taken(q: torch.Tensor) -> bool:
     d = q.shape[-1]
-    return d <= 128 and d * q.element_size() % 16 == 0
+    return d <= MAX_HEAD_DIM and d * q.element_size() % 16 == 0
 
 
 def kernel_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     """Whether the kernel's dtypes and head dim take q/k/v, wherever they
-    lie: all f32 or all bf16, a head dim of at most 128 whose rows are a
+    lie: all f32 or all bf16, a head dim of at most 160 whose rows are a
     multiple of 16 bytes. :func:`flash_attention` raises where this is
     false; ``ops/attention.py``'s dispatch builds on it."""
     return _dtypes_taken(q, k, v) and _head_dim_taken(q)
@@ -72,7 +76,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B, Tq, H, D], k/v [B, Tk, H, D], kv_mask [B, Tk] → [B, Tq, H, D].
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (f32 or bf16, contiguous, D <= 128 with rows of a multiple of 16 bytes)
+    (f32 or bf16, contiguous, D <= 160 with rows of a multiple of 16 bytes)
     or raises."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, kv_mask, causal)
@@ -91,7 +95,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not _head_dim_taken(q):
         raise ValueError(f"flash_attention: head dim {d} ({q.dtype}): the "
                          f"kernel copies rows of a multiple of 16 bytes, "
-                         f"at most 128 elements")
+                         f"at most {MAX_HEAD_DIM} elements")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
                for t in (q, k, v)):
         raise ValueError("flash_attention: q/k/v must be contiguous and "

@@ -11,8 +11,8 @@ from audiogpt_tpu_torch.text.frontend import (EnglishFrontend,  # noqa: F401
                                               ProcessedText,
                                               preprocess_text)
 from audiogpt_tpu_torch.text.bpe import (ByteBPE,  # noqa: F401
-                                         WhisperDetokenizer, load_bpe_dir,
-                                         load_clip_bpe)
+                                         ClipTokenizer, WhisperDetokenizer,
+                                         load_bpe_dir, load_clip_bpe)
 
 
 def default_arpabet_vocab() -> list[str]:

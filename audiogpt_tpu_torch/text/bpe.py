@@ -33,6 +33,8 @@ import sys
 import unicodedata
 import warnings
 
+import numpy as np
+
 _DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 CLIP_BPE_PATH = os.path.join(_DATA_DIR, "bpe_simple_vocab_16e6.txt.gz")
 
@@ -249,6 +251,32 @@ def load_clip_bpe(path: str | None = None) -> ByteBPE:
     specials = {"<start_of_text>": len(vocab), "<end_of_text>": len(vocab) + 1}
     return ByteBPE(encoder, merges, end_of_word="</w>", lowercase=True,
                    specials=specials)
+
+
+class ClipTokenizer:
+    """CLIP framing on top of :func:`load_clip_bpe`
+    (``audiogpt_tpu/text/bpe.py:225-250``): ``__call__`` gives bare ids for
+    engines that add their own SOT/EOT (``engines/t2i.py``), :meth:`framed`
+    the zero-padded [n, context] layout."""
+
+    def __init__(self, path: str | None = None):
+        self.bpe = load_clip_bpe(path)
+        self.sot = self.bpe.specials["<start_of_text>"]
+        self.eot = self.bpe.specials["<end_of_text>"]
+
+    def __call__(self, text: str) -> list[int]:
+        return self.bpe.encode(text)
+
+    def framed(self, texts: list[str], context_length: int = 77) -> np.ndarray:
+        out = np.zeros((len(texts), context_length), np.int32)
+        for i, t in enumerate(texts):
+            ids = ([self.sot] + self.bpe.encode(t)[: context_length - 2]
+                   + [self.eot])
+            out[i, : len(ids)] = ids
+        return out
+
+    def decode(self, ids) -> str:
+        return self.bpe.decode(ids)
 
 
 def load_gpt2_bpe(vocab_json: str, merges_txt: str | None = None,

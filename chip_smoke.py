@@ -13,7 +13,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    the T2A UNet shape, the three inpaint shapes (level-0 self- and
    cross-attention, level-1 self-attention at D = 80), whisper-base's
    encoder shape at batch 1 and 4, the I2A call's CLIP ViT-H/14 shape
-   [1, 257, 16, 80] and UNet shape [2, 780, 8, 40], and two more (a key
+   [1, 257, 16, 80] and UNet shape [2, 780, 8, 40], the T2I call's five
+   UNet shapes (self- and cross-attention at ds 1 and 2, [2, 256, 8, 160]
+   at ds 4), BLIP-base's [1, 577, 12, 64], and two more (a key
    mask, causal); kernel, plain and ``scaled_dot_product_attention`` (same
    dtype) times; the grid's blocks and waves; bounds at the route's rate
    (3xTF32 or bf16 tensor cores) and at the f32 FMA rate.
@@ -93,12 +95,31 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    (``i2a_stages``).
 22. i2a_small_reference: a narrow CLIP (257 tokens) and T2A engine on the
    card against the same weights and draws on the CPU.
-23. served: the agent behind ``AppServer`` and ``make_server`` on
+23. t2i: the agent's "Generate Image From User Input Text" tool at full
+   width: ``T2IEngine(T2IConfig())`` (the SD-1.x UNet, the f8 RGB VAE at
+   512 × 512, CLIP ViT-L/14's text tower; seeded random weights), text →
+   PNG path with DDIM-50 at scale 7.5 and the CFG pair; K1 1 250 a call
+   (250 at D = 160), by shape, K2 none; cold and warm (median of 3) times,
+   set-up, peak memory; the layer times (``t2i_stages``) and one traced
+   call (``t2i_profile``: the device's busy share).
+24. t2i_bf16: the same weights under ``unet_bf16``: the same 1 250 on K1's
+   bf16 entry, and the image's distance from the f32 engine's.
+25. t2i_small_reference: a narrow T2I engine (D = 40, 80, 160) on the card
+   against the same weights on the CPU.
+26. i2t: the agent's "Get Photo Description" tool at BLIP-base width
+   (``ImageCaptionEngine()``, seeded random weights) on a seeded 512 × 512
+   PNG by path: K1 12 a call at [1, 577, 12, 64]; cold and warm (median
+   of 5) times, set-up, peak memory; the decode per token and the
+   launches of one decode step (``i2t_stages``).
+27. i2t_small_reference: a narrow BLIP (577 tokens) on the card against the
+   same weights on the CPU, equal greedy tokens.
+28. served: the agent behind ``AppServer`` and ``make_server`` on
    127.0.0.1 with the engines above passed as a mapping: one HTTP
-   ``/chat`` turn per tool (t2a, inpaint, asr, tts, i2a), a ``/speech``
-   turn, ``/stats``, one ``/tts/stream``; each turn's wall time and
-   launches, equal to the direct call's; and what a warm T2A call costs
-   as the first call of a new thread (``served_thread_cost``).
+   ``/chat`` turn per tool (t2a, inpaint, asr, tts, i2a, t2i, and i2t on
+   the PNG the t2i turn wrote), a ``/speech`` turn, ``/stats``, one
+   ``/tts/stream``; each turn's wall time and launches, equal to the
+   direct call's; and what a warm T2A call costs as the first call of a
+   new thread (``served_thread_cost``).
 
 The ``unet_bf16`` engine of phase 6 also inpaints (``inpaint_unet_bf16``):
 its f32 UNet gives the f32 engine's wav with the same draws.
@@ -116,6 +137,7 @@ f32 without them).
 
 from __future__ import annotations
 
+import io
 import json
 import math
 import re
@@ -124,6 +146,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 from collections import Counter
 from pathlib import Path
 
@@ -164,6 +187,11 @@ TTS_BATCH_TEXTS = (TTS_TEXT,
 TTS_WARM_CALLS = 10                   # warm TTS tool calls timed
 I2A_STEPS = 100                       # the I2A tool's DDIM steps
 I2A_WARM_CALLS = 3                    # warm I2A tool calls timed
+#: the T2I tool's prompt; its call is DDIM-50 at scale 7.5
+T2I_TEXT = "a watercolor painting of a lighthouse on a cliff at dawn"
+T2I_STEPS = 50
+T2I_WARM_CALLS = 3                    # warm T2I tool calls timed
+I2T_WARM_CALLS = 5                    # warm I2T tool calls timed
 #: the duration predictor's output layer: its weights scaled by 0.25 and
 #: its bias 1.9, so round(exp(d) − 1) ≈ 6 frames a phone (untouched random
 #: weights round most phones to 0 frames)
@@ -271,8 +299,11 @@ BF16_FLASH_TOL = (1e-2, 2 ** -7)          # absolute, relative
 #: self-attention (D = 80); whisper-base's encoder self-attention for one
 #: 30 s window and for the 4-window batch of a 60 s clip; the I2A call's
 #: CLIP ViT-H/14 self-attention (257 tokens, D = 80) and its UNet's level-0
-#: self-attention (the CFG pair of one candidate); the key-mask and causal
-#: code no path reaches
+#: self-attention (the CFG pair of one candidate); the T2I call's UNet at
+#: 512 x 512 (64 x 64 latents, the CFG pair): self- and cross-attention (77
+#: CLIP tokens) at ds 1 and 2, self-attention at ds 4 (D = 160); BLIP-base's
+#: vision self-attention (577 tokens); the key-mask and causal code no path
+#: reaches
 FLASH_CASES = {
     "unet_level0": ((6, 780, 780, 8, 40), None, False),
     "inpaint_self_l0": ((1, 1060, 1060, 8, 40), None, False),
@@ -282,6 +313,12 @@ FLASH_CASES = {
     "asr_long_encoder": ((4, 1500, 1500, 8, 64), None, False),
     "clip_vision": ((1, 257, 257, 16, 80), None, False),
     "i2a_unet_level0": ((2, 780, 780, 8, 40), None, False),
+    "t2i_self_ds1": ((2, 4096, 4096, 8, 40), None, False),
+    "t2i_cross_ds1": ((2, 4096, 77, 8, 40), None, False),
+    "t2i_self_ds2": ((2, 1024, 1024, 8, 80), None, False),
+    "t2i_cross_ds2": ((2, 1024, 77, 8, 80), None, False),
+    "t2i_self_ds4": ((2, 256, 256, 8, 160), None, False),
+    "blip_vision": ((1, 577, 577, 12, 64), None, False),
     "kv_mask": ((2, 1500, 1500, 6, 64), (1500, 1100), False),
     "causal": ((1, 256, 256, 2, 80), None, True),
 }
@@ -442,23 +479,30 @@ def fill_random(module, gen) -> None:
                     p.copy_(0.1 * noise)
 
 
-def flash_shapes(cfg, batch: int, frames: int, steps: int,
+def t2a_latent(cfg, frames: int) -> tuple:
+    """The T2A UNet's latent (h, w) for a mel canvas of ``frames``."""
+    return cfg.mel_bins // cfg.vae_factor, frames // cfg.vae_factor
+
+
+def flash_shapes(cfg, batch: int, latent: tuple, steps: int,
                  context: int) -> Counter:
     """Flash launches of one sampler run, by shape (B, Tq, Tk, H, D), from
-    the configs: the sampler's UNet evals (``ddim_steps(n)`` spaces
-    ``range(0, T, T // n)``: 13 timesteps for n = 12) times, at each UNet
+    the configs of any diffusion engine (``cfg.unet``, ``cfg.timesteps``):
+    the sampler's UNet evals (``ddim_steps(n)`` spaces ``range(0, T, T //
+    n)``: 13 timesteps for n = 12, 50 for n = 50) times, at each UNet
     level, the transformer blocks there (the down path's res blocks and the
     up path's where the level has attention, the middle block at the
     deepest) whose self- or cross-attention reaches the dispatch rule's
     pair count (``ops/attention.py``). ``batch`` is the UNet's batch (the
-    CFG pair doubles it); ``context`` the cross-attention's keys (the CLAP
-    tokens of T2A, I2A's one image embedding)."""
+    CFG pair doubles it); ``latent`` the UNet input's (h, w); ``context``
+    the cross-attention's keys (the CLAP tokens of T2A, I2A's one image
+    embedding, T2I's 77 CLIP tokens)."""
     from audiogpt_tpu_torch.models.diffusion import DiffusionSchedule
     from audiogpt_tpu_torch.ops.attention import FLASH_MIN_PAIRS
 
     u = cfg.unet
     evals = len(DiffusionSchedule.linear(cfg.timesteps).ddim_steps(steps)[0])
-    h, w = cfg.mel_bins // cfg.vae_factor, frames // cfg.vae_factor
+    h, w = latent
     shapes, ds = Counter(), 1
     for level, mult in enumerate(u.channel_mult):
         blocks = (2 * u.num_res_blocks + 1) * (ds in u.attention_resolutions) \
@@ -520,7 +564,7 @@ def counted(fn):
 def t2a_path(eng) -> dict:
     """The launches of one ``txt2audio_best`` call by shape, and its counts."""
     cfg = eng.cfg
-    flash = flash_shapes(cfg, 6, cfg.mel_len, cfg.tool_steps,
+    flash = flash_shapes(cfg, 6, cfg.latent_hw, cfg.tool_steps,
                          cfg.clap.max_length)
     snake = snake_shapes(eng.vocoder.cfg, 3, cfg.mel_len)
     return {"flash": flash, "snake": snake,
@@ -659,8 +703,8 @@ def inpaint_path(eng, steps: int = 100) -> dict:
     """The launches of one inpaint call at scale 1 (no CFG pair: batch 1) by
     shape, and its counts."""
     cfg = eng.cfg
-    flash = flash_shapes(cfg, 1, cfg.inpaint_mel_len, steps,
-                         cfg.clap.max_length)
+    flash = flash_shapes(cfg, 1, t2a_latent(cfg, cfg.inpaint_mel_len),
+                         steps, cfg.clap.max_length)
     snake = snake_shapes(eng.vocoder.cfg, 1, cfg.inpaint_mel_len)
     return {"flash": flash, "snake": snake,
             "counts": expected_counts(flash, snake)}
@@ -844,8 +888,8 @@ def phase_small_reference() -> None:
             "core": t2a_path(eng)["counts"],
             "ranked": t2a_path(eng)["counts"],
             "inpaint": expected_counts(
-                flash_shapes(cfg, 1, cfg.inpaint_mel_len, inpaint_steps,
-                             cfg.clap.max_length),
+                flash_shapes(cfg, 1, t2a_latent(cfg, cfg.inpaint_mel_len),
+                             inpaint_steps, cfg.clap.max_length),
                 snake_shapes(vcfg, 1, cfg.inpaint_mel_len))}
     cpu, card = outs["cpu"], outs["cuda"]
     best = int(card[2].argmax())
@@ -881,16 +925,18 @@ def phase_small_reference() -> None:
         raise AssertionError("a CPU run counted kernel launches")
 
 
-def profile_call(name: str, fn, warm_s: float) -> None:
+def profile_call(name: str, fn, warm_s: float, cpu: bool = True) -> None:
     """One warm call of ``fn`` under torch.profiler: device time by kernel
     and the device's busy share, of the traced call (tracing slows the host)
-    and of the untraced warm median ``warm_s``."""
+    and of the untraced warm median ``warm_s``. ``cpu=False`` traces the
+    device alone (a call of tens of thousands of kernels: the host's
+    operator events would triple what ``key_averages`` sorts)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * cpu
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -903,9 +949,18 @@ def profile_call(name: str, fn, warm_s: float) -> None:
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:12]
+    # the union of the device events' intervals: the time the device had
+    # work, whatever the sum above counts twice
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    union_us, end = 0.0, -math.inf
+    for start, stop in spans:
+        union_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
     emit({"phase": name, "wall_s": wall, "device_s": busy_us / 1e6,
-          "device_busy_share": busy_us / 1e6 / wall,
-          "device_busy_share_untraced": busy_us / 1e6 / warm_s,
+          "device_union_s": union_us / 1e6,
+          "device_busy_share": union_us / 1e6 / wall,
+          "device_busy_share_untraced": union_us / 1e6 / warm_s,
           "launches": sum(e.count for e in kernels),
           "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
                   for e in top]})
@@ -1811,13 +1866,14 @@ def phase_asr_small_reference() -> None:
 # ---------------------------------------------------------------------------
 
 
-def clip_flash_shapes(vcfg, batch: int) -> Counter:
-    """Flash launches of one CLIP vision pass, by shape: every block's
-    self-attention over the patches and the class token, when their pairs
-    reach the dispatch rule's count (``ops/attention.py``)."""
+def vit_flash_shapes(vcfg, batch: int, tokens: int) -> Counter:
+    """Flash launches of one ViT pass (CLIP's, BLIP's), by shape: every
+    block's self-attention over the ``tokens`` (the patches and the class
+    token), when their pairs reach the dispatch rule's count
+    (``ops/attention.py``)."""
     from audiogpt_tpu_torch.ops.attention import FLASH_MIN_PAIRS
 
-    t = vcfg.tokens
+    t = tokens
     if t * t < FLASH_MIN_PAIRS:
         return Counter()
     return Counter({(batch, t, t, vcfg.heads, vcfg.width // vcfg.heads):
@@ -1830,8 +1886,8 @@ def i2a_path(eng, steps: int = I2A_STEPS) -> dict:
     context token: cross-attention stays plain), the vocoder on one mel.
     The ``""`` embedding is computed once per weight load."""
     cfg = eng.t2a.cfg
-    flash = clip_flash_shapes(eng.vision_cfg, 1) \
-        + flash_shapes(cfg, 2, cfg.mel_len, steps, context=1)
+    flash = vit_flash_shapes(eng.vision_cfg, 1, eng.vision_cfg.tokens) \
+        + flash_shapes(cfg, 2, cfg.latent_hw, steps, context=1)
     snake = snake_shapes(eng.t2a.vocoder.cfg, 1, cfg.mel_len)
     return {"flash": flash, "snake": snake,
             "counts": expected_counts(flash, snake)}
@@ -2013,8 +2069,8 @@ def phase_i2a_small_reference() -> None:
         out, _, launches[dev] = counted(core)
         outs[dev] = [t.cpu() for t in out]
         expected = expected_counts(
-            clip_flash_shapes(vision, 1)
-            + flash_shapes(cfg, 2, cfg.mel_len, I2A_STEPS, context=1),
+            vit_flash_shapes(vision, 1, vision.tokens)
+            + flash_shapes(cfg, 2, cfg.latent_hw, I2A_STEPS, context=1),
             snake_shapes(vcfg, 1, cfg.mel_len))
     errs = {name: (a - b).abs().max().item() for name, a, b in zip(
         ("context", "mel", "wav"), outs["cpu"], outs["cuda"])}
@@ -2031,6 +2087,432 @@ def phase_i2a_small_reference() -> None:
 
 
 # ---------------------------------------------------------------------------
+# T2I: the agent's "Generate Image From User Input Text" tool (SD-1.x)
+# I2T: the agent's "Get Photo Description" tool (BLIP-base)
+# ---------------------------------------------------------------------------
+
+
+def recorded_flash(fn):
+    """``fn()`` with every call that ``ops/attention.py`` hands the flash
+    kernel's wrapper recorded by shape (B, Tq, Tk, H, D) → (output,
+    Counter). The wrapper and its launch count are untouched: this says at
+    which shapes the counted launches were made."""
+    import importlib
+
+    # the module (``ops/__init__.py`` exports a function of its name)
+    attn = importlib.import_module("audiogpt_tpu_torch.ops.attention")
+    real, shapes = attn.flash_attention, Counter()
+
+    def recorder(q, k, v, **kw):
+        shapes[(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                q.shape[3])] += 1
+        return real(q, k, v, **kw)
+
+    attn.flash_attention = recorder
+    try:
+        return fn(), shapes
+    finally:
+        attn.flash_attention = real
+
+
+def t2i_path(eng, steps: int = T2I_STEPS) -> dict:
+    """The launches of one T2I tool call by shape, and its counts: DDIM with
+    the CFG pair (UNet batch 2) on the 77 CLIP tokens; the text tower's
+    77² pairs and the VAE stay plain."""
+    cfg = eng.cfg
+    flash = flash_shapes(cfg, 2, cfg.latent_hw, steps,
+                         cfg.text.context_length)
+    return {"flash": flash,
+            "counts": expected_counts(flash, Counter(), cfg.unet_bf16)}
+
+
+def i2t_path(eng) -> dict:
+    """The launches of one I2T tool call by shape, and its counts: the
+    vision tower on one image; the decoder's attentions stay plain."""
+    vcfg = eng.cfg.vision
+    flash = vit_flash_shapes(vcfg, 1, vcfg.seq_len)
+    return {"flash": flash, "counts": expected_counts(flash, Counter())}
+
+
+def check_recorded(what: str, counts: dict, shapes: Counter,
+                   path: dict) -> None:
+    """The counted launches and the recorded shapes of one call against the
+    path's derived ones."""
+    if counts != path["counts"] or shapes != path["flash"]:
+        raise AssertionError(f"{what}: launches {counts}, shapes "
+                             f"{dict(shapes)}; expected {path['counts']}, "
+                             f"{dict(path['flash'])}")
+
+
+def t2i_stage_ms(eng) -> dict:
+    """Time of each layer of one warm T2I tool call (as :func:`stage_ms`):
+    the CLIP text tower (tokenising included), the DDIM-50 sampler with its
+    UNet (and the host's time to queue it), VAE decode, and on the host
+    the image's copy (which waits for the device to finish the queued
+    work) and the PNG write."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from audiogpt_tpu_torch.models.diffusion import ddim_sample
+
+    cfg = eng.cfg
+    h, w = cfg.latent_hw
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    with torch.inference_mode():
+        marks[0].record()
+        both = eng.encode_ids(eng._tokenize([T2I_TEXT, ""]))
+        marks[1].record()
+        x_T = torch.randn((1, cfg.unet.in_channels, h, w), device="cuda")
+        t0 = time.perf_counter()
+        z = ddim_sample(eng.eps, eng.schedule, x_T, both[:1], both[1:],
+                        n_steps=T2I_STEPS, guidance_scale=7.5)
+        host_s = time.perf_counter() - t0
+        marks[2].record()
+        img = ((eng.vae.decode(z / cfg.scale_factor) + 1.0) / 2.0).clamp(
+            0.0, 1.0)
+        marks[3].record()
+        t0 = time.perf_counter()
+        arr = img.permute(0, 2, 3, 1).cpu().numpy()
+        copy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Image.fromarray((arr[0] * 255).astype(np.uint8)).save(
+        Path(eng.media_root) / "stage.png")
+    png_s = time.perf_counter() - t0
+    names = ("clip_text_ms", "unet_sampler_ms", "vae_decode_ms")
+    return {"unet_sampler_host_ms": host_s * 1e3,
+            "image_to_host_ms": copy_s * 1e3, "png_write_ms": png_s * 1e3,
+            **{n: a.elapsed_time(b) for n, a, b in zip(names, marks,
+                                                       marks[1:])}}
+
+
+def phase_t2i(gen, tmp: str) -> dict:
+    """The T2I tool's call at full width: ``T2IEngine(T2IConfig())`` (the
+    SD-1.x UNet, the f8 RGB VAE at 512 × 512, CLIP ViT-L/14's text tower;
+    seeded random weights) called as the toolset calls it, text → PNG path
+    (DDIM-50, scale 7.5, the CFG pair): set-up, cold and warm (median of
+    3) times, peak memory above the earlier engines, K1 launches by shape
+    (1 250, 250 of them at D = 160) and none of K2; the PNG; the time of
+    each layer; one traced call (the device's busy share)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from audiogpt_tpu_torch.engines import T2IConfig, T2IEngine
+
+    held = torch.cuda.memory_allocated()     # the earlier engines, alive
+    root = Path(tmp) / "t2i"
+    t0 = time.perf_counter()
+    eng = T2IEngine(T2IConfig(), media_root=str(root))
+    for m in (eng.unet, eng.vae, eng.text):
+        fill_random(m, gen)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    path = t2i_path(eng)
+    d160 = sum(n for s, n in path["flash"].items() if s[-1] == 160)
+
+    def call():
+        return eng(T2I_TEXT)
+
+    (rel, shapes), cold_s, cold_counts = counted(
+        lambda: recorded_flash(call))
+    check_recorded("t2i", cold_counts, shapes, path)
+    torch.cuda.reset_peak_memory_stats()
+    runs = [counted(call) for _ in range(T2I_WARM_CALLS)]
+    peak = torch.cuda.max_memory_allocated()
+    for _, _, counts in runs:
+        if counts != path["counts"]:
+            raise AssertionError(f"t2i launches {counts}, expected "
+                                 f"{path['counts']}")
+    with Image.open(root / runs[-1][0]) as im:
+        png = np.asarray(im)
+    img = eng.txt2img(T2I_TEXT, seed=0)
+    if png.shape != (512, 512, 3) or float(png.std()) == 0.0 \
+            or img.shape != (1, 512, 512, 3) or not np.isfinite(img).all() \
+            or not 0.0 <= img.min() <= img.max() <= 1.0:
+        raise AssertionError(f"t2i png {png.shape} std {png.std()}, image "
+                             f"{img.shape} in [{img.min()}, {img.max()}]")
+    warm = sorted(r[1] for r in runs)
+    median = statistics.median(warm)
+    emit({"phase": "t2i", "call": "T2IEngine.__call__", "size": "512x512",
+          "sampler": "ddim", "steps": T2I_STEPS, "scale": 7.5,
+          "setup_s": setup_s, "cold_s": cold_s, "warm_s": median,
+          "warm_max_s": warm[-1], "warm_calls": len(warm),
+          "peak_mem_gb": peak / 1e9, "t2i_peak_mem_gb": (peak - held) / 1e9,
+          "params_m": sum(p.numel() for m in (eng.unet, eng.vae, eng.text)
+                          for p in m.parameters()) / 1e6,
+          "launches": runs[-1][2],
+          "launches_by_shape": {str(list(s)): n for s, n in shapes.items()},
+          "launches_d160": d160, "png": list(png.shape),
+          "png_std": float(png.std()), "image_mean": float(img.mean())})
+    if d160 != 250:
+        raise AssertionError(f"t2i: {d160} launches at D = 160")
+    stages = [t2i_stage_ms(eng) for _ in range(T2I_WARM_CALLS)]
+    emit({"phase": "t2i_stages", "runs": T2I_WARM_CALLS,
+          **{k: statistics.median(r[k] for r in stages) for k in stages[0]}})
+    profile_call("t2i_profile", call, median, cpu=False)
+    return {"engine": eng, "launches": runs[-1][2], "image": img}
+
+
+def phase_t2i_bf16(t2i: dict) -> dict:
+    """The T2I engine's weights under ``T2IConfig(unet_bf16=True)`` (a bf16
+    copy of the UNet, cast once): the same call on K1's bf16 entry alone,
+    its counts and shapes, warm median of 3, and the seed-0 image's
+    distance from the f32 engine's."""
+    import dataclasses
+
+    import numpy as np
+
+    from audiogpt_tpu_torch.engines import T2IEngine
+
+    base = t2i["engine"]
+    eng = T2IEngine(dataclasses.replace(base.cfg, unet_bf16=True),
+                    tokenizer=base.tokenizer, media_root=base.media_root)
+    eng.load_state_dict({name: getattr(base, name).state_dict()
+                         for name in ("unet", "vae", "text")})
+    path = t2i_path(eng)
+
+    def call():
+        return eng(T2I_TEXT)
+
+    (_, shapes), cold_s, cold_counts = counted(lambda: recorded_flash(call))
+    check_recorded("t2i_bf16", cold_counts, shapes, path)
+    runs = [counted(call) for _ in range(T2I_WARM_CALLS)]
+    if any(r[2] != path["counts"] for r in runs):
+        raise AssertionError(f"t2i_bf16 launches {[r[2] for r in runs]}")
+    img = eng.txt2img(T2I_TEXT, seed=0)
+    if not np.isfinite(img).all():
+        raise AssertionError("t2i_bf16: non-finite image")
+    warm = sorted(r[1] for r in runs)
+    emit({"phase": "t2i_bf16", "cold_s": cold_s,
+          "warm_s": statistics.median(warm), "warm_max_s": warm[-1],
+          "warm_calls": len(warm), "launches": runs[-1][2],
+          "image_max_abs_diff_from_f32": float(
+              np.abs(img - t2i["image"]).max()),
+          "image_mean_abs_diff_from_f32": float(
+              np.abs(img - t2i["image"]).mean())})
+    return {"launches": runs[-1][2]}
+
+
+def phase_t2i_small_reference() -> None:
+    """A narrow T2I engine on the card against the same weights on the CPU:
+    a 3-level UNet (160 channels, 4 heads: D = 40, 80, 160, so every K1
+    width of the tool's call) on 64 × 64 latents, an f2 RGB VAE, a 1-layer
+    CLIP text tower; the text states and the DDIM core with the CFG pair
+    from the same initial noise, and the card's launches against the
+    configs."""
+    import torch
+
+    from audiogpt_tpu_torch.engines import T2IConfig, T2IEngine
+    from audiogpt_tpu_torch.models.diffusion import UNetConfig, VAEConfig
+    from audiogpt_tpu_torch.models.textenc.clip import CLIPTextConfig
+
+    cfg = T2IConfig(
+        unet=UNetConfig(model_channels=160, num_res_blocks=1,
+                        attention_resolutions=(1, 2, 4),
+                        channel_mult=(1, 2, 4), num_heads=4, context_dim=64),
+        vae=VAEConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1,
+                      attn_resolutions=(), in_channels=3, out_ch=3,
+                      resolution=128),
+        text=CLIPTextConfig(width=64, layers=1, heads=2, embed_dim=64),
+        height=128, width=128)
+    steps = 2
+    outs, launches = {}, {}
+    for dev in ("cpu", "cuda"):
+        eng = T2IEngine(cfg, device=dev)
+        modules = (eng.unet, eng.vae, eng.text)
+        if dev == "cpu":
+            g = torch.Generator().manual_seed(12)
+            for m in modules:
+                fill_random(m, g)
+            state = [m.state_dict() for m in modules]
+            x_T = torch.randn(1, 4, 64, 64, generator=g)
+        else:
+            for m, sd in zip(modules, state):
+                m.load_state_dict(sd)
+
+        def core(eng=eng, x=x_T.to(dev)):
+            both = eng.encode_ids(eng._tokenize([T2I_TEXT, ""]))
+            return both, eng.sample(both[:1], both[1:], x, 7.5, steps)
+
+        out, _, launches[dev] = counted(core)
+        outs[dev] = [t.cpu() for t in out]
+    path = flash_shapes(cfg, 2, cfg.latent_hw, steps,
+                        cfg.text.context_length)
+    expected = expected_counts(path, Counter())
+    errs = {name: (a - b).abs().max().item() for name, a, b in zip(
+        ("context", "image"), outs["cpu"], outs["cuda"])}
+    emit({"phase": "t2i_small_reference",
+          **{f"{k}_max_abs_err": v for k, v in errs.items()},
+          "cuda_launches": launches["cuda"], "cpu_launches": launches["cpu"],
+          "shapes": {str(list(s)): n for s, n in path.items()}})
+    # f32 on both sides, TF32 off: 1e-3 absolute on images in [0, 1]
+    bad = {k: v for k, v in errs.items() if not v <= 1e-3}
+    if bad:
+        raise AssertionError(f"card vs CPU T2I: {bad}")
+    if launches["cuda"] != expected or any(launches["cpu"].values()) \
+            or not any(s[-1] == 160 for s in path):
+        raise AssertionError(f"small T2I launches {launches['cuda']}, "
+                             f"expected {expected}; CPU {launches['cpu']}")
+
+
+def i2t_decode_parts(eng, image: str) -> dict:
+    """One warm caption taken apart between CUDA events: the image's
+    preprocessing on the host, the vision tower, the cross K/V projection,
+    and the greedy decode (the BOS step and ``max_tokens - 1`` cached
+    steps) per token; and the device launches of one cached step."""
+    import torch
+
+    from audiogpt_tpu_torch.models.caption.blip import preprocess_image
+    from audiogpt_tpu_torch.ops.attention import KVCache
+
+    model, cfg = eng.model, eng.cfg.text
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        px = torch.from_numpy(preprocess_image(
+            image, eng.cfg.vision.image_size)).cuda()
+        prep_s = time.perf_counter() - t0
+        marks[0].record()
+        img = model.encode_image(px)
+        marks[1].record()
+        cross = model.cross_kvs(img)
+        marks[2].record()
+        caches = [KVCache.create(1, 1 + eng.max_tokens, cfg.heads,
+                                 cfg.width // cfg.heads, img.dtype, "cuda")
+                  for _ in range(cfg.layers)]
+        tok = torch.full((1, 1), cfg.bos_id, dtype=torch.long, device="cuda")
+        for i in range(eng.max_tokens):
+            tok = model.decode_step(tok, cross, i, caches)[:, -1].argmax(
+                -1, keepdim=True)
+        marks[3].record()
+        marks[3].synchronize()
+        caches = [KVCache.create(1, 1, cfg.heads, cfg.width // cfg.heads,
+                                 img.dtype, "cuda")
+                  for _ in range(cfg.layers)]
+        step = device_launches(
+            lambda: model.decode_step(tok, cross, 1, caches))
+    vision, cross_ms, decode = (a.elapsed_time(b) for a, b in
+                                zip(marks, marks[1:]))
+    return {"preprocess_host_ms": prep_s * 1e3, "vision_ms": vision,
+            "cross_kv_ms": cross_ms, "decode_ms": decode,
+            "decode_ms_per_token": decode / eng.max_tokens,
+            "device_launches_per_step": step}
+
+
+def phase_i2t(gen, tmp: str) -> dict:
+    """The I2T tool's call at full width: ``ImageCaptionEngine()``
+    (BLIP-base: ViT-B/16 at 384 px, 12 + 12 layers; seeded random
+    weights) on one seeded 512 × 512 PNG by path: set-up, cold and warm
+    (median of 5) times, peak memory above the earlier engines, K1 at
+    [1, 577, 12, 64] (12 a call), the decode per token and the launches
+    of one decode step."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.engines import ImageCaptionEngine
+    from audiogpt_tpu_torch.models.caption.blip import preprocess_image
+
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = ImageCaptionEngine()
+    fill_random(eng.model, gen)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    image = str(Path(tmp) / "i2t_photo.png")
+    seeded_image(image, 512, 11)
+    path = i2t_path(eng)
+
+    def call():
+        return eng(image)
+
+    (caption, shapes), cold_s, cold_counts = counted(
+        lambda: recorded_flash(call))
+    check_recorded("i2t", cold_counts, shapes, path)
+    torch.cuda.reset_peak_memory_stats()
+    runs = [counted(call) for _ in range(I2T_WARM_CALLS)]
+    peak = torch.cuda.max_memory_allocated()
+    if any(r[2] != path["counts"] or r[0] != caption for r in runs):
+        raise AssertionError(f"i2t calls: {[(r[0], r[2]) for r in runs]}")
+    toks = eng.caption_tokens(preprocess_image(image, 384))
+    t = eng.cfg.text
+    if toks.shape != (1, 1 + eng.max_tokens) or toks[0, 0] != t.bos_id \
+            or not (0 <= toks).all() or not (toks < t.vocab_size).all() \
+            or not isinstance(caption, str):
+        raise AssertionError(f"i2t tokens {toks}, caption {caption!r}")
+    warm = sorted(r[1] for r in runs)
+    emit({"phase": "i2t", "call": "ImageCaptionEngine.__call__",
+          "image": "512x512 png", "max_tokens": eng.max_tokens,
+          "setup_s": setup_s, "cold_s": cold_s,
+          "warm_s": statistics.median(warm), "warm_max_s": warm[-1],
+          "warm_calls": len(warm), "peak_mem_gb": peak / 1e9,
+          "i2t_peak_mem_gb": (peak - held) / 1e9,
+          "params_m": sum(p.numel() for p in eng.model.parameters()) / 1e6,
+          "launches": runs[-1][2], "caption_chars": len(caption),
+          "tokens": toks[0].tolist(),
+          "eos_at": int(np.argmax(toks[0, 1:] == t.eos_id))
+          if (toks[0, 1:] == t.eos_id).any() else None})
+    parts = [i2t_decode_parts(eng, image) for _ in range(I2T_WARM_CALLS)]
+    emit({"phase": "i2t_stages", "runs": I2T_WARM_CALLS,
+          **{k: statistics.median(r[k] for r in parts) for k in parts[0]}})
+    return {"engine": eng, "image": image, "caption": caption,
+            "launches": runs[-1][2]}
+
+
+def phase_i2t_small_reference() -> None:
+    """A narrow BLIP (384 px: 577 tokens, whose self-attention takes K1 at
+    D = 64; 2 + 2 layers) on the card against the same weights on the CPU:
+    the vision states, the greedy tokens (equal) and the card's launches."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.models.caption.blip import (BlipCaptioner,
+                                                        BlipConfig,
+                                                        BlipTextConfig,
+                                                        BlipVisionConfig,
+                                                        greedy_caption)
+
+    cfg = BlipConfig(
+        vision=BlipVisionConfig(width=128, layers=2, heads=2, mlp_dim=256),
+        text=BlipTextConfig(vocab_size=1000, width=64, layers=2, heads=2,
+                            mlp_dim=128, encoder_width=128, bos_id=998,
+                            eos_id=102))
+    images = np.random.RandomState(13).randn(1, 384, 384, 3).astype(
+        np.float32)
+    outs, launches = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = BlipCaptioner(cfg).to(dev).eval()
+        if dev == "cpu":
+            fill_random(model, torch.Generator().manual_seed(14))
+            state = model.state_dict()
+        else:
+            model.load_state_dict(state)
+        x = torch.from_numpy(images).to(dev)
+
+        def core(model=model, x=x):
+            with torch.inference_mode():
+                return (model.encode_image(x),
+                        greedy_caption(model, x, max_tokens=8))
+
+        out, _, launches[dev] = counted(core)
+        outs[dev] = [t.cpu() for t in out]
+    # two vision passes: ``encode_image`` and the caption's own
+    vit = vit_flash_shapes(cfg.vision, 1, cfg.vision.seq_len)
+    expected = expected_counts(vit + vit, Counter())
+    err = (outs["cpu"][0] - outs["cuda"][0]).abs().max().item()
+    equal = bool(torch.equal(outs["cpu"][1], outs["cuda"][1]))
+    emit({"phase": "i2t_small_reference", "vision_max_abs_err": err,
+          "tokens_equal": equal, "tokens": outs["cuda"][1][0].tolist(),
+          "cuda_launches": launches["cuda"], "cpu_launches": launches["cpu"]})
+    if not (err <= 1e-3 and equal):
+        raise AssertionError(f"card vs CPU BLIP: vision {err}, tokens "
+                             f"{outs['cpu'][1]} vs {outs['cuda'][1]}")
+    if launches["cuda"] != expected or any(launches["cpu"].values()):
+        raise AssertionError(f"small BLIP launches {launches['cuda']}, "
+                             f"expected {expected}; CPU {launches['cpu']}")
+
+
+# ---------------------------------------------------------------------------
 # served: the agent behind the HTTP server, one turn per tool
 # ---------------------------------------------------------------------------
 
@@ -2038,8 +2520,6 @@ def phase_i2a_small_reference() -> None:
 def http_json(port: int, path: str, body=None) -> dict:
     """One request to the server on 127.0.0.1: a JSON object, raw bytes or
     nothing (GET) → the JSON reply; a status other than 200 raises."""
-    import urllib.request
-
     data = body if isinstance(body, (bytes, type(None))) \
         else json.dumps(body).encode()
     req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
@@ -2149,24 +2629,27 @@ def asr_split(app, port: int, asr_eng, speech: str, turns: int) -> None:
 
 
 def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
-                 i2a: dict, tmp: str) -> None:
+                 i2a: dict, t2i: dict, i2t: dict, tmp: str) -> None:
     """``AppServer(ScriptedLLM(script), build_engines({...}))`` behind
     ``make_server`` on 127.0.0.1 (an OS-chosen port), the built engines of
     the earlier phases passed as a mapping: one ``/chat`` turn per tool
     (t2a; inpaint of the t2a turn's wav; asr of the ASR phase's clip; tts;
-    i2a of the I2A phase's PNG by path), each twice (its first call on
-    the server's engine thread, then warm), then ``/mode`` speech and one
+    i2a of the I2A phase's PNG by path; t2i; i2t of the PNG the t2i turn
+    wrote, by the name the turn's answer gives), each twice (its first call
+    on the server's engine thread, then warm), then ``/mode`` speech and one
     ``/speech`` turn (ASR → agent → the t2a tool → TTS → merge), then
     ``/stats`` and one ``/tts/stream``; first the cost of a new thread
     (:func:`thread_cost`), and before the mode switch the ASR turn taken
     apart (:func:`asr_split`). Each turn's wall time (the HTTP round trip) and
     launches, which must be the tool's derived ones and equal to the
     direct call's; the t2a, tts and i2a files hold the direct calls'
-    wavs."""
+    wavs; ``GET /media/image/...`` returns the t2i turn's 512 × 512 PNG and
+    the i2t turn's caption is the direct call's on that file."""
     import shutil
     import threading
 
     import numpy as np
+    from PIL import Image
 
     from audiogpt_tpu_torch.agent import ScriptedLLM
     from audiogpt_tpu_torch.app import build_engines, speech_callables
@@ -2186,19 +2669,34 @@ def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
         ("asr", "Transcribe Speech", speech),
         ("tts", "Synthesize Speech Given the User Input Text", TTS_TEXT),
         ("i2a", "Generate Audio From The Image", i2a["image"]),
+        ("t2i", "Generate Image From User Input Text", T2I_TEXT),
+        ("i2t", "Get Photo Description", "{image}"),
     ]
+
+    class ImagePathLLM(ScriptedLLM):
+        """The script with ``{image}`` replaced by the last
+        ``image/<file>.png`` the prompt names: the t2i turn's answer copies
+        its observation, and the i2t turn's input copies that answer."""
+
+        def complete(self, prompt, stop=None):
+            out = super().complete(prompt, stop)
+            names = re.findall(r"image/[\w.-]+\.png", prompt)
+            return out.replace("{image}", names[-1]) if names else out
+
     script = []
     split_turns = 3
     # each tool twice (the engine thread's first call of it, then warm),
     # the ASR turns of ``asr_split``, then the speech turn's tool
-    for _, tool, arg in 2 * turns + split_turns * [turns[2]] + [turns[0]]:
+    for key, tool, arg in 2 * turns + split_turns * [turns[2]] + [turns[0]]:
         script += [f"Thought: Do I need to use a tool? Yes\nAction: {tool}\n"
                    f"Action Input: {arg}",
-                   "Thought: Do I need to use a tool? No\nAI: Done."]
+                   "Thought: Do I need to use a tool? No\nAI: Done."
+                   + (" {image}" if key == "t2i" else "")]
     engines = build_engines({"t2a": t2a, "asr": asr_eng, "tts": tts_eng,
-                             "i2a": i2a["engine"]})
+                             "i2a": i2a["engine"], "t2i": t2i["engine"],
+                             "i2t": i2t["engine"]})
     asr_fn, tts_fn = speech_callables(engines, str(root))
-    app = AppServer(ScriptedLLM(script), engines, media_root=str(root),
+    app = AppServer(ImagePathLLM(script), engines, media_root=str(root),
                     asr=asr_fn, tts=tts_fn)
     httpd = make_server(app, "127.0.0.1", 0)
     port = httpd.server_address[1]
@@ -2211,11 +2709,14 @@ def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
             "asr": asr_counted(asr_eng,
                                lambda: asr_eng.transcribe(wav16))[2],
             "tts": expected_counts(Counter(), Counter()),
-            "i2a": i2a["launches"]}
+            "i2a": i2a["launches"], "t2i": t2i["launches"],
+            "i2t": i2t["launches"]}
         tool_counts = {"t2a": t2a_path(t2a)["counts"],
                        "inpaint": inpaint_path(t2a)["counts"],
                        "asr": None, "tts": None,
-                       "i2a": i2a_path(i2a["engine"])["counts"]}
+                       "i2a": i2a_path(i2a["engine"])["counts"],
+                       "t2i": t2i_path(t2i["engine"])["counts"],
+                       "i2t": i2t_path(i2t["engine"])["counts"]}
         refs = {"t2a": main["wav"], "tts": tts["wav"], "i2a": i2a["wav"]}
         first_wall = {}
         for n, (key, tool, _) in enumerate(2 * turns):
@@ -2238,6 +2739,27 @@ def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
                    "launches": counts}
             if key == "asr":
                 res["transcript_chars"] = len(step["observation"])
+            elif key == "t2i":
+                rel = step["observation"]
+                png = urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/media/{rel}", timeout=60).read()
+                with Image.open(io.BytesIO(png)) as im:
+                    size = im.size
+                if reply["media"] != [{"kind": "image", "url": f"/media/{rel}",
+                                       "tool": tool}] \
+                        or png != (root / rel).read_bytes() \
+                        or size != (512, 512):
+                    raise AssertionError(f"served t2i: {reply}, {size}")
+                res.update(image=rel, png_bytes=len(png))
+            elif key == "i2t":
+                image = str(root / step["input"])
+                direct_caption = i2t["engine"](image)
+                if not step["input"].startswith("image/") \
+                        or step["observation"] != direct_caption:
+                    raise AssertionError(f"served i2t: {step}, direct "
+                                         f"{direct_caption!r}")
+                res.update(image=step["input"],
+                           caption_chars=len(step["observation"]))
             else:
                 out, sr = load_wav(step["observation"])
                 if not (reply["media"] and np.isfinite(out).all()
@@ -2372,11 +2894,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         i2a = phase_i2a(main_path, gen, tmp)
         phase_i2a_small_reference()
-        phase_served(main_path, inpaint, asr, tts, i2a, tmp)
+        t2i = phase_t2i(gen, tmp)
+        t2i_bf16 = phase_t2i_bf16(t2i)
+        phase_t2i_small_reference()
+        i2t = phase_i2t(gen, tmp)
+        phase_i2t_small_reference()
+        phase_served(main_path, inpaint, asr, tts, i2a, t2i, i2t, tmp)
 
     eng = main_path["engine"]
     t2a, inp = t2a_path(eng), inpaint_path(eng)
     i2a_p = i2a_path(i2a["engine"])
+    t2i_p, i2t_p = t2i_path(t2i["engine"]), i2t_path(i2t["engine"])
     counts, counts_bf16 = main_path["launches"], bf16_path["launches"]
     wcfg = asr["engine"].cfg
     flash_src = "audiogpt_tpu_torch/csrc/flash_attention.cu"
@@ -2400,14 +2928,20 @@ def main() -> int:
                         asr_flash_shapes(wcfg, asr_long["batches"]),
                         f32(asr_long["launches"], "flash_attention")),
             path_record(flash["float32"], "i2a", i2a_p["flash"],
-                        f32(i2a["launches"], "flash_attention"))],
+                        f32(i2a["launches"], "flash_attention")),
+            path_record(flash["float32"], "t2i", t2i_p["flash"],
+                        f32(t2i["launches"], "flash_attention")),
+            path_record(flash["float32"], "i2t", i2t_p["flash"],
+                        f32(i2t["launches"], "flash_attention"))],
             flash_src, flash_tpu),
         kernel_entry(flash["bfloat16"], [
             path_record(flash["bfloat16"], "main_path_bf16", t2a["flash"],
                         counts_bf16["flash_attention_bf16"]),
             path_record(flash["bfloat16"], "asr_bf16",
                         asr_flash_shapes(wcfg, asr_bf16["batches"]),
-                        asr_bf16["launches"]["flash_attention_bf16"])],
+                        asr_bf16["launches"]["flash_attention_bf16"]),
+            path_record(flash["bfloat16"], "t2i_bf16", t2i_p["flash"],
+                        t2i_bf16["launches"]["flash_attention_bf16"])],
             flash_src, flash_tpu),
         kernel_entry(snake["float32"], [
             path_record(snake["float32"], "main_path", t2a["snake"],

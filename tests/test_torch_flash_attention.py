@@ -1,11 +1,11 @@
 """Port attention (``audiogpt_tpu_torch.ops.attention`` / ``flash_attention``)
 against the JAX package on the same numpy inputs: the plain flash version
 vs the Pallas kernel in interpret mode, and ``attention()`` on both
-dispatch branches, in f32 and bf16. The CUDA kernel's tile loop (64-row
-blocks, online softmax in base 2 over 64-key tiles, causal tile skipping,
--inf masking, per-lane partial sums) is replayed in numpy here, with its
-tensor-core arithmetic emulated: 3xTF32 products for f32 inputs, p rounded
-to bf16 for bf16 inputs.
+dispatch branches, in f32 and bf16, at head dims up to the T2I UNet's 160.
+The CUDA kernel's tile loop (64-row blocks, online softmax in base 2 over
+64-key tiles, causal tile skipping, -inf masking, per-lane partial sums) is
+replayed in numpy here, with its tensor-core arithmetic emulated: 3xTF32
+products for f32 inputs, p rounded to bf16 for bf16 inputs.
 
 JAX's two flash versions agree with each other only with no fully masked
 row and with causal at Tq == Tk, so the JAX comparisons stay there; the
@@ -68,6 +68,26 @@ def test_reference_matches_pallas_bf16(d):
                               interpret=True)
     got = flash_attention(*_t(q, k, v, dtype=torch.bfloat16))
     assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               **BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("d,tk", [(160, 200), (40, 77)])
+def test_reference_matches_pallas_t2i_shapes(d, tk, dtype):
+    """The T2I UNet's widest head (D = 160, its ds-4 level) and its
+    cross-attention on the 77 CLIP tokens (one partial key tile)."""
+    q, k, v = _qkv(2, 100, tk, 2, d, seed=d + tk)
+    if dtype == "f32":
+        ref = jax_flash_attention(*_j(q, k, v), interpret=True)
+        got = flash_attention(*_t(q, k, v))
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL,
+                                   rtol=0)
+        return
+    ref = jax_flash_attention(*_j(q, k, v, dtype=jnp.bfloat16),
+                              interpret=True)
+    got = flash_attention(*_t(q, k, v, dtype=torch.bfloat16))
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(ref.astype(jnp.float32)),
                                **BF16_TOL)
@@ -289,17 +309,23 @@ def _clip_views(dtype=torch.float32, device="meta"):
 
 
 @pytest.mark.parametrize("case,takes", [
-    ("d160", False), ("row_24_bytes", False), ("dense_mask", False),
+    ("d160", True), ("d160_bf16", True), ("d192", False),
+    ("row_24_bytes", False), ("dense_mask", False),
     ("f16", False), ("mixed_dtypes", False), ("below_min_pairs", False),
     ("clip_chunked_views", True), ("clip_chunked_bf16", True),
     ("whisper_encoder", True)])
 def test_flash_takes_only_what_the_kernel_takes(case, takes):
     """The dispatch's shape and dtype rule, device aside: the kernel's own
-    limits (``ops/flash_attention.py``) and the pair count. A strided view
-    passes: ``attention()`` copies it contiguous for the kernel."""
+    limits (``ops/flash_attention.py``: D ≤ 160, the T2I UNet's ds-4 head)
+    and the pair count. A strided view passes: ``attention()`` copies it
+    contiguous for the kernel."""
     mask = None
     if case == "d160":
         q = k = v = _meta(2, 256, 8, 160)
+    elif case == "d160_bf16":
+        q = k = v = _meta(2, 256, 8, 160, torch.bfloat16)
+    elif case == "d192":
+        q = k = v = _meta(2, 256, 8, 192)
     elif case == "row_24_bytes":
         q = k = v = _meta(1, 300, 2, 12, torch.bfloat16)
     elif case == "dense_mask":

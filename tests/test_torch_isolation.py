@@ -16,7 +16,9 @@ from audiogpt_tpu_torch.agent.tools import merge_audio
 from audiogpt_tpu_torch.engines import (
     ASREngine,
     I2AEngine,
+    ImageCaptionEngine,
     T2AEngine,
+    T2IEngine,
     TTSEngine,
     VocoderEngine,
     resolve_device,
@@ -59,7 +61,8 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "engines.tts", "utils.profiling", "agent.tools",
                  "agent.llm", "agent.agent", "agent.toolset",
                  "serving.inpaint", "serving.server",
-                 "models.textenc.clip", "engines.i2a", "app", "serve"):
+                 "models.textenc.clip", "engines.i2a", "app", "serve",
+                 "engines.t2i", "engines.analysis", "models.caption.blip"):
         assert f"audiogpt_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
     # the BPE word splitters use the standard library's re: the card's
@@ -91,6 +94,10 @@ def test_entry_points_need_cuda_without_device(monkeypatch):
             VocoderEngine(kind)
     with pytest.raises(RuntimeError, match="CUDA"):
         I2AEngine(types.SimpleNamespace(device=torch.device("cpu")))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T2IEngine(tokenizer=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ImageCaptionEngine()
     with pytest.raises(RuntimeError, match="CUDA"):
         compute_mel(np.zeros(256, np.float32), types.SimpleNamespace(
             inpaint_mel_len=1, hop=256, sample_rate=16000, mel_bins=80))

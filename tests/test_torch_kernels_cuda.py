@@ -5,7 +5,7 @@ of 16, unaligned and unequal sequence lengths (the inpaint path's
 cross-attention of 1060 queries on 77 keys among them), causal masking with
 Tq != Tk, fully masked rows, rows shorter than one tile, rows whose length
 is not a multiple of 16 bytes or is shorter than one thread's run, f32 and
-bf16.
+bf16, up to the T2I UNet's widest head (D = 160); BLIP's fused-qkv views.
 
 These tests need an NVIDIA card and ``nvcc``; elsewhere they skip. They
 import neither JAX nor the JAX package, so they run where only PyTorch is
@@ -68,7 +68,8 @@ def _flash_check(q, k, v, kv_mask=None, causal=False):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", [8, 16, 32, 40, 48, 64, 80, 96, 128])
+@pytest.mark.parametrize("d", [8, 16, 32, 40, 48, 64, 80, 96, 128, 144,
+                               160])
 def test_flash_head_dims_unaligned(gen, d, dtype):
     _flash_check(*_qkv(gen, 2, 100, 200, 3, d, dtype))
 
@@ -112,7 +113,7 @@ def test_flash_kv_mask_with_fully_masked_row(gen, dtype):
 
 
 def test_flash_rejects_what_the_kernel_does_not_take(gen):
-    q, k, v = _qkv(gen, 1, 16, 16, 1, 136)
+    q, k, v = _qkv(gen, 1, 16, 16, 1, 192)  # wider than any compiled width
     with pytest.raises(ValueError):
         flash_attention(q, k, v)
     q, k, v = _qkv(gen, 1, 16, 16, 2, 32)
@@ -144,19 +145,45 @@ def test_attention_takes_chunked_clip_views_to_the_kernel(gen, dtype):
     torch.testing.assert_close(out.float(), ref.float(), **FLASH_TOL[dtype])
 
 
-def test_attention_head_dim_160_takes_the_plain_path(gen):
-    """D = 160 (the T2I UNet's ds-4 level) is more than the kernel takes:
-    the automatic dispatch runs the plain product; forcing the kernel
-    raises."""
-    q, k, v = _qkv(gen, 2, 256, 256, 8, 160)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_head_dim_160_takes_the_kernel(gen, dtype):
+    """D = 160 (the T2I UNet's ds-4 level, [2, 256, 8, 160]): the automatic
+    dispatch launches the kernel (f32 keeps Q in shared memory at this
+    width); D = 192 is wider than any compiled width: the dispatch runs the
+    plain product and forcing the kernel raises."""
+    q, k, v = _qkv(gen, 2, 256, 256, 8, 160, dtype)
     before = flash_attention.launches
     out = attention(q, k, v)
     ref = flash_attention_reference(q, k, v)
     torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), **FLASH_TOL[dtype])
+    q, k, v = _qkv(gen, 2, 256, 256, 8, 192, dtype)
+    before = flash_attention.launches
+    out = attention(q, k, v)
     assert flash_attention.launches == before
-    torch.testing.assert_close(out, ref, **FLASH_TOL[torch.float32])
+    torch.testing.assert_close(out.float(),
+                               flash_attention_reference(q, k, v).float(),
+                               **FLASH_TOL[dtype])
     with pytest.raises(ValueError):
         attention(q, k, v, use_flash=True)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_takes_blip_fused_qkv_views_to_the_kernel(gen, dtype):
+    """BLIP-base's vision block: q/k/v are strided views of one fused qkv
+    projection, [1, 577, 12, 64]; ``attention()`` launches the kernel on
+    contiguous copies."""
+    qkv = torch.randn(1, 577, 3 * 768, generator=gen, device="cuda").to(
+        dtype)
+    q, k, v = (u.reshape(1, 577, 12, 64) for u in qkv.chunk(3, dim=-1))
+    assert not q.is_contiguous()
+    before = flash_attention.launches
+    out = attention(q, k, v)
+    ref = flash_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), **FLASH_TOL[dtype])
 
 
 SNAKE_LENGTHS = [1, 3, 5, 37, 1024, 1025, 5003]

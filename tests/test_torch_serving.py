@@ -1,7 +1,8 @@
 """Port serving (``audiogpt_tpu_torch/serving``) over HTTP on the CPU: the
 engine-agnostic cases of ``tests/test_serving.py`` with stub engines and
 ``ScriptedLLM``; served agent turns through small port engines (T2A, I2A,
-TTS, inpaint) that must give what the engine gives when called directly;
+TTS, inpaint, and the T2I → I2T image round trip) that must give what the
+engine gives when called directly;
 the reference defects the port does not copy (a negative ``chunk_phones``
 is a 400; the speech loop merges the generated file from the media root;
 a client's path cannot leave the media root); engine calls that run while
@@ -14,6 +15,7 @@ import http.client
 import io
 import json
 import os
+import re
 import struct
 import threading
 import types
@@ -31,8 +33,11 @@ from audiogpt_tpu.serving import inpaint as jinpaint
 from audiogpt_tpu_torch.agent import ScriptedLLM
 from audiogpt_tpu_torch.app import build_engines, speech_callables
 from audiogpt_tpu_torch.dsp.resample import output_length
-from audiogpt_tpu_torch.engines import (I2AEngine, T2AConfig, T2AEngine,
-                                        TTSEngine, VocoderEngine)
+from audiogpt_tpu_torch.engines import (I2AEngine, ImageCaptionEngine,
+                                        T2AConfig, T2AEngine, T2IConfig,
+                                        T2IEngine, TTSEngine, VocoderEngine)
+from audiogpt_tpu_torch.models.caption import (BlipConfig, BlipTextConfig,
+                                               BlipVisionConfig)
 from audiogpt_tpu_torch.models.diffusion import UNetConfig, VAEConfig
 from audiogpt_tpu_torch.models.textenc import BertConfig, CLAPTextConfig
 from audiogpt_tpu_torch.models.textenc.clip import (CLIPTextConfig,
@@ -388,6 +393,75 @@ def test_served_turns_equal_direct_engine_calls(tmp_path, small_engines):
             ref = np.clip(direct(), -1.0, 1.0)
             assert got.shape == ref.shape
             np.testing.assert_allclose(got, ref, atol=2 * LSB, rtol=0)
+    finally:
+        s.close()
+
+
+T2I_TOOL = "Generate Image From User Input Text"
+I2T_TOOL = "Get Photo Description"
+
+
+class ImagePathLLM(ScriptedLLM):
+    """Replays the script with ``{image}`` replaced by the last
+    ``image/<file>.png`` that the prompt names, as an LLM copies the T2I
+    tool's observation into its answer and the next turn's tool input."""
+
+    def complete(self, prompt, stop=None):
+        out = super().complete(prompt, stop)
+        names = re.findall(r"image/[\w.-]+\.png", prompt)
+        return out.replace("{image}", names[-1]) if names else out
+
+
+def test_served_image_round_trip(tmp_path):
+    """A T2I turn writes its PNG under the media root, ``/media/`` serves
+    it, and an I2T turn describes the file the T2I turn named (a path
+    relative to the media root); both equal the direct calls."""
+    t2i = T2IEngine(T2IConfig(
+        unet=UNetConfig(**UNET),
+        vae=VAEConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1,
+                      attn_resolutions=(), in_channels=3, out_ch=3,
+                      resolution=32),
+        text=CLIPTextConfig(context_length=16, width=32, layers=1, heads=2,
+                            embed_dim=32), height=32, width=32),
+        device="cpu")
+    i2t = ImageCaptionEngine(BlipConfig(
+        vision=BlipVisionConfig(image_size=32, patch_size=16, width=32,
+                                layers=1, heads=2, mlp_dim=64),
+        text=BlipTextConfig(vocab_size=60, width=32, layers=1, heads=2,
+                            mlp_dim=64, encoder_width=32, bos_id=58,
+                            eos_id=59)), max_tokens=5, device="cpu")
+    root = tmp_path / "media"
+    llm = ImagePathLLM([_act(T2I_TOOL, "a red bicycle"),
+                        _answer("Here it is: {image}"),
+                        _act(I2T_TOOL, "{image}"), _answer("described")])
+    s = Served(llm, build_engines({"t2i": t2i, "i2t": i2t}), root,
+               device="cpu")
+    assert t2i.media_root == i2t.media_root == s.app.media_root
+    try:
+        t2i._generator.manual_seed(0)
+        code, body, _ = _post(s.port, "/chat", {"text": "draw a bicycle"})
+        data = json.loads(body)
+        assert code == 200 and data["steps"][0]["tool"] == T2I_TOOL
+        rel = data["steps"][0]["observation"]
+        assert rel.startswith("image/") and rel.endswith(".png")
+        assert data["media"] == [{"kind": "image", "url": f"/media/{rel}",
+                                  "tool": T2I_TOOL}]
+        code, png, headers = _req(s.port, f"/media/{rel}")
+        assert code == 200 and headers["Content-Type"] == "image/png"
+        assert png == (root / rel).read_bytes()
+        with Image.open(io.BytesIO(png)) as img:
+            served = np.asarray(img)
+        t2i._generator.manual_seed(0)
+        direct = (t2i.txt2img("a red bicycle")[0] * 255).astype(np.uint8)
+        assert served.shape == (32, 32, 3)
+        np.testing.assert_array_equal(served, direct)
+
+        code, body, _ = _post(s.port, "/chat", {"text": "what is in it?"})
+        data = json.loads(body)
+        assert code == 200 and data["steps"][0]["tool"] == I2T_TOOL
+        assert data["steps"][0]["input"] == rel and not data["media"]
+        caption = data["steps"][0]["observation"]
+        assert caption and caption == i2t(str(root / rel))
     finally:
         s.close()
 
