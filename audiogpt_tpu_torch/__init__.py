@@ -18,9 +18,14 @@ and ``BatchedASR`` (``serving/``); the TTS engine (``engines/tts.py``): the
 English frontend (``text/``), FastSpeech2 and HiFi-GAN, with
 ``BatchedTTS``; every ``VocoderEngine`` kind (HiFi-GAN with NSF, BigVGAN,
 PWG, MelGAN) and ``denoise``; the I2A engine (``engines/i2a.py``: CLIP
-ViT-H/14 on the T2A engine's sampler); and the agent (``agent/``: tools,
-LLM clients, the ReAct loop, the toolset over these engines) served over
-HTTP (``serving/server.py``, ``app.py``, ``python -m
+ViT-H/14 on the T2A engine's sampler); the image tools (``engines/t2i.py``,
+SD-1.x text-to-image; ``ImageCaptionEngine``, BLIP); the audio analysis
+tools (``engines/analysis.py``: the Cnn14 + GRU captioner, sound-event
+detection with PANN or the PVT net, target-sound detection) and transform
+tools (``engines/transform.py``: LASSNet extraction, Conv-TasNet or SkiM
+enhancement and separation, binaural rendering); and the agent
+(``agent/``: tools, LLM clients, the ReAct loop, the toolset over these
+engines) served over HTTP (``serving/server.py``, ``app.py``, ``python -m
 audiogpt_tpu_torch.serve``).
 """
 

@@ -1,14 +1,17 @@
 """Application assembly: build the engine set and launch the chat app.
 
 Counterpart of ``audiogpt_tpu/app.py:1-362`` for the engines ported so far
-(``tts``, ``asr``, ``t2a``, ``i2a``, ``t2i``, ``i2t``). Engines are built
-per requested capability with seeded random weights (no checkpoint is
-loaded yet), on the card. The JAX app's ``--compile-cache`` (an XLA cache)
-has no counterpart, and ``--ckpt`` / ``--vocab`` wait for the checkpoint
+(``tts``, ``asr``, ``t2a``, ``i2a``, ``t2i``, ``i2t``, ``caption``, ``sed``,
+``tsd``, ``extraction``, ``enhance``, ``separate``, ``binaural``). Engines
+are built per requested capability with seeded random weights (no
+checkpoint is loaded yet), on the card. The JAX app's ``--compile-cache``
+(an XLA cache) has no counterpart, and ``--ckpt`` / ``--vocab`` wait for the checkpoint
 import (the T2I prompt refiner, ``--ckpt t2i_refiner=DIR``, among them).
 
 CLI:  python -m audiogpt_tpu_torch.serve --engines t2a,asr,tts,i2a,t2i,i2t \
           --asr-fast
+      python -m audiogpt_tpu_torch.serve \
+          --engines caption,sed,tsd,extraction,enhance,separate,binaural
 """
 
 from __future__ import annotations
@@ -73,6 +76,57 @@ def _i2t():
     from audiogpt_tpu_torch.engines.analysis import ImageCaptionEngine
 
     return ImageCaptionEngine()
+
+
+@register_engine("caption")
+def _caption():
+    from audiogpt_tpu_torch.engines.analysis import CaptionEngine
+
+    return CaptionEngine()
+
+
+@register_engine("sed")
+def _sed():
+    from audiogpt_tpu_torch.engines.analysis import SEDEngine
+
+    return SEDEngine()
+
+
+@register_engine("tsd")
+def _tsd():
+    from audiogpt_tpu_torch.engines.analysis import TSDEngine
+
+    return TSDEngine()
+
+
+@register_engine("extraction")
+def _extraction():
+    from audiogpt_tpu_torch.engines.transform import ExtractionEngine
+
+    return ExtractionEngine()
+
+
+@register_engine("enhance")
+def _enhance():
+    from audiogpt_tpu_torch.engines.transform import SeparationEngine
+    from audiogpt_tpu_torch.models.separation import ConvTasNetConfig
+
+    return SeparationEngine(ConvTasNetConfig(n_src=1))
+
+
+@register_engine("separate")
+def _separate():
+    from audiogpt_tpu_torch.engines.transform import SeparationEngine
+    from audiogpt_tpu_torch.models.separation import ConvTasNetConfig
+
+    return SeparationEngine(ConvTasNetConfig(n_src=2))
+
+
+@register_engine("binaural")
+def _binaural():
+    from audiogpt_tpu_torch.engines.transform import BinauralEngine
+
+    return BinauralEngine()
 
 
 ALL_ENGINES = tuple(sorted(_FACTORIES))

@@ -5,4 +5,14 @@ from audiogpt_tpu_torch.engines.asr import ASREngine  # noqa: F401
 from audiogpt_tpu_torch.engines.tts import TTSEngine  # noqa: F401
 from audiogpt_tpu_torch.engines.i2a import I2AEngine  # noqa: F401
 from audiogpt_tpu_torch.engines.t2i import T2IConfig, T2IEngine  # noqa: F401
-from audiogpt_tpu_torch.engines.analysis import ImageCaptionEngine  # noqa: F401
+from audiogpt_tpu_torch.engines.analysis import (  # noqa: F401
+    CaptionEngine,
+    ImageCaptionEngine,
+    SEDEngine,
+    TSDEngine,
+)
+from audiogpt_tpu_torch.engines.transform import (  # noqa: F401
+    BinauralEngine,
+    ExtractionEngine,
+    SeparationEngine,
+)

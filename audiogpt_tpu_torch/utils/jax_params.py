@@ -4,7 +4,13 @@ The tree arrives as numpy arrays (``jax.tree.map(np.asarray, params)`` on
 the JAX side), so this module never sees JAX. The port's submodules carry
 the flax scope names, so the mapping is mechanical: flatten the tree to
 dotted keys, rename the leaf, and lay out each kernel for the module type
-that owns it. Loading is strict: a missed or extra parameter raises.
+that owns it. Recurrent layers are packed: a GRU's ``{fwd,bwd}_w_ih`` /
+``_w_hh`` / ``_b_ih`` / ``_b_hh`` (``ops/rnn.py``) and a flax
+``OptimizedLSTMCell``'s per-gate denses (``ii if ig io`` on the input, ``hi
+hf hg ho`` with the bias on the state; torch's gate order i, f, g, o) become
+the ``weight_ih_l0`` / ``weight_hh_l0`` / ``bias_ih_l0`` / ``bias_hh_l0`` of
+the ``nn.GRU`` / ``nn.LSTM`` of that name. Loading is strict: a missed or
+extra parameter raises.
 """
 
 from __future__ import annotations
@@ -40,6 +46,10 @@ def _kernel_layout(owner: nn.Module, kernel: np.ndarray) -> np.ndarray:
         return kernel.T                         # [in, out] → [out, in]
     if isinstance(owner, nn.Conv2d):
         return kernel.transpose(3, 2, 0, 1)     # HWIO → OIHW
+    if isinstance(owner, nn.ConvTranspose2d):
+        # the JAX ConvTranspose2d's [Kh, Kw, O, I] (torch semantics) → torch
+        # [I, O, Kh, Kw], no flip
+        return kernel.transpose(3, 2, 0, 1)
     if isinstance(owner, (nn.Conv1d, ConvTranspose1d)):
         # Conv1d WIO → OIW; ConvTranspose1d [W, O, I] → [I, O, W], no flip
         return kernel.transpose(2, 1, 0)
@@ -47,6 +57,38 @@ def _kernel_layout(owner: nn.Module, kernel: np.ndarray) -> np.ndarray:
         # flax nn.ConvTranspose [W, I, O], applied unflipped → [I, O, W]
         return np.ascontiguousarray(kernel[::-1].transpose(1, 2, 0))
     raise TypeError(f"no kernel layout for {type(owner).__name__}")
+
+
+#: flax OptimizedLSTMCell gate denses in torch's packed order (i, f, g, o)
+_LSTM_IN, _LSTM_HID = ("ii", "if", "ig", "io"), ("hi", "hf", "hg", "ho")
+
+
+def _pack_recurrent(module: nn.Module, flat: dict) -> dict:
+    """Pop the leaves of each ``nn.GRU`` / ``nn.LSTM`` in ``module`` from
+    ``flat`` and return them as that layer's torch parameters."""
+    packed = {}
+    for name, mod in module.named_modules():
+        parent, _, direction = name.rpartition(".")
+        if isinstance(mod, nn.GRU):
+            stem = f"{parent}.{direction}_" if parent else f"{direction}_"
+            w_ih, w_hh, b_ih, b_hh = (flat.pop(stem + leaf) for leaf in
+                                      ("w_ih", "w_hh", "b_ih", "b_hh"))
+            arrs = (w_ih.T, w_hh.T, b_ih, b_hh)
+        elif isinstance(mod, nn.LSTM):
+            def gate(g, leaf):
+                return flat.pop(f"{name}.{g}.{leaf}")
+
+            b_hh = np.concatenate([gate(g, "bias") for g in _LSTM_HID])
+            arrs = (np.concatenate([gate(g, "kernel").T for g in _LSTM_IN]),
+                    np.concatenate([gate(g, "kernel").T for g in _LSTM_HID]),
+                    np.zeros_like(b_hh), b_hh)
+        else:
+            continue
+        for leaf, arr in zip(("weight_ih_l0", "weight_hh_l0", "bias_ih_l0",
+                              "bias_hh_l0"), arrs):
+            packed[f"{name}.{leaf}"] = torch.tensor(np.ascontiguousarray(arr),
+                                                    dtype=torch.float32)
+    return packed
 
 
 def load_jax_params(module: nn.Module, tree: Mapping) -> None:
@@ -66,7 +108,9 @@ def load_jax_params(module: nn.Module, tree: Mapping) -> None:
         state[f"{prefix}.{_STAT[leaf]}"] = torch.tensor(arr,
                                                         dtype=torch.float32)
         state[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
-    for key, arr in _flatten(tree).items():
+    flat = _flatten(tree)
+    state.update(_pack_recurrent(module, flat))
+    for key, arr in flat.items():
         prefix, _, leaf = key.rpartition(".")
         name = f"{prefix}.{_LEAF.get(leaf, leaf)}" if prefix else \
             _LEAF.get(leaf, leaf)

@@ -15,7 +15,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    encoder shape at batch 1 and 4, the I2A call's CLIP ViT-H/14 shape
    [1, 257, 16, 80] and UNet shape [2, 780, 8, 40], the T2I call's five
    UNet shapes (self- and cross-attention at ds 1 and 2, [2, 256, 8, 160]
-   at ds 4), BLIP-base's [1, 577, 12, 64], and two more (a key
+   at ds 4), BLIP-base's [1, 577, 12, 64], PVT SED's five (one head,
+   Tq >> Tk: [1, 6400, 100, 1, 64] and [1, 1600, 100, 2, 64] at 10 s,
+   three more at 32 s), and two more (a key
    mask, causal); kernel, plain and ``scaled_dot_product_attention`` (same
    dtype) times; the grid's blocks and waves; bounds at the route's rate
    (3xTF32 or bf16 tensor cores) and at the f32 FMA rate.
@@ -113,13 +115,44 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    launches of one decode step (``i2t_stages``).
 27. i2t_small_reference: a narrow BLIP (577 tokens) on the card against the
    same weights on the CPU, equal greedy tokens.
-28. served: the agent behind ``AppServer`` and ``make_server`` on
+28. sed: the agent's "Detect The Sound Event From The Audio" tool at the
+   app's width (``SEDEngine()``: PANN-SED, Cnn14 2048 wide) on a 10 s
+   seeded events clip: ``framewise``, ``detect`` and ``plot`` (the PNG
+   drawn with PIL), cold and warm (median of 5), set-up, peak memory,
+   RTF, neither kernel; ``sed_stages`` (the net, the copy, the figure's
+   data, its drawing and PNG write).
+29. caption: "Generate Text From The Audio" (``CaptionEngine()``: Cnn14,
+   a bidirectional GRU of 512, a 2-layer decoder over 4 981 words) on the
+   events clip, greedy and beam-3; neither kernel; ``caption_stages``
+   (Cnn14, GRU, decode per position, launches per position).
+30. tsd: "Target Sound Detection" (``TSDEngine()`` with BERT-base's CLAP
+   text tower) at 22.05 kHz with a text query; the split between the
+   text tower and the TSD net; neither kernel.
+31. extraction: "Extract Sound Event From Mixture Audio Based On Language
+   Description" (``ExtractionEngine()``: LASSNet) at 32 kHz; the split
+   between STFT, BERT-mini, U-Net and iSTFT; neither kernel.
+32. sed_pvt, sed_pvt_32s: ``SEDEngine(model=PVTSED(PVTConfig()))``, the
+   reference's PVT net, on a 10 s and a 32 s clip: K1 launches by
+   recorded shape equal to the config's (7 and 13), no K2; K1's time in
+   the call.
+33. enhance, separate, separate_skim: ``SeparationEngine`` with
+   Conv-TasNet at ``n_src`` 1 and 2 and with ``SkiM()`` on a 10 s
+   speech-like clip at 16 kHz (11 chunks in one batch of 16); neither
+   kernel.
+34. binaural: ``BinauralEngine()`` at 48 kHz on 10 s (10 chunks); the
+   time a chunk; neither kernel.
+35. analysis_small_reference, transform_small_reference: narrow nets on
+   the card against the same weights on the CPU: caption ids, SED, PVT
+   (K1 taken), TSD spans; LASSNet, Conv-TasNet, SkiM, binaural.
+36. served: the agent behind ``AppServer`` and ``make_server`` on
    127.0.0.1 with the engines above passed as a mapping: one HTTP
-   ``/chat`` turn per tool (t2a, inpaint, asr, tts, i2a, t2i, and i2t on
-   the PNG the t2i turn wrote), a ``/speech`` turn, ``/stats``, one
-   ``/tts/stream``; each turn's wall time and launches, equal to the
-   direct call's; and what a warm T2A call costs as the first call of a
-   new thread (``served_thread_cost``).
+   ``/chat`` turn per tool (t2a, inpaint, asr, tts, i2a, t2i, i2t on
+   the PNG the t2i turn wrote, caption, sed with its PNG fetched from
+   ``/media/``, tsd, extraction, enhance, separate, binaural), a
+   ``/speech`` turn, ``/stats``, one ``/tts/stream``; each turn's wall
+   time and launches, equal to the direct call's; and what a warm T2A
+   call costs as the first call of a new thread
+   (``served_thread_cost``).
 
 The ``unet_bf16`` engine of phase 6 also inpaints (``inpaint_unet_bf16``):
 its f32 UNet gives the f32 engine's wav with the same draws.
@@ -140,6 +173,7 @@ from __future__ import annotations
 import io
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -192,6 +226,12 @@ T2I_TEXT = "a watercolor painting of a lighthouse on a cliff at dawn"
 T2I_STEPS = 50
 T2I_WARM_CALLS = 3                    # warm T2I tool calls timed
 I2T_WARM_CALLS = 5                    # warm I2T tool calls timed
+#: the audio analysis and transform tools' clip, and PVT's long clip (its
+#: largest bucket)
+TOOL_SECONDS, PVT_LONG_SECONDS = 10.0, 32.0
+TOOL_WARM_CALLS = 5                   # warm calls of each of those tools
+TSD_TEXT = "a dog barking"            # the TSD tool's query
+EXTRACT_TEXT = "a dog barking"        # the extraction tool's query
 #: the duration predictor's output layer: its weights scaled by 0.25 and
 #: its bias 1.9, so round(exp(d) − 1) ≈ 6 frames a phone (untouched random
 #: weights round most phones to 0 frames)
@@ -302,7 +342,9 @@ BF16_FLASH_TOL = (1e-2, 2 ** -7)          # absolute, relative
 #: self-attention (the CFG pair of one candidate); the T2I call's UNet at
 #: 512 x 512 (64 x 64 latents, the CFG pair): self- and cross-attention (77
 #: CLIP tokens) at ds 1 and 2, self-attention at ds 4 (D = 160); BLIP-base's
-#: vision self-attention (577 tokens); the key-mask and causal code no path
+#: vision self-attention (577 tokens); PVT SED's spatial-reduction attention
+#: (one head at stage 0, Tq >> Tk, 100 or 200 keys) on a 10 s clip (stages
+#: 0, 1) and a 32 s clip (stages 0-2); the key-mask and causal code no path
 #: reaches
 FLASH_CASES = {
     "unet_level0": ((6, 780, 780, 8, 40), None, False),
@@ -319,6 +361,11 @@ FLASH_CASES = {
     "t2i_cross_ds2": ((2, 1024, 77, 8, 80), None, False),
     "t2i_self_ds4": ((2, 256, 256, 8, 160), None, False),
     "blip_vision": ((1, 577, 577, 12, 64), None, False),
+    "pvt_s0_10s": ((1, 6400, 100, 1, 64), None, False),
+    "pvt_s1_10s": ((1, 1600, 100, 2, 64), None, False),
+    "pvt_s0_32s": ((1, 12800, 200, 1, 64), None, False),
+    "pvt_s1_32s": ((1, 3200, 200, 2, 64), None, False),
+    "pvt_s2_32s": ((1, 800, 200, 5, 64), None, False),
     "kv_mask": ((2, 1500, 1500, 6, 64), (1500, 1100), False),
     "causal": ((1, 256, 256, 2, 80), None, True),
 }
@@ -2513,6 +2560,693 @@ def phase_i2t_small_reference() -> None:
 
 
 # ---------------------------------------------------------------------------
+# the audio analysis and transform tools
+# ---------------------------------------------------------------------------
+
+
+def events_like(seconds: float, sr: int, seed: int):
+    """A seeded sound-event test signal: a noise floor, three tone bursts
+    (each its own pitch and start) and a train of clicks."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    n = int(seconds * sr)
+    t = np.arange(n) / sr
+    x = 0.02 * rng.randn(n)
+    for hz in (440.0, 1250.0, 3100.0):
+        start = rng.rand() * seconds * 0.7
+        env = ((t >= start) & (t < start + 0.3 * seconds)).astype(np.float64)
+        x += 0.2 * env * np.sin(2 * np.pi * hz * t + 6.28 * rng.rand())
+    x[::int(sr * 0.37)] += 0.5
+    return x.astype(np.float32)
+
+
+def tool_runs(fn, warm: int) -> dict:
+    """A cold and ``warm`` counted calls of ``fn``, neither kernel launched
+    in any: the output, cold time, warm median and slowest, and the peak
+    memory of the warm calls."""
+    import torch
+
+    cold = counted(fn)
+    torch.cuda.reset_peak_memory_stats()
+    runs = [counted(fn) for _ in range(warm)]
+    peak = torch.cuda.max_memory_allocated()
+    for _, _, counts in [cold] + runs:
+        check_no_kernels(counts, "tool call")
+    warm_s = sorted(r[1] for r in runs)
+    return {"out": cold[0], "outs": [r[0] for r in runs], "cold_s": cold[1],
+            "warm_s": statistics.median(warm_s), "warm_max_s": warm_s[-1],
+            "warm_calls": warm, "peak": peak, "launches": runs[-1][2]}
+
+
+def event_ms(steps) -> dict:
+    """Run each ``(name, fn)`` of ``steps`` in turn between CUDA events
+    → {name_ms: device-clock time}, and the last output."""
+    import torch
+
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(len(steps) + 1)]
+    out = None
+    with torch.inference_mode():
+        marks[0].record()
+        for mark, (_, fn) in zip(marks[1:], steps):
+            out = fn(out)
+            mark.record()
+        marks[-1].synchronize()
+    return {f"{name}_ms": a.elapsed_time(b)
+            for (name, _), a, b in zip(steps, marks, marks[1:])}, out
+
+
+def median_parts(runs: list) -> dict:
+    return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+
+
+def caption_stage_ms(eng, wav) -> dict:
+    """One warm greedy caption taken apart between CUDA events: Cnn14, the
+    GRU, and the re-run decode per position; and the device launches of
+    one position."""
+    import torch
+
+    from audiogpt_tpu_torch.models.caption.captioner import greedy_tokens
+
+    model = eng.model
+    padded, n = eng._padded(wav)
+    enc = {}
+
+    def cnn(_):
+        enc.update(model.cnn(padded, n))
+
+    def gru(_):
+        return model.rnn(enc["attn_emb"], enc["attn_emb_len"])
+
+    def decode(memory):
+        enc["memory"] = memory
+        return greedy_tokens(model, memory, enc["attn_emb_len"])
+
+    parts, toks = event_ms([("cnn14", cnn), ("gru", gru),
+                            ("decode", decode)])
+    positions = eng.cfg.max_caption_len - 1
+    parts["decode_ms_per_position"] = parts["decode_ms"] / positions
+    with torch.inference_mode():
+        parts["device_launches_per_position"] = device_launches(
+            lambda: model.decode_logits(toks, enc["memory"],
+                                        enc["attn_emb_len"]))
+    return parts
+
+
+def phase_caption(gen) -> dict:
+    """The "Generate Text From The Audio" tool at the app's width:
+    ``CaptionEngine()`` (Cnn14 2048 wide, a bidirectional GRU of 512, a
+    2-layer decoder of 256 over 4 981 words; seeded random weights) on a
+    10 s events clip at 32 kHz (the 512 000-sample bucket): greedy and
+    beam-3, each cold and warm (median of 5), set-up, peak memory above
+    the earlier engines, RTF, neither kernel launched; the layer times."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.engines import CaptionEngine
+
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = CaptionEngine()
+    fill_random(eng.model, gen)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    wav = events_like(TOOL_SECONDS, eng.sr, 21)
+    greedy = tool_runs(lambda: eng.caption(wav), TOOL_WARM_CALLS)
+    beam = tool_runs(lambda: eng.caption_beam(wav, 3), TOOL_WARM_CALLS)
+    toks = eng.caption_tokens(wav)
+    cfg = eng.cfg
+    if toks.shape != (cfg.max_caption_len,) or toks[0] != cfg.sos_id \
+            or not ((0 <= toks) & (toks < cfg.vocab_size)).all() \
+            or any(o != greedy["out"] for o in greedy["outs"]) \
+            or any(o != beam["out"] for o in beam["outs"]):
+        raise AssertionError(f"caption tokens {toks}, captions "
+                             f"{greedy['outs']}, {beam['outs']}")
+    emit({"phase": "caption", "call": "CaptionEngine.caption",
+          "clip_s": TOOL_SECONDS, "bucket": eng.bucketer.bucket(len(wav)),
+          "setup_s": setup_s, "cold_s": greedy["cold_s"],
+          "warm_s": greedy["warm_s"], "warm_max_s": greedy["warm_max_s"],
+          "warm_calls": TOOL_WARM_CALLS,
+          "rtf": greedy["warm_s"] / TOOL_SECONDS,
+          "beam3_cold_s": beam["cold_s"], "beam3_warm_s": beam["warm_s"],
+          "beam3_rtf": beam["warm_s"] / TOOL_SECONDS,
+          "caption_peak_mem_gb": (max(greedy["peak"], beam["peak"]) - held)
+          / 1e9,
+          "params_m": sum(p.numel() for p in eng.model.parameters()) / 1e6,
+          "launches": greedy["launches"], "beam3_launches": beam["launches"],
+          "tokens": toks.tolist(),
+          "eos_at": int(np.argmax(toks[1:] == cfg.eos_id))
+          if (toks[1:] == cfg.eos_id).any() else None})
+    runs = [caption_stage_ms(eng, wav) for _ in range(STAGE_RUNS)]
+    emit({"phase": "caption_stages", "runs": STAGE_RUNS, **median_parts(runs)})
+    return {"engine": eng, "wav": wav, "caption": greedy["out"]}
+
+
+def sed_stage_ms(eng, wav) -> dict:
+    """One warm SED call taken apart between CUDA events: the net (the
+    frontend and backbone included), the copy of the framewise matrix to
+    the host; then on the host the figure's data, its drawing and the PNG
+    write."""
+    from audiogpt_tpu_torch.engines.analysis import render_sed_figure
+
+    import torch
+
+    x = torch.from_numpy(wav).to(eng.device)
+    padded, n = eng.bucketer.pad_to_bucket(x[None])
+    frames = math.ceil(n / eng.cfg.hop)
+    parts, _ = event_ms([
+        ("net", lambda _: eng.model(padded)["framewise_output"]),
+        ("to_host", lambda fw: fw[0, :frames].cpu())])
+    t0 = time.perf_counter()
+    panels = eng.plot_panels(wav)
+    parts["panels_host_ms"] = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        render_sed_figure(panels, str(Path(tmp) / "sed.png"))
+        parts["draw_and_png_write_host_ms"] = (time.perf_counter() - t0) * 1e3
+    return parts
+
+
+def phase_sed(gen, tmp: str) -> dict:
+    """The "Detect The Sound Event From The Audio" tool at the app's width:
+    ``SEDEngine()`` (PANN-SED: Cnn14 2048 wide, 527 classes; seeded random
+    weights) on a 10 s events clip: ``framewise``, ``detect`` and ``plot``
+    (the tool's call: a PNG), each cold and warm (median of 5), the PNG
+    drawing and write timed apart; set-up, peak memory, RTF, neither
+    kernel launched; the layer times."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from audiogpt_tpu_torch.engines import SEDEngine
+
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = SEDEngine()
+    fill_random(eng.model, gen)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    wav = events_like(TOOL_SECONDS, eng.cfg.sample_rate, 22)
+    png = str(Path(tmp) / "sed_direct.png")
+    fw = tool_runs(lambda: eng.framewise(wav), TOOL_WARM_CALLS)
+    det = tool_runs(lambda: eng.detect(wav), TOOL_WARM_CALLS)
+    plot = tool_runs(lambda: eng.plot(wav, png), TOOL_WARM_CALLS)
+    out = fw["out"]
+    frames = math.ceil(len(wav) / eng.cfg.hop)
+    with Image.open(png) as im:
+        size = im.size
+    if out.shape != (frames, 527) or not np.isfinite(out).all() \
+            or not 0.0 <= out.min() <= out.max() <= 1.0 \
+            or len(det["out"]) != 10 or size != (1000, 400):
+        raise AssertionError(f"sed framewise {out.shape} in [{out.min()}, "
+                             f"{out.max()}], {len(det['out'])} events, png "
+                             f"{size}")
+    emit({"phase": "sed", "model": "panns_cnn14", "clip_s": TOOL_SECONDS,
+          "bucket": eng.bucketer.bucket(len(wav)), "setup_s": setup_s,
+          "cold_s": plot["cold_s"], "warm_s": plot["warm_s"],
+          "warm_max_s": plot["warm_max_s"], "warm_calls": TOOL_WARM_CALLS,
+          "rtf": plot["warm_s"] / TOOL_SECONDS,
+          "framewise_warm_s": fw["warm_s"], "detect_warm_s": det["warm_s"],
+          "sed_peak_mem_gb": (max(fw["peak"], plot["peak"]) - held) / 1e9,
+          "params_m": sum(p.numel() for p in eng.model.parameters()) / 1e6,
+          "launches": plot["launches"], "frames": frames,
+          "top3": [e["label"] for e in det["out"][:3]], "png": list(size)})
+    runs = [sed_stage_ms(eng, wav) for _ in range(STAGE_RUNS)]
+    emit({"phase": "sed_stages", "runs": STAGE_RUNS, **median_parts(runs)})
+    return {"engine": eng, "wav": wav}
+
+
+def pvt_flash_shapes(cfg, n_samples: int) -> Counter:
+    """K1 launches of one PVT SED call on ``n_samples`` (a bucket), by shape
+    (B, Tq, Tk, H, D), from the config: the mel grid (frames × mel bins)
+    through each stage's patch embed (k7 s4, then k3 s2; padding k // 3),
+    and the stage's blocks where its spatial-reduction attention (keys from
+    the ``sr × sr`` unpadded conv) reaches ``ops/attention.py``'s pair
+    count at a head dim the kernel takes."""
+    from audiogpt_tpu_torch.ops.attention import FLASH_MIN_PAIRS
+    from audiogpt_tpu_torch.ops.flash_attention import MAX_HEAD_DIM
+
+    h, w = n_samples // cfg.hop + 1, cfg.mel.n_mels
+    shapes = Counter()
+    for i, (dim, depth, heads, sr) in enumerate(zip(
+            cfg.embed_dims, cfg.depths, cfg.num_heads, cfg.sr_ratios)):
+        k, s = (7, 4) if i == 0 else (3, 2)
+        h, w = (h + 2 * (k // 3) - k) // s + 1, (w + 2 * (k // 3) - k) // s + 1
+        tokens = h * w
+        keys = (h // sr) * (w // sr) if sr > 1 else tokens
+        d = dim // heads
+        if tokens * keys >= FLASH_MIN_PAIRS and d <= MAX_HEAD_DIM \
+                and d % 4 == 0:
+            shapes[(1, tokens, keys, heads, d)] += depth
+    return shapes
+
+
+def sed_pvt_path(eng, n_samples: int) -> dict:
+    flash = pvt_flash_shapes(eng.cfg, eng.bucketer.bucket(n_samples))
+    return {"flash": flash, "counts": expected_counts(flash, Counter())}
+
+
+def phase_sed_pvt(flash: dict, gen) -> dict:
+    """The SED tool on the reference's own net: ``SEDEngine(model=
+    PVTSED(PVTConfig()))`` (PVTv2-b2: dims 64/128/320/512, depths 3/4/6/3;
+    seeded random weights) on a 10 s and a 32 s events clip: K1 launches
+    by recorded shape against the config's (7 and 13), K2 none; cold and
+    warm times (median of 5, 3 at 32 s), peak memory, RTF, and K1's time
+    in the call (its per-launch time at each shape, from the flash cells,
+    times the launches)."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.engines import SEDEngine
+    from audiogpt_tpu_torch.models.sed import PVTSED, PVTConfig
+
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = SEDEngine(model=PVTSED(PVTConfig()))
+    fill_random(eng.model, gen)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    out = {"engine": eng}
+    for seconds, warm, want in ((TOOL_SECONDS, TOOL_WARM_CALLS, 7),
+                                (PVT_LONG_SECONDS, 3, 13)):
+        wav = events_like(seconds, eng.cfg.sample_rate, 23)
+        path = sed_pvt_path(eng, len(wav))
+        if sum(path["flash"].values()) != want:
+            raise AssertionError(f"sed_pvt {seconds} s: derived "
+                                 f"{dict(path['flash'])}, not {want}")
+
+        def call():
+            return eng.framewise(wav)
+
+        (fw, shapes), cold_s, cold_counts = counted(
+            lambda: recorded_flash(call))
+        check_recorded(f"sed_pvt {seconds} s", cold_counts, shapes, path)
+        torch.cuda.reset_peak_memory_stats()
+        runs = [counted(call) for _ in range(warm)]
+        peak = torch.cuda.max_memory_allocated()
+        if any(r[2] != path["counts"] for r in runs):
+            raise AssertionError(f"sed_pvt launches {[r[2] for r in runs]}")
+        frames = math.ceil(len(wav) / eng.cfg.hop)
+        if fw.shape != (frames, 527) or not np.isfinite(fw).all() \
+                or not 0.0 <= fw.min() <= fw.max() <= 1.0:
+            raise AssertionError(f"sed_pvt framewise {fw.shape}")
+        key = "sed_pvt" if seconds == TOOL_SECONDS else "sed_pvt_32s"
+        k1 = path_record(flash["float32"], key, path["flash"],
+                         runs[-1][2]["flash_attention"])
+        warm_s = statistics.median(r[1] for r in runs)
+        emit({"phase": key, "model": "pvtv2_b2", "clip_s": seconds,
+              "bucket": eng.bucketer.bucket(len(wav)), "setup_s": setup_s,
+              "cold_s": cold_s, "warm_s": warm_s, "warm_calls": warm,
+              "rtf": warm_s / seconds,
+              "sed_pvt_peak_mem_gb": (peak - held) / 1e9,
+              "launches": runs[-1][2],
+              "launches_by_shape": {str(list(s)): n
+                                    for s, n in shapes.items()},
+              "k1_ms_of_call": k1["ms"], "k1_plain_ms_of_call":
+              k1["plain_ms"], "k1_sdpa_ms_of_call": k1["library_ms"],
+              "k1_bound_ms_of_call": k1["bound_ms"]})
+        out[key] = {"path": path, "launches": runs[-1][2]}
+    return out
+
+
+def tsd_threshold(probs):
+    """A threshold in the widest gap among the middle half of the sorted
+    ``probs``: about half the frames active, and no frame near it."""
+    import numpy as np
+
+    p = np.sort(probs)
+    lo, hi = len(p) // 4, 3 * len(p) // 4
+    i = lo + int(np.argmax(np.diff(p[lo:hi + 1])))
+    return float((p[i] + p[i + 1]) / 2)
+
+
+def phase_tsd(gen) -> dict:
+    """The "Target Sound Detection" tool at the app's width: ``TSDEngine()``
+    (the CDur-style net: 4 conv blocks 64–512, a bidirectional GRU of 512;
+    the CLAP text tower, BERT-base, for the query; seeded random weights)
+    on a 10 s events clip at 22.05 kHz with a text query: cold and warm
+    (median of 5), set-up, peak memory, RTF, neither kernel launched; the
+    split between the CLAP text tower and the TSD net."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.dsp.mel import log_mel
+    from audiogpt_tpu_torch.engines import TSDEngine
+
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = TSDEngine()
+    fill_random(eng.model, gen)
+    fill_random(eng.clap, gen)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    wav = events_like(TOOL_SECONDS, eng.mel.sr, 24)
+    probs = eng.decision(wav, TSD_TEXT)
+    thr = tsd_threshold(probs)
+    runs = tool_runs(lambda: eng.detect(wav, TSD_TEXT, threshold=thr),
+                     TOOL_WARM_CALLS)
+    frames = len(wav) // eng.mel.hop + 1
+    if probs.shape != (frames,) or not np.isfinite(probs).all() \
+            or not runs["out"] or any(o != runs["out"] for o in runs["outs"]):
+        raise AssertionError(f"tsd probabilities {probs.shape}, spans "
+                             f"{runs['out']}")
+    x = torch.from_numpy(wav).to(eng.device)
+
+    def net(emb):
+        m = log_mel(x, eng.mel)
+        padded, _ = eng.bucketer.pad_to_bucket(m[None], axis=1)
+        return eng.model(padded, emb)[1]
+
+    parts = [event_ms([("clap_text", lambda _: eng.embed_text(TSD_TEXT)),
+                       ("tsd_net", net)])[0] for _ in range(STAGE_RUNS)]
+    emit({"phase": "tsd", "clip_s": TOOL_SECONDS, "sr": eng.mel.sr,
+          "bucket_frames": eng.bucketer.bucket(frames), "setup_s": setup_s,
+          "cold_s": runs["cold_s"], "warm_s": runs["warm_s"],
+          "warm_max_s": runs["warm_max_s"], "warm_calls": TOOL_WARM_CALLS,
+          "rtf": runs["warm_s"] / TOOL_SECONDS,
+          "tsd_peak_mem_gb": (runs["peak"] - held) / 1e9,
+          "params_m": sum(p.numel() for m in (eng.model, eng.clap)
+                          for p in m.parameters()) / 1e6,
+          "launches": runs["launches"], "threshold": thr,
+          "spans": len(runs["out"]), **median_parts(parts)})
+    return {"engine": eng, "wav": wav}
+
+
+def phase_extraction(gen) -> dict:
+    """The "Extract Sound Event From Mixture Audio Based On Language
+    Description" tool at the app's width: ``ExtractionEngine()`` (LASSNet:
+    BERT-mini, a 6-level ResUNet 32–384 with FiLM; seeded random weights)
+    on a 10 s events clip at 32 kHz (1 251 STFT frames, the 2 048 bucket):
+    cold and warm (median of 5), set-up, peak memory, RTF, neither kernel
+    launched; the split between STFT, BERT-mini, U-Net and iSTFT."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.dsp.stft import istft, stft
+    from audiogpt_tpu_torch.engines import ExtractionEngine
+
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = ExtractionEngine()
+    fill_random(eng.model, gen)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    wav = events_like(TOOL_SECONDS, eng.sr, 25)
+    runs = tool_runs(lambda: eng.extract(wav, EXTRACT_TEXT), TOOL_WARM_CALLS)
+    out = runs["out"]
+    if out.shape != wav.shape or not np.isfinite(out).all() \
+            or float(out.std()) == 0.0:
+        raise AssertionError(f"extraction {out.shape}, std {out.std()}")
+    x = torch.from_numpy(wav).to(eng.device)
+    ids, mask = eng.tokenizer.encode(EXTRACT_TEXT, 64)
+    ids = torch.from_numpy(ids)[None].long().to(eng.device)
+    mask = torch.from_numpy(mask)[None].to(eng.device)
+    spec = {}
+
+    def do_stft(_):
+        spec["s"] = stft(x, eng.n_fft, eng.hop)
+        padded, spec["frames"] = eng.bucketer.pad_to_bucket(
+            spec["s"].abs()[None], axis=1)
+        return padded
+
+    def bert(padded):
+        spec["padded"] = padded
+        return eng.model.text_cond(ids, mask)
+
+    def unet(cond):
+        return eng.model.masks(spec["padded"], cond)
+
+    def do_istft(m):
+        return istft(m[0, :spec["frames"]] * spec["s"], eng.n_fft, eng.hop,
+                     length=len(wav))
+
+    parts = [event_ms([("stft", do_stft), ("bert_mini", bert),
+                       ("unet", unet), ("istft", do_istft)])[0]
+             for _ in range(STAGE_RUNS)]
+    emit({"phase": "extraction", "clip_s": TOOL_SECONDS, "sr": eng.sr,
+          "bucket_frames": eng.bucketer.bucket(len(wav) // eng.hop + 1),
+          "setup_s": setup_s, "cold_s": runs["cold_s"],
+          "warm_s": runs["warm_s"], "warm_max_s": runs["warm_max_s"],
+          "warm_calls": TOOL_WARM_CALLS,
+          "rtf": runs["warm_s"] / TOOL_SECONDS,
+          "extraction_peak_mem_gb": (runs["peak"] - held) / 1e9,
+          "params_m": sum(p.numel() for p in eng.model.parameters()) / 1e6,
+          "launches": runs["launches"], "out_std": float(out.std()),
+          **median_parts(parts)})
+    return {"engine": eng, "wav": wav}
+
+
+def phase_separation(gen) -> dict:
+    """The "Speech Enhancement" and "Speech Separation" tools at the app's
+    width: ``SeparationEngine`` with ``ConvTasNetConfig(n_src=1)``
+    (``enhance``) and ``n_src=2`` (``separate``: N 512, B 128, H 512, 3 × 8
+    TCN blocks), and with the ``SkiM()`` override (``separate_skim``), on
+    a 10 s speech-like clip at 16 kHz: 11 chunks of 2.4 s at a 0.8 s hop
+    in one batch of 16; cold and warm (median of 5), set-up, peak memory,
+    RTF, neither kernel launched. → {name: {"engine", "launches"}}."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.engines import SeparationEngine
+    from audiogpt_tpu_torch.models.separation import (ConvTasNetConfig,
+                                                      SkiM, SkiMConfig)
+
+    wav = speech_like(TOOL_SECONDS, 16000, 26)
+    out = {"wav": wav}
+    for name, build in (
+            ("enhance", lambda: SeparationEngine(ConvTasNetConfig(n_src=1))),
+            ("separate", lambda: SeparationEngine(ConvTasNetConfig(n_src=2))),
+            ("separate_skim",
+             lambda: SeparationEngine(model=SkiM(SkiMConfig())))):
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        eng = build()
+        fill_random(eng.model, gen)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        runs = tool_runs(lambda: eng.separate(wav), TOOL_WARM_CALLS)
+        stems = runs["out"]
+        n_src = eng.cfg.n_src
+        if stems.shape != (n_src, len(wav)) or not np.isfinite(stems).all() \
+                or float(stems.std()) == 0.0:
+            raise AssertionError(f"{name}: stems {stems.shape}")
+        seg, hop = int(2.4 * 16000), int(0.8 * 16000)
+        chunks = len(range(0, len(wav) - seg + hop, hop))
+        emit({"phase": name, "model": type(eng.model).__name__,
+              "n_src": n_src, "clip_s": TOOL_SECONDS, "chunks": chunks,
+              "chunk_batch": 1 << (chunks - 1).bit_length(),
+              "setup_s": setup_s, "cold_s": runs["cold_s"],
+              "warm_s": runs["warm_s"], "warm_max_s": runs["warm_max_s"],
+              "warm_calls": TOOL_WARM_CALLS,
+              "rtf": runs["warm_s"] / TOOL_SECONDS,
+              f"{name}_peak_mem_gb": (runs["peak"] - held) / 1e9,
+              "params_m": sum(p.numel() for p in eng.model.parameters())
+              / 1e6, "launches": runs["launches"],
+              "stem_std": float(stems.std())})
+        out[name] = {"engine": eng}
+    return out
+
+
+def phase_binaural(gen) -> dict:
+    """The "Sythesize Binaural Audio From A Mono Audio Input" tool at the
+    app's width: ``BinauralEngine()`` (the geometric warp and a 4-layer
+    warpnet of 64; seeded random weights) on a 10 s speech-like clip at
+    48 kHz along the default 1 m orbit: 10 chunks of 1 s with an
+    800-sample halo; cold and warm (median of 5), the time a chunk,
+    set-up, peak memory, RTF, neither kernel launched."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.engines import BinauralEngine
+
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = BinauralEngine()
+    fill_random(eng.model, gen)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    mono = speech_like(TOOL_SECONDS, eng.cfg.sample_rate, 27)
+    runs = tool_runs(lambda: eng.binauralize(mono), TOOL_WARM_CALLS)
+    out = runs["out"]
+    if out.shape != (2, len(mono)) or not np.isfinite(out).all() \
+            or np.abs(out).max() > 1.0 or float(out.std()) == 0.0 \
+            or np.array_equal(out[0], out[1]):
+        raise AssertionError(f"binaural {out.shape}")
+    chunks = -(-len(mono) // 48000)
+    emit({"phase": "binaural", "clip_s": TOOL_SECONDS,
+          "sr": eng.cfg.sample_rate, "chunks": chunks, "setup_s": setup_s,
+          "cold_s": runs["cold_s"], "warm_s": runs["warm_s"],
+          "warm_max_s": runs["warm_max_s"], "warm_calls": TOOL_WARM_CALLS,
+          "chunk_ms": runs["warm_s"] / chunks * 1e3,
+          "rtf": runs["warm_s"] / TOOL_SECONDS,
+          "binaural_peak_mem_gb": (runs["peak"] - held) / 1e9,
+          "launches": runs["launches"],
+          "left_right_max_abs_diff": float(np.abs(out[0] - out[1]).max())})
+    return {"engine": eng, "wav": mono}
+
+
+def card_and_cpu(build, gen_seed: int):
+    """The module ``build()`` makes, with seeded random weights, on the CPU
+    and a copy of it on the card: → (cpu, cuda)."""
+    import torch
+
+    cpu = build().eval()
+    fill_random(cpu, torch.Generator().manual_seed(gen_seed))
+    cuda = build().cuda().eval()
+    cuda.load_state_dict(cpu.state_dict())
+    return cpu, cuda
+
+
+def phase_analysis_small_reference() -> None:
+    """Narrow analysis nets on the card against the same weights on the
+    CPU: the captioner's greedy and beam-3 ids (equal), PANN-SED's
+    framewise output (≤ 1e-4), a narrow PVT whose stage-0 and stage-1
+    attentions take K1 on the card ([1, 6400 → 100, 1, 64], [1, 1600 →
+    100, 2, 64] on a 10 s clip; ≤ 1e-4), and the TSD net's spans (equal)
+    with its decision (≤ 1e-4)."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.models.caption import Cnn14Config
+    from audiogpt_tpu_torch.models.caption.captioner import (
+        CaptionConfig, CaptionModel, caption_beam_decode,
+        caption_greedy_decode)
+    from audiogpt_tpu_torch.models.sed import (PVTSED, PVTConfig, SEDConfig,
+                                               SEDModel, TSDConfig, TSDModel,
+                                               decode_timestamps)
+
+    cnn = Cnn14Config(channels=(16, 16, 32, 32, 64, 64))
+    res = {"phase": "analysis_small_reference"}
+    wav = events_like(4.0, 32000, 31)[None]
+    cap, cap_gpu = card_and_cpu(lambda: CaptionModel(CaptionConfig(
+        cnn14=cnn, rnn_hidden=32, vocab_size=200, emb_dim=32, nhead=2,
+        nlayers=2, dim_feedforward=64)), 32)
+    ids = {}
+    for dev, model in (("cpu", cap), ("cuda", cap_gpu)):
+        x = torch.from_numpy(wav).to(dev)
+        ids[dev] = [f(model, x).cpu() for f in (
+            caption_greedy_decode,
+            lambda m, x: caption_beam_decode(m, x, beam_size=3))]
+    res["caption_ids_equal"] = all(torch.equal(a, b) for a, b in
+                                   zip(ids["cpu"], ids["cuda"]))
+    res["caption_greedy"] = ids["cuda"][0][0].tolist()
+
+    def compare(name, cpu, cuda, x, key="framewise_output", tol=1e-4):
+        outs, launches = {}, {}
+        for dev, model in (("cpu", cpu), ("cuda", cuda)):
+            def call(model=model, dev=dev):
+                with torch.inference_mode():
+                    return model(torch.from_numpy(x).to(dev))[key].cpu()
+            outs[dev], _, launches[dev] = counted(call)
+        err = (outs["cpu"] - outs["cuda"]).abs().max().item()
+        res[f"{name}_max_abs_err"] = err
+        res[f"{name}_cuda_launches"] = launches["cuda"]
+        if err > tol or any(launches["cpu"].values()):
+            raise AssertionError(f"{name}: card vs CPU {err}, launches "
+                                 f"{launches}")
+        return launches["cuda"]
+
+    sed, sed_gpu = card_and_cpu(lambda: SEDModel(SEDConfig(cnn14=cnn)), 33)
+    check_no_kernels(compare("sed", sed, sed_gpu, wav), "small SED")
+    pcfg = PVTConfig(embed_dims=(64, 128, 128, 128), depths=(1, 1, 1, 1),
+                     num_heads=(1, 2, 2, 2), mlp_ratios=(2, 2, 2, 2))
+    pvt, pvt_gpu = card_and_cpu(lambda: PVTSED(pcfg), 34)
+    pwav = np.pad(events_like(TOOL_SECONDS, 32000, 35),
+                  (0, 512000 - 320000))[None]
+    got = compare("pvt", pvt, pvt_gpu, pwav)
+    want = expected_counts(pvt_flash_shapes(pcfg, 512000), Counter())
+    if got != want or got["flash_attention"] != 2:
+        raise AssertionError(f"small PVT launches {got}, expected {want}")
+    tcfg = TSDConfig(gru_hidden=32, channels=(16, 16, 32, 32))
+    tsd, tsd_gpu = card_and_cpu(lambda: TSDModel(tcfg), 36)
+    mel = np.random.RandomState(37).randn(1, 512, 64).astype(np.float32)
+    emb = np.random.RandomState(38).randn(1, 128).astype(np.float32)
+    probs = {}
+    for dev, model in (("cpu", tsd), ("cuda", tsd_gpu)):
+        with torch.inference_mode():
+            up = model(torch.from_numpy(mel).to(dev),
+                       torch.from_numpy(emb).to(dev))[1]
+        probs[dev] = up[0, :, 0].cpu().numpy()
+    thr = tsd_threshold(probs["cpu"])
+    spans = {dev: decode_timestamps(p, 86.1328125, 7, thr)
+             for dev, p in probs.items()}
+    res["tsd_max_abs_err"] = float(np.abs(probs["cpu"]
+                                          - probs["cuda"]).max())
+    res["tsd_spans_equal"] = spans["cpu"] == spans["cuda"]
+    res["tsd_spans"] = len(spans["cpu"])
+    emit(res)
+    if not (res["caption_ids_equal"] and res["tsd_spans_equal"]
+            and spans["cpu"] and res["tsd_max_abs_err"] <= 1e-4):
+        raise AssertionError(f"small analysis nets: {res}")
+
+
+def phase_transform_small_reference() -> None:
+    """Narrow transform nets on the card against the same weights on the
+    CPU, on the same inputs: LASSNet's mask, Conv-TasNet with a valid
+    length, SkiM, each ≤ 1e-4 of the CPU output's largest value (f32, TF32
+    off: the libraries sum in other orders), and the binaural network, ≤
+    two f32 ulps of its read position times the signal's largest step
+    (the warp reads the signal at f32 positions up to 48 000)."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.models.binaural import (BinauralConfig,
+                                                    BinauralNetwork)
+    from audiogpt_tpu_torch.models.extraction import (LASSNet,
+                                                      LASSNetConfig)
+    from audiogpt_tpu_torch.models.extraction.lassnet import BERT_MINI
+    from audiogpt_tpu_torch.models.separation import (ConvTasNet,
+                                                      ConvTasNetConfig,
+                                                      SkiM, SkiMConfig)
+
+    rng = np.random.RandomState(41)
+    sp = np.abs(rng.randn(1, 512, 513)).astype(np.float32)
+    ids = rng.randint(1000, 30000, (1, 64))
+    ids[0, 10:] = 0
+    mask = (np.arange(64) < 10).astype(np.int32)[None]
+    speech = speech_like(2.4, 16000, 42)
+    mono = speech_like(1.0, 48000, 43)
+    view = np.zeros((1, 7, 120), np.float32)
+    view[0, 0], view[0, 1], view[0, 6] = 1.0, np.linspace(-1, 1, 120), 1.0
+    cases = {
+        "lassnet": (lambda: LASSNet(LASSNetConfig(
+            bert=BERT_MINI, enc_channels=(16, 16, 32, 32, 64, 64))),
+            (sp, ids, mask)),
+        "convtasnet": (lambda: ConvTasNet(ConvTasNetConfig(
+            enc_dim=128, bottleneck=64, hidden=128, skip=64, n_blocks=4,
+            n_repeats=2)), (np.stack([speech, speech * 0.5]),
+                            np.asarray([len(speech), 20000]))),
+        "skim": (lambda: SkiM(SkiMConfig(enc_dim=64, hidden=32,
+                                         n_blocks=2)), (speech[None],)),
+        "binaural": (lambda: BinauralNetwork(BinauralConfig(
+            warpnet_channels=32)), (mono[None, :48000], view[:, :, :120])),
+    }
+    res = {"phase": "transform_small_reference"}
+    for seed, (name, (build, args)) in enumerate(cases.items()):
+        cpu, cuda = card_and_cpu(build, 50 + seed)
+        outs, launches = {}, {}
+        for dev, model in (("cpu", cpu), ("cuda", cuda)):
+            def call(model=model, dev=dev):
+                with torch.inference_mode():
+                    return model(*(torch.from_numpy(np.asarray(a)).to(dev)
+                                   for a in args)).cpu().numpy()
+            outs[dev], _, launches[dev] = counted(call)
+            check_no_kernels(launches[dev], f"small {name}")
+        err = float(np.abs(outs["cpu"] - outs["cuda"]).max())
+        if name == "binaural":
+            tol = 2 * float(np.spacing(np.float32(48000))) \
+                * float(np.abs(np.diff(mono)).max())
+        else:
+            tol = 1e-4 * float(np.abs(outs["cpu"]).max())
+        res[f"{name}_max_abs_err"] = err
+        res[f"{name}_bound"] = tol
+        if not err <= tol or not np.isfinite(outs["cuda"]).all():
+            raise AssertionError(f"small {name}: card vs CPU {err} > {tol}")
+    emit(res)
+
+
+# ---------------------------------------------------------------------------
 # served: the agent behind the HTTP server, one turn per tool
 # ---------------------------------------------------------------------------
 
@@ -2629,13 +3363,16 @@ def asr_split(app, port: int, asr_eng, speech: str, turns: int) -> None:
 
 
 def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
-                 i2a: dict, t2i: dict, i2t: dict, tmp: str) -> None:
+                 i2a: dict, t2i: dict, i2t: dict, tools: dict,
+                 tmp: str) -> None:
     """``AppServer(ScriptedLLM(script), build_engines({...}))`` behind
     ``make_server`` on 127.0.0.1 (an OS-chosen port), the built engines of
     the earlier phases passed as a mapping: one ``/chat`` turn per tool
     (t2a; inpaint of the t2a turn's wav; asr of the ASR phase's clip; tts;
     i2a of the I2A phase's PNG by path; t2i; i2t of the PNG the t2i turn
-    wrote, by the name the turn's answer gives), each twice (its first call
+    wrote, by the name the turn's answer gives; the seven audio analysis
+    and transform tools of ``tools`` on the SED phase's events clip or the
+    separation phase's speech clip), each twice (its first call
     on the server's engine thread, then warm), then ``/mode`` speech and one
     ``/speech`` turn (ASR → agent → the t2a tool → TTS → merge), then
     ``/stats`` and one ``/tts/stream``; first the cost of a new thread
@@ -2644,9 +3381,12 @@ def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
     launches, which must be the tool's derived ones and equal to the
     direct call's; the t2a, tts and i2a files hold the direct calls'
     wavs; ``GET /media/image/...`` returns the t2i turn's 512 × 512 PNG and
-    the i2t turn's caption is the direct call's on that file."""
+    the sed turn's figure; the i2t, caption and tsd turns answer the direct
+    call's text on their file, and separate's merged file lies under the
+    media root."""
     import shutil
     import threading
+    import wave
 
     import numpy as np
     from PIL import Image
@@ -2663,6 +3403,10 @@ def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
     speech = str(root / "audio" / "speech.wav")
     save_wav(asr["wav"], speech, 16000)
     t2a_wav = str(root / "audio" / "t2a_turn.wav")
+    events = str(root / "audio" / "events.wav")
+    save_wav(tools["sed"]["wav"], events, 32000)
+    speech10 = str(root / "audio" / "speech10.wav")
+    save_wav(tools["wav16k"], speech10, 16000)
     turns = [
         ("t2a", "Generate Audio From User Input Text", TEXT),
         ("inpaint", "Audio Inpainting", f"{t2a_wav}, 1.0, 3.0"),
@@ -2671,7 +3415,18 @@ def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
         ("i2a", "Generate Audio From The Image", i2a["image"]),
         ("t2i", "Generate Image From User Input Text", T2I_TEXT),
         ("i2t", "Get Photo Description", "{image}"),
+        ("caption", "Generate Text From The Audio", events),
+        ("sed", "Detect The Sound Event From The Audio", events),
+        ("tsd", "Target Sound Detection", f"{events}, {TSD_TEXT}"),
+        ("extraction", "Extract Sound Event From Mixture Audio Based On "
+                       "Language Description", f"{events}, {EXTRACT_TEXT}"),
+        ("enhance", "Speech Enhancement In Single-Channel", speech10),
+        ("separate", "Speech Separation In Single-Channel", speech10),
+        ("binaural", "Sythesize Binaural Audio From A Mono Audio Input",
+         speech10),
     ]
+    new_tools = ("caption", "sed", "tsd", "extraction", "enhance",
+                 "separate", "binaural")
 
     class ImagePathLLM(ScriptedLLM):
         """The script with ``{image}`` replaced by the last
@@ -2694,7 +3449,8 @@ def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
                    + (" {image}" if key == "t2i" else "")]
     engines = build_engines({"t2a": t2a, "asr": asr_eng, "tts": tts_eng,
                              "i2a": i2a["engine"], "t2i": t2i["engine"],
-                             "i2t": i2t["engine"]})
+                             "i2t": i2t["engine"],
+                             **{k: tools[k]["engine"] for k in new_tools}})
     asr_fn, tts_fn = speech_callables(engines, str(root))
     app = AppServer(ImagePathLLM(script), engines, media_root=str(root),
                     asr=asr_fn, tts=tts_fn)
@@ -2710,13 +3466,15 @@ def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
                                lambda: asr_eng.transcribe(wav16))[2],
             "tts": expected_counts(Counter(), Counter()),
             "i2a": i2a["launches"], "t2i": t2i["launches"],
-            "i2t": i2t["launches"]}
+            "i2t": i2t["launches"],
+            **{k: expected_counts(Counter(), Counter()) for k in new_tools}}
         tool_counts = {"t2a": t2a_path(t2a)["counts"],
                        "inpaint": inpaint_path(t2a)["counts"],
                        "asr": None, "tts": None,
                        "i2a": i2a_path(i2a["engine"])["counts"],
                        "t2i": t2i_path(t2i["engine"])["counts"],
-                       "i2t": i2t_path(i2t["engine"])["counts"]}
+                       "i2t": i2t_path(i2t["engine"])["counts"],
+                       **{k: None for k in new_tools}}
         refs = {"t2a": main["wav"], "tts": tts["wav"], "i2a": i2a["wav"]}
         first_wall = {}
         for n, (key, tool, _) in enumerate(2 * turns):
@@ -2760,6 +3518,30 @@ def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
                                          f"{direct_caption!r}")
                 res.update(image=step["input"],
                            caption_chars=len(step["observation"]))
+            elif key in ("caption", "tsd"):
+                eng = engines[key]
+                sr = eng.sr if key == "caption" else eng.mel.sr
+                wav, _ = load_wav(events, sr, device=eng.device)
+                direct_text = eng.caption(wav) if key == "caption" \
+                    else tool_text_tsd(eng, wav)
+                if step["observation"] != direct_text or reply["media"]:
+                    raise AssertionError(f"served {key}: {step}, direct "
+                                         f"{direct_text!r}")
+                res["answer_chars"] = len(direct_text)
+            elif key == "sed":
+                rel = os.path.relpath(step["observation"], root)
+                png = urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/media/{rel}", timeout=60).read()
+                with Image.open(io.BytesIO(png)) as im:
+                    size = im.size
+                if not rel.startswith("image/") \
+                        or reply["media"] != [{"kind": "image",
+                                               "url": f"/media/{rel}",
+                                               "tool": tool}] \
+                        or png != (root / rel).read_bytes() \
+                        or size != (1000, 400):
+                    raise AssertionError(f"served sed: {reply}, {size}")
+                res.update(image=rel, png_bytes=len(png))
             else:
                 out, sr = load_wav(step["observation"])
                 if not (reply["media"] and np.isfinite(out).all()
@@ -2779,6 +3561,15 @@ def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
                                              f"{diff}")
                 if key == "t2a":
                     shutil.copy(step["observation"], t2a_wav)
+                if key in new_tools and not Path(step["observation"]) \
+                        .resolve().is_relative_to(root.resolve()):
+                    raise AssertionError(f"served {key}: {step} is not "
+                                         f"under the media root")
+                if key == "binaural":
+                    with wave.open(step["observation"], "rb") as w:
+                        stereo = (w.getnchannels(), w.getnframes())
+                    if stereo != (2, 480000) or sr != 48000:
+                        raise AssertionError(f"served binaural: {stereo}")
             if n >= len(turns):                     # the warm turn
                 emit({"phase": "served_turn", **res})
         asr_split(app, port, asr_eng, speech, split_turns)
@@ -2805,6 +3596,15 @@ def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
         httpd.server_close()
         app.close()
         thread.join(timeout=60)
+
+
+def tool_text_tsd(eng, wav) -> str:
+    """The TSD tool's answer for ``wav`` (``agent/toolset.py``'s
+    ``tsd_fn``)."""
+    spans = eng.detect(wav, TSD_TEXT)
+    if not spans:
+        return f"no occurrence of '{TSD_TEXT}' detected"
+    return "; ".join(f"({s:.2f}s, {t:.2f}s)" for s, t in spans)
 
 
 def path_record(k: dict, path: str, shapes: Counter, launches: int) -> dict:
@@ -2899,7 +3699,17 @@ def main() -> int:
         phase_t2i_small_reference()
         i2t = phase_i2t(gen, tmp)
         phase_i2t_small_reference()
-        phase_served(main_path, inpaint, asr, tts, i2a, t2i, i2t, tmp)
+        sed = phase_sed(gen, tmp)
+        tools = {"caption": phase_caption(gen), "sed": sed,
+                 "tsd": phase_tsd(gen), "extraction": phase_extraction(gen)}
+        sed_pvt = phase_sed_pvt(flash, gen)
+        separation = phase_separation(gen)
+        tools.update(enhance=separation["enhance"],
+                     separate=separation["separate"],
+                     binaural=phase_binaural(gen), wav16k=separation["wav"])
+        phase_analysis_small_reference()
+        phase_transform_small_reference()
+        phase_served(main_path, inpaint, asr, tts, i2a, t2i, i2t, tools, tmp)
 
     eng = main_path["engine"]
     t2a, inp = t2a_path(eng), inpaint_path(eng)
@@ -2932,7 +3742,11 @@ def main() -> int:
             path_record(flash["float32"], "t2i", t2i_p["flash"],
                         f32(t2i["launches"], "flash_attention")),
             path_record(flash["float32"], "i2t", i2t_p["flash"],
-                        f32(i2t["launches"], "flash_attention"))],
+                        f32(i2t["launches"], "flash_attention")),
+            *(path_record(flash["float32"], key,
+                          sed_pvt[key]["path"]["flash"],
+                          f32(sed_pvt[key]["launches"], "flash_attention"))
+              for key in ("sed_pvt", "sed_pvt_32s"))],
             flash_src, flash_tpu),
         kernel_entry(flash["bfloat16"], [
             path_record(flash["bfloat16"], "main_path_bf16", t2a["flash"],

@@ -93,6 +93,25 @@ def test_reference_matches_pallas_t2i_shapes(d, tk, dtype):
                                **BF16_TOL)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_reference_matches_pallas_pvt_shape(dtype):
+    """PVT's spatial-reduction attention, narrowed: one head, Tq >> Tk, and a
+    key count that is no multiple of the 64-key tile (Tq = 512, Tk = 25)."""
+    q, k, v = _qkv(1, 512, 25, 1, 64, seed=25)
+    if dtype == "f32":
+        ref = jax_flash_attention(*_j(q, k, v), interpret=True)
+        got = flash_attention(*_t(q, k, v))
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL,
+                                   rtol=0)
+        return
+    ref = jax_flash_attention(*_j(q, k, v, dtype=jnp.bfloat16),
+                              interpret=True)
+    got = flash_attention(*_t(q, k, v, dtype=torch.bfloat16))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               **BF16_TOL)
+
+
 def test_reference_matches_pallas_kv_mask():
     q, k, v = _qkv(2, 100, 200, 2, 40, seed=1)
     mask = (np.arange(200)[None] < np.asarray([[37], [200]])).astype(np.float32)
@@ -209,6 +228,27 @@ def test_kernel_tile_loop_matches_reference(tq, tk, causal, masked):
         *_t(q, k, v), kv_mask=None if mask is None else torch.from_numpy(mask),
         causal=causal)
     np.testing.assert_allclose(got, ref[0, :, 0].numpy(), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("mode", ["tf32x3", "bf16"])
+def test_kernel_tile_loop_matches_reference_at_pvt_shape(mode):
+    """PVT's stage-0 spatial-reduction attention (one head, D = 64, 100
+    keys: a full 64-key tile and a 36-key tail) with 400 queries, both
+    entries' replays against the plain version."""
+    q, k, v = _qkv(1, 400, 100, 1, 64, seed=500)
+    dtype = torch.float32
+    if mode == "bf16":
+        q, k, v = (_bf16(a) for a in (q, k, v))
+        dtype = torch.bfloat16
+    got = _kernel_replay(q[0, :, 0], k[0, :, 0], v[0, :, 0], None, False,
+                         mode)
+    ref = flash_attention_reference(*_t(q, k, v, dtype=dtype))
+    if mode == "bf16":
+        np.testing.assert_allclose(_bf16(got), ref[0, :, 0].float().numpy(),
+                                   **BF16_TOL)
+    else:
+        np.testing.assert_allclose(got, ref[0, :, 0].numpy(), atol=ATOL,
+                                   rtol=0)
 
 
 @pytest.mark.parametrize("causal,masked", [(False, False), (True, True)])

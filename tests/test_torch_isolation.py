@@ -2,7 +2,9 @@
 loads neither JAX nor any module of the JAX package, and its entry points
 refuse to run without CUDA unless the caller asks for the CPU."""
 
+import ast
 import json
+import re
 import subprocess
 import sys
 import types
@@ -15,10 +17,16 @@ import torch
 from audiogpt_tpu_torch.agent.tools import merge_audio
 from audiogpt_tpu_torch.engines import (
     ASREngine,
+    BinauralEngine,
+    CaptionEngine,
+    ExtractionEngine,
     I2AEngine,
     ImageCaptionEngine,
+    SEDEngine,
+    SeparationEngine,
     T2AEngine,
     T2IEngine,
+    TSDEngine,
     TTSEngine,
     VocoderEngine,
     resolve_device,
@@ -62,7 +70,12 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "agent.llm", "agent.agent", "agent.toolset",
                  "serving.inpaint", "serving.server",
                  "models.textenc.clip", "engines.i2a", "app", "serve",
-                 "engines.t2i", "engines.analysis", "models.caption.blip"):
+                 "engines.t2i", "engines.analysis", "models.caption.blip",
+                 "ops.rnn", "models.caption.captioner",
+                 "models.sed.panns_sed", "models.sed.pvt", "models.sed.tsd",
+                 "models.extraction.lassnet",
+                 "models.separation.convtasnet", "models.separation.skim",
+                 "models.binaural.binaural", "engines.transform"):
         assert f"audiogpt_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
     # the BPE word splitters use the standard library's re: the card's
@@ -98,6 +111,10 @@ def test_entry_points_need_cuda_without_device(monkeypatch):
         T2IEngine(tokenizer=None)
     with pytest.raises(RuntimeError, match="CUDA"):
         ImageCaptionEngine()
+    for engine in (CaptionEngine, SEDEngine, TSDEngine, ExtractionEngine,
+                   SeparationEngine, BinauralEngine):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            engine()
     with pytest.raises(RuntimeError, match="CUDA"):
         compute_mel(np.zeros(256, np.float32), types.SimpleNamespace(
             inpaint_mel_len=1, hop=256, sample_rate=16000, mel_bins=80))
@@ -117,3 +134,53 @@ def test_merge_across_rates_needs_cuda_without_device(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         merge_audio(a, b, root=str(tmp_path))
     assert merge_audio(c, b, root=str(tmp_path)).endswith(".wav")
+
+
+def _code_strings(tree):
+    """The string constants of a module that are not docstrings."""
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body \
+                and isinstance(node.body[0], ast.Expr) \
+                and isinstance(node.body[0].value, ast.Constant):
+            docs.add(id(node.body[0].value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+def test_no_port_code_names_the_jax_package():
+    """No port module and not ``chip_smoke.py`` names the JAX package in
+    its code (an import by string, a path under ``audiogpt_tpu/``): its
+    docstrings may cite the JAX counterpart."""
+    files = sorted((REPO / "audiogpt_tpu_torch").rglob("*.py")) \
+        + [REPO / "chip_smoke.py"]
+    bad = []
+    for path in files:
+        for text in _code_strings(ast.parse(path.read_text())):
+            if re.search(r"\baudiogpt_tpu\b(?!_torch)", text) \
+                    and not re.search(r"audiogpt_tpu/[\w/]+\.py:\d", text):
+                bad.append((path.name, text[:60]))
+    assert bad == []
+
+
+def test_audioset_labels_read_the_ports_own_copy(monkeypatch):
+    from audiogpt_tpu_torch.models.sed import panns_sed
+
+    opened = []
+    real_open = open
+
+    def recording_open(path, *args, **kw):
+        opened.append(str(path))
+        return real_open(path, *args, **kw)
+
+    monkeypatch.setattr("builtins.open", recording_open)
+    panns_sed.audioset_labels.cache_clear()
+    try:
+        labels = panns_sed.audioset_labels()
+    finally:
+        panns_sed.audioset_labels.cache_clear()
+    assert len(labels) == 527 and labels[0] == "Speech"
+    assert opened == [str(REPO / "audiogpt_tpu_torch" / "data"
+                          / "audioset_labels.csv")]

@@ -5,7 +5,8 @@ of 16, unaligned and unequal sequence lengths (the inpaint path's
 cross-attention of 1060 queries on 77 keys among them), causal masking with
 Tq != Tk, fully masked rows, rows shorter than one tile, rows whose length
 is not a multiple of 16 bytes or is shorter than one thread's run, f32 and
-bf16, up to the T2I UNet's widest head (D = 160); BLIP's fused-qkv views.
+bf16, up to the T2I UNet's widest head (D = 160); BLIP's fused-qkv views;
+PVT's spatial-reduction attention (one head, Tq >> Tk, a ragged key tail).
 
 These tests need an NVIDIA card and ``nvcc``; elsewhere they skip. They
 import neither JAX nor the JAX package, so they run where only PyTorch is
@@ -14,9 +15,12 @@ installed::
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 """
 
+import importlib
+
 import pytest
 import torch
 
+from audiogpt_tpu_torch.models.sed.pvt import SRAttention
 from audiogpt_tpu_torch.ops.attention import attention
 from audiogpt_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -182,6 +186,35 @@ def test_attention_takes_blip_fused_qkv_views_to_the_kernel(gen, dtype):
     out = attention(q, k, v)
     ref = flash_attention_reference(q, k, v)
     torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sr,heads,hw", [(8, 1, (400, 16)), (4, 2, (200, 8))])
+def test_pvt_sr_attention_takes_the_kernel(gen, sr, heads, hw, dtype):
+    """PVT's spatial-reduction attention at a 10 s clip's stage-0 and
+    stage-1 shapes ([1, 6400 → 100, 1, 64], [1, 1600 → 100, 2, 64]): one
+    or two heads, Tq >> Tk, a key count that is no multiple of the 64-key
+    tile, k and v strided views of one kv projection. The module launches
+    the kernel once and matches its plain dispatch."""
+    dim = 64 * heads
+    attn = SRAttention(dim, heads, sr).cuda().to(dtype).eval()
+    x = torch.randn(1, hw[0] * hw[1], dim, generator=gen, device="cuda").to(
+        dtype)
+    # the module (``ops/__init__.py`` exports a function of its name)
+    ops_attention = importlib.import_module("audiogpt_tpu_torch.ops.attention")
+    before = flash_attention.launches
+    with torch.no_grad():
+        out = attn(x, hw)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        real = ops_attention.flash_takes
+        try:
+            ops_attention.flash_takes = lambda *a: False
+            ref = attn(x, hw)
+        finally:
+            ops_attention.flash_takes = real
     assert flash_attention.launches == before + 1
     torch.testing.assert_close(out.float(), ref.float(), **FLASH_TOL[dtype])
 

@@ -1,8 +1,9 @@
 """Port serving (``audiogpt_tpu_torch/serving``) over HTTP on the CPU: the
 engine-agnostic cases of ``tests/test_serving.py`` with stub engines and
 ``ScriptedLLM``; served agent turns through small port engines (T2A, I2A,
-TTS, inpaint, and the T2I → I2T image round trip) that must give what the
-engine gives when called directly;
+TTS, inpaint, the T2I → I2T image round trip, and the seven audio analysis
+and transform tools) that must give what the engine gives when called
+directly;
 the reference defects the port does not copy (a negative ``chunk_phones``
 is a 400; the speech loop merges the generated file from the media root;
 a client's path cannot leave the media root); engine calls that run while
@@ -462,6 +463,128 @@ def test_served_image_round_trip(tmp_path):
         assert data["steps"][0]["input"] == rel and not data["media"]
         caption = data["steps"][0]["observation"]
         assert caption and caption == i2t(str(root / rel))
+    finally:
+        s.close()
+
+
+def _analysis_transform_engines():
+    """Tiny CPU engines of the seven audio analysis and transform tools."""
+    from audiogpt_tpu_torch.engines import (BinauralEngine, CaptionEngine,
+                                            ExtractionEngine, SEDEngine,
+                                            SeparationEngine, TSDEngine)
+    from audiogpt_tpu_torch.models.binaural import BinauralConfig
+    from audiogpt_tpu_torch.models.caption import Cnn14Config
+    from audiogpt_tpu_torch.models.caption.captioner import CaptionConfig
+    from audiogpt_tpu_torch.models.extraction import LASSNetConfig
+    from audiogpt_tpu_torch.models.sed import SEDConfig, TSDConfig
+    from audiogpt_tpu_torch.models.separation import ConvTasNetConfig
+
+    cnn = Cnn14Config(channels=(4, 4, 8, 8, 16, 16))
+    bert = BertConfig(hidden_size=16, num_layers=1, num_heads=2,
+                      intermediate_size=32)
+    tasnet = dict(enc_dim=32, bottleneck=8, hidden=16, skip=8, n_blocks=2,
+                  n_repeats=1)
+    return {
+        "caption": CaptionEngine(CaptionConfig(
+            cnn14=cnn, rnn_hidden=8, vocab_size=40, emb_dim=16, nhead=2,
+            nlayers=1, dim_feedforward=32, max_caption_len=8),
+            vocab=[f"w{i}" for i in range(40)], max_sec=4.0, device="cpu"),
+        "sed": SEDEngine(SEDConfig(cnn14=cnn), max_sec=4.0, device="cpu"),
+        "tsd": TSDEngine(TSDConfig(embedding_dim=8, gru_hidden=8,
+                                   channels=(4, 4, 8, 8)),
+                         CLAPTextConfig(bert=bert, d_proj=16, max_length=16),
+                         max_sec=4.0, device="cpu"),
+        "extraction": ExtractionEngine(LASSNetConfig(
+            bert=bert, cond_dim=16, enc_channels=(4, 8, 8)), max_sec=4.0,
+            device="cpu"),
+        "enhance": SeparationEngine(ConvTasNetConfig(n_src=1, **tasnet),
+                                    device="cpu"),
+        "separate": SeparationEngine(ConvTasNetConfig(n_src=2, **tasnet),
+                                     device="cpu"),
+        "binaural": BinauralEngine(BinauralConfig(warpnet_channels=8),
+                                   device="cpu"),
+    }
+
+
+def test_served_analysis_and_transform_tools(tmp_path):
+    """One ``/chat`` turn per audio analysis and transform tool, on one
+    16 kHz clip: each answers what the engine gives called directly on the
+    file at its rate; the SED figure comes back from ``/media/image/...``,
+    ``tsd`` and ``extraction`` parse their ``path, text`` input, and
+    ``separate``'s merged file lies under the media root."""
+    engines = _analysis_transform_engines()
+    root = tmp_path / "media"
+    (root / "audio").mkdir(parents=True)
+    clip = str(root / "audio" / "clip.wav")
+    t = np.arange(16000) / 16000
+    save_wav((0.3 * np.sin(2 * np.pi * 440 * t) + 0.05 * np.random.RandomState(
+        0).randn(16000)).astype(np.float32), clip, 16000)
+    turns = [
+        ("caption", "Generate Text From The Audio", clip),
+        ("sed", "Detect The Sound Event From The Audio", clip),
+        ("tsd", "Target Sound Detection", f"{clip}, a dog barking"),
+        ("extraction", "Extract Sound Event From Mixture Audio Based On "
+                       "Language Description", f"{clip}, the tone"),
+        ("enhance", ENHANCE, clip),
+        ("separate", "Speech Separation In Single-Channel", clip),
+        ("binaural", "Sythesize Binaural Audio From A Mono Audio Input",
+         clip),
+    ]
+    script = []
+    for _, tool, arg in turns:
+        script += [_act(tool, arg), _answer("Done.")]
+    s = Served(ScriptedLLM(script), build_engines(engines), root,
+               device="cpu")
+    try:
+        for key, tool, arg in turns:
+            code, body, _ = _post(s.port, "/chat", {"text": f"use {key}"})
+            data = json.loads(body)
+            step = data["steps"][0]
+            assert code == 200 and step["tool"] == tool, (key, data)
+            obs = step["observation"]
+            eng = engines[key]
+            if key == "caption":
+                wav, _ = load_wav(clip, 32000, device="cpu")
+                assert obs == eng.caption(wav) and obs.startswith("w")
+            elif key == "sed":
+                rel = os.path.relpath(obs, str(root))
+                assert rel.startswith("image/") and rel.endswith(".png")
+                assert data["media"] == [{"kind": "image",
+                                          "url": f"/media/{rel}",
+                                          "tool": tool}]
+                code, png, headers = _req(s.port, f"/media/{rel}")
+                assert code == 200 and headers["Content-Type"] == "image/png"
+                assert png == (root / rel).read_bytes()
+                with Image.open(io.BytesIO(png)) as img:
+                    assert img.size == (1000, 400)
+            elif key == "tsd":
+                wav, _ = load_wav(clip, 22050, device="cpu")
+                spans = eng.detect(wav, "a dog barking")
+                assert obs == ("; ".join(f"({a:.2f}s, {b:.2f}s)"
+                                         for a, b in spans) if spans else
+                               "no occurrence of 'a dog barking' detected")
+            else:
+                assert os.path.dirname(obs) == str(root / "audio")
+                out, sr = load_wav(obs)
+                assert data["media"][0]["kind"] == "audio"
+                assert np.isfinite(out).all() and out.std() > 0
+                if key == "extraction":
+                    wav, _ = load_wav(clip, 32000, device="cpu")
+                    ref = str(tmp_path / "direct.wav")
+                    save_wav(eng.extract(wav, "the tone"), ref, 32000)
+                    direct, _ = load_wav(ref)
+                    assert sr == 32000 and out.shape == direct.shape
+                    np.testing.assert_allclose(out, direct, atol=LSB, rtol=0)
+                elif key == "separate":
+                    # the two stems, merged into one file
+                    assert sr == 16000 and out.size == 2 * 16000
+                elif key == "binaural":
+                    file_sr, stereo = wavfile.read(obs)
+                    assert file_sr == 48000 and stereo.shape == (48000, 2)
+                else:
+                    assert sr == 16000 and out.size == 16000
+        for key, eng in engines.items():
+            assert eng.timings, key
     finally:
         s.close()
 
