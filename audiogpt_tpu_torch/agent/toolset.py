@@ -49,6 +49,18 @@ from audiogpt_tpu_torch.agent.tools import (Tool, ToolRegistry, merge_audio,
 from audiogpt_tpu_torch.utils.audio_io import load_wav, save_wav
 
 
+#: the SVS tool's song when its input does not parse: the toneless pinyin
+#: form of the reference's default score (audio-chatgpt.py:323-329) as
+#: (text, notes, durations), 14 words and 4.04 s of notes
+DEFAULT_SONG = (
+    "ni shuo ni bu SP dong wei he zai zhe shi qian shou AP",
+    "D#4/Eb4 | D#4/Eb4 | D#4/Eb4 | D#4/Eb4 | rest | D#4/Eb4 | "
+    "D4 | D4 | D4 | D#4/Eb4 | F4 | D#4/Eb4 | D4 | rest",
+    "0.113740 | 0.329060 | 0.287950 | 0.133480 | 0.150900 | "
+    "0.484730 | 0.242010 | 0.180820 | 0.343570 | 0.152050 | "
+    "0.266720 | 0.280310 | 0.633300 | 0.444590")
+
+
 def _load(path: str, sr: int, engine: Any) -> np.ndarray:
     """The file at ``sr``, resampled on ``engine``'s device (the card when
     it names none)."""
@@ -127,15 +139,7 @@ def build_toolset(engines: Mapping[str, Any], root: str = ".",
         def svs_fn(inputs: str) -> str:
             # reference falls back to a default song on any parse error
             # (audio-chatgpt.py:323-329) — same contract, explicit here
-            # toneless pinyin form of the reference default song
-            # (audio-chatgpt.py:323-329 falls back to the hardcoded score)
-            default = (
-                "ni shuo ni bu SP dong wei he zai zhe shi qian shou AP",
-                "D#4/Eb4 | D#4/Eb4 | D#4/Eb4 | D#4/Eb4 | rest | D#4/Eb4 | "
-                "D4 | D4 | D4 | D#4/Eb4 | F4 | D#4/Eb4 | D4 | rest",
-                "0.113740 | 0.329060 | 0.287950 | 0.133480 | 0.150900 | "
-                "0.484730 | 0.242010 | 0.180820 | 0.343570 | 0.152050 | "
-                "0.266720 | 0.280310 | 0.633300 | 0.444590")
+            default = DEFAULT_SONG
             try:
                 text, notes, durs = [s.strip() for s in inputs.split(",", 2)]
                 if not (text and notes and durs):

@@ -1,10 +1,12 @@
 """Application assembly: build the engine set and launch the chat app.
 
 Counterpart of ``audiogpt_tpu/app.py:1-362`` for the engines ported so far
-(``tts``, ``asr``, ``t2a``, ``i2a``, ``t2i``, ``i2t``, ``caption``, ``sed``,
-``tsd``, ``extraction``, ``enhance``, ``separate``, ``binaural``). Engines
-are built per requested capability with seeded random weights (no
-checkpoint is loaded yet), on the card. The JAX app's ``--compile-cache``
+(``tts``, ``tts_ood``, ``svs``, ``visinger``, ``asr``, ``t2a``, ``i2a``,
+``t2i``, ``i2t``, ``caption``, ``sed``, ``tsd``, ``extraction``,
+``enhance``, ``separate``, ``binaural``). Engines are built per requested
+capability with seeded random weights (no checkpoint is loaded yet), on
+the card. Unlike the JAX app's, the ``tts_ood`` engine has a vocoder (the
+TTS engine's HiFi-GAN), so the Style Transfer tool writes audio. The JAX app's ``--compile-cache``
 (an XLA cache) has no counterpart, and ``--ckpt`` / ``--vocab`` wait for the checkpoint
 import (the T2I prompt refiner, ``--ckpt t2i_refiner=DIR``, among them).
 
@@ -12,6 +14,7 @@ CLI:  python -m audiogpt_tpu_torch.serve --engines t2a,asr,tts,i2a,t2i,i2t \
           --asr-fast
       python -m audiogpt_tpu_torch.serve \
           --engines caption,sed,tsd,extraction,enhance,separate,binaural
+      python -m audiogpt_tpu_torch.serve --engines tts,svs,tts_ood
 """
 
 from __future__ import annotations
@@ -37,6 +40,29 @@ def _tts():
     from audiogpt_tpu_torch.engines.tts import TTSEngine
 
     return TTSEngine()
+
+
+@register_engine("tts_ood")
+def _tts_ood():
+    from audiogpt_tpu_torch.engines.tts_ood import StyleTransferEngine
+    from audiogpt_tpu_torch.engines.vocoder import VocoderEngine
+
+    return StyleTransferEngine(vocoder=VocoderEngine("hifigan"))
+
+
+@register_engine("svs")
+def _svs():
+    from audiogpt_tpu_torch.engines.svs import SVSEngine
+    from audiogpt_tpu_torch.engines.vocoder import VocoderEngine
+
+    return SVSEngine(vocoder=VocoderEngine("hifigan"))
+
+
+@register_engine("visinger")
+def _visinger():
+    from audiogpt_tpu_torch.engines.svs import VISingerEngine
+
+    return VISingerEngine()
 
 
 @register_engine("asr")

@@ -1,2 +1,2 @@
 """Signal processing: windows (``window``), STFT (``stft``), mel filterbanks
-and the log-mel frontends (``mel``)."""
+the log-mel frontends (``mel``) and the CWT f0 recomposition (``f0``)."""

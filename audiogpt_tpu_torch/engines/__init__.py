@@ -16,3 +16,5 @@ from audiogpt_tpu_torch.engines.transform import (  # noqa: F401
     ExtractionEngine,
     SeparationEngine,
 )
+from audiogpt_tpu_torch.engines.svs import SVSEngine, VISingerEngine  # noqa: F401
+from audiogpt_tpu_torch.engines.tts_ood import StyleTransferEngine  # noqa: F401

@@ -1,13 +1,12 @@
-"""Diffusion schedules and samplers (DDIM, PLMS, DPM-Solver++(2M)).
+"""Diffusion schedules and samplers (DDIM, PLMS, DPM-Solver++(2M), DDPM).
 
-Counterpart of ``audiogpt_tpu/models/diffusion/samplers.py:28-282``. The
+Counterpart of ``audiogpt_tpu/models/diffusion/samplers.py:28-327``. The
 schedule math is the JAX package's numpy, unchanged. The JAX ``lax.scan``
 step loops are Python loops here; the per-step scalars are computed in
 float32 on the host, as the JAX scan computed them in float32 on the device.
 Classifier-free guidance batches the (uncond, cond) pair into one 2N-batch
 ``eps_fn`` call per step. DDIM and DPM-Solver++ take inpainting's mask
-blend (ddim.py:148-151). The cosine schedule and DDPM come with the slices
-that use them.
+blend (ddim.py:148-151). DDPM is DiffSinger's ancestral loop.
 """
 
 from __future__ import annotations
@@ -34,6 +33,15 @@ class DiffusionSchedule:
         alphas = 1.0 - betas
         return cls(betas.astype(np.float32),
                    np.cumprod(alphas).astype(np.float32))
+
+    @classmethod
+    def cosine(cls, timesteps: int, s: float = 0.008) -> "DiffusionSchedule":
+        steps = np.arange(timesteps + 1, dtype=np.float64) / timesteps
+        f = np.cos((steps + s) / (1 + s) * np.pi / 2) ** 2
+        acum = f / f[0]
+        betas = np.clip(1 - acum[1:] / acum[:-1], 0, 0.999)
+        return cls(betas.astype(np.float32),
+                   np.cumprod(1 - betas).astype(np.float32))
 
     @property
     def num_timesteps(self) -> int:
@@ -212,4 +220,42 @@ def dpmpp_sample(
         x0_prev, h_prev = x0_hat, h
     if inpaint:
         img = x0 * mask + (1.0 - mask) * img
+    return img
+
+
+def ddpm_sample(
+    eps_fn: Callable,                  # (x, t[B], context) -> eps
+    schedule: DiffusionSchedule,
+    x_start: torch.Tensor,             # the noisiest step's sample
+    context: torch.Tensor,
+    noise: Noise,
+    from_step: int | None = None,
+) -> torch.Tensor:
+    """Ancestral sampling over all (or the last ``from_step``) timesteps,
+    from ``x_start`` down to t = 0 (DiffSinger's shallow-diffusion loop,
+    shallow_diffusion_tts.py:160). x0 is clipped to [-1, 1]. Each step
+    draws its noise, t = 0 too, where it is multiplied by 0: ``noise`` is a
+    generator or one tensor per step, step i at t = t_max − 1 − i."""
+    t_max = from_step if from_step is not None else schedule.num_timesteps
+    betas, acum = schedule.betas, schedule.alphas_cumprod
+    acum_prev = np.concatenate([np.ones(1, np.float32), acum[:-1]])
+    post_var = betas * (_f32(1.0) - acum_prev) / (_f32(1.0) - acum)
+    post_logvar = np.log(np.maximum(post_var, _f32(1e-20)))
+    img = x_start
+    for i, t in enumerate(range(t_max - 1, -1, -1)):
+        t_vec = torch.full((img.shape[0],), t, dtype=torch.int32,
+                           device=img.device)
+        e = eps_fn(img, t_vec, context)
+        x0 = (img - np.sqrt(_f32(1.0) - acum[t]) * e) / np.sqrt(acum[t])
+        x0 = x0.clamp(-1.0, 1.0)
+        c_x0 = betas[t] * np.sqrt(acum_prev[t]) / (_f32(1.0) - acum[t])
+        c_img = (_f32(1.0) - acum_prev[t]) * np.sqrt(_f32(1.0) - betas[t]) \
+            / (_f32(1.0) - acum[t])
+        if isinstance(noise, torch.Generator):
+            nz = torch.randn(img.shape, generator=noise, device=img.device,
+                             dtype=img.dtype)
+        else:
+            nz = noise[i]
+        sigma = _f32(t > 0) * np.exp(_f32(0.5) * post_logvar[t])
+        img = c_x0 * x0 + c_img * img + sigma * nz
     return img

@@ -4,8 +4,13 @@ Counterpart of ``audiogpt_tpu/models/tts/fastspeech2.py:35-421`` (the
 reference's ``FastSpeech2``, ``NeuralSeq/modules/fastspeech/fs2.py:22``):
 an FFT encoder (pre-LN bias-free MHA, pre-LN conv-FFN), the duration
 predictor and a length regulator onto a fixed ``max_frames`` canvas, the
-frame-level pitch predictor (with uv) and its embedding, optional energy and
-speaker embeddings, the FFT decoder and the mel projection.
+pitch predictor (``frame``: f0 and uv per frame; ``cwt``: a 10-scale
+wavelet spectrum and uv per frame with the utterance's log-f0 mean and std,
+``dsp/f0.py`` ``cwt2f0``) and its embedding, optional energy and speaker
+embeddings, the FFT decoder and the mel projection. DiffSinger's encoder
+options (``svs/diffsinger.py:45``): ``use_midi`` adds MIDI-pitch,
+note-duration and slur embeddings to the token embedding, and ``rel_pos``
+takes ESPnet's reversed positional table in place of fairseq's.
 
 Tensors are token- or frame-major, ``[B, T, C]``, as in the JAX package;
 the convs run on a transposed view. Submodules carry the flax scope names
@@ -16,11 +21,8 @@ the convs run on a transposed view. Submodules carry the flax scope names
 The attention passes a dense key-padding ``mask=``, so ``ops/attention.py``
 takes its plain path and the flash kernel never runs here, as in JAX.
 
-Not ported yet (they raise): ``pitch_type="cwt"`` (needs ``dsp/f0.py``
-``cwt2f0``), and DiffSinger's ``use_midi`` and ``rel_pos``
-(``svs/diffsinger.py:45``), which come with the SVS slice. The config
-leaves out two JAX fields that nothing here would read: ``dropout`` (this
-model runs inference only) and ``cwt_std_scale`` (the cwt branch's).
+The config leaves out the JAX field ``dropout``: this model runs
+inference only.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from audiogpt_tpu_torch.dsp.f0 import cwt2f0
 from audiogpt_tpu_torch.ops.attention import attention
 
 # f0 constants (NeuralSeq/utils/pitch_utils.py:14-19)
@@ -62,6 +65,7 @@ class FastSpeech2Config:
     use_energy_embed: bool = False
     use_uv: bool = True
     pitch_type: str = "frame"      # 'frame' | 'cwt' (fs2.py:191)
+    cwt_std_scale: float = 0.8     # hparams['cwt_std_scale']
     pitch_norm: str = "standard"   # 'standard' | 'log'
     f0_mean: float = 200.0
     f0_std: float = 60.0
@@ -168,7 +172,7 @@ class SinusoidalPositions(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _conv(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
+def conv_time(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
     """A conv over time on x [B, T, C]."""
     return conv(x.transpose(1, 2)).transpose(1, 2)
 
@@ -206,7 +210,7 @@ class FFTBlock(nn.Module):
     def forward(self, x: torch.Tensor, nonpad: torch.Tensor) -> torch.Tensor:
         m = nonpad[..., None]
         x = (x + self.attn(self.ln1(x), nonpad)) * m
-        h = _conv(self.ffn_conv, self.ln2(x)) * self.ffn_kernel ** -0.5
+        h = conv_time(self.ffn_conv, self.ln2(x)) * self.ffn_kernel ** -0.5
         h = self.ffn_out(F.gelu(h))                 # exact gelu
         return (x + h) * m
 
@@ -266,7 +270,7 @@ class ConvPredictor(nn.Module):
                 pos_nonpad = x.new_ones(x.shape[:2])
             x = x + self.pos_alpha * self.pos(pos_nonpad)
         for i in range(self.n_layers):
-            x = torch.relu(_conv(getattr(self, f"conv_{i}"), x))
+            x = torch.relu(conv_time(getattr(self, f"conv_{i}"), x))
             x = getattr(self, f"ln_{i}")(x)
             if nonpad is not None:
                 x = x * nonpad[..., None]
@@ -284,13 +288,6 @@ class ConvPredictor(nn.Module):
 class FastSpeech2(nn.Module):
     def __init__(self, cfg: FastSpeech2Config):
         super().__init__()
-        if cfg.use_pitch_embed and cfg.pitch_type == "cwt":
-            raise NotImplementedError(
-                "FastSpeech2 pitch_type='cwt' is not ported yet")
-        if cfg.use_midi or cfg.rel_pos:
-            raise NotImplementedError(
-                "FastSpeech2 use_midi / rel_pos (DiffSinger) are not ported "
-                "yet")
         self.cfg = cfg
         d = cfg.hidden_size
         self.embed_tokens = nn.Embedding(cfg.vocab_size, d)
@@ -305,10 +302,17 @@ class FastSpeech2(nn.Module):
                                            cfg.dur_predictor_kernel, 1)
         if cfg.use_pitch_embed:
             self.pitch_embed = nn.Embedding(300, d)
-            self.pitch_predictor = ConvPredictor(
-                d, cfg.pred_hidden, cfg.predictor_layers,
-                cfg.predictor_kernel, 2 if cfg.use_uv else 1, with_pos=True,
-                pos_dim=d)
+            if cfg.pitch_type == "cwt":
+                # 10 CWT scales + uv logit (fs2.py:191-203)
+                self.cwt_predictor = ConvPredictor(
+                    d, cfg.pred_hidden, cfg.predictor_layers,
+                    cfg.predictor_kernel, 11, with_pos=True, pos_dim=d)
+                self.cwt_stats = nn.Linear(d, 2)
+            else:
+                self.pitch_predictor = ConvPredictor(
+                    d, cfg.pred_hidden, cfg.predictor_layers,
+                    cfg.predictor_kernel, 2 if cfg.use_uv else 1,
+                    with_pos=True, pos_dim=d)
         if cfg.use_energy_embed:
             self.energy_embed = nn.Embedding(256, d)
             self.energy_predictor = ConvPredictor(
@@ -316,13 +320,41 @@ class FastSpeech2(nn.Module):
                 cfg.predictor_kernel, 1, with_pos=True, pos_dim=d)
         if cfg.num_spk > 0:
             self.spk_embed = nn.Embedding(cfg.num_spk + 1, d)
+        if cfg.use_midi:
+            self.midi_embed = nn.Embedding(300, d)
+            self.midi_dur_layer = nn.Linear(1, d)
+            self.is_slur_embed = nn.Embedding(2, d)
 
-    def encode(self, tokens: torch.Tensor):
+    def encode(self, tokens: torch.Tensor,
+               pitch_midi: torch.Tensor | None = None,
+               midi_dur: torch.Tensor | None = None,
+               is_slur: torch.Tensor | None = None):
         """tokens [B, T] → (encoder_out [B, T, H], nonpad [B, T])
-        (FastspeechEncoder:352)."""
+        (FastspeechEncoder:352; the MIDI variant diffsinger_midi/fs2.py:57)."""
+        cfg = self.cfg
         nonpad = (tokens > 0).float()
-        x = self.embed_tokens(tokens) * math.sqrt(self.cfg.hidden_size)
-        x = x + self.enc_pos(nonpad)
+        x = self.embed_tokens(tokens) * math.sqrt(cfg.hidden_size)
+        if cfg.use_midi and pitch_midi is not None:
+            x = x + self.midi_embed(pitch_midi)
+            if midi_dur is not None:
+                x = x + self.midi_dur_layer(midi_dur[..., None])
+            if is_slur is not None:
+                x = x + self.is_slur_embed(is_slur)
+        if cfg.rel_pos:
+            # ESPnet RelPositionalEncoding (espnet_positional_embedding.py:89):
+            # x·√d (a second time) + the reversed, interleaved sin/cos table.
+            # The reference builds the table once at max_len 5000 and slices
+            # its head, so row i carries position 4999 − i.
+            t, d = tokens.shape[1], cfg.hidden_size
+            pos = torch.arange(4999, 4999 - t, -1, dtype=torch.float32,
+                               device=tokens.device)[:, None]
+            div = torch.exp(torch.arange(0, d, 2, device=tokens.device)
+                            * -(math.log(10000.0) / d))
+            pe = torch.stack([torch.sin(pos * div), torch.cos(pos * div)],
+                             -1).reshape(t, d)
+            x = x * math.sqrt(d) + pe
+        else:
+            x = x + self.enc_pos(nonpad)
         return self.encoder(x, nonpad), nonpad
 
     @staticmethod
@@ -334,14 +366,19 @@ class FastSpeech2(nn.Module):
 
     def forward(self, tokens: torch.Tensor, mel2ph: torch.Tensor | None = None,
                 f0: torch.Tensor | None = None, uv: torch.Tensor | None = None,
-                spk_id: torch.Tensor | None = None) -> dict:
+                spk_id: torch.Tensor | None = None,
+                pitch_midi: torch.Tensor | None = None,
+                midi_dur: torch.Tensor | None = None,
+                is_slur: torch.Tensor | None = None) -> dict:
         """Returns a dict: mel_out [B, F, n_mels], dur (log-domain
-        prediction), mel2ph, pitch_pred, f0_denorm, decoder_inp (and
-        energy_pred). Training passes the ground-truth mel2ph / f0 / uv;
-        inference predicts them onto F = ``cfg.max_frames``."""
+        prediction), mel2ph, pitch_pred (``cwt``: cwt, f0_mean, f0_std),
+        f0_denorm, decoder_inp (and energy_pred). Training passes the
+        ground-truth mel2ph / f0 / uv; inference predicts them onto F =
+        ``cfg.max_frames``."""
         cfg = self.cfg
         ret = {}
-        encoder_out, src_nonpad = self.encode(tokens)
+        encoder_out, src_nonpad = self.encode(tokens, pitch_midi, midi_dur,
+                                              is_slur)
 
         spk = 0.0
         if cfg.num_spk > 0 and spk_id is not None:
@@ -360,17 +397,30 @@ class FastSpeech2(nn.Module):
         decoder_inp = self.expand_states(encoder_out, mel2ph)
         tgt_nonpad = (mel2ph > 0).float()
 
-        # --- pitch (fs2.py:174-221, the 'frame' branch)
+        # --- pitch (fs2.py:174-221; the 'frame' and 'cwt' branches)
         if cfg.use_pitch_embed:
             pitch_inp = (decoder_inp + spk) * tgt_nonpad[..., None]
-            pitch_pred = self.pitch_predictor(
-                pitch_inp, nonpad=tgt_nonpad if cfg.predictor_mask_pad
-                else None, pos_nonpad=tgt_nonpad)
-            ret["pitch_pred"] = pitch_pred
-            if f0 is None:
-                f0 = pitch_pred[..., 0]
-            if cfg.use_uv and uv is None:
-                uv = (pitch_pred[..., 1] > 0).float()
+            nonpad = tgt_nonpad if cfg.predictor_mask_pad else None
+            if cfg.pitch_type == "cwt":
+                cwt_out = self.cwt_predictor(pitch_inp, nonpad=nonpad,
+                                             pos_nonpad=tgt_nonpad)
+                ret["cwt"] = cwt_out
+                stats = self.cwt_stats(encoder_out[:, 0])   # fs2.py:194
+                mean, std = stats[:, 0], stats[:, 1] * cfg.cwt_std_scale
+                ret["f0_mean"], ret["f0_std"] = mean, std
+                if f0 is None:
+                    f0 = norm_f0(cwt2f0(cwt_out[..., :10], mean, std), None,
+                                 cfg)
+                if cfg.use_uv and uv is None:
+                    uv = (cwt_out[..., -1] > 0).float()
+            else:
+                pitch_pred = self.pitch_predictor(pitch_inp, nonpad=nonpad,
+                                                  pos_nonpad=tgt_nonpad)
+                ret["pitch_pred"] = pitch_pred
+                if f0 is None:
+                    f0 = pitch_pred[..., 0]
+                if cfg.use_uv and uv is None:
+                    uv = (pitch_pred[..., 1] > 0).float()
             f0_denorm = denorm_f0(f0, uv, cfg, pitch_padding=mel2ph == 0)
             ret["f0_denorm"] = f0_denorm
             decoder_inp = decoder_inp + self.pitch_embed(

@@ -1,6 +1,6 @@
 """Text codecs of the port: the English TTS frontend (``frontend``,
-``en_g2p``, ``norm_en``, ``encoder``), byte-level BPE (``bpe.py``) and its
-bundled data (``data/``).
+``en_g2p``, ``norm_en``, ``encoder``), the SVS pinyin splitter (``zh``),
+byte-level BPE (``bpe.py``) and its bundled data (``data/``).
 
 Counterpart of ``audiogpt_tpu/text/__init__.py``; every module here is the
 port's own copy."""

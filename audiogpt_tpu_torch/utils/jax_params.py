@@ -9,8 +9,9 @@ that owns it. Recurrent layers are packed: a GRU's ``{fwd,bwd}_w_ih`` /
 ``OptimizedLSTMCell``'s per-gate denses (``ii if ig io`` on the input, ``hi
 hf hg ho`` with the bias on the state; torch's gate order i, f, g, o) become
 the ``weight_ih_l0`` / ``weight_hh_l0`` / ``bias_ih_l0`` / ``bias_hh_l0`` of
-the ``nn.GRU`` / ``nn.LSTM`` of that name. Loading is strict: a missed or
-extra parameter raises.
+the ``nn.GRU`` / ``nn.LSTM`` of that name. A raw ``self.param`` (Glow's
+``actnorm_logs``, ``inv1x1_w``) keeps its name and layout. Loading is
+strict: a missed or extra parameter raises.
 """
 
 from __future__ import annotations
@@ -94,15 +95,19 @@ def _pack_recurrent(module: nn.Module, flat: dict) -> dict:
 def load_jax_params(module: nn.Module, tree: Mapping) -> None:
     """Copy a flax variable tree (numpy leaves) into ``module``, strictly.
 
-    ``tree`` is a param tree, ``{"params": ...}``, or a model with
-    BatchNorm's ``{"params": ..., "batch_stats": ...}``: the statistics
-    ``mean`` / ``var`` become the ``running_mean`` / ``running_var`` buffers
-    (``num_batches_tracked`` is set to 0, which eval mode never reads)."""
-    stats = {}
-    if set(tree) in ({"params"}, {"params", "batch_stats"}):
+    ``tree`` is a param tree, ``{"params": ...}``, or a model with more
+    collections: BatchNorm's ``batch_stats`` (``mean`` / ``var`` become the
+    ``running_mean`` / ``running_var`` buffers; ``num_batches_tracked`` is
+    set to 0, which eval mode never reads) and GenerSpeech's ``vq_stats``
+    (buffers of the same names)."""
+    stats, buffers = {}, {}
+    if "params" in tree and set(tree) <= {"params", "batch_stats",
+                                          "vq_stats"}:
         stats = tree.get("batch_stats", {})
+        buffers = tree.get("vq_stats", {})
         tree = tree["params"]
-    state = {}
+    state = {key: torch.tensor(arr, dtype=torch.float32)
+             for key, arr in _flatten(buffers).items()}
     for key, arr in _flatten(stats).items():
         prefix, _, leaf = key.rpartition(".")
         state[f"{prefix}.{_STAT[leaf]}"] = torch.tensor(arr,

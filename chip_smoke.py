@@ -144,11 +144,34 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 35. analysis_small_reference, transform_small_reference: narrow nets on
    the card against the same weights on the CPU: caption ids, SED, PVT
    (K1 taken), TSD spans; LASSNet, Conv-TasNet, SkiM, binaural.
-36. served: the agent behind ``AppServer`` and ``make_server`` on
+36. svs: the "Generate Singing Voice" tool at the app's width
+   (``SVSEngine(vocoder=VocoderEngine("hifigan"))``: DiffSinger, FS2-MIDI
+   256 wide on the 2048-frame canvas, DiffNet 20 × 256, PLMS-10 over
+   K_step 1000 = 101 DiffNet evals; HiFi-GAN V1) on the toolset's default
+   song (26 phones, the duration head set to ≈ 13 frames a phone); cold,
+   warm (median of 3), RTF against the valid seconds, set-up, peak
+   memory, neither kernel; ``svs_stages`` (FS2, the PLMS loop and the
+   host's time to queue it, one DiffNet eval between events and over a
+   CUDA graph, the vocoder) and ``svs_profile`` (device-only trace).
+37. visinger: ``VISingerEngine()`` (24 kHz, ``max_frames`` 1024) on the
+   same song, frames from the note durations; neither kernel.
+38. tts_ood, tts_ood_10s_ref: the Style Transfer tool at the app's width
+   (``StyleTransferEngine(vocoder=VocoderEngine("hifigan"))``: GenerSpeech
+   with the Glow post-flow, every layer filled, the 1×1s orthogonal) on
+   the TTS sentence with a 5 s and a 10 s (cut to 512 frames) speech-like
+   reference at 22.05 kHz; neither kernel; ``tts_ood_stages`` (style
+   encoders, the FS2 body with the aligners, the Glow reverse, the
+   vocoder).
+39. speech_small_reference: narrow DiffSinger (DDPM over 8 cosine steps,
+   replayed draws), the pitch extractor, FS2's ``cwt`` branch, VISinger
+   and GenerSpeech (mel and wav) on the card against the CPU.
+40. served: the agent behind ``AppServer`` and ``make_server`` on
    127.0.0.1 with the engines above passed as a mapping: one HTTP
    ``/chat`` turn per tool (t2a, inpaint, asr, tts, i2a, t2i, i2t on
    the PNG the t2i turn wrote, caption, sed with its PNG fetched from
-   ``/media/``, tsd, extraction, enhance, separate, binaural), a
+   ``/media/``, tsd, extraction, enhance, separate, binaural, svs on the
+   default song, tts_ood on the 10 s reference, its file mono at
+   22 050 Hz), a
    ``/speech`` turn, ``/stats``, one ``/tts/stream``; each turn's wall
    time and launches, equal to the direct call's; and what a warm T2A
    call costs as the first call of a new thread
@@ -236,6 +259,10 @@ EXTRACT_TEXT = "a dog barking"        # the extraction tool's query
 #: its bias 1.9, so round(exp(d) − 1) ≈ 6 frames a phone (untouched random
 #: weights round most phones to 0 frames)
 TTS_DUR_SCALE, TTS_DUR_BIAS = 0.25, 1.9
+#: DiffSinger's duration head: ≈ 13.4 frames a phone (exp(2.67) − 1), so
+#: the default song's 26 phones get about its 4.04 s of notes (348 frames)
+SVS_DUR_SCALE, SVS_DUR_BIAS = 0.25, 2.67
+SVS_WARM_CALLS = 3                    # warm SVS, VISinger, Style Transfer
 
 
 def emit(obj: dict) -> None:
@@ -3247,6 +3274,461 @@ def phase_transform_small_reference() -> None:
 
 
 # ---------------------------------------------------------------------------
+# SVS: "Generate Singing Voice From User Input Text, Note and Duration
+# Sequence" (DiffSinger + HiFi-GAN V1; VISinger); Style Transfer
+# (GenerSpeech + HiFi-GAN V1)
+# ---------------------------------------------------------------------------
+
+
+def set_svs_durations(model) -> None:
+    """The DiffSinger duration head's output layer (see ``SVS_DUR_SCALE``)."""
+    import torch
+
+    out = model.fs2.dur_predictor.out
+    with torch.no_grad():
+        out.weight.mul_(SVS_DUR_SCALE)
+        out.bias.fill_(SVS_DUR_BIAS)
+
+
+def svs_frames(eng) -> dict:
+    """The default song's phones and its frames on the canvas."""
+    import torch
+
+    from audiogpt_tpu_torch.agent.toolset import DEFAULT_SONG
+    from audiogpt_tpu_torch.engines.svs import score_tensors
+
+    toks, midi, dur, slur = score_tensors(eng, *DEFAULT_SONG)
+    with torch.inference_mode():
+        ret = eng.model.conditioner(toks, midi, dur, slur)
+    frames = int((ret["mel2ph"] > 0).sum())
+    notes_s = sum(float(d) for d in DEFAULT_SONG[2].split("|"))
+    return {"phones": int((toks > 0).sum()), "frames": frames,
+            "notes_s": notes_s, "notes_frames": notes_s
+            * eng.sample_rate / eng.vocoder.hop_size,
+            "audio_s": frames * eng.vocoder.hop_size / eng.sample_rate}
+
+
+def timed_calls(hooks: dict, fn):
+    """``fn()`` with each ``(object, method name)`` of ``hooks[group]``
+    wrapped to record CUDA events around its calls → (output, {group_ms:
+    the summed device-clock time of its calls}, {group_host_ms: the host's
+    time to queue them})."""
+    import torch
+
+    spans = {g: [] for g in hooks}
+    host = {g: 0.0 for g in hooks}
+
+    def wrap(group, orig):
+        def run(*args, **kw):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            t0 = time.perf_counter()
+            out = orig(*args, **kw)
+            host[group] += (time.perf_counter() - t0) * 1e3
+            b.record()
+            spans[group].append((a, b))
+            return out
+        return run
+
+    patched = []
+    for group, targets in hooks.items():
+        for obj, name in targets:
+            setattr(obj, name, wrap(group, getattr(obj, name)))
+            patched.append((obj, name))
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        for obj, name in patched:
+            delattr(obj, name)
+    return out, {f"{g}_ms": sum(a.elapsed_time(b) for a, b in s)
+                 for g, s in spans.items()}, \
+        {f"{g}_host_ms": h for g, h in host.items()}
+
+
+def phase_svs(gen) -> dict:
+    """The SVS tool's call at the app's width: ``SVSEngine(vocoder=
+    VocoderEngine("hifigan"))`` (DiffSinger: FS2-MIDI hidden 256 with
+    ``rel_pos``, ``max_frames`` 2048; DiffNet 20 layers of 256; PLMS at
+    step 10 over K_step 1000: 100 steps, 101 DiffNet evals on [1, 2048,
+    80]; HiFi-GAN V1) with seeded random weights, on the toolset's default
+    song (26 phones, 4.04 s of notes), the duration head set so the
+    phones get about as many frames as the notes' seconds. Cold and warm
+    (median of 3) times, RTF against the valid seconds, set-up, peak
+    memory, launches (neither kernel); the stages (FS2, one DiffNet eval,
+    the PLMS loop with the host's queueing time, the vocoder) and one
+    device-only trace."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.agent.toolset import DEFAULT_SONG
+    from audiogpt_tpu_torch.engines import SVSEngine, VocoderEngine
+    from audiogpt_tpu_torch.engines.svs import score_tensors
+
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = SVSEngine(vocoder=VocoderEngine("hifigan"))
+    fill_random(eng.model, gen)
+    fill_random(eng.vocoder.model, gen)
+    set_svs_durations(eng.model)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    info = svs_frames(eng)
+    if not (info["phones"] == 26
+            and 0.6 <= info["frames"] / info["notes_frames"] <= 1.6):
+        raise AssertionError(f"SVS song {info}")
+
+    def call():
+        return eng.synthesize(*DEFAULT_SONG)
+
+    runs = tool_runs(call, SVS_WARM_CALLS)
+    wav = runs["out"]
+    n = info["frames"] * eng.vocoder.hop_size
+    if wav.dtype != np.float32 or wav.shape != (n,) \
+            or not np.isfinite(wav).all() or float(wav.std()) == 0.0:
+        raise AssertionError(f"SVS wav {wav.dtype} {wav.shape} (expected "
+                             f"{n}), std {wav.std()}")
+    cfg = eng.cfg
+    steps = len(range(0, cfg.K_step, eng.pndm_speedup))
+    evals = []
+    real_eval = eng.model.denoiser.forward
+
+    def counting_eval(*a, **kw):
+        evals.append(1)
+        return real_eval(*a, **kw)
+
+    eng.model.denoiser.forward = counting_eval
+    try:
+        counted(call)
+    finally:
+        del eng.model.denoiser.forward
+    if len(evals) != steps + 1:
+        raise AssertionError(f"{len(evals)} DiffNet evals, {steps} steps")
+    emit({"phase": "svs", "model": "diffsinger+hifigan_v1",
+          "sampler": f"plms-{eng.pndm_speedup}", "plms_steps": steps,
+          "diffnet_evals": len(evals), "canvas": cfg.fs2.max_frames,
+          **info, "samples": n, "setup_s": setup_s,
+          "cold_s": runs["cold_s"], "warm_s": runs["warm_s"],
+          "warm_max_s": runs["warm_max_s"], "warm_calls": SVS_WARM_CALLS,
+          "rtf": runs["warm_s"] / info["audio_s"],
+          "svs_peak_mem_gb": (runs["peak"] - held) / 1e9,
+          "params_m": sum(p.numel() for m in (eng.model, eng.vocoder.model)
+                          for p in m.parameters()) / 1e6,
+          "kernel_launches": runs["launches"],
+          "wav_std": float(wav.std())})
+    # the stages of one warm call, median of 5
+    model = eng.model
+    hooks = {"fs2": [(model, "conditioner")], "plms": [(model, "sample")],
+             "vocoder": [(eng.vocoder, "vocode")]}
+    parts = [timed_calls(hooks, call) for _ in range(STAGE_RUNS)]
+    stages = median_parts([{**p[1], **p[2]} for p in parts])
+    toks = score_tensors(eng, *DEFAULT_SONG)
+    with torch.inference_mode():
+        cond = model.conditioner(*toks)["decoder_inp"]
+        x = torch.randn(1, cond.shape[1], cfg.net.mel_bins, device="cuda")
+        t = torch.full((1,), 990, dtype=torch.int32, device="cuda")
+        eval_ms = time_ms(lambda: model.denoiser(x, t, cond), 10)
+        eval_graph_ms = time_ms(lambda: model.denoiser(x, t, cond), 10,
+                                graph=True)
+    emit({"phase": "svs_stages", "runs": STAGE_RUNS, **stages,
+          "diffnet_eval_ms": eval_ms, "diffnet_eval_graph_ms": eval_graph_ms,
+          "plms_per_eval_ms": stages["plms_ms"] / len(evals),
+          "diffnet_eval_flop": diffnet_flop(cfg, cond.shape[1]),
+          "diffnet_eval_f32_bound_ms": diffnet_flop(cfg, cond.shape[1])
+          / F32_FLOPS * 1e3})
+    profile_call("svs_profile", call, runs["warm_s"], cpu=False)
+    return {"engine": eng, "launches": runs["launches"], "wav": wav}
+
+
+def diffnet_flop(cfg, frames: int) -> float:
+    """Multiply-adds × 2 of one DiffNet eval on ``frames``: per layer the
+    k3 dilated conv and two 1×1 convs (C → 2C, H → 2C, C → 2C), plus the
+    input, skip and output projections."""
+    c, h, m = (cfg.net.residual_channels, cfg.net.encoder_hidden,
+               cfg.net.mel_bins)
+    per_layer = 2 * c * (3 * c + h + c)
+    return 2.0 * frames * (cfg.net.residual_layers * per_layer
+                           + m * c + c * c + c * m)
+
+
+def phase_visinger(gen) -> dict:
+    """``VISingerEngine()`` (score encoder 192 wide, 4 FFT layers, the
+    4-layer coupling flow, HiFi-GAN at 256 channels from 192; 24 kHz,
+    ``max_frames`` 1024) on the default song: frames from the note
+    durations (each phone of a word carries the word's duration, as in
+    JAX). Cold and warm (median of 3), RTF, set-up, peak memory, neither
+    kernel."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.agent.toolset import DEFAULT_SONG
+    from audiogpt_tpu_torch.engines import VISingerEngine
+
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = VISingerEngine()
+    fill_random(eng.model, gen)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    runs = tool_runs(lambda: eng.synthesize(*DEFAULT_SONG), SVS_WARM_CALLS)
+    wav = runs["out"]
+    hop = eng.cfg.decoder.hop_size
+    if wav.ndim != 1 or wav.size % hop or not np.isfinite(wav).all() \
+            or float(wav.std()) == 0.0:
+        raise AssertionError(f"VISinger wav {wav.shape}")
+    audio_s = wav.size / eng.sample_rate
+    emit({"phase": "visinger", "frames": wav.size // hop,
+          "canvas": eng.cfg.max_frames, "audio_s": audio_s,
+          "setup_s": setup_s, "cold_s": runs["cold_s"],
+          "warm_s": runs["warm_s"], "warm_max_s": runs["warm_max_s"],
+          "warm_calls": SVS_WARM_CALLS, "rtf": runs["warm_s"] / audio_s,
+          "visinger_peak_mem_gb": (runs["peak"] - held) / 1e9,
+          "params_m": sum(p.numel() for p in eng.model.parameters()) / 1e6,
+          "kernel_launches": runs["launches"], "wav_std": float(wav.std())})
+    return {"engine": eng, "launches": runs["launches"]}
+
+
+def orthogonal_1x1(model, seed: int) -> None:
+    """Random orthogonal matrices in the Glow post-flow's invertible 1×1
+    convolutions, as the JAX init makes them (``fill_random``'s N(0, 1/C)
+    matrices can be ill-conditioned, and ``reverse`` applies their
+    inverses)."""
+    import torch
+
+    flow = model.post_flow
+    for i in range(flow.n_steps):
+        w = getattr(flow, f"step{i}").inv1x1_w
+        q = torch.linalg.qr(torch.randn(w.shape, generator=torch.Generator()
+                                        .manual_seed(seed + i)))[0]
+        with torch.no_grad():
+            w.copy_(q)
+
+
+def phase_tts_ood(gen) -> dict:
+    """The Style Transfer tool at the app's width: ``StyleTransferEngine(
+    vocoder=VocoderEngine("hifigan"))`` (GenerSpeech: FS2 hidden 256,
+    ``max_frames`` 2048, three VQ style branches and aligners, the GST
+    encoder, the 4-step Glow post-flow; HiFi-GAN V1), seeded random
+    weights (the zero-initialised coupling outputs and actnorms too, so the
+    flow reads its conditioning) and ≈ 6 frames a phone, on the TTS
+    sentence (113 phones) with a seeded 5 s speech-like reference at
+    22.05 kHz (431 frames, the 512 bucket), then a 10 s one (cut to 512
+    frames). Cold and warm (median of 3), RTF against the valid seconds,
+    set-up, peak memory, neither kernel; the stages (style encoders,
+    FS2 body with the aligners, the Glow reverse, the vocoder)."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.engines import StyleTransferEngine, VocoderEngine
+
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = StyleTransferEngine(vocoder=VocoderEngine("hifigan"))
+    fill_random(eng.model, gen)
+    orthogonal_1x1(eng.model, 30)
+    fill_random(eng.vocoder.model, gen)
+    set_durations(eng.model)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    ref5 = speech_like(5.0, 22050, 31)
+    ref10 = speech_like(10.0, 22050, 32)
+    res = {}
+    for name, ref in (("tts_ood", ref5), ("tts_ood_10s_ref", ref10)):
+        runs = tool_runs(lambda ref=ref: eng.synthesize(TTS_TEXT, ref),
+                         SVS_WARM_CALLS)
+        wav = runs["out"]
+        with torch.inference_mode():
+            mel = eng.synthesize_mel(TTS_TEXT, ref)
+        hop = eng.vocoder.hop_size
+        if wav.shape != (mel.shape[0] * hop,) or not np.isfinite(wav).all() \
+                or float(wav.std()) == 0.0:
+            raise AssertionError(f"{name} wav {wav.shape}, mel {mel.shape}")
+        audio_s = wav.size / eng.sample_rate
+        res[name] = runs
+        emit({"phase": name, "text_phones": len(eng.frontend.encode(
+              TTS_TEXT)), "ref_s": ref.size / 22050,
+              "ref_frames": int(eng.ref_mel(ref).abs().sum(-1).gt(0).sum()),
+              "frames": mel.shape[0], "audio_s": audio_s,
+              "setup_s": setup_s, "cold_s": runs["cold_s"],
+              "warm_s": runs["warm_s"], "warm_max_s": runs["warm_max_s"],
+              "warm_calls": SVS_WARM_CALLS,
+              "rtf": runs["warm_s"] / audio_s,
+              "tts_ood_peak_mem_gb": (runs["peak"] - held) / 1e9,
+              "params_m": sum(p.numel() for m in (eng.model,
+                                                  eng.vocoder.model)
+                              for p in m.parameters()) / 1e6,
+              "kernel_launches": runs["launches"],
+              "wav_std": float(wav.std())})
+    model = eng.model
+    hooks = {"style": [(model, "style")],
+             "glow": [(model.post_flow, "reverse")],
+             "model": [(model, "forward")],
+             "vocoder": [(eng.vocoder, "vocode")]}
+    parts = [timed_calls(hooks, lambda: eng.synthesize(TTS_TEXT, ref5))
+             for _ in range(STAGE_RUNS)]
+    st = median_parts([{**p[1], **p[2]} for p in parts])
+    emit({"phase": "tts_ood_stages", "runs": STAGE_RUNS,
+          "style_ms": st["style_ms"], "glow_ms": st["glow_ms"],
+          "fs2_ms": st["model_ms"] - st["style_ms"] - st["glow_ms"],
+          "vocoder_ms": st["vocoder_ms"], "model_ms": st["model_ms"],
+          "model_host_ms": st["model_host_ms"]})
+    return {"engine": eng, "launches": res["tts_ood"]["launches"],
+            "ref": ref10}
+
+
+def phase_speech_small_reference() -> None:
+    """Narrow nets of the three new tools on the card against the same
+    weights and draws on the CPU (TF32 off): DiffSinger's conditioner and
+    its DDPM sampler over 8 steps of the cosine schedule with replayed
+    draws, the pitch extractor on the mel padded onto the vocoder's
+    bucket, the FS2 ``cwt`` branch, VISinger's wav, GenerSpeech's mel
+    through the post-flow and its vocoder's wav. Durations held mid-way
+    between rounding edges (weights · 1e-3)."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.engines import (StyleTransferEngine, SVSEngine,
+                                            VISingerEngine, VocoderEngine)
+    from audiogpt_tpu_torch.models.svs import (DiffNetConfig,
+                                               DiffSingerConfig,
+                                               VISingerConfig)
+    from audiogpt_tpu_torch.models.tts import (FastSpeech2,
+                                               FastSpeech2Config)
+    from audiogpt_tpu_torch.models.tts.generspeech import GenerSpeechConfig
+    from audiogpt_tpu_torch.models.tts.pitch_extractor import (
+        PitchExtractor, PitchExtractorConfig)
+    from audiogpt_tpu_torch.models.vocoder import HifiGANConfig
+
+    song = ("ni hao SP shi jie AP", "C4 | D4 E4 | rest | F#4/Gb4 | G4 | rest",
+            "0.1 | 0.3 0.2 | 0.25 | 0.2 | 0.15 | 0.3")
+    hifi = dict(upsample_initial_channel=64, upsample_rates=(8, 8, 4),
+                upsample_kernel_sizes=(16, 16, 8), resblock_kernel_sizes=(3,),
+                resblock_dilation_sizes=((1, 3),))
+    fs2 = dict(hidden_size=64, enc_layers=2, dec_layers=2,
+               predictor_layers=2, max_frames=256)
+
+    def pair(build, dur=None, seed=0):
+        cpu, card = build("cpu"), build("cuda")
+        fill_random(cpu.model, torch.Generator().manual_seed(seed))
+        if dur is not None:
+            with torch.no_grad():
+                dur(cpu.model).weight.mul_(1e-3)
+                dur(cpu.model).bias.fill_(math.log(5.0))
+        card.model.load_state_dict(cpu.model.state_dict())
+        if hasattr(cpu, "vocoder"):
+            fill_random(cpu.vocoder.model, torch.Generator().manual_seed(
+                seed + 1))
+            card.vocoder.load_state_dict(cpu.vocoder.model.state_dict())
+        return cpu, card
+
+    res = {}
+    pes = {}
+
+    def build_svs(device):
+        pes[device] = PitchExtractor(PitchExtractorConfig(
+            hidden=64, predictor_layers=2))
+        return SVSEngine(DiffSingerConfig(
+            fs2=FastSpeech2Config(use_midi=True, rel_pos=True,
+                                  use_pitch_embed=False, **fs2),
+            net=DiffNetConfig(encoder_hidden=64, residual_layers=4,
+                              residual_channels=64),
+            timesteps=8, K_step=8, schedule_type="cosine"),
+            vocoder=VocoderEngine("hifigan", HifiGANConfig(**hifi),
+                                  buckets=(256,), device=device),
+            pitch_extractor=pes[device], token_buckets=(16,),
+            pndm_speedup=1, device=device)
+
+    g = torch.Generator().manual_seed(5)
+    x_t = torch.randn(1, 256, 80, generator=g)
+    noise = [torch.randn(1, 256, 80, generator=g) for _ in range(8)]
+    out = {}
+    svs_pair = pair(build_svs, lambda m: m.fs2.dur_predictor.out, seed=11)
+    fill_random(pes["cpu"], torch.Generator().manual_seed(13))
+    pes["cuda"].load_state_dict(pes["cpu"].state_dict())
+    for eng in svs_pair:
+        dev = eng.device
+        def run(eng=eng, dev=dev):
+            mel, f0 = eng.synthesize_mel(*song, draws=(
+                x_t.to(dev), [n.to(dev) for n in noise]))
+            return mel.cpu(), f0.cpu()
+        (mel, f0), _, counts = counted(run)
+        out[dev.type] = (mel, f0, counts)
+    res["svs_ddpm_mel"] = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    res["svs_pitch_extractor_f0_hz"] = float(
+        (out["cuda"][1] - out["cpu"][1]).abs().max())
+    res["svs_frames"] = out["cpu"][0].shape[0]
+    launches = [out["cuda"][2]]
+
+    cwt_cfg = FastSpeech2Config(pitch_type="cwt", **fs2)
+    cpu_fs2 = FastSpeech2(cwt_cfg).eval()
+    fill_random(cpu_fs2, torch.Generator().manual_seed(17))
+    with torch.no_grad():
+        cpu_fs2.dur_predictor.out.weight.mul_(1e-3)
+        cpu_fs2.dur_predictor.out.bias.fill_(math.log(5.0))
+        cpu_fs2.cwt_stats.weight.mul_(1e-2)
+        cpu_fs2.cwt_stats.bias.copy_(torch.tensor([math.log(200.0), 0.3]))
+    card_fs2 = FastSpeech2(cwt_cfg).cuda().eval()
+    card_fs2.load_state_dict(cpu_fs2.state_dict())
+    toks = torch.randint(3, 80, (1, 24), generator=torch.Generator()
+                         .manual_seed(18))
+    with torch.inference_mode():
+        a = cpu_fs2(toks)
+        b, _, counts = counted(lambda: card_fs2(toks.cuda()))
+    launches.append(counts)
+    res["fs2_cwt_mel"] = float((b["mel_out"].cpu() - a["mel_out"]).abs()
+                               .max())
+    res["fs2_cwt_f0_rel"] = float(((b["f0_denorm"].cpu() - a["f0_denorm"])
+                                   .abs() / a["f0_denorm"].clamp_min(1.0))
+                                  .max())
+    res["fs2_cwt_mel2ph_equal"] = bool((b["mel2ph"].cpu() == a["mel2ph"])
+                                       .all())
+
+    vis = pair(lambda device: VISingerEngine(VISingerConfig(
+        hidden=64, latent_dim=32, enc_layers=2, posterior_layers=1,
+        flow_layers=2, flow_wn_layers=2, max_frames=256,
+        decoder=HifiGANConfig(in_channels=32, **hifi)), token_buckets=(16,),
+        device=device), seed=19)
+    z = torch.randn(1, 256, 32, generator=torch.Generator().manual_seed(20))
+    wa = vis[0].synthesize(*song, draws=z)
+    wb, _, counts = counted(lambda: vis[1].synthesize(*song,
+                                                      draws=z.cuda()))
+    launches.append(counts)
+    res["visinger_wav"] = float(np.abs(wb - wa).max()) \
+        if wa.shape == wb.shape else math.inf
+
+    gs = pair(lambda device: StyleTransferEngine(GenerSpeechConfig(
+        fs2=FastSpeech2Config(**fs2), n_vq=16, emb_dim=32, glow_hidden=32,
+        glow_steps=2, glow_wn_layers=2),
+        vocoder=VocoderEngine("hifigan", HifiGANConfig(**hifi),
+                              buckets=(256,), device=device),
+        device=device), lambda m: m.dur_predictor.out, seed=21)
+    for eng in gs:
+        orthogonal_1x1(eng.model, 24)
+    ref = speech_like(1.5, 22050, 22)
+    zg = torch.randn(1, 128, 160, generator=torch.Generator().manual_seed(23))
+    ma = gs[0].synthesize_mel(TTS_TEXT[:40], ref, draws=zg)
+    mb, _, counts = counted(lambda: gs[1].synthesize_mel(
+        TTS_TEXT[:40], ref, draws=zg.cuda()))
+    launches.append(counts)
+    res["generspeech_mel"] = float((mb.cpu() - ma).abs().max()) \
+        if ma.shape == mb.shape else math.inf
+    res["generspeech_frames"] = ma.shape[0]
+    wa = gs[0].vocoder.vocode(ma.T[None].contiguous())
+    wb = gs[1].vocoder.vocode(mb.T[None].contiguous())
+    res["generspeech_wav"] = float((wb.cpu() - wa).abs().max())
+    emit({"phase": "speech_small_reference", **res,
+          "cuda_launches": launches})
+    for c in launches:
+        check_no_kernels(c, "speech_small_reference")
+    bad = {k: v for k, v in res.items()
+           if (k.endswith(("_mel", "_wav")) and not v <= 5e-4)
+           or (k == "svs_pitch_extractor_f0_hz" and not v <= 1e-2)
+           or (k == "fs2_cwt_f0_rel" and not v <= 1e-4)}
+    if bad or not res["fs2_cwt_mel2ph_equal"]:
+        raise AssertionError(f"card vs CPU: {res}")
+
+
+# ---------------------------------------------------------------------------
 # served: the agent behind the HTTP server, one turn per tool
 # ---------------------------------------------------------------------------
 
@@ -3364,7 +3846,7 @@ def asr_split(app, port: int, asr_eng, speech: str, turns: int) -> None:
 
 def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
                  i2a: dict, t2i: dict, i2t: dict, tools: dict,
-                 tmp: str) -> None:
+                 singing: dict, tmp: str) -> None:
     """``AppServer(ScriptedLLM(script), build_engines({...}))`` behind
     ``make_server`` on 127.0.0.1 (an OS-chosen port), the built engines of
     the earlier phases passed as a mapping: one ``/chat`` turn per tool
@@ -3372,7 +3854,9 @@ def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
     i2a of the I2A phase's PNG by path; t2i; i2t of the PNG the t2i turn
     wrote, by the name the turn's answer gives; the seven audio analysis
     and transform tools of ``tools`` on the SED phase's events clip or the
-    separation phase's speech clip), each twice (its first call
+    separation phase's speech clip; svs on the default song and tts_ood
+    on the Style Transfer phase's 10 s reference, whose file must be mono
+    at 22 050 Hz: ``singing``), each twice (its first call
     on the server's engine thread, then warm), then ``/mode`` speech and one
     ``/speech`` turn (ASR → agent → the t2a tool → TTS → merge), then
     ``/stats`` and one ``/tts/stream``; first the cost of a new thread
@@ -3407,6 +3891,8 @@ def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
     save_wav(tools["sed"]["wav"], events, 32000)
     speech10 = str(root / "audio" / "speech10.wav")
     save_wav(tools["wav16k"], speech10, 16000)
+    voice = str(root / "audio" / "voice10.wav")
+    save_wav(singing["tts_ood"]["ref"], voice, 22050)
     turns = [
         ("t2a", "Generate Audio From User Input Text", TEXT),
         ("inpaint", "Audio Inpainting", f"{t2a_wav}, 1.0, 3.0"),
@@ -3424,9 +3910,12 @@ def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
         ("separate", "Speech Separation In Single-Channel", speech10),
         ("binaural", "Sythesize Binaural Audio From A Mono Audio Input",
          speech10),
+        ("svs", "Generate Singing Voice From User Input Text, Note and "
+                "Duration Sequence", '""'),
+        ("tts_ood", "Style Transfer", f"{voice}, {TTS_TEXT}"),
     ]
     new_tools = ("caption", "sed", "tsd", "extraction", "enhance",
-                 "separate", "binaural")
+                 "separate", "binaural", "svs", "tts_ood")
 
     class ImagePathLLM(ScriptedLLM):
         """The script with ``{image}`` replaced by the last
@@ -3450,7 +3939,8 @@ def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
     engines = build_engines({"t2a": t2a, "asr": asr_eng, "tts": tts_eng,
                              "i2a": i2a["engine"], "t2i": t2i["engine"],
                              "i2t": i2t["engine"],
-                             **{k: tools[k]["engine"] for k in new_tools}})
+                             **{k: {**tools, **singing}[k]["engine"]
+                                for k in new_tools}})
     asr_fn, tts_fn = speech_callables(engines, str(root))
     app = AppServer(ImagePathLLM(script), engines, media_root=str(root),
                     asr=asr_fn, tts=tts_fn)
@@ -3570,6 +4060,15 @@ def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
                         stereo = (w.getnchannels(), w.getnframes())
                     if stereo != (2, 480000) or sr != 48000:
                         raise AssertionError(f"served binaural: {stereo}")
+                if key in ("svs", "tts_ood"):
+                    # mono audio at the vocoder's rate, whole frames
+                    with wave.open(step["observation"], "rb") as w:
+                        mono = (w.getnchannels(), w.getframerate(),
+                                w.getnframes() % 256)
+                    if mono != (1, 22050, 0):
+                        raise AssertionError(f"served {key}: (channels, "
+                                             f"rate, frames % hop) {mono}")
+                    res["audio_s"] = out.size / sr
             if n >= len(turns):                     # the warm turn
                 emit({"phase": "served_turn", **res})
         asr_split(app, port, asr_eng, speech, split_turns)
@@ -3709,7 +4208,11 @@ def main() -> int:
                      binaural=phase_binaural(gen), wav16k=separation["wav"])
         phase_analysis_small_reference()
         phase_transform_small_reference()
-        phase_served(main_path, inpaint, asr, tts, i2a, t2i, i2t, tools, tmp)
+        singing = {"svs": phase_svs(gen), "visinger": phase_visinger(gen),
+                   "tts_ood": phase_tts_ood(gen)}
+        phase_speech_small_reference()
+        phase_served(main_path, inpaint, asr, tts, i2a, t2i, i2t, tools,
+                     singing, tmp)
 
     eng = main_path["engine"]
     t2a, inp = t2a_path(eng), inpaint_path(eng)
@@ -3724,6 +4227,12 @@ def main() -> int:
 
     def f32(c, name):
         return c[name] - c[f"{name}_bf16"]
+
+    def none_launched(k, name):
+        """The new speech paths, which launch neither kernel."""
+        return [path_record(k, key, Counter(), f32(singing[key]["launches"],
+                                                   name))
+                for key in ("svs", "visinger", "tts_ood")]
 
     emit({"kernels": [
         kernel_entry(flash["float32"], [
@@ -3746,7 +4255,8 @@ def main() -> int:
             *(path_record(flash["float32"], key,
                           sed_pvt[key]["path"]["flash"],
                           f32(sed_pvt[key]["launches"], "flash_attention"))
-              for key in ("sed_pvt", "sed_pvt_32s"))],
+              for key in ("sed_pvt", "sed_pvt_32s")),
+            *none_launched(flash["float32"], "flash_attention")],
             flash_src, flash_tpu),
         kernel_entry(flash["bfloat16"], [
             path_record(flash["bfloat16"], "main_path_bf16", t2a["flash"],
@@ -3765,7 +4275,8 @@ def main() -> int:
             path_record(snake["float32"], "inpaint", inp["snake"],
                         f32(inpaint["launches"], "snake_aa")),
             path_record(snake["float32"], "i2a", i2a_p["snake"],
-                        f32(i2a["launches"], "snake_aa"))],
+                        f32(i2a["launches"], "snake_aa")),
+            *none_launched(snake["float32"], "snake_aa")],
             snake_src, snake_tpu),
         kernel_entry(snake["bfloat16"], [
             path_record(snake["bfloat16"], "vocoder_bf16", t2a["snake"],

@@ -1,5 +1,5 @@
-"""Port diffusion stack (UNet, AutoencoderKL, schedule, samplers) against
-the JAX package, with the JAX parameters carried across by
+"""Port diffusion stack (UNet, AutoencoderKL, schedules, samplers, DDPM)
+against the JAX package, with the JAX parameters carried across by
 ``load_jax_params``, on the same numpy inputs (NHWC there, NCHW here)."""
 
 import jax
@@ -184,3 +184,51 @@ def test_inpaint_blend_matches_jax(name):
         np.asarray(jsched.q_sample(jnp.asarray(x0), jnp.full((1,), t),
                                    jnp.asarray(noise[0].numpy()))),
         atol=1e-6, rtol=0)
+
+
+def test_cosine_schedule_matches_jax():
+    for n in (6, 1000):
+        j, p = JaxSchedule.cosine(n), DiffusionSchedule.cosine(n)
+        np.testing.assert_array_equal(p.betas, j.betas)
+        np.testing.assert_array_equal(p.alphas_cumprod, j.alphas_cumprod)
+
+
+def eps_frames(xp):
+    """An analytic eps on [B, T, C] frames that depends on x, t and the
+    condition (DiffSinger's samplers' layout)."""
+    def eps(x, t, c):
+        return xp.tanh(0.7 * x + c) * (1.0 + 0.01 * t[:, None, None])
+    return eps
+
+
+def frames_inputs(seed=0):
+    """A sample and a condition [2, 10, 4]."""
+    rng = np.random.RandomState(seed)
+    return (rng.randn(2, 10, 4).astype(np.float32),
+            rng.randn(2, 10, 4).astype(np.float32))
+
+
+def test_ddpm_sample_matches_jax():
+    """DiffSinger's ancestral loop: six steps of the cosine schedule from
+    x_start with JAX's per-step keys replayed (the linear schedule is
+    DiffSinger's, ``test_torch_svs.py``); the last step (t = 0) draws and
+    drops its noise. 5e-4: six steps, each rescaling the last one's
+    difference."""
+    sched = JaxSchedule.cosine(6)
+    x, cond = frames_inputs(1)
+    key = jax.random.PRNGKey(3)
+    ref = np.asarray(jax.jit(lambda x, c: jax_samplers.ddpm_sample(
+        eps_frames(jnp), sched, x.shape, c, key, x_start=x))(x, cond))
+    keys = jax.random.split(jax.random.split(key)[0], 6)
+    noise = [torch.from_numpy(np.asarray(jax.random.normal(k, x.shape)))
+             for k in keys]
+    xt, ct = torch.from_numpy(x), torch.from_numpy(cond)
+    got = samplers.ddpm_sample(eps_frames(torch), sched, xt, ct, noise)
+    np.testing.assert_allclose(got.numpy(), ref, atol=5e-4, rtol=0)
+    # a generator draws one tensor a step, t = 0 included
+    gen, count = torch.Generator().manual_seed(0), \
+        torch.Generator().manual_seed(0)
+    samplers.ddpm_sample(eps_frames(torch), sched, xt, ct, gen)
+    for _ in range(6):
+        torch.randn(x.shape, generator=count)
+    assert torch.equal(gen.get_state(), count.get_state())

@@ -1,8 +1,9 @@
 """Port FastSpeech2 (``audiogpt_tpu_torch/models/tts/fastspeech2.py``)
 against the JAX module on shared parameters: inference (``mel2ph``
 exact, mel / durations / pitch within 1e-5), the teacher-forced call, the
-energy and speaker embeddings, ``predictor_mask_pad`` both ways, a padded
-batch of 2; and the f0 and length-regulator helpers.
+energy and speaker embeddings, ``predictor_mask_pad`` both ways,
+DiffSinger's ``use_midi`` and ``rel_pos`` encoders, the ``cwt`` pitch
+branch, a padded batch of 2; and the f0 and length-regulator helpers.
 
 Durations go through ``round(exp(d) − 1)``, pitch through ``rint`` and uv
 through a sign test, so a difference of one ulp between the frameworks
@@ -38,14 +39,23 @@ TINY = dict(vocab_size=40, hidden_size=32, enc_layers=1, dec_layers=1,
 
 def fs2_params(cfg: jfs.FastSpeech2Config, seed: int = 0) -> dict:
     """numpy params of the JAX module (from ``jax.eval_shape``) with the
-    duration bias set."""
+    duration bias set; with ``cwt``, the utterance statistics' output
+    scaled by 1e-2 with a bias of log-f0 mean log(200) and std 0.3125
+    (· ``cwt_std_scale`` = 0.25), so the f0 lies in the voice's range."""
     model = jfs.FastSpeech2(cfg)
     toks = jnp.ones((1, 8), jnp.int32)
     spk = jnp.zeros((1,), jnp.int32) if cfg.num_spk else None
+    midi = dict(pitch_midi=toks, midi_dur=jnp.ones((1, 8)),
+                is_slur=toks * 0) if cfg.use_midi else {}
     shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), toks,
-                                               spk_id=spk, infer=True))
+                                               spk_id=spk, infer=True,
+                                               **midi))
     params = jax.tree.map(np.array, _random_params(shapes, seed))
     params["params"]["dur_predictor"]["out"]["bias"][:] = DUR_BIAS
+    if cfg.pitch_type == "cwt" and cfg.use_pitch_embed:
+        stats = params["params"]["cwt_stats"]
+        stats["kernel"] *= 1e-2
+        stats["bias"][:] = (np.log(200.0), 0.3125)
     return params
 
 
@@ -69,7 +79,7 @@ def run_both(cfg_kw: dict, toks: np.ndarray, seed: int = 0, **kw):
     model = pfs.FastSpeech2(pfs.FastSpeech2Config(**cfg_kw))
     load_jax_params(model, params)
     tkw = {k: torch.from_numpy(np.asarray(v)) for k, v in kw.items()}
-    for k in ("mel2ph", "spk_id"):
+    for k in ("mel2ph", "spk_id", "pitch_midi", "is_slur"):
         if k in tkw:
             tkw[k] = tkw[k].long()
     with torch.no_grad():
@@ -95,7 +105,7 @@ def assert_margins(ref: dict, got: dict, cfg: jfs.FastSpeech2Config,
         d_ref, d_got = np.exp(ref["dur"]) - 1, np.exp(got["dur"]) - 1
         live = d_ref > 0          # round(x ≤ 0) clips to 0 either way
         far(d_ref, d_got, lambda x: half(x[live]), "durations")
-    if "pitch_pred" in ref:
+    if "f0_denorm" in ref:
         voiced = ref["f0_denorm"] > 0
 
         def coarse(f0):
@@ -109,7 +119,8 @@ def assert_margins(ref: dict, got: dict, cfg: jfs.FastSpeech2Config,
         if cfg.use_uv and predicted:
             # on the canvas's padding the f0 is zeroed whatever uv says
             valid = ref["mel2ph"] > 0
-            far(ref["pitch_pred"][..., 1], got["pitch_pred"][..., 1],
+            uv = ("cwt", -1) if "cwt" in ref else ("pitch_pred", 1)
+            far(ref[uv[0]][..., uv[1]], got[uv[0]][..., uv[1]],
                 lambda x: np.abs(x[valid]), "uv logits")
     if "energy_pred" in ref:
         e = lambda x: x * 64.0
@@ -121,16 +132,36 @@ VARIANTS = {
     "default": {},
     "reference_predictor_padding": dict(predictor_mask_pad=False),
     "energy_and_speakers": dict(use_energy_embed=True, num_spk=3),
+    # DiffSinger's encoder inputs (svs/diffsinger.py:45)
+    "use_midi": dict(use_midi=True),
+    "rel_pos": dict(rel_pos=True),
+    "cwt": dict(pitch_type="cwt"),
 }
+#: the cwt tree's leaves come in another order, so seed 0's durations
+#: differ; seed 3 keeps the padded row the shorter one
+SEEDS = {"cwt": 3}
+
+
+def variant_inputs(cfg_kw: dict) -> dict:
+    """The variant's extra inputs: speaker ids, or a MIDI score (notes,
+    durations in seconds and slur flags) for the tokens' batch of 2."""
+    if "num_spk" in cfg_kw:
+        return {"spk_id": np.array([1, 3], np.int32)}
+    if cfg_kw.get("use_midi"):
+        rng = np.random.RandomState(4)
+        return {"pitch_midi": rng.randint(48, 84, (2, 16)).astype(np.int32),
+                "midi_dur": rng.uniform(0.05, 0.6, (2, 16)).astype(
+                    np.float32),
+                "is_slur": rng.randint(0, 2, (2, 16)).astype(np.int32)}
+    return {}
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_inference_matches_jax(variant):
     cfg_kw = {**TINY, **VARIANTS[variant]}
-    kw = {"spk_id": np.array([1, 3], np.int32)} if "num_spk" in cfg_kw \
-        else {}
+    kw = variant_inputs(cfg_kw)
     toks = tokens(seed=1)
-    ref, got = run_both(cfg_kw, toks, **kw)
+    ref, got = run_both(cfg_kw, toks, seed=SEEDS.get(variant, 0), **kw)
     assert_margins(ref, got, jfs.FastSpeech2Config(**cfg_kw))
     assert set(got) == set(ref)
     np.testing.assert_array_equal(got["mel2ph"], ref["mel2ph"])
@@ -140,7 +171,7 @@ def test_inference_matches_jax(variant):
     assert 0 < frames[1] < frames[0] <= TINY["max_frames"]
     assert ref["mel2ph"][1].max() == 11
     for key in ("dur", "pitch_pred", "decoder_inp", "mel_out",
-                "energy_pred"):
+                "energy_pred", "cwt", "f0_mean", "f0_std"):
         if key in ref:
             np.testing.assert_allclose(got[key], ref[key], atol=ATOL, rtol=0,
                                        err_msg=key)
@@ -148,6 +179,36 @@ def test_inference_matches_jax(variant):
     np.testing.assert_allclose(got["f0_denorm"], ref["f0_denorm"],
                                rtol=1e-5, atol=ATOL)
     assert np.abs(ref["mel_out"]).max() > 0.1
+    if variant == "cwt":
+        # the cwt f0 lies in the voice's range and spans several bins
+        f0 = ref["f0_denorm"][ref["f0_denorm"] > 0]
+        bins = np.unique(pfs.f0_to_coarse(torch.from_numpy(f0)).numpy())
+        assert 80 < f0.min() and f0.max() < 600 and len(bins) > 5
+
+
+def test_branch_inputs_move_the_output():
+    """``use_midi`` and ``rel_pos`` change the encoder, so neither parity
+    case above is vacuous: the same tokens and weights without the MIDI
+    inputs, or with fairseq's positions, give another mel."""
+    toks = tokens(seed=1)
+    cfg_kw = {**TINY, **VARIANTS["use_midi"]}
+    params = fs2_params(jfs.FastSpeech2Config(**cfg_kw))
+    model = pfs.FastSpeech2(pfs.FastSpeech2Config(**cfg_kw))
+    load_jax_params(model, params)
+    midi = {k: torch.from_numpy(v) for k, v in
+            variant_inputs(cfg_kw).items()}
+    mel2ph = torch.from_numpy(np.repeat(np.arange(1, 17), 5)[None]
+                              .repeat(2, 0).astype(np.int64))
+    with torch.no_grad():
+        plain = model(torch.from_numpy(toks).long(), mel2ph=mel2ph)
+        with_midi = model(torch.from_numpy(toks).long(), mel2ph=mel2ph,
+                          pitch_midi=midi["pitch_midi"].long(),
+                          midi_dur=midi["midi_dur"],
+                          is_slur=midi["is_slur"].long())
+        model.cfg = pfs.FastSpeech2Config(**{**cfg_kw, "rel_pos": True})
+        rel = model(torch.from_numpy(toks).long(), mel2ph=mel2ph)
+    for other in (with_midi, rel):
+        assert (other["mel_out"] - plain["mel_out"]).abs().max() > 0.1
 
 
 def test_teacher_forced_call_matches_jax():
@@ -205,12 +266,12 @@ def test_helpers_match_jax():
 
 
 def test_unported_branches_raise():
+    """Every branch is ported: each of them builds, and the config copies
+    the JAX one field for field, less ``dropout`` (the port runs inference
+    only)."""
     for kw in (dict(pitch_type="cwt"), dict(use_midi=True),
                dict(rel_pos=True)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            pfs.FastSpeech2(pfs.FastSpeech2Config(**{**TINY, **kw}))
-    # the config copies the JAX one field for field, less the two that
-    # nothing in the port reads (no dropout; cwt is not ported)
+        pfs.FastSpeech2(pfs.FastSpeech2Config(**{**TINY, **kw}))
     assert [f.name for f in dataclasses.fields(pfs.FastSpeech2Config)] == \
         [f.name for f in dataclasses.fields(jfs.FastSpeech2Config)
-         if f.name not in ("dropout", "cwt_std_scale")]
+         if f.name != "dropout"]

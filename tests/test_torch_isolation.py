@@ -24,10 +24,13 @@ from audiogpt_tpu_torch.engines import (
     ImageCaptionEngine,
     SEDEngine,
     SeparationEngine,
+    StyleTransferEngine,
+    SVSEngine,
     T2AEngine,
     T2IEngine,
     TSDEngine,
     TTSEngine,
+    VISingerEngine,
     VocoderEngine,
     resolve_device,
 )
@@ -75,7 +78,11 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "models.sed.panns_sed", "models.sed.pvt", "models.sed.tsd",
                  "models.extraction.lassnet",
                  "models.separation.convtasnet", "models.separation.skim",
-                 "models.binaural.binaural", "engines.transform"):
+                 "models.binaural.binaural", "engines.transform",
+                 "text.zh", "dsp.f0", "models.svs.diffsinger",
+                 "models.svs.visinger", "models.tts.pitch_extractor",
+                 "models.tts.generspeech", "engines.svs",
+                 "engines.tts_ood"):
         assert f"audiogpt_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
     # the BPE word splitters use the standard library's re: the card's
@@ -112,7 +119,8 @@ def test_entry_points_need_cuda_without_device(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         ImageCaptionEngine()
     for engine in (CaptionEngine, SEDEngine, TSDEngine, ExtractionEngine,
-                   SeparationEngine, BinauralEngine):
+                   SeparationEngine, BinauralEngine, SVSEngine,
+                   VISingerEngine, StyleTransferEngine):
         with pytest.raises(RuntimeError, match="CUDA"):
             engine()
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -336,3 +336,126 @@ def test_asr_engine_on_the_card_matches_the_cpu(gen, monkeypatch):
         assert out["cuda"][2][step] == out["cpu"][2][step]
         compared += 1
     assert compared >= 1
+
+
+# -- the singing and style-transfer engines, card against CPU --------------
+# Neither path launches a kernel (dense-mask attentions, no snake): the
+# card's cuDNN and cuBLAS f32 (TF32 off) against the CPU on the same
+# weights and draws.
+
+from audiogpt_tpu_torch.engines import (  # noqa: E402
+    StyleTransferEngine,
+    SVSEngine,
+    VISingerEngine,
+    VocoderEngine,
+)
+from audiogpt_tpu_torch.models.svs import (  # noqa: E402
+    DiffNetConfig,
+    DiffSingerConfig,
+    VISingerConfig,
+)
+from audiogpt_tpu_torch.models.tts import FastSpeech2Config  # noqa: E402
+from audiogpt_tpu_torch.models.tts.generspeech import (  # noqa: E402
+    GenerSpeechConfig,
+)
+from audiogpt_tpu_torch.models.tts.pitch_extractor import (  # noqa: E402
+    PitchExtractor,
+    PitchExtractorConfig,
+)
+from audiogpt_tpu_torch.models.vocoder import HifiGANConfig  # noqa: E402
+
+SONG = ("ni hao SP shi jie AP", "C4 | D4 E4 | rest | F#4/Gb4 | G4 | rest",
+        "0.1 | 0.3 0.2 | 0.25 | 0.2 | 0.15 | 0.3")
+NARROW_HIFI = dict(upsample_initial_channel=32, upsample_rates=(8, 8, 4),
+                   upsample_kernel_sizes=(16, 16, 8),
+                   resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1,),))
+NARROW_FS2 = dict(hidden_size=64, enc_layers=2, dec_layers=2,
+                  predictor_layers=2, max_frames=256)
+
+
+def _pair(build, dur_head=None):
+    """``build(device)`` on the CPU and on the card, the card's weights and
+    buffers copied from the CPU's; ``dur_head(model)``, the duration
+    head's output layer, held at 4 frames a phone mid-way between rounding
+    edges (weights · 1e-3)."""
+    cpu, card = build("cpu"), build(None)
+    if dur_head is not None:
+        with torch.no_grad():
+            dur_head(cpu.model).weight.mul_(1e-3)
+            dur_head(cpu.model).bias.fill_(float(np.log(5.0)))
+    card.model.load_state_dict(cpu.model.state_dict())
+    if hasattr(cpu, "vocoder"):
+        card.vocoder.load_state_dict(cpu.vocoder.model.state_dict())
+    return cpu, card
+
+
+def test_svs_engine_on_the_card_matches_the_cpu(gen):
+    """DiffSinger (DDPM, 8 steps, replayed draws) and the pitch
+    extractor's f0 on the mel padded onto the vocoder's bucket."""
+    cfg = DiffSingerConfig(
+        fs2=FastSpeech2Config(use_midi=True, rel_pos=True,
+                              use_pitch_embed=False, **NARROW_FS2),
+        net=DiffNetConfig(encoder_hidden=64, residual_layers=4,
+                          residual_channels=64), timesteps=8, K_step=8)
+    pe = {}
+
+    def build(device):
+        pe[device] = PitchExtractor(PitchExtractorConfig(hidden=32,
+                                                         predictor_layers=2))
+        if device is None:
+            pe[None].load_state_dict(pe["cpu"].state_dict())
+        voc = VocoderEngine("hifigan", HifiGANConfig(**NARROW_HIFI),
+                            buckets=(256,), device=device)
+        return SVSEngine(cfg, vocoder=voc, pitch_extractor=pe[device],
+                         token_buckets=(16,), pndm_speedup=1, device=device)
+
+    cpu, card = _pair(build, lambda m: m.fs2.dur_predictor.out)
+    g = torch.Generator().manual_seed(1)
+    shape = (1, 256, 80)
+    x_t = torch.randn(shape, generator=g)
+    noise = [torch.randn(shape, generator=g) for _ in range(8)]
+    out = {}
+    for name, eng in (("cpu", cpu), ("cuda", card)):
+        dev = eng.device
+        mel, f0 = eng.synthesize_mel(*SONG, draws=(
+            x_t.to(dev), [n.to(dev) for n in noise]))
+        out[name] = (mel.cpu(), f0.cpu())
+    assert out["cpu"][0].shape == (44, 80)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=5e-4,
+                               rtol=0)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], atol=1e-2,
+                               rtol=1e-4)
+
+
+def test_visinger_engine_on_the_card_matches_the_cpu(gen):
+    cfg = VISingerConfig(hidden=64, latent_dim=32, enc_layers=2,
+                         posterior_layers=1, flow_layers=2, flow_wn_layers=2,
+                         max_frames=256,
+                         decoder=HifiGANConfig(in_channels=32,
+                                               **NARROW_HIFI))
+    cpu, card = _pair(lambda device: VISingerEngine(
+        cfg, token_buckets=(16,), device=device))
+    z = torch.randn(1, 256, 32, generator=torch.Generator().manual_seed(2))
+    a = cpu.synthesize(*SONG, draws=z)
+    b = card.synthesize(*SONG, draws=z.to("cuda"))
+    assert a.shape == b.shape and a.size > 0
+    np.testing.assert_allclose(b, a, atol=5e-4, rtol=0)
+
+
+def test_style_transfer_engine_on_the_card_matches_the_cpu(gen):
+    cfg = GenerSpeechConfig(fs2=FastSpeech2Config(**NARROW_FS2), n_vq=16,
+                            emb_dim=32, glow_hidden=32, glow_steps=2,
+                            glow_wn_layers=2)
+    cpu, card = _pair(lambda device: StyleTransferEngine(
+        cfg, vocoder=VocoderEngine("hifigan", HifiGANConfig(**NARROW_HIFI),
+                                   buckets=(256,), device=device),
+        device=device), lambda m: m.dur_predictor.out)
+    rng = np.random.RandomState(3)
+    ref = (0.2 * np.sin(np.arange(44100) / 9.0)
+           + 0.01 * rng.randn(44100)).astype(np.float32)
+    z = torch.randn(1, 128, 160, generator=torch.Generator().manual_seed(4))
+    mels = [e.synthesize_mel("Hello from the card.", ref,
+                             draws=z.to(e.device)).cpu()
+            for e in (cpu, card)]
+    assert mels[0].shape[0] > 10
+    torch.testing.assert_close(mels[1], mels[0], atol=5e-4, rtol=0)

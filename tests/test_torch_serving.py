@@ -1,9 +1,9 @@
 """Port serving (``audiogpt_tpu_torch/serving``) over HTTP on the CPU: the
 engine-agnostic cases of ``tests/test_serving.py`` with stub engines and
 ``ScriptedLLM``; served agent turns through small port engines (T2A, I2A,
-TTS, inpaint, the T2I → I2T image round trip, and the seven audio analysis
-and transform tools) that must give what the engine gives when called
-directly;
+TTS, inpaint, the T2I → I2T image round trip, the seven audio analysis
+and transform tools, SVS and Style Transfer) that must give what the
+engine gives when called directly;
 the reference defects the port does not copy (a negative ``chunk_phones``
 is a 400; the speech loop merges the generated file from the media root;
 a client's path cannot leave the media root); engine calls that run while
@@ -15,6 +15,7 @@ import concurrent.futures
 import http.client
 import io
 import json
+import math
 import os
 import re
 import struct
@@ -350,7 +351,7 @@ def test_build_engines_passes_a_mapping_through(small_engines):
     again = build_engines(small_engines)
     assert again == small_engines and again is not small_engines
     with pytest.raises(KeyError):
-        build_engines("svs,t2a")        # svs is not ported
+        build_engines("geneface,t2a")   # geneface is not ported
 
 
 def test_served_turns_equal_direct_engine_calls(tmp_path, small_engines):
@@ -585,6 +586,95 @@ def test_served_analysis_and_transform_tools(tmp_path):
                     assert sr == 16000 and out.size == 16000
         for key, eng in engines.items():
             assert eng.timings, key
+    finally:
+        s.close()
+
+
+def _singing_and_style_engines():
+    """Tiny CPU engines of the SVS and Style Transfer tools, each with a
+    HiFi-GAN of hop 256 at 22.05 kHz and ≈ 3 frames a phone."""
+    from audiogpt_tpu_torch.engines import SVSEngine, StyleTransferEngine
+    from audiogpt_tpu_torch.models.svs import DiffNetConfig, DiffSingerConfig
+    from audiogpt_tpu_torch.models.tts.generspeech import GenerSpeechConfig
+
+    voc = dict(upsample_initial_channel=16, upsample_rates=(8, 8, 4),
+               upsample_kernel_sizes=(16, 16, 8), resblock_kernel_sizes=(3,),
+               resblock_dilation_sizes=((1,),))
+    fs2 = dict(hidden_size=16, enc_layers=1, dec_layers=1,
+               enc_ffn_kernel_size=3, dec_ffn_kernel_size=3,
+               predictor_layers=1, predictor_hidden=8, max_frames=256)
+    svs = SVSEngine(DiffSingerConfig(
+        fs2=FastSpeech2Config(use_midi=True, rel_pos=True,
+                              use_pitch_embed=False, **fs2),
+        net=DiffNetConfig(encoder_hidden=16, residual_layers=2,
+                          residual_channels=8), timesteps=40, K_step=40),
+        vocoder=VocoderEngine("hifigan", HifiGANConfig(**voc),
+                              device="cpu"), device="cpu")
+    tts_ood = StyleTransferEngine(GenerSpeechConfig(
+        fs2=FastSpeech2Config(**fs2), n_vq=8, emb_dim=16, glow_hidden=16,
+        glow_steps=2, glow_wn_layers=2),
+        vocoder=VocoderEngine("hifigan", HifiGANConfig(**voc),
+                              device="cpu"), device="cpu")
+    with torch.no_grad():
+        for dur in (svs.model.fs2.dur_predictor, tts_ood.model.dur_predictor):
+            dur.out.weight.mul_(1e-3)
+            dur.out.bias.fill_(math.log(4.0))
+    return {"svs": svs, "tts_ood": tts_ood}
+
+
+def test_served_singing_and_style_transfer_tools(tmp_path):
+    """Both tools register once their engines are given; a served SVS turn
+    gives the direct call's wav, on the default song for an empty input
+    and for two malformed scores (window counts that differ, a duration
+    that is not a number); a Style Transfer turn on a 10 s reference
+    (past the largest 512-frame bucket, which the JAX engine refuses) gives
+    a mono file at 22 050 Hz, the direct call's wav. A vocoder-less engine
+    (the JAX app's) would write an 80-channel file of mel values."""
+    from audiogpt_tpu_torch.agent.toolset import DEFAULT_SONG, build_toolset
+
+    svs_tool = ("Generate Singing Voice From User Input Text, Note and "
+                "Duration Sequence")
+    engines = _singing_and_style_engines()
+    names = build_toolset(engines, root=str(tmp_path)).names()
+    assert names == ["Style Transfer", svs_tool]
+    root = tmp_path / "media"
+    (root / "audio").mkdir(parents=True)
+    ref = str(root / "audio" / "voice.wav")
+    t = np.arange(10 * 22050) / 22050
+    save_wav((0.3 * np.sin(2 * np.pi * 160 * t) * np.sin(2 * np.pi * 3 * t)
+              ).astype(np.float32), ref, 22050)
+    svs, tts_ood = engines["svs"], engines["tts_ood"]
+    turns = [("svs", svs_tool, '""'),
+             ("svs", svs_tool, "ni hao, C4, 0.1 | 0.2"),
+             ("svs", svs_tool, "ni, C4, abc"),
+             ("tts_ood", "Style Transfer", f"{ref}, Hello from a new voice.")]
+    script = []
+    for _, tool, arg in turns:
+        script += [_act(tool, arg), _answer("Done.")]
+    s = Served(ScriptedLLM(script), build_engines(engines), root,
+               device="cpu")
+    try:
+        for key, tool, arg in turns:
+            engines[key]._gen.manual_seed(0)
+            code, body, _ = _post(s.port, "/chat", {"text": f"use {key}"})
+            data = json.loads(body)
+            step = data["steps"][0]
+            assert code == 200 and step["tool"] == tool, (key, data)
+            file_sr, pcm = wavfile.read(step["observation"])
+            assert file_sr == 22050 and pcm.ndim == 1     # mono
+            out, _ = load_wav(step["observation"])
+            engines[key]._gen.manual_seed(0)
+            if key == "svs":
+                direct = svs.synthesize(*DEFAULT_SONG)
+            else:
+                direct = tts_ood.synthesize("Hello from a new voice.",
+                                            load_wav(ref, 22050)[0])
+                assert len(direct) % 256 == 0
+            ref_file = str(tmp_path / "direct.wav")
+            save_wav(direct, ref_file, 22050)
+            direct, _ = load_wav(ref_file)
+            assert out.shape == direct.shape and out.std() > 0
+            np.testing.assert_allclose(out, direct, atol=LSB, rtol=0)
     finally:
         s.close()
 
