@@ -33,9 +33,9 @@ Engine-key → reference tool mapping:
                (Binaural:713; reference's spelling preserved)
   t2i / i2t  → image tools (reference: external StableDiffusion/BLIP —
                pass callables; not part of the audio framework)
-  geneface   → talking-head video (reference import is BROKEN —
-               ``audio_to_face`` does not exist in the repo; register a
-               callable only if you have an implementation)
+  geneface   → "Generate a talking human portrait video given a input
+               Audio" (GeneFace:589; ``engines/face.py`` ``GeneFaceEngine``:
+               the audio path → ``video/<file>.avi`` under the media root)
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
 """Application assembly: build the engine set and launch the chat app.
 
-Counterpart of ``audiogpt_tpu/app.py:1-362`` for the engines ported so far
-(``tts``, ``tts_ood``, ``svs``, ``visinger``, ``asr``, ``t2a``, ``i2a``,
-``t2i``, ``i2t``, ``caption``, ``sed``, ``tsd``, ``extraction``,
-``enhance``, ``separate``, ``binaural``). Engines are built per requested
+Counterpart of ``audiogpt_tpu/app.py:1-362``, with every engine factory
+of the JAX app (19: ``tts``, ``tts_portaspeech``, ``syntaspeech``,
+``tts_ood``, ``svs``, ``visinger``, ``asr``, ``t2a``, ``i2a``, ``t2i``,
+``i2t``, ``caption``, ``sed``, ``tsd``, ``extraction``, ``enhance``,
+``separate``, ``binaural``, ``geneface``). Engines are built per requested
 capability with seeded random weights (no checkpoint is loaded yet), on
 the card. Unlike the JAX app's, the ``tts_ood`` engine has a vocoder (the
 TTS engine's HiFi-GAN), so the Style Transfer tool writes audio. The JAX app's ``--compile-cache``
@@ -15,6 +16,8 @@ CLI:  python -m audiogpt_tpu_torch.serve --engines t2a,asr,tts,i2a,t2i,i2t \
       python -m audiogpt_tpu_torch.serve \
           --engines caption,sed,tsd,extraction,enhance,separate,binaural
       python -m audiogpt_tpu_torch.serve --engines tts,svs,tts_ood
+      python -m audiogpt_tpu_torch.serve \
+          --engines geneface,tts_portaspeech,syntaspeech
 """
 
 from __future__ import annotations
@@ -40,6 +43,21 @@ def _tts():
     from audiogpt_tpu_torch.engines.tts import TTSEngine
 
     return TTSEngine()
+
+
+@register_engine("tts_portaspeech")
+def _tts_portaspeech():
+    from audiogpt_tpu_torch.engines.tts import PortaSpeechTTSEngine
+
+    return PortaSpeechTTSEngine()
+
+
+@register_engine("syntaspeech")
+def _syntaspeech():
+    from audiogpt_tpu_torch.engines.tts import PortaSpeechTTSEngine
+    from audiogpt_tpu_torch.models.tts import PortaSpeechConfig
+
+    return PortaSpeechTTSEngine(cfg=PortaSpeechConfig(use_graph=True))
 
 
 @register_engine("tts_ood")
@@ -153,6 +171,13 @@ def _binaural():
     from audiogpt_tpu_torch.engines.transform import BinauralEngine
 
     return BinauralEngine()
+
+
+@register_engine("geneface")
+def _geneface():
+    from audiogpt_tpu_torch.engines.face import GeneFaceEngine
+
+    return GeneFaceEngine()
 
 
 ALL_ENGINES = tuple(sorted(_FACTORIES))

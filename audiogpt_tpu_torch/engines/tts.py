@@ -15,9 +15,15 @@ leaves the card. Other vocoders (NSF, PWG, MelGAN) take ``text_to_mel`` →
 ``host_sync`` were TPU workarounds and have no counterpart.
 
 Long texts are cut at clause punctuation (then by word bisection) into
-chunks whose phones fit the largest token bucket. As in JAX, only phones
+chunks whose phones fit the largest token bucket (and, for PortaSpeech,
+whose words fit the largest word bucket). As in JAX, only phones and words
 are checked: a chunk whose durations overrun the canvas loses its tail in
 ``length_regulator``.
+
+:class:`PortaSpeechTTSEngine` (``audiogpt_tpu/engines/tts.py:297-399``) serves
+PortaSpeech and, with ``use_graph``, SyntaSpeech: the words wrapped in
+``<BOS>`` / ``<EOS>``, phones and words on their buckets, the syntactic
+word graph built on the host, the model on the device, then the vocoder.
 """
 
 from __future__ import annotations
@@ -28,17 +34,29 @@ import re
 import numpy as np
 import torch
 
-from audiogpt_tpu_torch.engines.base import Bucketer, resolve_device
+from audiogpt_tpu_torch.engines.base import (
+    Bucketer,
+    on_device,
+    resolve_device,
+    seeded,
+)
 from audiogpt_tpu_torch.engines.vocoder import VocoderEngine
-from audiogpt_tpu_torch.models.tts import FastSpeech2, FastSpeech2Config
+from audiogpt_tpu_torch.models.tts import (
+    FastSpeech2,
+    FastSpeech2Config,
+    PortaSpeech,
+    PortaSpeechConfig,
+)
 from audiogpt_tpu_torch.text import (
     EnglishFrontend,
     TokenTextEncoder,
     default_arpabet_vocab,
 )
+from audiogpt_tpu_torch.text.syntax import build_word_graph
 from audiogpt_tpu_torch.utils.jax_params import load_jax_params
 
 TOKEN_BUCKETS = (32, 64, 128, 256)
+WORD_BUCKETS = (8, 16, 32, 64)
 
 
 def split_for_buckets(frontend, text: str, fits) -> list[str]:
@@ -85,20 +103,33 @@ def synthesize_stream(engine, text: str, gap_sec: float = 0.1,
     """Yield wav chunks (float32 [T] at ``engine.sample_rate``) as each
     clause chunk is synthesised, with ``gap_sec`` of silence between them.
 
-    ``max_phones`` caps the phones per chunk (a streaming caller's small
-    cap makes the first chunk one clause); ``None`` or 0 packs clauses
-    greedily up to the largest bucket. A negative cap raises
-    ``ValueError`` (the JAX server lets it through,
-    ``serving/server.py:286``)."""
+    A chunk's phones fit the largest phone bucket (``engine.ph_bucketer``,
+    else ``engine.bucketer``) and, for an engine with a word bucket ladder
+    (``engine.word_bucketer``), its words plus ``<BOS>`` / ``<EOS>`` fit
+    the largest word bucket. ``max_phones`` caps the phones per chunk (a
+    streaming caller's small cap makes the first chunk one clause);
+    ``None`` or 0 packs clauses greedily up to the largest bucket. A
+    negative cap raises ``ValueError`` (the JAX server lets it through,
+    ``serving/server.py:286``). Engines with ``_fused_ok`` synthesise a
+    chunk in one pass (``synthesize_chunk``)."""
     if max_phones is not None and max_phones < 0:
         raise ValueError(f"max_phones must be >= 0, got {max_phones}")
-    bucket_cap = max(engine.bucketer.buckets)
+    phones = engine.ph_bucketer if hasattr(engine, "ph_bucketer") \
+        else engine.bucketer
+    bucket_cap = max(phones.buckets)
     phone_cap = min(bucket_cap, max_phones) if max_phones else bucket_cap
-    chunks = split_for_buckets(engine.frontend, text,
-                               lambda pt: len(pt.phones) <= phone_cap)
+    word_cap = max(engine.word_bucketer.buckets) \
+        if hasattr(engine, "word_bucketer") else None
+
+    def fits(pt) -> bool:
+        return len(pt.phones) <= phone_cap and (
+            word_cap is None or len(pt.words) + 2 <= word_cap)
+
+    chunks = split_for_buckets(engine.frontend, text, fits)
     gap = np.zeros(int(gap_sec * engine.sample_rate), np.float32)
+    fused = getattr(engine, "_fused_ok", False)
     for i, c in enumerate(chunks):
-        yield (engine.synthesize_chunk(c) if engine._fused_ok
+        yield (engine.synthesize_chunk(c) if fused
                else engine.vocoder(engine.text_to_mel(c)))
         if i < len(chunks) - 1:
             yield gap
@@ -268,3 +299,102 @@ class TTSEngine:
             for r, i in enumerate(idx):
                 out[i] = wavs[r]
         return out  # type: ignore[return-value]
+
+
+def _padded(ids, bucketer: Bucketer) -> np.ndarray:
+    """ids → int64 [1, bucket], zero-padded; too long for the largest
+    bucket raises."""
+    b = bucketer.bucket(len(ids))
+    if len(ids) > b:
+        raise ValueError(f"length {len(ids)} exceeds largest bucket {b}")
+    out = np.zeros((1, b), np.int64)
+    out[0, :len(ids)] = ids
+    return out
+
+
+class PortaSpeechTTSEngine:
+    """PortaSpeech / SyntaSpeech text → mel → wav: the app's
+    ``tts_portaspeech`` and ``syntaspeech`` engines. With ``cfg.use_graph``
+    the dense syntactic word graph is built for each chunk. Every call
+    draws the prior's noise from the engine's generator (JAX folds a call
+    counter into its key); ``text_to_mel(..., draws=)`` takes it
+    explicitly."""
+
+    name = "tts_portaspeech"
+
+    def __init__(self, cfg: PortaSpeechConfig | None = None, params=None,
+                 vocoder: VocoderEngine | None = None,
+                 frontend: EnglishFrontend | None = None,
+                 phone_vocab: list[str] | None = None,
+                 word_vocab: list[str] | None = None,
+                 token_buckets=TOKEN_BUCKETS, word_buckets=WORD_BUCKETS,
+                 noise_scale: float = 0.8, rng_seed: int = 0,
+                 device: str | torch.device | None = None):
+        """``params``: the JAX engine's PortaSpeech tree as numpy arrays;
+        ``None`` keeps a seeded random init. ``vocoder`` defaults to
+        ``VocoderEngine("hifigan")`` on the same device. Words outside
+        ``word_vocab`` are ``<UNK>``. ``device=None`` is the card, and
+        raises without one."""
+        self.device = resolve_device(device)
+        if frontend is None:
+            frontend = EnglishFrontend(phone_encoder=TokenTextEncoder(
+                phone_vocab or default_arpabet_vocab()))
+        self.frontend = frontend
+        self.word_encoder = TokenTextEncoder(word_vocab or ["<BOS>", "<EOS>"])
+        vocab_size = len(frontend.phone_encoder)
+        self.cfg = cfg or PortaSpeechConfig(
+            ph_vocab_size=vocab_size,
+            word_vocab_size=len(self.word_encoder), max_frames=1024)
+        if self.cfg.ph_vocab_size < vocab_size:
+            self.cfg = dataclasses.replace(self.cfg, ph_vocab_size=vocab_size)
+        self.model = on_device(seeded(rng_seed, lambda: PortaSpeech(
+            self.cfg)), self.device, params)
+        self.noise_scale = noise_scale
+        self.vocoder = vocoder or VocoderEngine("hifigan", device=self.device)
+        if self.vocoder.device != self.device:
+            raise ValueError(f"vocoder on {self.vocoder.device}, engine on "
+                             f"{self.device}")
+        self.ph_bucketer = Bucketer(token_buckets)
+        self.word_bucketer = Bucketer(word_buckets)
+        self._gen = torch.Generator(self.device).manual_seed(rng_seed + 1)
+
+    @property
+    def sample_rate(self) -> int:
+        return self.vocoder.cfg.sample_rate
+
+    def inputs(self, text: str) -> dict:
+        """The model's inputs on the device: phone ids, word ids and the
+        1-based phone → word map on their buckets (the words wrapped in
+        ``<BOS>`` / ``<EOS>`` when the phones are), and with ``use_graph``
+        the word graph [1, E, W, W]."""
+        pt = self.frontend(text)
+        words = list(pt.words)
+        p2w = np.asarray(pt.ph2word, np.int64)
+        if pt.phones and pt.phones[0] == "<BOS>":
+            words = ["<BOS>"] + words + ["<EOS>"]
+            p2w = p2w + 1
+        toks = _padded(self.frontend.phone_encoder.encode(pt.phones),
+                       self.ph_bucketer)
+        wids = _padded(self.word_encoder.encode(words), self.word_bucketer)
+        out = {"txt_tokens": toks, "word_tokens": wids,
+               "ph2word": _padded(p2w, self.ph_bucketer)}
+        if self.cfg.use_graph:
+            out["graph_adj"] = build_word_graph(
+                words, max_words=wids.shape[1])[None]
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in out.items()}
+
+    @torch.inference_mode()
+    def text_to_mel(self, text: str, draws=None) -> np.ndarray:
+        """text → mel [frames, n_mels], trailing all-zero frames trimmed.
+        ``draws``: the prior's noise [1, max_frames / 4, latent] (default:
+        the engine's generator)."""
+        mel = self.model(**self.inputs(text), noise_scale=self.noise_scale,
+                         draws=self._gen if draws is None else draws
+                         )["mel_out"][0].cpu().numpy()
+        return mel[:_trimmed_len(mel)]
+
+    def __call__(self, text: str) -> np.ndarray:
+        """text → waveform at ``sample_rate``; long inputs are chunked at
+        clause boundaries and joined with short gaps."""
+        return synthesize_long(self, text)

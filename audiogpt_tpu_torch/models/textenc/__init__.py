@@ -7,3 +7,7 @@ from audiogpt_tpu_torch.models.textenc.clap import (  # noqa: F401
     Projection,
     WordPieceTokenizer,
 )
+from audiogpt_tpu_torch.models.textenc.htsat import (  # noqa: F401
+    HTSATAudioEncoder,
+    HTSATConfig,
+)

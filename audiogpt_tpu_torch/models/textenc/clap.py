@@ -6,13 +6,14 @@ bert-base-uncased last hidden state through a per-token ``Projection``
 (768 → 1024, ``CLAP/clap.py:8``); the T2A UNet cross-attends to that
 sequence ([B, 77, 1024]). The tokenizer is this package's own copy, with its
 own copy of the bundled vocab. :class:`CLAPScorer` (``clap.py:201-301``)
-ranks best-of-n candidates with the CLS projection against the PANN
-(Cnn14) audio tower; the HTSAT tower comes with a later slice.
+ranks best-of-n candidates with the CLS projection against one of the two
+audio towers: PANN (Cnn14) or HTSAT (``models/textenc/htsat.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gzip
 import os
 import re
@@ -25,6 +26,10 @@ from torch import nn
 
 from audiogpt_tpu_torch.models.caption.cnn14 import Cnn14Config, Cnn14Encoder
 from audiogpt_tpu_torch.models.textenc.bert import BertConfig, BertEncoder
+from audiogpt_tpu_torch.models.textenc.htsat import (
+    HTSATAudioEncoder,
+    HTSATConfig,
+)
 from audiogpt_tpu_torch.utils.jax_params import load_jax_params
 
 
@@ -213,36 +218,51 @@ class CLAPAudioEncoder(nn.Module):
 class CLAPScorer:
     """Text ↔ audio cosine similarity: the reference's ``CLAPWrapper``
     (``wav_evaluation/models/CLAPWrapper.py:208``), built once. Its own text
-    tower (scored by the CLS projection) and tokenizer, and the PANN audio
-    tower."""
+    tower (scored by the CLS projection) and tokenizer, and the PANN or the
+    HTSAT audio tower."""
 
     def __init__(self, text_cfg: CLAPTextConfig | None = None,
                  text_params=None, audio_params=None,
                  tokenizer: WordPieceTokenizer | None = None,
                  sample_rate: int = 32000, audio_tower: str = "pann",
-                 audio_cfg: Cnn14Config | None = None, rng_seed: int = 0,
+                 audio_cfg: Cnn14Config | HTSATConfig | None = None,
+                 rng_seed: int = 0,
                  device: str | torch.device | None = None):
-        """``text_params`` / ``audio_params``: the JAX scorer's flax trees as
-        numpy arrays (the audio tree with its ``batch_stats``); ``None``
+        """``audio_tower``: ``"pann"`` (Cnn14; ``audio_cfg`` a
+        ``Cnn14Config``) or ``"htsat"`` (``audio_cfg`` an ``HTSATConfig``,
+        by default HTSAT-tiny; its ``d_proj`` becomes the text tower's).
+        ``text_params`` / ``audio_params``: the JAX scorer's flax trees as
+        numpy arrays (the PANN tree with its ``batch_stats``); ``None``
         keeps a seeded random init. ``sample_rate`` is the candidates' rate,
-        kept for callers: the PANN tower applies its 32 kHz frontend to any
-        waveform, as the JAX tower does. ``device=None`` is the card, and
-        raises without one."""
+        kept for callers: each tower applies its own frontend (PANN's
+        32 kHz, HTSAT's 48 kHz) to any waveform, as the JAX towers do.
+        ``device=None`` is the card, and raises without one."""
         # imported here: engines/ imports this module
         from audiogpt_tpu_torch.engines.base import resolve_device
 
-        if audio_tower != "pann":
-            raise ValueError(f"CLAPScorer audio_tower {audio_tower!r} is not "
-                             f"ported yet")
-        if audio_cfg is not None and not isinstance(audio_cfg, Cnn14Config):
-            raise TypeError(f"audio_tower='pann' takes a Cnn14Config "
-                            f"audio_cfg (got {type(audio_cfg).__name__})")
-        self.device = resolve_device(device)
         self.cfg = text_cfg or CLAPTextConfig()
+        if audio_tower == "htsat":
+            if audio_cfg is None:
+                audio_cfg = HTSATConfig()
+            elif not isinstance(audio_cfg, HTSATConfig):
+                raise TypeError(f"audio_tower='htsat' takes an HTSATConfig "
+                                f"audio_cfg (got {type(audio_cfg).__name__})")
+            audio_cfg = dataclasses.replace(audio_cfg, d_proj=self.cfg.d_proj)
+            tower = HTSATAudioEncoder
+        elif audio_tower == "pann":
+            if audio_cfg is not None and not isinstance(audio_cfg,
+                                                        Cnn14Config):
+                raise TypeError(f"audio_tower='pann' takes a Cnn14Config "
+                                f"audio_cfg (got {type(audio_cfg).__name__})")
+            tower = functools.partial(CLAPAudioEncoder, self.cfg.d_proj)
+        else:
+            raise ValueError(f"unknown CLAPScorer audio_tower "
+                             f"{audio_tower!r}: 'pann' or 'htsat'")
+        self.device = resolve_device(device)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(rng_seed)
             self.text = CLAPTextEncoder(self.cfg)
-            self.audio = CLAPAudioEncoder(self.cfg.d_proj, audio_cfg)
+            self.audio = tower(audio_cfg)
         if text_params is not None:
             load_jax_params(self.text, text_params)
         if audio_params is not None:

@@ -75,24 +75,32 @@ class VQEmbeddingEMA(nn.Module):
 
 class ConvStack(nn.Module):
     """Residual conv encoder over the reference mel
-    (``ConvBlocks(80, hidden, [1]*5, 5)``, ``prosody_util.py:175``)."""
+    (``ConvBlocks(80, hidden, [1]*5, 5)``, ``prosody_util.py:175``): Dense
+    in, then LN → Conv1d(k, SAME) → tanh-GELU residual blocks, on
+    x [B, T, C]. ``names`` are the parameter names of the input Dense and
+    of block ``i``'s LN and conv, as the model's JAX tree has them
+    (Audio2Motion's stacks are ``("in_proj", "ln_{}", "conv_{}")``)."""
 
     def __init__(self, in_dim: int, hidden: int, layers: int = 5,
-                 kernel: int = 5):
+                 kernel: int = 5,
+                 names: tuple[str, str, str] = ("inp", "ln{}", "conv{}")):
         super().__init__()
         self.layers = layers
-        self.inp = nn.Linear(in_dim, hidden)
+        self.names = names
+        self.add_module(names[0], nn.Linear(in_dim, hidden))
         for i in range(layers):
-            self.add_module(f"ln{i}", nn.LayerNorm(hidden, eps=1e-6))
-            self.add_module(f"conv{i}", nn.Conv1d(hidden, hidden, kernel,
-                                                  padding="same"))
+            self.add_module(names[1].format(i),
+                            nn.LayerNorm(hidden, eps=1e-6))
+            self.add_module(names[2].format(i),
+                            nn.Conv1d(hidden, hidden, kernel, padding="same"))
 
     def forward(self, mel: torch.Tensor,
                 nonpad: torch.Tensor | None = None) -> torch.Tensor:
-        x = self.inp(mel)
+        inp, ln, conv = self.names
+        x = getattr(self, inp)(mel)
         for i in range(self.layers):
-            h = conv_time(getattr(self, f"conv{i}"),
-                          getattr(self, f"ln{i}")(x))
+            h = conv_time(getattr(self, conv.format(i)),
+                          getattr(self, ln.format(i))(x))
             x = x + F.gelu(h, approximate="tanh")
             if nonpad is not None:
                 x = x * nonpad[..., None]

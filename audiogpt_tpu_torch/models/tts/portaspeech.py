@@ -1,0 +1,481 @@
+"""PortaSpeech / SyntaSpeech at inference: word-level VAE TTS with a
+flow-enhanced prior.
+
+Counterpart of ``audiogpt_tpu/models/tts/portaspeech.py:55-539`` (the JAX
+package's rebuild of the reference's missing ``modules.portaspeech``; the
+wiring follows ``modules/syntaspeech/syntaspeech.py``): phone, word and
+phone-to-word relative-window encoders → word durations (a phone-level
+conv stack summed per word; with ``use_graph`` the GGNN encoding of each
+word is added first) → the length regulator on the ``max_frames`` canvas,
+cut to a multiple of 4 frames → a word-to-mel attention in which a frame
+sees only the phones of its own word → the prior: noise on the latent
+grid (every 4th frame) through the reverse of the conditional coupling
+flow (with ``use_graph`` its condition gains a GGNN over the frames'
+words) → the FVAE decoder → mel [B, max_frames, 80].
+
+Word grouping and in-word positions are one-hot products, the GGNN a
+dense per-edge-type adjacency product, as in JAX. Only the inference path
+is here: flax binds the posterior encoder (``fvae_enc``) only when the
+training branch runs, so the inference tree has none, and the training
+slice adds it with the KL. The flax defaults are kept: LayerNorm ε = 1e-6,
+and the exact GELU of ``ResConvStack`` and ``CondCoupling``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from audiogpt_tpu_torch.models.tts.fastspeech2 import (
+    conv_time,
+    length_regulator,
+)
+from audiogpt_tpu_torch.ops.conv import FlaxConvTranspose1d
+from audiogpt_tpu_torch.ops.rel_attention import RelTransformerEncoder
+
+
+@dataclasses.dataclass(frozen=True)
+class PortaSpeechConfig:
+    ph_vocab_size: int = 100
+    word_vocab_size: int = 100
+    hidden_size: int = 192          # ps.yaml hidden_size
+    enc_layers: int = 4
+    word_enc_layers: int = 4
+    num_heads: int = 2
+    enc_ffn_kernel_size: int = 5
+    #: 'rel_fft' = relative-window transformer (the JAX config's 'fft',
+    #: plain FFT blocks, is not ported: no engine uses it; nor are the
+    #: other JAX switches below away from the app's values, see
+    #: ``PortaSpeech``)
+    encoder_type: str = "rel_fft"
+    rel_window: int = 4
+    dur_predictor_layers: int = 3
+    dur_predictor_kernel: int = 5
+    n_mels: int = 80
+    max_frames: int = 1024          # static mel canvas (multiple of strides)
+    frames_multiple: int = 4
+    # FVAE
+    latent_size: int = 16
+    fvae_hidden: int = 192
+    fvae_kernel: int = 5
+    fvae_enc_layers: int = 8       # the posterior's (training only)
+    fvae_dec_layers: int = 4
+    fvae_strides: int = 4
+    # prior flow
+    use_prior_flow: bool = True
+    prior_flow_hidden: int = 64
+    prior_flow_kernel: int = 3
+    prior_flow_blocks: int = 4
+    # SyntaSpeech extension
+    use_graph: bool = False
+    graph_steps: int = 5
+    n_edge_types: int = 6
+    num_spk: int = 0
+    text_encoder_postnet: bool = True
+
+
+# ---------------------------------------------------------------------------
+# word-level helpers (one-hot products)
+# ---------------------------------------------------------------------------
+
+
+def word_onehot(x2word: torch.Tensor, max_words: int) -> torch.Tensor:
+    """membership [B, W, T]: 1 where token t belongs to word w (1-based)."""
+    words = torch.arange(1, max_words + 1, device=x2word.device)
+    return (x2word[:, None, :] == words[None, :, None]).float()
+
+
+def group_hidden_by_words(h: torch.Tensor, x2word: torch.Tensor,
+                          max_words: int) -> torch.Tensor:
+    """Mean-pool token states into word states [B, W, H]."""
+    onehot = word_onehot(x2word, max_words)              # [B, W, T]
+    cnt = onehot.sum(-1, keepdim=True).clamp_min(1.0)
+    return (onehot @ h) / cnt
+
+
+def expand_word_states(h_word: torch.Tensor,
+                       x2word: torch.Tensor) -> torch.Tensor:
+    """Gather word states to token or frame positions; index 0 → zeros."""
+    h = F.pad(h_word, (0, 0, 1, 0))
+    return torch.gather(h, 1, x2word[..., None].expand(-1, -1, h.shape[-1]))
+
+
+def in_word_position(x2word: torch.Tensor, max_words: int) -> torch.Tensor:
+    """Fractional position of each token inside its word, in (0, 1];
+    padding (word 0) → 0."""
+    member = word_onehot(x2word, max_words)              # [B, W, T]
+    cum = torch.cumsum(member, -1) * member
+    frac = cum / member.sum(-1, keepdim=True).clamp_min(1.0)
+    return frac.sum(1)                                   # [B, T]
+
+
+def clip_mel2word_to_multiple(mel2word: torch.Tensor,
+                              multiple: int) -> torch.Tensor:
+    """Cut the utterance to a frame count divisible by ``multiple`` on the
+    static canvas."""
+    n = (mel2word > 0).sum(1)
+    frames = torch.arange(mel2word.shape[1], device=mel2word.device)
+    return mel2word * (frames[None, :] < ((n // multiple) * multiple)[:, None])
+
+
+def mel2word_to_dur(mel2word: torch.Tensor, max_words: int) -> torch.Tensor:
+    """Frames per word [B, W]."""
+    return word_onehot(mel2word, max_words).sum(-1)
+
+
+class ContinuousSinPos(nn.Module):
+    """Sinusoidal embedding of real-valued positions: [sin | cos] over a
+    log-spaced bank of ``dim // 2`` frequencies."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        half = self.dim // 2
+        freq = torch.exp(torch.arange(half, device=x.device)
+                         * -(math.log(10000.0) / (half - 1)))
+        ang = x[..., None] * freq
+        return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+
+
+# ---------------------------------------------------------------------------
+# syntactic graph encoder (dense GGNN)
+# ---------------------------------------------------------------------------
+
+
+class GRUUpdate(nn.Module):
+    """The GGNN's GRU cell: r before z, the state's denses without bias."""
+
+    def __init__(self, hidden: int):
+        super().__init__()
+        self.x_rz = nn.Linear(hidden, 2 * hidden)
+        self.h_rz = nn.Linear(hidden, 2 * hidden, bias=False)
+        self.x_n = nn.Linear(hidden, hidden)
+        self.h_n = nn.Linear(hidden, hidden, bias=False)
+
+    def forward(self, msg: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        r, z = torch.sigmoid(self.x_rz(msg) + self.h_rz(h)).chunk(2, -1)
+        n = torch.tanh(self.x_n(msg) + r * self.h_n(h))
+        return (1.0 - z) * n + z * h
+
+
+class GatedGraphConv(nn.Module):
+    """GGNN layer: per-edge-type linear messages over a dense adjacency and
+    a GRU update, the weights shared across its ``steps``."""
+
+    def __init__(self, hidden: int, steps: int = 5, n_etypes: int = 6):
+        super().__init__()
+        self.steps = steps
+        self.etype_kernel = nn.Parameter(
+            torch.randn(n_etypes, hidden, hidden) / math.sqrt(hidden))
+        self.gru = GRUUpdate(hidden)
+
+    def forward(self, h: torch.Tensor, adj: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+        """h [B, W, H]; adj [B, E, W, W] (adj[b, e, i, j]: edge j→i);
+        mask [B, W, 1]."""
+        for _ in range(self.steps):
+            msg = torch.einsum("beij,bjh,ehk->bik", adj, h,
+                               self.etype_kernel)
+            h = self.gru(msg, h) * mask
+        return h
+
+
+class GraphAuxEnc(nn.Module):
+    """Two stacked GGNN layers with skip connections over word states."""
+
+    def __init__(self, hidden: int, steps: int = 5, n_etypes: int = 6):
+        super().__init__()
+        self.ggc1 = GatedGraphConv(hidden, steps, n_etypes)
+        self.ggc2 = GatedGraphConv(hidden, steps, n_etypes)
+
+    def forward(self, h_word: torch.Tensor, adj: torch.Tensor,
+                word_mask: torch.Tensor) -> torch.Tensor:
+        m = word_mask[..., None]
+        h1 = self.ggc1(h_word * m, adj, m) + h_word * m
+        h2 = self.ggc2(h1, adj, m)
+        return (h1 + h2) * m
+
+
+# ---------------------------------------------------------------------------
+# FVAE decoder and prior flow
+# ---------------------------------------------------------------------------
+
+
+class ResConvStack(nn.Module):
+    """Residual LN → (+ dense of the condition) → conv → exact GELU
+    blocks, masked after each."""
+
+    def __init__(self, hidden: int, layers: int, kernel: int,
+                 cond_dim: int = 0):
+        super().__init__()
+        self.layers = layers
+        for i in range(layers):
+            self.add_module(f"ln{i}", nn.LayerNorm(hidden, eps=1e-6))
+            if cond_dim:
+                self.add_module(f"cond{i}", nn.Linear(cond_dim, hidden))
+            self.add_module(f"conv{i}", nn.Conv1d(hidden, hidden, kernel,
+                                                  padding="same"))
+
+    def forward(self, x: torch.Tensor, cond: torch.Tensor | None = None,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
+        for i in range(self.layers):
+            h = getattr(self, f"ln{i}")(x)
+            if cond is not None:
+                h = h + getattr(self, f"cond{i}")(cond)
+            h = conv_time(getattr(self, f"conv{i}"), h)
+            x = x + F.gelu(h)
+            if mask is not None:
+                x = x * mask
+        return x
+
+
+class FVAEDecoder(nn.Module):
+    """Latent [B, F/s, latent] → mel [B, F, n_mels]: dense, the
+    conditioned conv stack, a SAME transposed conv up by the stride."""
+
+    def __init__(self, cfg: PortaSpeechConfig):
+        super().__init__()
+        s, h = cfg.fvae_strides, cfg.fvae_hidden
+        self.pre = nn.Linear(cfg.latent_size, h)
+        self.stack = ResConvStack(h, cfg.fvae_dec_layers, cfg.fvae_kernel,
+                                  cond_dim=cfg.hidden_size)
+        self.up = FlaxConvTranspose1d(h, h, 2 * s, s)
+        self.out = nn.Linear(h, cfg.n_mels)
+
+    def forward(self, z, cond_lat, lat_mask, frame_mask) -> torch.Tensor:
+        h = self.pre(z) * lat_mask
+        h = self.stack(h, cond_lat, lat_mask)
+        h = self.up(h.transpose(1, 2)).transpose(1, 2)
+        h = h[:, :frame_mask.shape[1]] * frame_mask
+        return self.out(h) * frame_mask
+
+
+class CondCoupling(nn.Module):
+    """Mean-only affine coupling over the latent, conditioned on the text
+    (volume-preserving)."""
+
+    def __init__(self, latent: int, hidden: int, kernel: int, cond_dim: int):
+        super().__init__()
+        half = latent // 2
+        self.pre = nn.Linear(half, hidden)
+        self.cond = nn.Linear(cond_dim, hidden)
+        self.conv = nn.Conv1d(hidden, hidden, kernel, padding="same")
+        self.post = nn.Linear(hidden, half)
+        nn.init.zeros_(self.post.weight)
+
+    def forward(self, x, cond, mask, reverse: bool = False) -> torch.Tensor:
+        half = x.shape[-1] // 2
+        xa, xb = x[..., :half], x[..., half:]
+        h = (self.pre(xa) + self.cond(cond)) * mask
+        h = F.gelu(conv_time(self.conv, h)) * mask
+        m = self.post(h)
+        xb = (xb - m) * mask if reverse else (xb + m) * mask
+        return torch.cat([xa, xb], -1)
+
+
+class PriorFlow(nn.Module):
+    def __init__(self, cfg: PortaSpeechConfig):
+        super().__init__()
+        self.n = cfg.prior_flow_blocks
+        for i in range(self.n):
+            self.add_module(f"f{i}", CondCoupling(
+                cfg.latent_size, cfg.prior_flow_hidden, cfg.prior_flow_kernel,
+                cfg.hidden_size))
+
+    def forward(self, z, cond, mask, reverse: bool = False) -> torch.Tensor:
+        """z (posterior) → prior space; ``reverse``: prior noise → z for
+        the decoder, each flip before its coupling, in reverse order."""
+        if not reverse:
+            for i in range(self.n):
+                z = getattr(self, f"f{i}")(z, cond, mask).flip(-1)
+        else:
+            for i in reversed(range(self.n)):
+                z = getattr(self, f"f{i}")(z.flip(-1), cond, mask,
+                                           reverse=True)
+        return z
+
+
+# ---------------------------------------------------------------------------
+# duration predictor (word-level, optionally graph-augmented)
+# ---------------------------------------------------------------------------
+
+
+class WordDurationPredictor(nn.Module):
+    """Phone-level conv stack → softplus frames, summed per word; with
+    ``use_graph`` the GGNN encoding of each word is added to its phones
+    first."""
+
+    def __init__(self, cfg: PortaSpeechConfig):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.hidden_size
+        if cfg.use_graph:
+            self.graph_enc = GraphAuxEnc(d, cfg.graph_steps, cfg.n_edge_types)
+        for i in range(cfg.dur_predictor_layers):
+            self.add_module(f"conv{i}", nn.Conv1d(
+                d, d, cfg.dur_predictor_kernel, padding="same"))
+            self.add_module(f"ln{i}", nn.LayerNorm(d, eps=1e-6))
+        self.out = nn.Linear(d, 1)
+
+    def forward(self, x, src_nonpad, ph2word, max_words,
+                graph_adj=None) -> torch.Tensor:
+        if self.cfg.use_graph and graph_adj is not None:
+            word_mask = (word_onehot(ph2word, max_words).sum(-1) > 0).float()
+            g = self.graph_enc(group_hidden_by_words(x, ph2word, max_words),
+                               graph_adj, word_mask)
+            x = x + expand_word_states(g, ph2word)
+        h = x
+        for i in range(self.cfg.dur_predictor_layers):
+            h = F.relu(conv_time(getattr(self, f"conv{i}"), h))
+            h = getattr(self, f"ln{i}")(h) * src_nonpad[..., None]
+        ph_dur = F.softplus(self.out(h)[..., 0]) * src_nonpad
+        return torch.einsum("bwt,bt->bw", word_onehot(ph2word, max_words),
+                            ph_dur)
+
+
+# ---------------------------------------------------------------------------
+# model
+# ---------------------------------------------------------------------------
+
+
+class PortaSpeech(nn.Module):
+    def __init__(self, cfg: PortaSpeechConfig):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.hidden_size
+        self.ph_embed = nn.Embedding(cfg.ph_vocab_size, d)
+        self.word_embed = nn.Embedding(cfg.word_vocab_size, d)
+        app = dict(encoder_type="rel_fft", text_encoder_postnet=True,
+                   use_prior_flow=True, num_spk=0)
+        for k, v in app.items():
+            if getattr(cfg, k) != v:
+                raise ValueError(f"{k}={getattr(cfg, k)!r}: only the app's "
+                                 f"{v!r} is ported")
+
+        def enc(layers):
+            return RelTransformerEncoder(d, 4 * d, cfg.num_heads, layers,
+                                         cfg.enc_ffn_kernel_size,
+                                         cfg.rel_window)
+
+        self.encoder = enc(cfg.enc_layers)
+        self.word_encoder = enc(cfg.word_enc_layers)
+        self.ph2word_encoder = enc(cfg.word_enc_layers)
+        self.sin_pos = ContinuousSinPos(d)
+        self.enc_pos_proj = nn.Linear(2 * d, d)
+        self.dec_res_proj = nn.Linear(2 * d, d)
+        self.text_postnet = ResConvStack(d, 3, 5)
+        self.attn_q = nn.Linear(d, d, bias=False)
+        self.attn_k = nn.Linear(d, d, bias=False)
+        self.attn_v = nn.Linear(d, d, bias=False)
+        self.attn_o = nn.Linear(d, d, bias=False)
+        self.word_pos_proj = nn.Linear(d, d)
+        self.dur_predictor = WordDurationPredictor(cfg)
+        self.fvae_dec = FVAEDecoder(cfg)
+        self.prior_flow = PriorFlow(cfg)
+        if cfg.use_graph:
+            self.prior_graph_enc = GraphAuxEnc(d, cfg.graph_steps,
+                                               cfg.n_edge_types)
+            self.prior_graph_proj = nn.Linear(d, d)
+            nn.init.zeros_(self.prior_graph_proj.weight)
+
+    def _attention(self, ph_kv, dec_q, word_mask_ft):
+        """Word-to-mel attention: frame f attends to the phones of its own
+        word only."""
+        d = self.cfg.hidden_size
+        scores = (self.attn_q(dec_q) @ self.attn_k(ph_kv).transpose(1, 2)) \
+            / math.sqrt(d)
+        w = torch.softmax(scores.masked_fill(word_mask_ft <= 0, -1e9), -1)
+        return self.attn_o(w @ self.attn_v(ph_kv)), w
+
+    def encode(self, txt_tokens, word_tokens, ph2word,
+               graph_adj=None) -> dict:
+        """The text side: the encoders, the word durations on the canvas
+        and the word-to-mel attention → the decoder input ``x`` [B, F, d],
+        ``dur``, ``mel2word``, ``attn``."""
+        cfg = self.cfg
+        d = cfg.hidden_size
+        max_words = word_tokens.shape[1]
+        src_nonpad = (txt_tokens > 0).float()
+        word_nonpad = (word_tokens > 0).float()
+
+        ph_enc = self.encoder(self.ph_embed(txt_tokens) * math.sqrt(d),
+                              src_nonpad) * src_nonpad[..., None]
+        word_emb_enc = self.word_encoder(
+            self.word_embed(word_tokens) * math.sqrt(d), word_nonpad)
+        ph_enc = ph_enc + expand_word_states(word_emb_enc, ph2word)
+        ph_enc = ph_enc * src_nonpad[..., None]
+        h_gb_word = group_hidden_by_words(ph_enc, ph2word, max_words)
+        word_enc = self.ph2word_encoder(h_gb_word, word_nonpad) + word_emb_enc
+
+        dur = self.dur_predictor(ph_enc * src_nonpad[..., None], src_nonpad,
+                                 ph2word, max_words, graph_adj)
+        mel2word = clip_mel2word_to_multiple(
+            length_regulator(dur, cfg.max_frames), cfg.frames_multiple)
+        tgt_nonpad = (mel2word > 0).float()
+
+        enc_pos = self.sin_pos(in_word_position(ph2word, max_words))
+        dec_pos = self.sin_pos(in_word_position(mel2word, max_words))
+        ph_kv = self.enc_pos_proj(torch.cat([ph_enc, enc_pos], -1))
+        dec_inp_cat = torch.cat([expand_word_states(word_enc, mel2word),
+                                 dec_pos], -1)
+        x_res = self.text_postnet(self.dec_res_proj(dec_inp_cat),
+                                  mask=tgt_nonpad[..., None])
+        word_mask_ft = word_onehot(mel2word, max_words).transpose(1, 2) \
+            @ word_onehot(ph2word, max_words)
+        attn_out, attn = self._attention(ph_kv, x_res, word_mask_ft)
+        x = attn_out + x_res + self.word_pos_proj(dec_pos)
+        x = x * tgt_nonpad[..., None]
+        return {"x": x, "dur": dur, "mel2word": mel2word, "attn": attn}
+
+    def prior(self, x, mel2word, graph_adj,
+              draws: torch.Generator | torch.Tensor,
+              noise_scale: float = 1.0) -> torch.Tensor:
+        """The prior's latent [B, F/s, latent] for the decoder: noise
+        (``draws`` [B, max_frames/s, latent] or a generator) · scale on
+        the latent grid, through the flow's reverse."""
+        cfg = self.cfg
+        s = cfg.fvae_strides
+        lat_mask = (mel2word > 0).float()[:, ::s, None]
+        prior_cond = x[:, ::s]
+        if cfg.use_graph and graph_adj is not None:
+            max_words = graph_adj.shape[-1]
+            g = self.prior_graph_enc(
+                group_hidden_by_words(x, mel2word, max_words), graph_adj,
+                (word_onehot(mel2word, max_words).sum(-1) > 0).float())
+            prior_cond = prior_cond + self.prior_graph_proj(
+                expand_word_states(g, mel2word)[:, ::s])
+        shape = (x.shape[0], cfg.max_frames // s, cfg.latent_size)
+        if isinstance(draws, torch.Generator):
+            draws = torch.randn(shape, generator=draws, device=x.device)
+        z = draws * noise_scale * lat_mask
+        return self.prior_flow(z, prior_cond, lat_mask, reverse=True)
+
+    def decode(self, z, x, mel2word) -> torch.Tensor:
+        """The FVAE decoder on the latent, conditioned on the decoder input
+        → mel [B, F, n_mels]."""
+        s = self.cfg.fvae_strides
+        tgt_nonpad = (mel2word > 0).float()
+        return self.fvae_dec(z, x[:, ::s], tgt_nonpad[:, ::s, None],
+                             tgt_nonpad[..., None])
+
+    def forward(self, txt_tokens, word_tokens, ph2word, graph_adj=None,
+                draws: torch.Generator | torch.Tensor | None = None,
+                noise_scale: float = 1.0) -> dict:
+        """txt_tokens [B, T_ph], word_tokens [B, W], ph2word [B, T_ph]
+        (1-based, 0 = pad); ``graph_adj`` [B, E, W, W] with ``use_graph``.
+        → ``mel_out`` [B, max_frames, n_mels], ``dur`` [B, W] (frames),
+        ``mel2word``, ``attn`` [B, F, T_ph], ``decoder_inp``."""
+        ret = self.encode(txt_tokens, word_tokens, ph2word, graph_adj)
+        if draws is None:
+            draws = torch.Generator(txt_tokens.device).manual_seed(0)
+        z = self.prior(ret["x"], ret["mel2word"], graph_adj, draws,
+                       noise_scale)
+        return {"mel_out": self.decode(z, ret["x"], ret["mel2word"]),
+                "dur": ret["dur"], "mel2word": ret["mel2word"],
+                "attn": ret["attn"], "decoder_inp": ret["x"]}

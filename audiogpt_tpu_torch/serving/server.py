@@ -333,8 +333,11 @@ class _Handler(BaseHTTPRequestHandler):
             except MediaNotFound:
                 self._json({"error": "not found"}, 404)
                 return
+            # avi: the GeneFace tool's MJPEG video (the JAX server maps
+            # no type for it and sends application/octet-stream)
             ctype = {"wav": "audio/wav", "png": "image/png",
-                     "jpg": "image/jpeg", "mp4": "video/mp4"}.get(
+                     "jpg": "image/jpeg", "mp4": "video/mp4",
+                     "avi": "video/x-msvideo"}.get(
                 full.rsplit(".", 1)[-1], "application/octet-stream")
             self.send_response(200)
             self.send_header("Content-Type", ctype)

@@ -9,9 +9,16 @@ that owns it. Recurrent layers are packed: a GRU's ``{fwd,bwd}_w_ih`` /
 ``OptimizedLSTMCell``'s per-gate denses (``ii if ig io`` on the input, ``hi
 hf hg ho`` with the bias on the state; torch's gate order i, f, g, o) become
 the ``weight_ih_l0`` / ``weight_hh_l0`` / ``bias_ih_l0`` / ``bias_hh_l0`` of
-the ``nn.GRU`` / ``nn.LSTM`` of that name. A raw ``self.param`` (Glow's
-``actnorm_logs``, ``inv1x1_w``) keeps its name and layout. Loading is
-strict: a missed or extra parameter raises.
+the ``nn.GRU`` / ``nn.LSTM`` of that name. A raw ``self.param`` keeps
+its name and layout: Glow's ``actnorm_logs`` and ``inv1x1_w``, HTSAT's
+``rel_pos_bias`` ``[(2w − 1)², heads]`` and ``bn0_{mean,var,scale,bias}``,
+the relative-window encoder's ``emb_rel_k`` / ``emb_rel_v`` and its channel
+LayerNorm's ``gamma`` / ``beta``, the GGNN's ``etype_kernel`` ``[E, H, H]``
+(the port's modules hold ``nn.Parameter``s of those names and shapes). A
+2-D kernel of any window, HTSAT's ``(c_freq_bin, 3)`` ``tscam_conv`` among
+them, goes HWIO → OIHW. The GGNN's GRU cell is four denses, not an
+``nn.GRU``, and loads as denses. Loading is strict: a missed or extra
+parameter raises.
 """
 
 from __future__ import annotations

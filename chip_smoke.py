@@ -165,17 +165,45 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 39. speech_small_reference: narrow DiffSinger (DDPM over 8 cosine steps,
    replayed draws), the pitch extractor, FS2's ``cwt`` branch, VISinger
    and GenerSpeech (mel and wav) on the card against the CPU.
-40. served: the agent behind ``AppServer`` and ``make_server`` on
+40. geneface: the agent's last tool, "Generate a talking human portrait
+   video given a input Audio", at the app's width (``GeneFaceEngine()``:
+   Audio2Motion hidden 256, latent 16, 3 conv layers; the 256 × 256
+   landmark warp at 25 fps) on a 10 s seeded speech-like clip at 16 kHz
+   named relative to the media root: 626 mel frames on the 1024 bucket,
+   an MJPEG AVI of 250 frames with the audio muxed in, read back; cold,
+   warm (median of 3), RTF, set-up, peak memory, neither kernel;
+   ``geneface_stages`` (mel, motion, warp, the frames' copy, the AVI
+   write and its JPEG encodes).
+41. htsat: ``CLAPScorer(audio_tower="htsat", sample_rate=16000)``
+   (HTSAT-tiny: a 256² image, embed 96, depths (2, 2, 6, 2), ``d_proj``
+   1024) scoring three seeded 10 s clips: the tower's ms a batch of 3,
+   its FLOPs against the f32 bound, its device launches; neither kernel.
+42. t2a_htsat: the main path's ``txt2audio_best`` with the HTSAT scorer in
+   place of the PANN one: K1 65 and K2 73, as on the main path; the
+   winner the argmax of an unranked call's HTSAT scores; warm median of
+   3, RTF.
+43. tts_portaspeech, syntaspeech: ``PortaSpeechTTSEngine()`` and with
+   ``PortaSpeechConfig(use_graph=True)`` (the app's factories; HiFi-GAN
+   V1) on the TTS sentence, the duration head set to ≈ 6 frames a phone;
+   cold, warm (median of 3), RTF against the valid seconds, set-up, peak
+   memory, neither kernel; ``*_stages`` (encoders, prior flow, FVAE
+   decoder, vocoder).
+44. face_small_reference: narrow Audio2Motion and warp, HTSAT (256²)
+   and SyntaSpeech on the card against the same weights and draws on the
+   CPU.
+45. served: the agent behind ``AppServer`` and ``make_server`` on
    127.0.0.1 with the engines above passed as a mapping: one HTTP
    ``/chat`` turn per tool (t2a, inpaint, asr, tts, i2a, t2i, i2t on
    the PNG the t2i turn wrote, caption, sed with its PNG fetched from
    ``/media/``, tsd, extraction, enhance, separate, binaural, svs on the
    default song, tts_ood on the 10 s reference, its file mono at
-   22 050 Hz), a
+   22 050 Hz, geneface on a clip named relative to the media root, its
+   AVI fetched from ``/media/`` as ``video/x-msvideo``), a
    ``/speech`` turn, ``/stats``, one ``/tts/stream``; each turn's wall
    time and launches, equal to the direct call's; and what a warm T2A
    call costs as the first call of a new thread
-   (``served_thread_cost``).
+   (``served_thread_cost``). The app must have all 19 factories of the
+   JAX app.
 
 The ``unet_bf16`` engine of phase 6 also inpaints (``inpaint_unet_bf16``):
 its f32 UNet gives the f32 engine's wav with the same draws.
@@ -263,6 +291,13 @@ TTS_DUR_SCALE, TTS_DUR_BIAS = 0.25, 1.9
 #: the default song's 26 phones get about its 4.04 s of notes (348 frames)
 SVS_DUR_SCALE, SVS_DUR_BIAS = 0.25, 2.67
 SVS_WARM_CALLS = 3                    # warm SVS, VISinger, Style Transfer
+FACE_SECONDS = 10.0                   # the GeneFace clip: 626 mel frames
+FACE_WARM_CALLS = 3                   # warm GeneFace, HTSAT-ranked T2A,
+                                      # PortaSpeech and SyntaSpeech calls
+#: PortaSpeech's duration head (softplus frames a phone, summed per word):
+#: its weights scaled by 0.25 and its bias softplus⁻¹(6), ≈ 6 frames a
+#: phone (untouched random weights give ≈ 0.7)
+PS_DUR_SCALE, PS_PHONE_FRAMES = 0.25, 6.0
 
 
 def emit(obj: dict) -> None:
@@ -3729,6 +3764,384 @@ def phase_speech_small_reference() -> None:
 
 
 # ---------------------------------------------------------------------------
+# GeneFace, the HTSAT CLAP tower, PortaSpeech and SyntaSpeech
+# ---------------------------------------------------------------------------
+
+
+def face_stage_ms(eng, path: str, out: str) -> dict:
+    """One warm GeneFace call taken apart: the mel, Audio2Motion on the
+    bucket and the warp between CUDA events; the uint8 frames' copy to the
+    host; the AVI write (250 JPEG encodes and the RIFF) and the encodes
+    alone, on the host clock."""
+    import torch
+
+    from audiogpt_tpu_torch.utils.audio_io import load_wav
+    from audiogpt_tpu_torch.utils.video_io import _jpeg, write_mjpeg_avi
+
+    wav, _ = load_wav(path, sr=16000)
+    portrait = torch.from_numpy(eng.portrait).cuda()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    with torch.inference_mode():
+        marks[0].record()
+        mel = eng.mel(wav)
+        marks[1].record()
+        lm = eng.motion(mel)
+        marks[2].record()
+        frames = eng.warper.frames(portrait, lm)
+        marks[3].record()
+        host = frames.cpu().numpy()
+        marks[4].record()
+    marks[4].synchronize()
+    t0 = time.perf_counter()
+    write_mjpeg_avi(out, host, fps=eng.cfg.fps, audio=wav,
+                    sample_rate=eng.cfg.sample_rate)
+    t1 = time.perf_counter()
+    for f in host:
+        _jpeg(f, 90)
+    t2 = time.perf_counter()
+    names = ("mel_ms", "motion_ms", "render_ms", "frames_to_host_ms")
+    return {**{n: a.elapsed_time(b) for n, a, b in zip(names, marks,
+                                                       marks[1:])},
+            "avi_write_ms": (t1 - t0) * 1e3, "jpeg_encode_ms": (t2 - t1) * 1e3}
+
+
+def phase_geneface(gen, tmp: str) -> dict:
+    """The agent's last tool, "Generate a talking human portrait video
+    given a input Audio", at the app's width: ``GeneFaceEngine()``
+    (Audio2Motion hidden 256, latent 16, 3 conv layers; the 256 × 256
+    warp at 25 fps; mel buckets 256–2048) with seeded random weights, on a
+    10 s seeded speech-like clip at 16 kHz, named relative to the media
+    root: 626 mel frames on the 1024 bucket, 250 video frames, the audio
+    muxed in. Cold and warm (median of 3), RTF, set-up, peak memory,
+    neither kernel; the AVI read back; the stages (mel, motion, warp,
+    the frames' copy, the AVI write and its JPEG encodes)."""
+    import torch
+
+    from audiogpt_tpu_torch.engines import GeneFaceEngine
+    from audiogpt_tpu_torch.utils.audio_io import save_wav
+    from audiogpt_tpu_torch.utils.video_io import read_avi_info
+
+    root = Path(tmp) / "face"
+    (root / "audio").mkdir(parents=True)
+    wav = speech_like(FACE_SECONDS, 16000, 41)
+    path = str(root / "audio" / "face.wav")
+    save_wav(wav, path, 16000)
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = GeneFaceEngine(media_root=str(root))
+    fill_random(eng.model, gen)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    runs = tool_runs(lambda: eng("audio/face.wav"), FACE_WARM_CALLS)
+    info = read_avi_info(str(root / runs["out"]))
+    mel_frames = int(eng.mel(wav).shape[0])
+    if (info["n_frames"], info["n_video_chunks"], info["fps"],
+            info["n_streams"], info["width"]) != (250, 250, 25, 2, 256) \
+            or eng.bucketer.bucket(mel_frames) != 1024:
+        raise AssertionError(f"GeneFace video {info}, {mel_frames} frames")
+    emit({"phase": "geneface", "clip_s": FACE_SECONDS,
+          "mel_frames": mel_frames, "bucket": 1024,
+          "video_frames": info["n_frames"], "fps": info["fps"],
+          "size": info["width"],
+          "avi_bytes": (root / runs["out"]).stat().st_size,
+          "setup_s": setup_s, "cold_s": runs["cold_s"],
+          "warm_s": runs["warm_s"], "warm_max_s": runs["warm_max_s"],
+          "warm_calls": FACE_WARM_CALLS,
+          "rtf": runs["warm_s"] / FACE_SECONDS,
+          "geneface_peak_mem_gb": (runs["peak"] - held) / 1e9,
+          "params_m": sum(p.numel() for p in eng.model.parameters()) / 1e6,
+          "kernel_launches": runs["launches"]})
+    parts = [face_stage_ms(eng, path, str(root / "stage.avi"))
+             for _ in range(STAGE_RUNS)]
+    emit({"phase": "geneface_stages", "runs": STAGE_RUNS,
+          **median_parts(parts),
+          "device_launches_motion_and_warp": device_launches(
+              lambda: eng.warper.frames(torch.from_numpy(eng.portrait)
+                                        .cuda(), eng.motion(eng.mel(wav))))})
+    return {"engine": eng, "launches": runs["launches"], "wav": wav}
+
+
+def htsat_scorer(gen, **kw):
+    """``CLAPScorer(audio_tower="htsat", sample_rate=16000)`` with seeded
+    random weights; ``bn0``'s variances positive."""
+    import torch
+
+    from audiogpt_tpu_torch.models.textenc import CLAPScorer
+
+    scorer = CLAPScorer(audio_tower="htsat", sample_rate=16000, **kw)
+    fill_random(scorer.text, gen)
+    fill_random(scorer.audio, gen)
+    var = scorer.audio.bn0_var
+    with torch.no_grad():
+        var.copy_(1.0 + 0.1 * torch.randn(var.shape, generator=gen,
+                                          device=var.device).abs())
+    return scorer
+
+
+def phase_htsat(gen) -> dict:
+    """The HTSAT CLAP tower at HTSAT-tiny's width (``spec_size`` 256,
+    embed 96, depths (2, 2, 6, 2), heads (4, 8, 16, 32), ``d_proj`` 1024;
+    the 48 kHz filterbank on the 16 kHz candidates, as in JAX) scoring
+    three seeded 10 s clips: the tower's time a batch of 3 and the whole
+    similarity's between CUDA events (median of 5), its FLOPs
+    (``FlopCounterMode``) against the f32 bound, its device launches,
+    set-up, peak memory; neither kernel."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    scorer = htsat_scorer(gen)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n = int(CLIP_SECONDS * 16000)
+    wavs = np.stack([events_like(CLIP_SECONDS + 0.1, 16000, 50 + i)[:n]
+                     for i in range(3)])
+    x = torch.from_numpy(wavs).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    scores, _, counts = counted(lambda: scorer.similarity(TEXT, x))
+    check_no_kernels(counts, "htsat")
+    scores = scores.cpu().numpy()
+    if not np.isfinite(scores).all() or np.ptp(scores) == 0.0:
+        raise AssertionError(f"HTSAT scores {scores}")
+    runs = [event_ms([("tower", lambda _: scorer.audio(x)),
+                      ("similarity", lambda _: scorer.similarity(TEXT, x))]
+                     )[0] for _ in range(STAGE_RUNS)]
+    with torch.inference_mode(), FlopCounterMode(display=False) as fc:
+        scorer.audio(x)
+    flop = float(fc.get_total_flops())
+    st = median_parts(runs)
+    emit({"phase": "htsat", "config": "HTSAT-tiny", "batch": 3,
+          "samples": n, "setup_s": setup_s,
+          "tower_ms_per_batch3": st["tower_ms"],
+          "similarity_ms": st["similarity_ms"], "tower_gflop": flop / 1e9,
+          "tower_f32_bound_ms": flop / F32_FLOPS * 1e3,
+          "device_launches_per_tower_call": device_launches(
+              lambda: scorer.audio(x)),
+          "htsat_peak_mem_gb": (torch.cuda.max_memory_allocated() - held)
+          / 1e9,
+          "params_m": sum(p.numel() for p in scorer.audio.parameters())
+          / 1e6, "scores": scores.tolist(), "kernel_launches": counts})
+    return {"scorer": scorer}
+
+
+def phase_t2a_htsat(main: dict, htsat: dict) -> dict:
+    """``txt2audio_best`` on the main path's engine with the HTSAT scorer
+    in place of the PANN one (restored after): the launches must be the
+    configs' (K1 65, K2 73, as on the main path), the scores finite and
+    not all equal, the wav the argmax of the HTSAT scores of an unranked
+    call at the same seed; cold, warm (median of 3), RTF."""
+    import numpy as np
+    import torch
+
+    eng = main["engine"]
+    cfg = eng.cfg
+    pann = eng.scorer
+    eng.scorer = htsat["scorer"]
+    try:
+        def call():
+            return eng.txt2audio_best(TEXT, n_samples=3, seed=0)
+
+        expected = t2a_path(eng)["counts"]
+        (_, wav, scores), cold_s, cold_counts = counted(call)
+        runs = [counted(call) for _ in range(FACE_WARM_CALLS)]
+        if any(c != expected for c in [cold_counts] + [r[2] for r in runs]):
+            raise AssertionError(f"t2a_htsat launches {cold_counts}, "
+                                 f"{[r[2] for r in runs]}; expected "
+                                 f"{expected}")
+        if wav.shape != (159744,) or not np.isfinite(scores).all() \
+                or np.ptp(scores) == 0.0:
+            raise AssertionError(f"t2a_htsat wav {wav.shape}, scores "
+                                 f"{scores}")
+        _, wavs = eng.txt2audio(TEXT, n_samples=3, ddim_steps=cfg.tool_steps,
+                                seed=0, sampler=cfg.tool_sampler)
+        best = int(scores.argmax())
+        winner = float(np.abs(wavs[best] - wav).max())
+        rescored = float(np.abs(eng.scorer.score(TEXT, wavs)
+                                - scores).max())
+        if winner > 1e-5 or rescored > 1e-5:
+            raise AssertionError(f"t2a_htsat winner {best} differs by "
+                                 f"{winner}, scores by {rescored}")
+        torch.cuda.synchronize()
+    finally:
+        eng.scorer = pann
+    warm = sorted(r[1] for r in runs)
+    median = statistics.median(warm)
+    emit({"phase": "t2a_htsat", "call": "txt2audio_best",
+          "scorer": "htsat-tiny", "cold_s": cold_s, "warm_s": median,
+          "warm_max_s": warm[-1], "warm_calls": len(warm),
+          "rtf": median / CLIP_SECONDS, "warm_s_pann": main["warm_s"],
+          "scores": scores.tolist(), "winner": best,
+          "winner_max_abs_diff": winner, "rescored_max_abs_diff": rescored,
+          "launches": runs[-1][2]})
+    return {"launches": runs[-1][2]}
+
+
+def set_ps_durations(model) -> None:
+    """PortaSpeech's duration head (see ``PS_PHONE_FRAMES``)."""
+    import torch
+
+    out = model.dur_predictor.out
+    with torch.no_grad():
+        out.weight.mul_(PS_DUR_SCALE)
+        out.bias.fill_(math.log(math.expm1(PS_PHONE_FRAMES)))
+
+
+def phase_portaspeech(gen, name: str, use_graph: bool) -> dict:
+    """The app's ``tts_portaspeech`` / ``syntaspeech`` engine at its width
+    (``PortaSpeechTTSEngine()``, with ``PortaSpeechConfig(use_graph=True)``
+    for SyntaSpeech: hidden 192, 4 + 4 + 4 relative-window encoder layers,
+    the FVAE decoder and the 4-block prior flow on the 1024-frame canvas;
+    HiFi-GAN V1), seeded random weights (the zero-initialised couplings
+    and the prior's graph projection too) and ≈ 6 frames a phone, on the
+    TTS sentence (113 phones; its words and ``<BOS>`` / ``<EOS>`` on the 32
+    word bucket). Cold and warm (median of 3), RTF against the valid
+    seconds, set-up, peak memory, neither kernel; the stages (the
+    encoders with the durations and the word-to-mel attention, the prior
+    flow, the FVAE decoder, the vocoder)."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.engines import (PortaSpeechTTSEngine,
+                                            VocoderEngine)
+    from audiogpt_tpu_torch.models.tts import PortaSpeechConfig
+
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = PortaSpeechTTSEngine(
+        cfg=PortaSpeechConfig(use_graph=True) if use_graph else None,
+        vocoder=VocoderEngine("hifigan"))
+    fill_random(eng.model, gen)
+    fill_random(eng.vocoder.model, gen)
+    set_ps_durations(eng.model)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    inputs = eng.inputs(TTS_TEXT)
+    with torch.inference_mode():
+        enc = eng.model.encode(**inputs)
+    frames = int((enc["mel2word"] > 0).sum())
+    runs = tool_runs(lambda: eng(TTS_TEXT), FACE_WARM_CALLS)
+    wav = runs["out"]
+    hop = eng.vocoder.hop_size
+    if wav.size % hop or not 0.9 * frames <= wav.size / hop <= frames \
+            or not np.isfinite(wav).all() or float(wav.std()) == 0.0:
+        raise AssertionError(f"{name} wav {wav.shape}, {frames} frames")
+    audio_s = wav.size / eng.sample_rate
+    emit({"phase": name, "graph": use_graph,
+          "phones": int((inputs["txt_tokens"] > 0).sum()),
+          "words": int((inputs["word_tokens"] > 0).sum()),
+          "word_bucket": int(inputs["word_tokens"].shape[1]),
+          "frames": frames, "canvas": eng.cfg.max_frames,
+          "audio_s": audio_s, "setup_s": setup_s, "cold_s": runs["cold_s"],
+          "warm_s": runs["warm_s"], "warm_max_s": runs["warm_max_s"],
+          "warm_calls": FACE_WARM_CALLS, "rtf": runs["warm_s"] / audio_s,
+          f"{name}_peak_mem_gb": (runs["peak"] - held) / 1e9,
+          "params_m": sum(p.numel() for p in eng.model.parameters()) / 1e6,
+          "vocoder_params_m": sum(p.numel() for p in
+                                  eng.vocoder.model.parameters()) / 1e6,
+          "kernel_launches": runs["launches"], "wav_std": float(wav.std())})
+    model = eng.model
+    hooks = {"encoders": [(model, "encode")], "prior_flow": [(model, "prior")],
+             "fvae_dec": [(model, "decode")],
+             "vocoder": [(eng.vocoder, "vocode")]}
+    parts = [timed_calls(hooks, lambda: eng(TTS_TEXT))
+             for _ in range(STAGE_RUNS)]
+    emit({"phase": f"{name}_stages", "runs": STAGE_RUNS,
+          **median_parts([{**p[1], **p[2]} for p in parts])})
+    return {"engine": eng, "launches": runs["launches"]}
+
+
+def phase_face_small_reference() -> None:
+    """Narrow nets of the new engines on the card against the same weights
+    and draws on the CPU (TF32 off): Audio2Motion's landmarks and the warp's
+    frames, HTSAT at the full 256² image (the clamp rule at stage 4) and
+    SyntaSpeech's mel (the graph on)."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.engines import (GeneFaceEngine,
+                                            PortaSpeechTTSEngine,
+                                            VocoderEngine)
+    from audiogpt_tpu_torch.models.face import Audio2MotionConfig
+    from audiogpt_tpu_torch.models.textenc import (HTSATAudioEncoder,
+                                                   HTSATConfig)
+    from audiogpt_tpu_torch.models.tts import PortaSpeechConfig
+    from audiogpt_tpu_torch.models.vocoder import HifiGANConfig
+
+    res, launches = {}, []
+    face = [GeneFaceEngine(Audio2MotionConfig(hidden=64, latent=8,
+                                              conv_layers=2),
+                           video_size=64, buckets=(256,), device=d)
+            for d in ("cpu", "cuda")]
+    fill_random(face[0].model, torch.Generator().manual_seed(60))
+    face[1].model.load_state_dict(face[0].model.state_dict())
+    mel = torch.rand(200, 80, generator=torch.Generator().manual_seed(61))
+    z = torch.randn(1, 102, 8, generator=torch.Generator().manual_seed(62))
+    lm_cpu = face[0].motion(mel, z)
+    lm_card, _, counts = counted(lambda: face[1].motion(mel.cuda(),
+                                                        z.cuda()))
+    launches.append(counts)
+    res["geneface_landmarks"] = float((lm_card.cpu() - lm_cpu).abs().max())
+    frames = [e.warper.render(e.portrait, lm_cpu) for e in face]
+    diff = np.abs(frames[0].astype(np.int16) - frames[1])
+    res["geneface_frames_max_levels"] = int(diff.max())
+    res["geneface_frames_off_share"] = float((diff > 0).mean())
+
+    cfg = HTSATConfig(embed_dim=16, num_heads=(2, 2, 4, 4), d_proj=32)
+    cpu = HTSATAudioEncoder(cfg).eval()
+    fill_random(cpu, torch.Generator().manual_seed(63))
+    with torch.no_grad():
+        cpu.bn0_var.uniform_(0.5, 1.5,
+                             generator=torch.Generator().manual_seed(64))
+    card = HTSATAudioEncoder(cfg).cuda().eval()
+    card.load_state_dict(cpu.state_dict())
+    wav = 0.1 * torch.randn(2, 96000, generator=torch.Generator()
+                            .manual_seed(65))
+    with torch.inference_mode():
+        a = cpu(wav, return_dict=True)
+        b, _, counts = counted(lambda: card(wav.cuda(), return_dict=True))
+    launches.append(counts)
+    for key in ("projected", "clipwise"):
+        res[f"htsat_{key}"] = float((b[key].cpu() - a[key]).abs().max())
+
+    hifi = dict(upsample_initial_channel=32, upsample_rates=(8, 8, 4),
+                upsample_kernel_sizes=(16, 16, 8), resblock_kernel_sizes=(3,),
+                resblock_dilation_sizes=((1,),))
+    pcfg = PortaSpeechConfig(hidden_size=64, enc_layers=2, word_enc_layers=2,
+                             fvae_hidden=64, prior_flow_hidden=32,
+                             max_frames=256, use_graph=True)
+    ps = [PortaSpeechTTSEngine(pcfg, vocoder=VocoderEngine(
+        "hifigan", HifiGANConfig(**hifi), buckets=(256,), device=d),
+        device=d) for d in ("cpu", "cuda")]
+    fill_random(ps[0].model, torch.Generator().manual_seed(66))
+    with torch.no_grad():
+        ps[0].model.dur_predictor.out.weight.mul_(1e-3)
+        ps[0].model.dur_predictor.out.bias.fill_(math.log(math.expm1(2.7)))
+    ps[1].model.load_state_dict(ps[0].model.state_dict())
+    zp = torch.randn(1, 64, 16, generator=torch.Generator().manual_seed(67))
+    text = TTS_TEXT[:60]
+    ma = ps[0].text_to_mel(text, draws=zp)
+    mb, _, counts = counted(lambda: ps[1].text_to_mel(text,
+                                                      draws=zp.cuda()))
+    launches.append(counts)
+    res["syntaspeech_mel"] = float(np.abs(mb - ma).max()) \
+        if ma.shape == mb.shape else math.inf
+    res["syntaspeech_frames"] = int(ma.shape[0])
+    emit({"phase": "face_small_reference", **res, "cuda_launches": launches})
+    for c in launches:
+        check_no_kernels(c, "face_small_reference")
+    if not (res["geneface_landmarks"] <= 1e-5
+            and res["geneface_frames_max_levels"] <= 1
+            and res["geneface_frames_off_share"] <= 1e-3
+            and res["htsat_projected"] <= 1e-4
+            and res["htsat_clipwise"] <= 1e-4
+            and res["syntaspeech_mel"] <= 5e-4
+            and res["syntaspeech_frames"] > 20):
+        raise AssertionError(f"card vs CPU: {res}")
+
+
+# ---------------------------------------------------------------------------
 # served: the agent behind the HTTP server, one turn per tool
 # ---------------------------------------------------------------------------
 
@@ -3846,7 +4259,7 @@ def asr_split(app, port: int, asr_eng, speech: str, turns: int) -> None:
 
 def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
                  i2a: dict, t2i: dict, i2t: dict, tools: dict,
-                 singing: dict, tmp: str) -> None:
+                 singing: dict, face: dict, tmp: str) -> None:
     """``AppServer(ScriptedLLM(script), build_engines({...}))`` behind
     ``make_server`` on 127.0.0.1 (an OS-chosen port), the built engines of
     the earlier phases passed as a mapping: one ``/chat`` turn per tool
@@ -3856,7 +4269,10 @@ def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
     and transform tools of ``tools`` on the SED phase's events clip or the
     separation phase's speech clip; svs on the default song and tts_ood
     on the Style Transfer phase's 10 s reference, whose file must be mono
-    at 22 050 Hz: ``singing``), each twice (its first call
+    at 22 050 Hz: ``singing``; geneface on the GeneFace phase's clip, named
+    relative to the media root, whose ``video/<file>.avi`` must hold 250
+    frames at 25 fps with audio and come back from ``GET /media/`` as
+    ``video/x-msvideo``), each twice (its first call
     on the server's engine thread, then warm), then ``/mode`` speech and one
     ``/speech`` turn (ASR → agent → the t2a tool → TTS → merge), then
     ``/stats`` and one ``/tts/stream``; first the cost of a new thread
@@ -3876,9 +4292,16 @@ def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
     from PIL import Image
 
     from audiogpt_tpu_torch.agent import ScriptedLLM
-    from audiogpt_tpu_torch.app import build_engines, speech_callables
+    from audiogpt_tpu_torch.app import (ALL_ENGINES, build_engines,
+                                        speech_callables)
     from audiogpt_tpu_torch.serving import AppServer, make_server
     from audiogpt_tpu_torch.utils.audio_io import load_wav, save_wav
+    from audiogpt_tpu_torch.utils.video_io import read_avi_info
+
+    # every serving factory of the JAX app (audiogpt_tpu/app.py)
+    if len(ALL_ENGINES) != 19 or not {"geneface", "tts_portaspeech",
+                                      "syntaspeech"} <= set(ALL_ENGINES):
+        raise AssertionError(f"app factories {ALL_ENGINES}")
 
     t2a, asr_eng, tts_eng = main["engine"], asr["engine"], tts["engine"]
     thread_cost(t2a)
@@ -3893,6 +4316,7 @@ def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
     save_wav(tools["wav16k"], speech10, 16000)
     voice = str(root / "audio" / "voice10.wav")
     save_wav(singing["tts_ood"]["ref"], voice, 22050)
+    save_wav(face["wav"], str(root / "audio" / "face10.wav"), 16000)
     turns = [
         ("t2a", "Generate Audio From User Input Text", TEXT),
         ("inpaint", "Audio Inpainting", f"{t2a_wav}, 1.0, 3.0"),
@@ -3913,9 +4337,11 @@ def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
         ("svs", "Generate Singing Voice From User Input Text, Note and "
                 "Duration Sequence", '""'),
         ("tts_ood", "Style Transfer", f"{voice}, {TTS_TEXT}"),
+        ("geneface", "Generate a talking human portrait video given a "
+                     "input Audio", "audio/face10.wav"),
     ]
     new_tools = ("caption", "sed", "tsd", "extraction", "enhance",
-                 "separate", "binaural", "svs", "tts_ood")
+                 "separate", "binaural", "svs", "tts_ood", "geneface")
 
     class ImagePathLLM(ScriptedLLM):
         """The script with ``{image}`` replaced by the last
@@ -3939,7 +4365,8 @@ def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
     engines = build_engines({"t2a": t2a, "asr": asr_eng, "tts": tts_eng,
                              "i2a": i2a["engine"], "t2i": t2i["engine"],
                              "i2t": i2t["engine"],
-                             **{k: {**tools, **singing}[k]["engine"]
+                             **{k: {**tools, **singing,
+                                    "geneface": face}[k]["engine"]
                                 for k in new_tools}})
     asr_fn, tts_fn = speech_callables(engines, str(root))
     app = AppServer(ImagePathLLM(script), engines, media_root=str(root),
@@ -4032,6 +4459,24 @@ def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
                         or size != (1000, 400):
                     raise AssertionError(f"served sed: {reply}, {size}")
                 res.update(image=rel, png_bytes=len(png))
+            elif key == "geneface":
+                rel = step["observation"]
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/media/{rel}",
+                        timeout=60) as r:
+                    avi, ctype = r.read(), r.headers["Content-Type"]
+                info = read_avi_info(str(root / rel))
+                if not rel.startswith("video/") \
+                        or reply["media"] != [{"kind": "video",
+                                               "url": f"/media/{rel}",
+                                               "tool": tool}] \
+                        or ctype != "video/x-msvideo" \
+                        or avi != (root / rel).read_bytes() \
+                        or (info["n_frames"], info["fps"],
+                            info["n_streams"]) != (250, 25, 2):
+                    raise AssertionError(f"served geneface: {reply}, "
+                                         f"{ctype}, {info}")
+                res.update(video=rel, avi_bytes=len(avi))
             else:
                 out, sr = load_wav(step["observation"])
                 if not (reply["media"] and np.isfinite(out).all()
@@ -4211,8 +4656,15 @@ def main() -> int:
         singing = {"svs": phase_svs(gen), "visinger": phase_visinger(gen),
                    "tts_ood": phase_tts_ood(gen)}
         phase_speech_small_reference()
+        face = phase_geneface(gen, tmp)
+        t2a_htsat = phase_t2a_htsat(main_path, phase_htsat(gen))
+        quiet = {**singing, "geneface": face,
+                 "tts_portaspeech": phase_portaspeech(
+                     gen, "tts_portaspeech", False),
+                 "syntaspeech": phase_portaspeech(gen, "syntaspeech", True)}
+        phase_face_small_reference()
         phase_served(main_path, inpaint, asr, tts, i2a, t2i, i2t, tools,
-                     singing, tmp)
+                     singing, face, tmp)
 
     eng = main_path["engine"]
     t2a, inp = t2a_path(eng), inpaint_path(eng)
@@ -4229,10 +4681,11 @@ def main() -> int:
         return c[name] - c[f"{name}_bf16"]
 
     def none_launched(k, name):
-        """The new speech paths, which launch neither kernel."""
-        return [path_record(k, key, Counter(), f32(singing[key]["launches"],
+        """The singing, style-transfer, GeneFace and PortaSpeech paths,
+        which launch neither kernel."""
+        return [path_record(k, key, Counter(), f32(quiet[key]["launches"],
                                                    name))
-                for key in ("svs", "visinger", "tts_ood")]
+                for key in quiet]
 
     emit({"kernels": [
         kernel_entry(flash["float32"], [
@@ -4256,6 +4709,8 @@ def main() -> int:
                           sed_pvt[key]["path"]["flash"],
                           f32(sed_pvt[key]["launches"], "flash_attention"))
               for key in ("sed_pvt", "sed_pvt_32s")),
+            path_record(flash["float32"], "t2a_htsat", t2a["flash"],
+                        f32(t2a_htsat["launches"], "flash_attention")),
             *none_launched(flash["float32"], "flash_attention")],
             flash_src, flash_tpu),
         kernel_entry(flash["bfloat16"], [
@@ -4276,6 +4731,8 @@ def main() -> int:
                         f32(inpaint["launches"], "snake_aa")),
             path_record(snake["float32"], "i2a", i2a_p["snake"],
                         f32(i2a["launches"], "snake_aa")),
+            path_record(snake["float32"], "t2a_htsat", t2a["snake"],
+                        f32(t2a_htsat["launches"], "snake_aa")),
             *none_launched(snake["float32"], "snake_aa")],
             snake_src, snake_tpu),
         kernel_entry(snake["bfloat16"], [

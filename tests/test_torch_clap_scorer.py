@@ -81,10 +81,16 @@ def test_scorer_matches_jax():
 
 
 def test_scorer_rejects_what_is_not_ported():
-    with pytest.raises(ValueError, match="not ported"):
-        CLAPScorer(audio_tower="htsat", device="cpu")
+    """An unknown tower name, and a tower config of another class: the
+    JAX package's ``Cnn14Config`` under ``pann``, a ``Cnn14Config`` under
+    ``htsat`` (both towers are ported)."""
+    with pytest.raises(ValueError, match="unknown CLAPScorer audio_tower"):
+        CLAPScorer(audio_tower="vggish", device="cpu")
     with pytest.raises(TypeError):
         CLAPScorer(audio_cfg=JaxCnn14Config(channels=CHANNELS), device="cpu")
+    with pytest.raises(TypeError):
+        CLAPScorer(audio_tower="htsat", audio_cfg=Cnn14Config(
+            channels=CHANNELS), device="cpu")
 
 
 def test_scorer_without_device_needs_cuda(monkeypatch):

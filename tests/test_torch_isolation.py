@@ -20,8 +20,10 @@ from audiogpt_tpu_torch.engines import (
     BinauralEngine,
     CaptionEngine,
     ExtractionEngine,
+    GeneFaceEngine,
     I2AEngine,
     ImageCaptionEngine,
+    PortaSpeechTTSEngine,
     SEDEngine,
     SeparationEngine,
     StyleTransferEngine,
@@ -82,7 +84,10 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "text.zh", "dsp.f0", "models.svs.diffsinger",
                  "models.svs.visinger", "models.tts.pitch_extractor",
                  "models.tts.generspeech", "engines.svs",
-                 "engines.tts_ood"):
+                 "engines.tts_ood", "utils.video_io",
+                 "models.face.renderer", "models.face.audio2motion",
+                 "engines.face", "models.textenc.htsat", "text.syntax",
+                 "ops.rel_attention", "models.tts.portaspeech"):
         assert f"audiogpt_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
     # the BPE word splitters use the standard library's re: the card's
@@ -101,8 +106,9 @@ def test_entry_points_need_cuda_without_device(monkeypatch):
         VocoderEngine("bigvgan")
     with pytest.raises(RuntimeError, match="CUDA"):
         VocoderEngine("bigvgan", bf16=True)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        CLAPScorer()
+    for tower in ("pann", "htsat"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            CLAPScorer(audio_tower=tower)
     with pytest.raises(RuntimeError, match="CUDA"):
         ASREngine()
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -120,7 +126,8 @@ def test_entry_points_need_cuda_without_device(monkeypatch):
         ImageCaptionEngine()
     for engine in (CaptionEngine, SEDEngine, TSDEngine, ExtractionEngine,
                    SeparationEngine, BinauralEngine, SVSEngine,
-                   VISingerEngine, StyleTransferEngine):
+                   VISingerEngine, StyleTransferEngine, GeneFaceEngine,
+                   PortaSpeechTTSEngine):
         with pytest.raises(RuntimeError, match="CUDA"):
             engine()
     with pytest.raises(RuntimeError, match="CUDA"):

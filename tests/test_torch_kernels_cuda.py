@@ -459,3 +459,68 @@ def test_style_transfer_engine_on_the_card_matches_the_cpu(gen):
             for e in (cpu, card)]
     assert mels[0].shape[0] > 10
     torch.testing.assert_close(mels[1], mels[0], atol=5e-4, rtol=0)
+
+
+# the GeneFace, HTSAT and PortaSpeech card-vs-CPU checks
+from audiogpt_tpu_torch.engines import (  # noqa: E402
+    GeneFaceEngine,
+    PortaSpeechTTSEngine,
+)
+from audiogpt_tpu_torch.models.face import Audio2MotionConfig  # noqa: E402
+from audiogpt_tpu_torch.models.textenc import (  # noqa: E402
+    HTSATAudioEncoder,
+    HTSATConfig,
+)
+from audiogpt_tpu_torch.models.tts import PortaSpeechConfig  # noqa: E402
+
+
+def test_geneface_engine_on_the_card_matches_the_cpu(gen):
+    """Landmarks within 1e-5 with the same draws; frames at most one level
+    off on at most 0.1 % of the values."""
+    cpu, card = _pair(lambda device: GeneFaceEngine(
+        Audio2MotionConfig(hidden=64, latent=8, conv_layers=2),
+        video_size=64, buckets=(256,), device=device))
+    mel = torch.rand(200, 80, generator=torch.Generator().manual_seed(5))
+    z = torch.randn(1, 102, 8, generator=torch.Generator().manual_seed(6))
+    lm = [e.motion(mel.to(e.device), z.to(e.device)).cpu()
+          for e in (cpu, card)]
+    assert lm[0].shape == (80, 68, 2)
+    torch.testing.assert_close(lm[1], lm[0], atol=1e-5, rtol=0)
+    frames = [e.warper.render(e.portrait, lm[0]) for e in (cpu, card)]
+    diff = np.abs(frames[0].astype(np.int16) - frames[1])
+    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
+
+
+def test_htsat_on_the_card_matches_the_cpu(gen):
+    """A narrow HTSAT at the full 256² image (the clamp rule at stage 4),
+    embedding and clip probabilities within 1e-4."""
+    cfg = HTSATConfig(embed_dim=16, num_heads=(2, 2, 4, 4), d_proj=32)
+    cpu = HTSATAudioEncoder(cfg).eval()
+    card = HTSATAudioEncoder(cfg).cuda().eval()
+    with torch.no_grad():
+        cpu.bn0_var.uniform_(0.5, 1.5)
+    card.load_state_dict(cpu.state_dict())
+    wav = 0.1 * torch.randn(2, 96000, generator=torch.Generator()
+                            .manual_seed(7))
+    with torch.no_grad():
+        a = cpu(wav, return_dict=True)
+        b = card(wav.cuda(), return_dict=True)
+    for key in ("projected", "clipwise"):
+        torch.testing.assert_close(b[key].cpu(), a[key], atol=1e-4, rtol=0)
+
+
+def test_syntaspeech_engine_on_the_card_matches_the_cpu(gen):
+    """SyntaSpeech (the graph on) at a narrow width, the same draws: the
+    mel within 5e-4."""
+    cfg = PortaSpeechConfig(hidden_size=64, enc_layers=2, word_enc_layers=2,
+                            fvae_hidden=64, prior_flow_hidden=32,
+                            max_frames=256, use_graph=True)
+    cpu, card = _pair(lambda device: PortaSpeechTTSEngine(
+        cfg, vocoder=VocoderEngine("hifigan", HifiGANConfig(**NARROW_HIFI),
+                                   buckets=(256,), device=device),
+        device=device), lambda m: m.dur_predictor.out)
+    z = torch.randn(1, 64, 16, generator=torch.Generator().manual_seed(8))
+    mels = [e.text_to_mel("Hello from the card, again.", draws=z.to(e.device))
+            for e in (cpu, card)]
+    assert mels[0].shape[0] > 20
+    np.testing.assert_allclose(mels[1], mels[0], atol=5e-4, rtol=0)

@@ -3,7 +3,7 @@ engine-agnostic cases of ``tests/test_serving.py`` with stub engines and
 ``ScriptedLLM``; served agent turns through small port engines (T2A, I2A,
 TTS, inpaint, the T2I → I2T image round trip, the seven audio analysis
 and transform tools, SVS and Style Transfer) that must give what the
-engine gives when called directly;
+engine gives when called directly; the GeneFace tool's served video;
 the reference defects the port does not copy (a negative ``chunk_phones``
 is a 400; the speech loop merges the generated file from the media root;
 a client's path cannot leave the media root); engine calls that run while
@@ -351,7 +351,14 @@ def test_build_engines_passes_a_mapping_through(small_engines):
     again = build_engines(small_engines)
     assert again == small_engines and again is not small_engines
     with pytest.raises(KeyError):
-        build_engines("geneface,t2a")   # geneface is not ported
+        build_engines("vggish,t2a")     # no such engine
+
+
+def test_app_has_every_engine_of_the_jax_app():
+    from audiogpt_tpu import app as japp
+    from audiogpt_tpu_torch import app
+
+    assert app.ALL_ENGINES == japp.ALL_ENGINES and len(app.ALL_ENGINES) == 19
 
 
 def test_served_turns_equal_direct_engine_calls(tmp_path, small_engines):
@@ -675,6 +682,51 @@ def test_served_singing_and_style_transfer_tools(tmp_path):
             direct, _ = load_wav(ref_file)
             assert out.shape == direct.shape and out.std() > 0
             np.testing.assert_allclose(out, direct, atol=LSB, rtol=0)
+    finally:
+        s.close()
+
+
+def test_served_geneface_tool(tmp_path):
+    """The GeneFace tool registers once its engine is given; a served turn
+    on a clip named relative to the media root writes
+    ``video/<file>.avi`` there (the frames of the clip at 25 fps, the
+    audio muxed in), ``GET /media/`` answers it as ``video/x-msvideo``
+    with the file's bytes, and the direct call's landmarks drive it."""
+    from audiogpt_tpu_torch.agent.toolset import build_toolset
+    from audiogpt_tpu_torch.engines import GeneFaceEngine
+    from audiogpt_tpu_torch.models.face import Audio2MotionConfig
+    from audiogpt_tpu_torch.utils.video_io import read_avi_info
+
+    tool = "Generate a talking human portrait video given a input Audio"
+    eng = GeneFaceEngine(Audio2MotionConfig(hidden=8, latent=4,
+                                            conv_layers=1), video_size=32,
+                         buckets=(64,), device="cpu")
+    for mode in ("text", "speech"):
+        assert build_toolset({"geneface": eng}, root=str(tmp_path),
+                             mode=mode).names() == [tool]
+    root = tmp_path / "media"
+    (root / "audio").mkdir(parents=True)
+    save_wav((0.3 * np.sin(np.arange(16000) / 4.0)).astype(np.float32),
+             str(root / "audio" / "speech.wav"), 16000)
+    s = Served(ScriptedLLM([_act(tool, "audio/speech.wav"),
+                            _answer("Here is the video.")]),
+               build_engines({"geneface": eng}), root, device="cpu")
+    try:
+        code, body, _ = _post(s.port, "/chat", {"text": "animate it"})
+        data = json.loads(body)
+        step = data["steps"][0]
+        assert code == 200 and step["tool"] == tool, data
+        rel = step["observation"]
+        assert rel.startswith("video/") and rel.endswith(".avi")
+        assert data["media"] == [{"kind": "video", "url": f"/media/{rel}",
+                                  "tool": tool}]
+        info = read_avi_info(str(root / rel))
+        assert (info["n_frames"], info["fps"], info["n_streams"]) == (
+            eng.cfg.video_len(63), 25, 2)
+        code, avi, headers = _req(s.port, f"/media/{rel}")
+        assert code == 200 and headers["Content-Type"] == "video/x-msvideo"
+        assert avi == (root / rel).read_bytes()
+        assert eng.timings["geneface"] > 0
     finally:
         s.close()
 
