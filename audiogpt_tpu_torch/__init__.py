@@ -26,7 +26,9 @@ tools (``engines/transform.py``: LASSNet extraction, Conv-TasNet or SkiM
 enhancement and separation, binaural rendering); and the agent
 (``agent/``: tools, LLM clients, the ReAct loop, the toolset over these
 engines) served over HTTP (``serving/server.py``, ``app.py``, ``python -m
-audiogpt_tpu_torch.serve``).
+audiogpt_tpu_torch.serve``); and training (``train/``, ``data/``,
+``config.py``, ``python -m audiogpt_tpu_torch.train_cli``): the trainer
+substrate and the T2A latent-diffusion recipe.
 """
 
 __version__ = "0.1.0"

@@ -47,6 +47,7 @@ import numpy as np
 from audiogpt_tpu_torch.agent.tools import (Tool, ToolRegistry, merge_audio,
                                             new_media_path)
 from audiogpt_tpu_torch.utils.audio_io import load_wav, save_wav
+from audiogpt_tpu_torch.utils.media import resolve_media
 
 
 #: the SVS tool's song when its input does not parse: the toneless pinyin
@@ -61,10 +62,12 @@ DEFAULT_SONG = (
     "0.266720 | 0.280310 | 0.633300 | 0.444590")
 
 
-def _load(path: str, sr: int, engine: Any) -> np.ndarray:
-    """The file at ``sr``, resampled on ``engine``'s device (the card when
-    it names none)."""
-    wav, _ = load_wav(path.strip(), sr=sr,
+def _load(path: str, sr: int, engine: Any, root: str) -> np.ndarray:
+    """The file that ``path`` names under the media root ``root``
+    (``utils/media.py``: a path that resolves outside it raises
+    ``ValueError``) at ``sr``, resampled on ``engine``'s device (the card
+    when it names none)."""
+    wav, _ = load_wav(resolve_media(path, root), sr=sr,
                       device=getattr(engine, "device", None))
     return wav
 
@@ -126,7 +129,7 @@ def build_toolset(engines: Mapping[str, Any], root: str = ".",
         def tts_ood_fn(inputs: str) -> str:
             ref_path, text = [s.strip() for s in inputs.split(",", 1)]
             wav = e["tts_ood"].synthesize(text, _load(
-                ref_path, e["tts_ood"].sample_rate, e["tts_ood"]))
+                ref_path, e["tts_ood"].sample_rate, e["tts_ood"], root))
             return _save(wav, e["tts_ood"].sample_rate, root)
     add("tts_ood", "Style Transfer",
         "useful for when you want to generate speech samples with styles "
@@ -162,8 +165,9 @@ def build_toolset(engines: Mapping[str, Any], root: str = ".",
 
     if "i2a" in e:
         def i2a_fn(image_path: str) -> str:
-            wav, sr = e["i2a"](image_path.strip()) if callable(e["i2a"]) \
-                else e["i2a"].img2audio(image_path.strip())
+            image = resolve_media(image_path, root)
+            wav, sr = e["i2a"](image) if callable(e["i2a"]) \
+                else e["i2a"].img2audio(image)
             return _save(wav, sr, root)
     add("i2a", "Generate Audio From The Image",
         "useful for when you want to generate an audio based on an image. "
@@ -179,7 +183,7 @@ def build_toolset(engines: Mapping[str, Any], root: str = ".",
             path = parts[0]
             t0, t1 = (float(parts[1]), float(parts[2])) if len(parts) >= 3 \
                 else (1.0, 3.0)
-            wav = _load(path, eng.cfg.sample_rate, eng)
+            wav = _load(path, eng.cfg.sample_rate, eng, root)
             fps = eng.cfg.sample_rate / eng.cfg.hop
             frames = eng.cfg.inpaint_mel_len
             mask = np.ones(frames, np.float32)       # 1 = keep
@@ -199,7 +203,7 @@ def build_toolset(engines: Mapping[str, Any], root: str = ".",
     # ---- understanding ---------------------------------------------------
     if "asr" in e:
         def asr_fn(path: str) -> str:
-            wav = _load(path, 16000, e["asr"])
+            wav = _load(path, 16000, e["asr"], root)
             return e["asr"].transcribe(wav) if hasattr(e["asr"], "transcribe") \
                 else str(e["asr"].transcribe_tokens(wav)[0].tolist())
     add("asr", "Transcribe Speech",
@@ -211,7 +215,7 @@ def build_toolset(engines: Mapping[str, Any], root: str = ".",
     if "caption" in e:
         def caption_fn(path: str) -> str:
             return e["caption"].caption(_load(path, e["caption"].sr,
-                                                e["caption"]))
+                                                e["caption"], root))
     add("caption", "Generate Text From The Audio",
         "useful for when you want to describe an audio in text, receives "
         "audio_path as input. The input to this tool should be a string, "
@@ -222,7 +226,7 @@ def build_toolset(engines: Mapping[str, Any], root: str = ".",
     if "sed" in e:
         def sed_fn(path: str) -> str:
             # reference returns an image artifact (audio-chatgpt.py:658-673)
-            wav = _load(path, e["sed"].cfg.sample_rate, e["sed"])
+            wav = _load(path, e["sed"].cfg.sample_rate, e["sed"], root)
             out = new_media_path("image", ext="png", root=root)
             return e["sed"].plot(wav, out)
     add("sed", "Detect The Sound Event From The Audio",
@@ -235,7 +239,8 @@ def build_toolset(engines: Mapping[str, Any], root: str = ".",
     if "tsd" in e:
         def tsd_fn(inputs: str) -> str:
             path, text = [s.strip() for s in inputs.split(",", 1)]
-            spans = e["tsd"].detect(_load(path, e["tsd"].mel.sr, e["tsd"]),
+            spans = e["tsd"].detect(_load(path, e["tsd"].mel.sr, e["tsd"],
+                                          root),
                                     text)
             if not spans:
                 return f"no occurrence of '{text}' detected"
@@ -253,7 +258,8 @@ def build_toolset(engines: Mapping[str, Any], root: str = ".",
         def extraction_fn(inputs: str) -> str:
             path, text = [s.strip() for s in inputs.split(",", 1)]
             out = e["extraction"].extract(
-                _load(path, e["extraction"].sr, e["extraction"]), text)
+                _load(path, e["extraction"].sr, e["extraction"], root),
+                text)
             return _save(out, e["extraction"].sr, root)
     add("extraction", "Extract Sound Event From Mixture Audio Based On "
                       "Language Description",
@@ -267,7 +273,7 @@ def build_toolset(engines: Mapping[str, Any], root: str = ".",
     if "enhance" in e:
         def enhance_fn(path: str) -> str:
             sr = e["enhance"].cfg.sample_rate
-            out = e["enhance"].enhance(_load(path, sr, e["enhance"]))
+            out = e["enhance"].enhance(_load(path, sr, e["enhance"], root))
             return _save(out, sr, root)
     add("enhance", "Speech Enhancement In Single-Channel",
         "useful for when you want to enhance the quality of the speech "
@@ -279,7 +285,8 @@ def build_toolset(engines: Mapping[str, Any], root: str = ".",
     if "separate" in e:
         def separate_fn(path: str) -> str:
             sr = e["separate"].cfg.sample_rate
-            stems = e["separate"].separate(_load(path, sr, e["separate"]))
+            stems = e["separate"].separate(_load(path, sr, e["separate"],
+                                                  root))
             paths = [_save(s, sr, root) for s in stems]
             return merge_audio(paths[0], paths[1], root=root,
                                device=getattr(e["separate"], "device",
@@ -295,7 +302,7 @@ def build_toolset(engines: Mapping[str, Any], root: str = ".",
         def binaural_fn(path: str) -> str:
             sr = e["binaural"].cfg.sample_rate
             stereo = e["binaural"].binauralize(_load(path, sr,
-                                                     e["binaural"]))
+                                                     e["binaural"], root))
             out = new_media_path("audio", root=root)
             save_wav(stereo.T, out, sr)
             return out

@@ -15,7 +15,6 @@ init. ``SEDEngine.plot`` draws the JAX figure's two panels with PIL.
 from __future__ import annotations
 
 import math
-import os
 
 import numpy as np
 import torch
@@ -40,6 +39,7 @@ from audiogpt_tpu_torch.models.sed.tsd import (TSDConfig, TSDModel,
 from audiogpt_tpu_torch.models.textenc.clap import (CLAPTextConfig,
                                                     CLAPTextEncoder,
                                                     WordPieceTokenizer)
+from audiogpt_tpu_torch.utils.media import resolve_media
 
 
 class CaptionEngine(TimedCalls):
@@ -281,7 +281,8 @@ class ImageCaptionEngine(TimedCalls):
     one the bundled derived vocab loads where it fits the embedding table,
     else token ids render as ``<id>`` placeholders. A relative image path is
     read under ``media_root`` (the server points it at its own), so the path
-    the T2I tool returns can be described."""
+    the T2I tool returns can be described; a path that resolves outside the
+    root raises ``ValueError`` (``utils/media.py``)."""
 
     name = "i2t"
 
@@ -312,7 +313,7 @@ class ImageCaptionEngine(TimedCalls):
         """Image path or array → caption text: the tokens after BOS up to
         the first EOS."""
         if isinstance(image, str):
-            image = os.path.join(self.media_root, image.strip())
+            image = resolve_media(image, self.media_root)
         px = preprocess_image(image, self.cfg.vision.image_size)
         body = self.caption_tokens(px)[0, 1:]
         stop = np.flatnonzero(body == self.cfg.text.eos_id)

@@ -42,6 +42,7 @@ from audiogpt_tpu_torch.models.face import (
     energy_articulation,
     template_landmarks,
 )
+from audiogpt_tpu_torch.utils.media import resolve_media
 from audiogpt_tpu_torch.utils.video_io import write_mjpeg_avi
 
 
@@ -109,7 +110,8 @@ class GeneFaceEngine(TimedCalls):
         # imported here: utils/audio_io imports engines/base
         from audiogpt_tpu_torch.utils.audio_io import load_wav
 
-        wav, _ = load_wav(self._under_root(audio_path),
+        # read under media_root; a path outside it raises ValueError
+        wav, _ = load_wav(resolve_media(audio_path, self.media_root),
                           sr=self.cfg.sample_rate, device=self.device)
         frames = self.warper.render(self.portrait,
                                     self.motion(self.mel(wav), draws))
@@ -119,15 +121,6 @@ class GeneFaceEngine(TimedCalls):
         write_mjpeg_avi(out, frames, fps=self.cfg.fps, audio=wav,
                         sample_rate=self.cfg.sample_rate)
         return rel
-
-    def _under_root(self, path: str) -> str:
-        """``path`` resolved under ``media_root``; a path that resolves
-        outside it raises ``ValueError``."""
-        root = os.path.realpath(self.media_root)
-        full = os.path.realpath(os.path.join(root, path.strip()))
-        if os.path.commonpath([root, full]) != root:
-            raise ValueError(f"{path!r} is outside the media root")
-        return full
 
     def __call__(self, audio_path: str) -> str:
         return self._timed("geneface", lambda: self.audio_to_video(

@@ -47,12 +47,18 @@ class DiffusionSchedule:
     def num_timesteps(self) -> int:
         return len(self.betas)
 
-    def q_sample(self, x0: torch.Tensor, t: int,
+    def q_sample(self, x0: torch.Tensor, t: int | torch.Tensor,
                  noise: torch.Tensor) -> torch.Tensor:
-        """Forward noising of the batch at timestep ``t``:
-        √ᾱ_t·x0 + √(1−ᾱ_t)·noise, the scalars in float32 on the host (a
+        """Forward noising √ᾱ_t·x0 + √(1−ᾱ_t)·noise. An int ``t`` noises
+        the batch at one timestep, the scalars in float32 on the host (a
         device gather would need a host-to-device copy, which synchronises
-        the stream, at every sampler step)."""
+        the stream, at every sampler step); an int tensor ``t`` [B] noises
+        each item at its own (training, JAX ``samplers.py:53-58``): ᾱ
+        gathered from an f32 table on ``x0``'s device, the roots in f32."""
+        if isinstance(t, torch.Tensor):
+            a = torch.as_tensor(self.alphas_cumprod, device=x0.device)[
+                t.long()].reshape((-1,) + (1,) * (x0.ndim - 1))
+            return a.sqrt() * x0 + (1.0 - a).sqrt() * noise
         a = self.alphas_cumprod[t]
         return np.sqrt(a) * x0 + np.sqrt(_f32(1.0) - a) * noise
 

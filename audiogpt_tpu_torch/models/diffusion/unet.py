@@ -6,7 +6,9 @@ Counterpart of ``audiogpt_tpu/models/diffusion/unet.py`` (the reference's
 ``txt2audio_args.yaml``: 320 channels, ch_mult (1, 2), 2 res blocks,
 attention at ds 1 and 2, 8 heads, context 1024. Submodules carry the flax
 scope names. The level-0 self-attention (Tq·Tk ≥ 256²) runs the flash
-kernel on the card through ``ops.attention``.
+kernel on the card through ``ops.attention``. ``use_checkpoint`` (JAX's
+default, ``nn.remat`` at ``unet.py:199-203``) recomputes each ResBlock and
+SpatialTransformer in the backward; it acts only when grad is enabled.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from audiogpt_tpu_torch.ops.attention import attention
 
@@ -33,6 +36,7 @@ class UNetConfig:
     num_heads: int = 8
     transformer_depth: int = 1
     context_dim: int | None = 1024
+    use_checkpoint: bool = True
 
 
 def timestep_embedding(t: torch.Tensor, dim: int,
@@ -254,25 +258,37 @@ class UNetModel(nn.Module):
         if context is not None:
             context = context.to(x.dtype)
 
+        remat = cfg.use_checkpoint and torch.is_grad_enabled()
+
+        def run(mod, h, cond):
+            # nn.remat's counterpart: keep only the block's inputs and
+            # recompute its inside in the backward
+            if remat:
+                return checkpoint(mod, h, cond, use_reentrant=False)
+            return mod(h, cond)
+
+        def res(name, h):
+            return run(getattr(self, name), h, emb)
+
         def block(name, h):
             mod = getattr(self, name, None)
-            return h if mod is None else mod(h, context)
+            return h if mod is None else run(mod, h, context)
 
         h = self.in_conv(x)
         hs = [h]
         for level in range(len(cfg.channel_mult)):
             for i in range(cfg.num_res_blocks):
-                h = getattr(self, f"down_{level}_{i}_res")(h, emb)
+                h = res(f"down_{level}_{i}_res", h)
                 h = block(f"down_{level}_{i}_attn", h)
                 hs.append(h)
             if level != len(cfg.channel_mult) - 1:
                 h = getattr(self, f"down_{level}_ds")(h)
                 hs.append(h)
-        h = self.mid_res2(self.mid_attn(self.mid_res1(h, emb), context), emb)
+        h = res("mid_res2", block("mid_attn", res("mid_res1", h)))
         for level in reversed(range(len(cfg.channel_mult))):
             for i in range(cfg.num_res_blocks + 1):
                 h = torch.cat([h, hs.pop()], dim=1)
-                h = getattr(self, f"up_{level}_{i}_res")(h, emb)
+                h = res(f"up_{level}_{i}_res", h)
                 h = block(f"up_{level}_{i}_attn", h)
                 if level and i == cfg.num_res_blocks:
                     h = getattr(self, f"up_{level}_us")(h)

@@ -7,8 +7,15 @@ the Pallas kernel's semantics: scale ``D^-0.5``, an optional key-padding mask
 to query ``i`` when ``j <= i``), and 0 for a query row with no valid key.
 f32 and bf16: the logits and the softmax are f32 whatever the input type,
 and for bf16 the probabilities are rounded to bf16 before the product with
-``v`` (``_flash_kernel:76``, ``_reference:173``). Forward only: serving
-needs no gradient.
+``v`` (``_flash_kernel:76``, ``_reference:173``).
+
+:class:`FlashAttention` makes it differentiable, as JAX's ``custom_vjp``
+(``flash_attention.py:177-200``) does: the forward is the kernel on the
+card (the plain version on the CPU), the backward recomputes the plain
+version and takes its gradient (``_flash_core_bwd``, an XLA recompute in
+JAX, not a Pallas kernel). It is the gradient of the port's own forward,
+so it differs from JAX's only where the two forwards do (a row with no
+valid key; causal masking with Tq != Tk).
 """
 
 from __future__ import annotations
@@ -70,14 +77,49 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
 
 
+class FlashAttention(torch.autograd.Function):
+    """The forward of :func:`flash_attention`; the backward recomputes
+    :func:`flash_attention_reference` and takes its gradient. q, k, v and
+    the key mask are saved only when q, k or v needs a gradient, so a
+    forward under ``no_grad`` or on tensors without grad keeps nothing."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal):
+        out = _forward(q, k, v, kv_mask, causal)
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(q, k, v, kv_mask)
+            ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, kv_mask = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n)
+                      for t, n in zip((q, k, v), need)]
+            out = flash_attention_reference(*inputs, kv_mask, ctx.causal)
+            grads = iter(torch.autograd.grad(
+                out, [t for t in inputs if t.requires_grad], grad_out))
+        return (*(next(grads) if n else None for n in need), None, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_mask: torch.Tensor | None = None,
                     causal: bool = False) -> torch.Tensor:
-    """q [B, Tq, H, D], k/v [B, Tk, H, D], kv_mask [B, Tk] → [B, Tq, H, D].
+    """q [B, Tq, H, D], k/v [B, Tk, H, D], kv_mask [B, Tk] → [B, Tq, H, D];
+    differentiable in q, k and v (:class:`FlashAttention`).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (f32 or bf16, contiguous, D <= 160 with rows of a multiple of 16 bytes)
     or raises."""
+    return FlashAttention.apply(q, k, v, kv_mask, causal)
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             kv_mask: torch.Tensor | None, causal: bool) -> torch.Tensor:
+    """The forward alone: the plain version for CPU tensors, else the
+    kernel."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, kv_mask, causal)
     b, tq, h, d = q.shape
@@ -116,13 +158,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(err, name)
     flash_attention.launches += 1
     flash_attention.bf16_launches += q.dtype == torch.bfloat16
+    flash_attention.flops += 4 * b * tq * tk * h * d
     return out
 
 
 #: launches of the CUDA kernel in this process (the main path's evidence),
-#: of both entries and of the bf16 entry alone
+#: of both entries and of the bf16 entry alone; and the FLOPs of those
+#: launches (4·B·Tq·Tk·H·D each, the Pallas call's ``cost_estimate``),
+#: which ``FlopCounterMode`` cannot see: the trainer adds them to its count
 flash_attention.launches = 0
 flash_attention.bf16_launches = 0
+flash_attention.flops = 0
 
 
 def launch_grid(b: int, tq: int, h: int, d: int, dtype: torch.dtype) -> dict:

@@ -6,7 +6,10 @@ Counterpart of ``audiogpt_tpu/ops/snake_aa.py``: BigVGAN's
 ``activations.py:SnakeBeta``). The plain version is that literal chain, with
 the kaiser-sinc FIRs as depthwise (``groups=C``) convolutions; the kernel
 computes the same function in one pass without the 2× intermediate. The
-filter design lives here, beside the kernel whose taps it fixes.
+filter design lives here, beside the kernel whose taps it fixes. The
+kernel has no backward: no recipe of the JAX package trains BigVGAN
+(``train/tasks/vocoder_gan.py:26`` trains HiFi-GAN), so a CUDA call that
+would need a gradient raises (:func:`needs_grad`).
 """
 
 from __future__ import annotations
@@ -98,17 +101,31 @@ def snake_aa_reference(x: torch.Tensor, alpha: torch.Tensor,
 _ENTRY = {torch.float32: "snake_aa_f32", torch.bfloat16: "snake_aa_bf16"}
 
 
+def needs_grad(x: torch.Tensor, alpha: torch.Tensor,
+               beta: torch.Tensor) -> bool:
+    """Whether autograd would need the gradient of this call: grad mode is
+    on and x, α or β requires grad. The kernel refuses such a call."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, alpha, beta))
+
+
 def snake_aa(x: torch.Tensor, alpha: torch.Tensor,
              beta: torch.Tensor) -> torch.Tensor:
     """x [B, C, T] (f32 or bf16), α and β [C] after the exp → [B, C, T] in
     x's dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises."""
+    or raises, also when autograd would need its gradient
+    (:func:`needs_grad`): the kernel has none, and falling back to the
+    plain version would hide that."""
     if x.device.type == "cpu":
         return snake_aa_reference(x, alpha, beta)
     if not x.is_cuda:
         raise ValueError(f"snake_aa: x on {x.device}")
+    if needs_grad(x, alpha, beta):
+        raise RuntimeError("snake_aa: the CUDA kernel has no backward (no "
+                           "recipe trains BigVGAN); call it under "
+                           "torch.no_grad() or on tensors without grad")
     if x.dtype not in _ENTRY:
         raise TypeError(f"snake_aa: the kernel takes f32 or bf16, not {x.dtype}")
     if x.ndim != 3 or not x.is_contiguous():

@@ -65,6 +65,7 @@ from audiogpt_tpu_torch.agent.llm import LLMClient
 from audiogpt_tpu_torch.agent.tools import merge_audio, tool_stats_report
 from audiogpt_tpu_torch.agent.toolset import build_toolset
 from audiogpt_tpu_torch.utils.audio_io import load_wav, save_wav
+from audiogpt_tpu_torch.utils.media import resolve_media
 
 _HTML_PATH = os.path.join(os.path.dirname(__file__), "webui.html")
 
@@ -122,10 +123,11 @@ class AppServer:
         """The file that ``rel`` names under the media root, its links and
         ``..`` resolved first; :class:`MediaNotFound` for a path that
         leaves the root or is no file."""
-        root = os.path.realpath(self.media_root)
-        full = os.path.realpath(os.path.join(root, rel))
-        if os.path.commonpath([full, root]) != root \
-                or not os.path.isfile(full):
+        try:
+            full = resolve_media(rel, self.media_root)
+        except ValueError:
+            full = None
+        if full is None or not os.path.isfile(full):
             raise MediaNotFound(f"no media file {rel!r}")
         return full
 

@@ -204,6 +204,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    call costs as the first call of a new thread
    (``served_thread_cost``). The app must have all 19 factories of the
    JAX app.
+46. train_ldm: training on the card. ``configs/t2a/ldm.yaml`` read by the
+   port's ``load_config`` at its full widths (UNet 320 channels, mult
+   (1, 2), 8 heads, context 1024; VAE ch 128, mult (1, 2, 2, 4); the
+   default CLAP text tower; batch 16, width 624) with
+   ``model.bf16_compute=false``, on a fixture of 64 seeded records written
+   by the port's ``RecordWriter`` (mel [624, 80] in [0, 1], BERT ids),
+   driven through ``train_cli.build_task``, ``build_loaders`` and
+   ``Trainer.fit`` for 60 steps: the trainable and frozen parameter counts,
+   the median step time over the steady steps (each step ends in the
+   metrics' copy to the host), samples/s, peak memory, K1 launches a step
+   by shape (5 at [16, 780, 780, 8, 40]) and K2's (0), the mean loss of
+   the first and last 10 steps (it must fall), MFU and the step's bound.
+47. train_ldm_bf16: the same with the yaml's ``bf16_compute: true`` (the
+   UNet in bf16 on f32 masters): K1's bf16 entry.
+48. train_grad_check: one full-width batch, forward and backward, with K1
+   and with the plain attention path forced: the UNet's gradients agree
+   within 1e-4 of their largest (f32, TF32 off); ``FlashAttention``'s dq,
+   dk and dv at [16, 780, 8, 40] in f32 and bf16 against the plain
+   version's autograd, the recompute's time per step and SDPA's backward.
+49. train_resume: a tiny config with a valid split (sanity and periodic
+   validation on the card) stops after a checkpoint; a second ``fit`` on
+   the same work dir continues at the saved step, with the saved params.
 
 The ``unet_bf16`` engine of phase 6 also inpaints (``inpaint_unet_bf16``):
 its f32 UNet gives the f32 engine's wav with the same draws.
@@ -226,6 +248,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -406,7 +429,8 @@ BF16_FLASH_TOL = (1e-2, 2 ** -7)          # absolute, relative
 #: CLIP tokens) at ds 1 and 2, self-attention at ds 4 (D = 160); BLIP-base's
 #: vision self-attention (577 tokens); PVT SED's spatial-reduction attention
 #: (one head at stage 0, Tq >> Tk, 100 or 200 keys) on a 10 s clip (stages
-#: 0, 1) and a 32 s clip (stages 0-2); the key-mask and causal code no path
+#: 0, 1) and a 32 s clip (stages 0-2); the LDM recipe's training step at
+#: batch 16 (level-0 self-attention); the key-mask and causal code no path
 #: reaches
 FLASH_CASES = {
     "unet_level0": ((6, 780, 780, 8, 40), None, False),
@@ -428,6 +452,7 @@ FLASH_CASES = {
     "pvt_s0_32s": ((1, 12800, 200, 1, 64), None, False),
     "pvt_s1_32s": ((1, 3200, 200, 2, 64), None, False),
     "pvt_s2_32s": ((1, 800, 200, 5, 64), None, False),
+    "train_level0": ((16, 780, 780, 8, 40), None, False),
     "kv_mask": ((2, 1500, 1500, 6, 64), (1500, 1100), False),
     "causal": ((1, 256, 256, 2, 80), None, True),
 }
@@ -607,10 +632,19 @@ def flash_shapes(cfg, batch: int, latent: tuple, steps: int,
     the cross-attention's keys (the CLAP tokens of T2A, I2A's one image
     embedding, T2I's 77 CLIP tokens)."""
     from audiogpt_tpu_torch.models.diffusion import DiffusionSchedule
+
+    evals = len(DiffusionSchedule.linear(cfg.timesteps).ddim_steps(steps)[0])
+    return Counter({shape: evals * n for shape, n in
+                    unet_flash_shapes(cfg.unet, batch, latent,
+                                      context).items()})
+
+
+def unet_flash_shapes(u, batch: int, latent: tuple,
+                      context: int) -> Counter:
+    """Flash launches of one forward of the UNet of config ``u`` (see
+    :func:`flash_shapes`), by shape."""
     from audiogpt_tpu_torch.ops.attention import FLASH_MIN_PAIRS
 
-    u = cfg.unet
-    evals = len(DiffusionSchedule.linear(cfg.timesteps).ddim_steps(steps)[0])
     h, w = latent
     shapes, ds = Counter(), 1
     for level, mult in enumerate(u.channel_mult):
@@ -621,7 +655,7 @@ def flash_shapes(cfg, batch: int, latent: tuple, steps: int,
         for tk in keys:
             if tokens * tk >= FLASH_MIN_PAIRS:
                 shapes[(batch, tokens, tk, u.num_heads, dim)] += \
-                    evals * blocks * u.transformer_depth
+                    blocks * u.transformer_depth
         h, w, ds = -(-h // 2), -(-w // 2), 2 * ds     # stride-2 pad-1 convs
     return shapes
 
@@ -2524,7 +2558,7 @@ def phase_i2t(gen, tmp: str) -> dict:
 
     held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    eng = ImageCaptionEngine()
+    eng = ImageCaptionEngine(media_root=tmp)
     fill_random(eng.model, gen)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -4317,12 +4351,16 @@ def phase_served(main: dict, inpaint: dict, asr: dict, tts: dict,
     voice = str(root / "audio" / "voice10.wav")
     save_wav(singing["tts_ood"]["ref"], voice, 22050)
     save_wav(face["wav"], str(root / "audio" / "face10.wav"), 16000)
+    # the tools read only files under the media root (utils/media.py)
+    (root / "image").mkdir(exist_ok=True)
+    i2a_image = str(root / "image" / "i2a_photo.png")
+    shutil.copyfile(i2a["image"], i2a_image)
     turns = [
         ("t2a", "Generate Audio From User Input Text", TEXT),
         ("inpaint", "Audio Inpainting", f"{t2a_wav}, 1.0, 3.0"),
         ("asr", "Transcribe Speech", speech),
         ("tts", "Synthesize Speech Given the User Input Text", TTS_TEXT),
-        ("i2a", "Generate Audio From The Image", i2a["image"]),
+        ("i2a", "Generate Audio From The Image", i2a_image),
         ("t2i", "Generate Image From User Input Text", T2I_TEXT),
         ("i2t", "Get Photo Description", "{image}"),
         ("caption", "Generate Text From The Audio", events),
@@ -4551,6 +4589,312 @@ def tool_text_tsd(eng, wav) -> str:
     return "; ".join(f"({s:.2f}s, {t:.2f}s)" for s, t in spans)
 
 
+#: the training phases: steps of each full-width run, its fixture's size,
+#: the loss windows compared (the first and the last steps), the steps left
+#: out of the step-time median (the FLOP-counted step, the allocator's
+#: first blocks), and the bound on the UNet gradients with K1 against the
+#: plain attention path (f32, TF32 off): max|Δg| / max|g|
+TRAIN_STEPS, TRAIN_RECORDS, TRAIN_WINDOW, TRAIN_WARM_SKIP = 60, 64, 10, 3
+TRAIN_GRAD_TOL = 1e-4
+#: the mel canvas of ldm.yaml (``data.width``) and its mel bins
+LDM_FRAMES, LDM_MELS = 624, 80
+#: the tiny LDM of the resume phase (tests/test_train.py:514-525's)
+TINY_LDM = ("model.unet.model_channels=32,model.unet.num_res_blocks=1,"
+            "model.unet.num_heads=4,model.unet.context_dim=24,"
+            "model.vae.ch=32,model.vae.ch_mult=[1, 2],"
+            "model.vae.num_res_blocks=1,model.clap.bert.hidden_size=16,"
+            "model.clap.bert.num_layers=1,model.clap.bert.num_heads=2,"
+            "model.clap.bert.intermediate_size=32,model.clap.d_proj=24,"
+            "model.timesteps=50,data.width=32,batch_size=8")
+
+
+def train_fixture(root: Path, n: int, frames: int, mels: int, seed: int,
+                  valid: int = 0) -> str:
+    """``n`` seeded LDM records (``mel`` [frames, mels] in [0, 1],
+    ``text_ids``: [CLS], 6–75 BERT word ids, [SEP]) written by the port's
+    ``RecordWriter`` as the train split, ``valid`` more as the valid split;
+    → the binary dir."""
+    import numpy as np
+
+    from audiogpt_tpu_torch.data import RecordWriter
+
+    rng = np.random.default_rng(seed)
+    for split, count in (("train", n), ("valid", valid)):
+        if not count:
+            continue
+        with RecordWriter(str(root / "bin" / split)) as w:
+            for _ in range(count):
+                words = rng.integers(1000, 30522, int(rng.integers(6, 76)))
+                w.add({"mel": rng.random((frames, mels), dtype=np.float32),
+                       "text_ids": np.concatenate(
+                           [[101], words, [102]]).astype(np.int32)})
+    return str(root / "bin")
+
+
+def ldm_config(bin_dir: str, bf16: bool, extra: str = ""):
+    """``configs/t2a/ldm.yaml`` through the port's ``load_config``, on
+    ``bin_dir``, with ``model.bf16_compute`` and ``extra`` overrides."""
+    from audiogpt_tpu_torch.config import load_config
+
+    hp = f"model.bf16_compute={str(bf16).lower()},data.binary_dir={bin_dir}"
+    return load_config(str(ROOT / "configs" / "t2a" / "ldm.yaml"),
+                       overrides=hp + ("," + extra if extra else ""))
+
+
+def ldm_trainer(cfg, work_dir: str, **over):
+    """``train_cli.build_task`` and a ``Trainer`` with the CLI's config,
+    ``over`` replacing fields of it; → (task, trainer)."""
+    import dataclasses
+
+    from audiogpt_tpu_torch import train_cli
+    from audiogpt_tpu_torch.train import Trainer
+
+    task = train_cli.build_task(cfg)
+    tcfg = dataclasses.replace(train_cli.trainer_config(cfg, work_dir),
+                               **over)
+    return task, Trainer(task, tcfg)
+
+
+def ldm_step_shapes(task, batch: int, frames: int, mels: int) -> Counter:
+    """K1 launches of one training step by shape: the UNet's forward (its
+    backward recomputes the plain version; ``use_checkpoint`` runs the
+    forward again), from the configs."""
+    cfg = task.cfg
+    f = 2 ** (len(cfg.vae.ch_mult) - 1)
+    once = unet_flash_shapes(cfg.unet, batch, (mels // f, frames // f),
+                             cfg.clap.max_length)
+    return Counter({s: n * (1 + cfg.unet.use_checkpoint)
+                    for s, n in once.items()})
+
+
+def phase_train_ldm(tmp: str, bf16: bool) -> dict:
+    """``ldm.yaml`` at full width trained for ``TRAIN_STEPS`` steps through
+    the CLI's builders and ``Trainer.fit`` (no valid split: every launch is
+    a training step's)."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch import train_cli
+
+    name = "train_ldm_bf16" if bf16 else "train_ldm"
+    root = Path(tmp) / name
+    bin_dir = train_fixture(root, TRAIN_RECORDS, LDM_FRAMES, LDM_MELS, 21)
+    cfg = ldm_config(bin_dir, bf16)
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    task, trainer = ldm_trainer(cfg, str(root / "exp"), log_interval=1,
+                                num_sanity_val_steps=0,
+                                val_check_interval=10 ** 9,
+                                use_tensorboard=False)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    train_it, val_fn = train_cli.build_loaders(cfg, "ldm")
+    batch = cfg["batch_size"]
+    if val_fn is not None or batch != 16 or task.cfg.unet.model_channels \
+            != 320 or task.cfg.bf16_compute != bf16:
+        raise AssertionError(f"{name}: config {cfg.to_dict()}")
+    per_step = ldm_step_shapes(task, batch, LDM_FRAMES, LDM_MELS)
+    torch.cuda.reset_peak_memory_stats()
+    (_, shapes), fit_s, counts = counted(lambda: recorded_flash(
+        lambda: trainer.fit(train_it, max_updates=TRAIN_STEPS)))
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    expected = expected_counts(
+        Counter({s: n * TRAIN_STEPS for s, n in per_step.items()}),
+        Counter(), flash_bf16=bf16)
+    if counts != expected or shapes != Counter(
+            {s: n * TRAIN_STEPS for s, n in per_step.items()}) \
+            or trainer.step != TRAIN_STEPS:
+        raise AssertionError(f"{name}: launches {counts}, shapes "
+                             f"{dict(shapes)}, step {trainer.step}; "
+                             f"expected {expected}, {dict(per_step)} a step")
+    lines = [json.loads(line) for line in
+             open(root / "exp" / "metrics.jsonl")]
+    tr = [line for line in lines if line["prefix"] == "tr"]
+    loss = [line["diff"] for line in tr]
+    first = statistics.fmean(loss[:TRAIN_WINDOW])
+    last = statistics.fmean(loss[-TRAIN_WINDOW:])
+    if len(tr) != TRAIN_STEPS or not np.isfinite(loss).all() \
+            or any(line["nonfinite"] for line in tr) or not last < first:
+        raise AssertionError(f"{name}: losses {loss}")
+    if trainer.store.latest_step() != TRAIN_STEPS:
+        raise AssertionError(f"{name}: checkpoints "
+                             f"{trainer.store.all_steps()}")
+    steady = tr[TRAIN_WARM_SKIP:]
+    step_s = statistics.median(1.0 / line["steps_per_sec"]
+                               for line in steady)
+    flops = next(iter(trainer._flops.values()))
+    peak_rate = BF16_FLOPS if bf16 else F32_FLOPS
+    res = {"phase": name, "steps": TRAIN_STEPS, "batch": batch,
+           "mel": [LDM_MELS, LDM_FRAMES], "bf16_compute": bf16,
+           "trainable_params": sum(p.numel() for p in trainer.params["unet"]),
+           "frozen_params": sum(p.numel() for p in
+                                task.modules["frozen"].parameters()),
+           "setup_s": setup_s, "fit_s": fit_s,
+           "step_ms": step_s * 1e3,
+           "step_ms_min": 1e3 * min(1.0 / line["steps_per_sec"]
+                                    for line in steady),
+           "samples_per_s": batch / step_s, "peak_mem_gb": peak,
+           "k1_launches_per_step": sum(per_step.values()),
+           "k1_shapes_per_step": {str(list(s)): n
+                                  for s, n in per_step.items()},
+           "k2_launches": counts["snake_aa"],
+           "loss_first_window": first, "loss_last_window": last,
+           "loss_first": loss[0], "loss_last": loss[-1],
+           "grad_norm_last": tr[-1]["grad_norm"],
+           "step_gflop": flops / 1e9,
+           "mfu": statistics.median(line["mfu"] for line in steady),
+           "mfu_peak_tflops": peak_rate / 1e12,
+           "step_bound_ms": flops / peak_rate * 1e3,
+           "bound_by": "operations"}
+    emit(res)
+    shutil.rmtree(root / "exp")        # the checkpoint: ≈ 2.6 GB
+    return {"task": task, "trainer": trainer, "shapes": per_step,
+            "launches": {k: v // TRAIN_STEPS for k, v in counts.items()},
+            "step_ms": res["step_ms"], "batch": next(iter(
+                train_cli.build_loaders(cfg, "ldm")[0]))}
+
+
+def unet_grads(task, batch, seed: int) -> list:
+    """The UNet's gradients of the f32 loss on ``batch`` (on the card) with
+    the draws of a generator seeded with ``seed``."""
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    loss, _ = task.loss(batch, gen)
+    params = [p for p in task.unet.parameters()]
+    return [g.detach() for g in torch.autograd.grad(loss, params)]
+
+
+def phase_train_grad_check(train: dict, gen) -> None:
+    """The f32 task's UNet (seeded noise in every weight, so every layer
+    gets a gradient) on one full-width batch: its gradients with K1 against
+    those with the plain attention path forced; then ``FlashAttention``'s
+    dq, dk, dv at the training shape against the plain version's autograd
+    and SDPA's, f32 and bf16, with the backward's times."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+
+    from audiogpt_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_reference,
+    )
+
+    task, trainer = train["task"], train["trainer"]
+    fill_random(task.unet, gen)
+    batch = trainer._to_device(train["batch"])
+    (kernel, _), _, counts = counted(lambda: recorded_flash(
+        lambda: unet_grads(task, batch, 5)))
+    attn = importlib.import_module("audiogpt_tpu_torch.ops.attention")
+    takes = attn.flash_takes
+    attn.flash_takes = lambda *a, **kw: False
+    try:
+        plain, _, plain_counts = counted(lambda: unet_grads(task, batch, 5))
+    finally:
+        attn.flash_takes = takes
+    if counts["flash_attention"] != sum(train["shapes"].values()) \
+            or plain_counts["flash_attention"] != 0:
+        raise AssertionError(f"grad check launches {counts}, "
+                             f"{plain_counts}")
+    diff = max(float((a - b).abs().max()) for a, b in zip(kernel, plain))
+    scale = max(float(b.abs().max()) for b in plain)
+    worst = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                for a, b in zip(kernel, plain))
+    zero = sum(int(float(b.abs().max()) == 0.0) for b in plain)
+    if not diff <= TRAIN_GRAD_TOL * scale or zero:
+        raise AssertionError(f"UNet grads with K1: max abs diff {diff} of "
+                             f"{scale}; {zero} zero gradients")
+    (b, t, _, h, d), = train["shapes"]
+    attention = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        q, k, v = (torch.randn(b, t, h, d, generator=gen, device="cuda")
+                   .to(dtype).requires_grad_() for _ in range(3))
+        g = torch.randn(b, t, h, d, generator=gen, device="cuda").to(dtype)
+        out = flash_attention(q, k, v)
+        got = torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+        ref_out = flash_attention_reference(q, k, v)
+        ref = torch.autograd.grad(ref_out, (q, k, v), g, retain_graph=True)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt)
+        sdpa = torch.autograd.grad(sdpa_out, (q, k, v), g.transpose(1, 2),
+                                   retain_graph=True)
+        err = max(float((x.float() - y.float()).abs().max())
+                  for x, y in zip(got, ref))
+        sdpa_err = max(float((x.float() - y.float()).abs().max())
+                       for x, y in zip(got, sdpa))
+        # the backward is the plain version's autograd on the same inputs:
+        # equal up to the order in which a library kernel may sum
+        if err > (1e-5 if dtype == torch.float32 else 1e-2):
+            raise AssertionError(f"FlashAttention {dname} grads differ "
+                                 f"from the plain version's by {err}")
+        bwd_ms = time_ms(lambda: torch.autograd.grad(
+            out, (q, k, v), g, retain_graph=True), 10)
+        sdpa_ms = time_ms(lambda: torch.autograd.grad(
+            sdpa_out, (q, k, v), g.transpose(1, 2), retain_graph=True), 10)
+        attention[dname] = {"dqkv_max_abs_err": err,
+                            "sdpa_dqkv_max_abs_diff": sdpa_err,
+                            "recompute_backward_ms": bwd_ms,
+                            "sdpa_backward_ms": sdpa_ms}
+    per_step = sum(train["shapes"].values())
+    emit({"phase": "train_grad_check", "unet_grad_max_abs_diff": diff,
+          "unet_grad_max_abs": scale, "relative": diff / scale,
+          "worst_tensor_relative": worst, "bound": TRAIN_GRAD_TOL,
+          "k1_launches": counts["flash_attention"],
+          "plain_launches": plain_counts["flash_attention"],
+          "attention_shape": [b, t, t, h, d], "attention": attention,
+          "recompute_ms_per_step": per_step
+          * attention["float32"]["recompute_backward_ms"],
+          "recompute_share_of_step": per_step
+          * attention["float32"]["recompute_backward_ms"] / train["step_ms"]})
+
+
+def phase_train_resume(tmp: str) -> None:
+    """A tiny LDM (``TINY_LDM``) with a valid split trained to step 4 with a
+    checkpoint every 2 steps (sanity and periodic validation on the card);
+    a second task and trainer on the same work dir (its UNet refilled, so
+    only the restore can give the saved params) resume at step 4 and train
+    on to step 6."""
+    import torch
+
+    from audiogpt_tpu_torch import train_cli
+
+    root = Path(tmp) / "train_resume"
+    bin_dir = train_fixture(root, 20, 32, 16, 22, valid=6)
+    cfg = ldm_config(bin_dir, False, TINY_LDM + ",val_check_interval=2,"
+                     "num_sanity_val_steps=1")
+    work = str(root / "exp")
+    task, first = ldm_trainer(cfg, work, log_interval=1,
+                              use_tensorboard=False)
+    train_it, val_fn = train_cli.build_loaders(cfg, "ldm")
+    first.fit(train_it, val_fn, max_updates=4)
+    saved = {n: p.detach().clone() for n, p in first.named["unet"]}
+    task2, second = ldm_trainer(cfg, work, log_interval=1,
+                                use_tensorboard=False)
+    fill_random(task2.unet, torch.Generator("cuda").manual_seed(3))
+    second.restore_or_init()
+    resumed_at = second.step
+    same = all(torch.equal(p, saved[n]) for n, p in second.named["unet"])
+    train_it, val_fn = train_cli.build_loaders(cfg, "ldm")
+    second.fit(train_it, val_fn, max_updates=6)
+    lines = [json.loads(line) for line in open(Path(work) / "metrics.jsonl")]
+    steps = [line["step"] for line in lines if line["prefix"] == "tr"]
+    val = [line["step"] for line in lines if line["prefix"] == "val"]
+    if resumed_at != 4 or not same or second.step != 6 \
+            or steps != [1, 2, 3, 4, 5, 6] or val != [2, 4, 6] \
+            or second.store.all_steps() != [2, 4, 6] \
+            or second.opt["unet"].count != 6:
+        raise AssertionError(f"resume: at {resumed_at}, params restored "
+                             f"{same}, steps {steps}, val {val}, ckpts "
+                             f"{second.store.all_steps()}")
+    emit({"phase": "train_resume", "saved_step": 4, "resumed_at": resumed_at,
+          "params_restored": same, "final_step": second.step,
+          "logged_steps": steps, "val_steps": val,
+          "checkpoints": second.store.all_steps(),
+          "sanity": [line for line in lines if line["prefix"] == "sanity"]})
+
+
 def path_record(k: dict, path: str, shapes: Counter, launches: int) -> dict:
     """A kernel's share of one path: its launches, which the counters read
     and the configs must give (``shapes``), and per-call times, each the
@@ -4665,6 +5009,11 @@ def main() -> int:
         phase_face_small_reference()
         phase_served(main_path, inpaint, asr, tts, i2a, t2i, i2t, tools,
                      singing, face, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        train = phase_train_ldm(tmp, bf16=False)
+        train_bf16 = phase_train_ldm(tmp, bf16=True)
+        phase_train_grad_check(train, gen)
+        phase_train_resume(tmp)
 
     eng = main_path["engine"]
     t2a, inp = t2a_path(eng), inpaint_path(eng)
@@ -4711,6 +5060,8 @@ def main() -> int:
               for key in ("sed_pvt", "sed_pvt_32s")),
             path_record(flash["float32"], "t2a_htsat", t2a["flash"],
                         f32(t2a_htsat["launches"], "flash_attention")),
+            path_record(flash["float32"], "train_ldm", train["shapes"],
+                        f32(train["launches"], "flash_attention")),
             *none_launched(flash["float32"], "flash_attention")],
             flash_src, flash_tpu),
         kernel_entry(flash["bfloat16"], [
@@ -4720,7 +5071,10 @@ def main() -> int:
                         asr_flash_shapes(wcfg, asr_bf16["batches"]),
                         asr_bf16["launches"]["flash_attention_bf16"]),
             path_record(flash["bfloat16"], "t2i_bf16", t2i_p["flash"],
-                        t2i_bf16["launches"]["flash_attention_bf16"])],
+                        t2i_bf16["launches"]["flash_attention_bf16"]),
+            path_record(flash["bfloat16"], "train_ldm_bf16",
+                        train_bf16["shapes"],
+                        train_bf16["launches"]["flash_attention_bf16"])],
             flash_src, flash_tpu),
         kernel_entry(snake["float32"], [
             path_record(snake["float32"], "main_path", t2a["snake"],
@@ -4733,6 +5087,10 @@ def main() -> int:
                         f32(i2a["launches"], "snake_aa")),
             path_record(snake["float32"], "t2a_htsat", t2a["snake"],
                         f32(t2a_htsat["launches"], "snake_aa")),
+            *(path_record(snake["float32"], key, Counter(),
+                          run["launches"]["snake_aa"])
+              for key, run in (("train_ldm", train),
+                               ("train_ldm_bf16", train_bf16))),
             *none_launched(snake["float32"], "snake_aa")],
             snake_src, snake_tpu),
         kernel_entry(snake["bfloat16"], [

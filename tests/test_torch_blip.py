@@ -158,7 +158,8 @@ def test_caption_strings_equal_jax(params, tmp_path, with_vocab):
     jeng = JaxImageCaptionEngine(cfg, params=params, vocab_path=vocab,
                                  max_tokens=MAX_TOKENS)
     eng = ImageCaptionEngine(_cfgs(pblip), params=params, vocab_path=vocab,
-                             max_tokens=MAX_TOKENS, device="cpu")
+                             max_tokens=MAX_TOKENS, media_root=str(tmp_path),
+                             device="cpu")
     for seed in (1, 2, 3):
         path = tmp_path / f"x{seed}.png"
         Image.fromarray((np.random.RandomState(seed).rand(20, 28, 3) * 255)

@@ -408,3 +408,52 @@ def test_forced_flash_gets_contiguous_copies(monkeypatch):
     np.testing.assert_allclose(got.numpy(),
                                attention(q, k, v, use_flash=False).numpy(),
                                atol=ATOL, rtol=0)
+
+
+#: gradients of f32 softmax attention over ≤ 160 keys, O(1) values: the
+#: port's autograd of its plain version against JAX's ``_reference`` vjp
+#: (the ``custom_vjp`` backward), summed in another order
+GRAD_ATOL = 2e-5
+
+
+@pytest.mark.parametrize("case", ["no_mask", "kv_mask", "causal"])
+def test_flash_attention_grads_match_jax(case):
+    """``FlashAttention``'s dq, dk, dv against JAX's ``flash_attention``
+    (interpret mode) gradients, where both forwards agree: no fully masked
+    row, causal with Tq == Tk."""
+    import jax
+
+    tk = 96 if case == "causal" else 160
+    q, k, v = _qkv(2, 96, tk, 2, 40, seed=17)
+    g = np.random.RandomState(18).randn(*q.shape).astype(np.float32)
+    mask = None
+    if case == "kv_mask":
+        mask = (np.arange(tk)[None] < np.array([160, 70])[:, None]) \
+            .astype(np.float32)
+    causal = case == "causal"
+    _, vjp = jax.vjp(lambda q_, k_, v_: jax_flash_attention(
+        q_, k_, v_, kv_mask=None if mask is None else jnp.asarray(mask),
+        causal=causal, interpret=True), *_j(q, k, v))
+    ref = vjp(jnp.asarray(g))
+    tq, tk_, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = flash_attention(tq, tk_, tv, causal=causal,
+                          kv_mask=None if mask is None
+                          else torch.from_numpy(mask))
+    got = torch.autograd.grad(out, (tq, tk_, tv), torch.from_numpy(g))
+    for name, a, b in zip("qkv", got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=GRAD_ATOL,
+                                   rtol=0, err_msg=f"d{name}")
+
+
+def test_flash_attention_saves_nothing_without_grad():
+    """Serving costs no memory: no input requiring grad (or ``no_grad``)
+    gives an output without autograd history; with one, only the inputs
+    that require grad get a gradient."""
+    q, k, v = _t(*_qkv(1, 40, 40, 2, 8, seed=3))
+    assert flash_attention(q, k, v).grad_fn is None
+    with torch.no_grad():
+        assert flash_attention(q, k, v.requires_grad_()).grad_fn is None
+    out = flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert v.grad is not None and q.grad is None and k.grad is None

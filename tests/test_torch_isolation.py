@@ -49,7 +49,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "audiogpt_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                    "audiogpt_tpu"))
 print(json.dumps({"modules": names, "bad": bad,
                   "regex": "regex" in sys.modules,
                   "images": sorted(m for m in ("PIL", "matplotlib")
@@ -87,7 +88,11 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "engines.tts_ood", "utils.video_io",
                  "models.face.renderer", "models.face.audio2motion",
                  "engines.face", "models.textenc.htsat", "text.syntax",
-                 "ops.rel_attention", "models.tts.portaspeech"):
+                 "ops.rel_attention", "models.tts.portaspeech",
+                 "utils.media", "config", "data.records", "data.loader",
+                 "data.binarizer", "train.optim", "train.checkpoint",
+                 "train.metrics", "train.trainer", "train.tasks.ldm",
+                 "train_cli"):
         assert f"audiogpt_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
     # the BPE word splitters use the standard library's re: the card's
@@ -136,6 +141,14 @@ def test_entry_points_need_cuda_without_device(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+    from audiogpt_tpu_torch.train import Trainer
+    from audiogpt_tpu_torch.train.tasks import LDMTask, LDMTaskConfig
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LDMTask(LDMTaskConfig())
+    toy = types.SimpleNamespace(modules={}, loss_fns={}, optim_cfgs={})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(toy)
 
 
 def test_merge_across_rates_needs_cuda_without_device(tmp_path, monkeypatch):

@@ -287,6 +287,78 @@ def test_snake_rejects_what_the_kernel_does_not_take(gen):
         snake_aa(x, torch.ones(3, device="cuda"), ones)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_attention_grads_on_the_card(gen, dtype, masked):
+    """``FlashAttention`` on the card: the forward launches the kernel, the
+    backward (the plain version's recompute, as JAX's ``custom_vjp``) gives
+    the plain version's autograd gradients; the key mask gets none."""
+    q, k, v = (t.requires_grad_() for t in
+               _qkv(gen, 2, 300, 300, 4, 40, dtype))
+    mask = None
+    if masked:
+        mask = (torch.arange(300, device="cuda")[None]
+                < torch.tensor([300, 170], device="cuda")[:, None]).float()
+    g = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, kv_mask=mask)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert flash_attention.launches == before + 1
+    ref = torch.autograd.grad(flash_attention_reference(q, k, v, mask),
+                              (q, k, v), g)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a.float(), b.float(), **FLASH_TOL[dtype])
+
+
+def test_unet_gradients_through_the_kernel(gen):
+    """A UNet forward under autograd on the card gives the level-0
+    attention (16 x 16 latent: 256² pairs, the kernel) the plain path's
+    gradients: every UNet parameter's within 1e-4 of the largest."""
+    from audiogpt_tpu_torch.models.diffusion import UNetConfig, UNetModel
+
+    torch.manual_seed(0)
+    unet = UNetModel(UNetConfig(model_channels=32, num_res_blocks=1,
+                                num_heads=4, context_dim=16)).cuda()
+    with torch.no_grad():
+        for p in unet.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen, device="cuda")
+                    / (p[0].numel() ** 0.5 if p.ndim > 1 else 10.0))
+    x = torch.randn(2, 4, 16, 16, generator=gen, device="cuda")
+    ctx = torch.randn(2, 5, 16, generator=gen, device="cuda")
+    t = torch.tensor([10, 500], device="cuda")
+
+    def grads():
+        out = unet(x, t, ctx)
+        return torch.autograd.grad((out ** 2).sum(), list(unet.parameters()))
+
+    before = flash_attention.launches
+    kernel = grads()
+    # 3 level-0 blocks, run again in the backward (use_checkpoint)
+    assert flash_attention.launches == before + 6
+    attn = importlib.import_module("audiogpt_tpu_torch.ops.attention")
+    takes = attn.flash_takes
+    attn.flash_takes = lambda *a, **kw: False
+    try:
+        plain = grads()
+    finally:
+        attn.flash_takes = takes
+    scale = max(float(b.abs().max()) for b in plain)
+    assert all(float(b.abs().max()) > 0 for b in plain)
+    assert max(float((a - b).abs().max())
+               for a, b in zip(kernel, plain)) <= 1e-4 * scale
+
+
+def test_snake_refuses_a_call_that_needs_a_gradient(gen):
+    """The kernel has no backward: under grad with x, α or β requiring
+    grad the wrapper raises (and names why) instead of falling back."""
+    x = torch.randn(2, 4, 64, generator=gen, device="cuda")
+    a = torch.ones(4, device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        snake_aa(x, a, torch.ones(4, device="cuda"))
+    with torch.no_grad():
+        snake_aa(x, a, torch.ones(4, device="cuda"))
+
+
 #: a narrow whisper whose encoder still takes the flash kernel on the card
 #: (300 positions: 300² pairs ≥ 256²), with the full vocab's blocks
 NARROW_WHISPER = dict(n_audio_ctx=300, n_audio_state=128, n_audio_head=2,

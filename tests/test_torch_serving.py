@@ -364,23 +364,25 @@ def test_app_has_every_engine_of_the_jax_app():
 def test_served_turns_equal_direct_engine_calls(tmp_path, small_engines):
     """One /chat turn per tool through the small engines; each saved file
     holds what the engine returns when called directly (the int16 file
-    within two quantisations of it)."""
+    within two quantisations of it). The image and the clip lie under the
+    media root and are named relative to it."""
     root = tmp_path / "media"
-    image = str(tmp_path / "photo.png")
+    (root / "image").mkdir(parents=True)
+    (root / "audio").mkdir()
+    image = str(root / "image" / "photo.png")
     Image.fromarray(np.random.RandomState(41).randint(
         0, 255, (40, 56, 3)).astype(np.uint8)).save(image)
-    clip = str(tmp_path / "clip.wav")
     save_wav(0.2 * np.sin(np.arange(32 * 256) / 9.0).astype(np.float32),
-             clip, 16000)
+             str(root / "audio" / "clip.wav"), 16000)
     t2a, i2a, tts = (small_engines[k] for k in ("t2a", "i2a", "tts"))
     turns = [
         (T2A_TOOL, "a dog barks", lambda: t2a.txt2audio_best(
             "a dog barks", seed=0)[1], 16000),
-        ("Generate Audio From The Image", image,
+        ("Generate Audio From The Image", "image/photo.png",
          lambda: i2a.img2audio(image)[0], 16000),
         (TTS_TOOL, "hello there", lambda: tts("hello there"),
          tts.sample_rate),
-        ("Audio Inpainting", f"{clip}, 0.1, 0.3", None, 16000),
+        ("Audio Inpainting", "audio/clip.wav, 0.1, 0.3", None, 16000),
     ]
     script = []
     for tool, arg, _, _ in turns:
@@ -863,3 +865,99 @@ def test_decode_mask_png_matches_jax(png):
 def test_render_mel_png_matches_jax():
     mel = np.random.RandomState(43).rand(40, 16).astype(np.float32)
     assert pinpaint.render_mel_png(mel) == jinpaint.render_mel_png(mel)
+
+
+#: every tool that reads a clip, and I2A, with its input around the clip
+#: or image that an upload named (the stub engines' answers)
+UPLOADED_TURNS = [
+    ("Transcribe Speech", "{clip}"),
+    ("Generate Text From The Audio", "{clip}"),
+    ("Detect The Sound Event From The Audio", "{clip}"),
+    ("Target Sound Detection", "{clip}, a siren"),
+    ("Extract Sound Event From Mixture Audio Based On Language "
+     "Description", "{clip}, a dog"),
+    (ENHANCE, "{clip}"),
+    ("Speech Separation In Single-Channel", "{clip}"),
+    ("Sythesize Binaural Audio From A Mono Audio Input", "{clip}"),
+    ("Audio Inpainting", "{clip}, 0.1, 0.3"),
+    ("Style Transfer", "{clip}, hello"),
+    ("Generate Audio From The Image", "{image}"),
+]
+
+
+def _upload(port, name, data):
+    code, body, _ = _req(port, "/upload", data, {"X-Filename": name})
+    assert code == 200, body
+    return json.loads(body)["path"]
+
+
+def test_uploads_reach_every_tool_from_another_working_directory(
+        tmp_path, monkeypatch):
+    """``/upload`` names the file relative to the media root; with the
+    server run from another directory, each tool that reads a clip (and
+    I2A an image) still reads the upload (``utils/media.py``)."""
+    root = tmp_path / "media"
+    elsewhere = tmp_path / "elsewhere"
+    elsewhere.mkdir()
+    monkeypatch.chdir(elsewhere)
+    names = {}
+
+    class UploadLLM(ScriptedLLM):
+        """The script with the uploads' names filled in."""
+
+        def complete(self, prompt, stop=None):
+            return super().complete(prompt, stop).format(**names)
+
+    script = []
+    for tool, arg in UPLOADED_TURNS:
+        script += [_act(tool, arg), _answer("done")]
+    engines = stub_engines()
+    s = Served(UploadLLM(script), engines, root, device="cpu")
+    try:
+        buf = io.BytesIO()
+        wavfile.write(buf, 16000, (3000 * np.sin(np.arange(8000) / 5.0))
+                      .astype(np.int16))
+        clip = _upload(s.port, "clip.wav", buf.getvalue())
+        png = io.BytesIO()
+        Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(png, "PNG")
+        image = _upload(s.port, "photo.png", png.getvalue())
+        assert not os.path.isabs(clip) and not os.path.exists(clip)
+        names.update(clip=clip, image=image)
+        for tool, arg in UPLOADED_TURNS:
+            code, body, _ = _post(s.port, "/chat", {"text": tool})
+            assert code == 200, body
+            step = json.loads(body)["steps"][0]
+            assert step["tool"] == tool
+            assert step["input"] == arg.format(clip=clip, image=image)
+            assert not step["observation"].startswith("Tool error"), step
+        assert step["observation"].startswith(str(root))
+    finally:
+        s.close()
+
+
+@pytest.mark.parametrize("tool", [ENHANCE, "Generate Audio From The Image"])
+@pytest.mark.parametrize("how", ["absolute", "dotdot"])
+def test_tool_paths_outside_the_media_root_are_refused(tmp_path, tool, how):
+    """A file that exists outside the media root, named by its absolute
+    path or by ``..``, is refused: the tool's turn observes the error and
+    the engine never sees the file."""
+    root = tmp_path / "media"
+    root.mkdir()
+    outside = tmp_path / "outside.wav"
+    save_wav(np.zeros(4000, np.float32), str(outside), 16000)
+    name = {"absolute": str(outside),
+            "dotdot": os.path.relpath(outside, root)}[how]
+    seen = []
+    engines = stub_engines()
+    engines["i2a"] = lambda path: seen.append(path) or (np.zeros(8), 16000)
+    s = Served(ScriptedLLM([_act(tool, name), _answer("done")]), engines,
+               root, device="cpu")
+    try:
+        code, body, _ = _post(s.port, "/chat", {"text": "go"})
+        assert code == 200, body
+        obs = json.loads(body)["steps"][0]["observation"]
+        assert obs.startswith("Tool error") and "outside the media root" \
+            in obs, obs
+        assert not seen
+    finally:
+        s.close()

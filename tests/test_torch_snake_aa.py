@@ -182,3 +182,22 @@ def test_non_cpu_tensor_never_falls_back():
     x = torch.empty(1, 4, 16, device="meta")
     with pytest.raises(ValueError):
         snake_aa(x, torch.ones(4, device="meta"), torch.ones(4, device="meta"))
+
+
+def test_kernel_refuses_what_needs_a_gradient():
+    """The CUDA kernel has no backward: ``needs_grad`` (the refusal's
+    predicate) holds when grad mode is on and x, α or β requires grad; the
+    plain version on the CPU stays differentiable."""
+    from audiogpt_tpu_torch.ops.snake_aa import needs_grad
+
+    x, a, b = torch.randn(1, 4, 16), torch.ones(4), torch.ones(4)
+    assert not needs_grad(x, a, b)
+    for t in (x, a, b):
+        t.requires_grad_()
+        assert needs_grad(x, a, b)
+        with torch.no_grad():
+            assert not needs_grad(x, a, b)
+        t.requires_grad_(False)
+    a.requires_grad_()
+    snake_aa(x, a, b).sum().backward()
+    assert a.grad is not None and torch.isfinite(a.grad).all()
