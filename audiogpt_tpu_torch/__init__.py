@@ -28,7 +28,8 @@ enhancement and separation, binaural rendering); and the agent
 engines) served over HTTP (``serving/server.py``, ``app.py``, ``python -m
 audiogpt_tpu_torch.serve``); and training (``train/``, ``data/``,
 ``config.py``, ``python -m audiogpt_tpu_torch.train_cli``): the trainer
-substrate and the T2A latent-diffusion recipe.
+substrate, the T2A latent-diffusion recipe, and the TTS pipeline: the
+binarizer, the token-budget loader, FastSpeech2 and the HiFi-GAN GAN.
 """
 
 __version__ = "0.1.0"

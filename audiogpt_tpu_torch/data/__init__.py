@@ -1,11 +1,32 @@
-"""Data pipeline: the record store, opening a split, and the fixed-shape
-host loader (counterpart of ``audiogpt_tpu/data``, the parts the ported
-recipes use). ``audioset_labels.csv`` beside these modules is the SED
-engines' label table."""
+"""Data pipeline: the record store, batching, TTS binarization and the host
+loaders (counterpart of ``audiogpt_tpu/data``, the parts the ported recipes
+use). ``audioset_labels.csv`` beside these modules is the SED engines'
+label table."""
 
-from audiogpt_tpu_torch.data.binarizer import load_split
-from audiogpt_tpu_torch.data.loader import ArrayDataLoader, collate_mel_image
+from audiogpt_tpu_torch.data.batching import (BucketSpec, EndlessSampler,
+                                              batch_by_size, collate_1d,
+                                              collate_2d, ordered_indices)
+from audiogpt_tpu_torch.data.binarizer import (BinarizeConfig, Item,
+                                               TTSBinarizer, items_from_csv,
+                                               load_phone_encoder,
+                                               load_split, load_word_encoder,
+                                               mel2ph_from_durations)
+from audiogpt_tpu_torch.data.loader import (ArrayDataLoader, TTSDataLoader,
+                                            VocoderDataLoader,
+                                            collate_mel_image, collate_tts,
+                                            collate_vocoder, prefetch)
 from audiogpt_tpu_torch.data.records import RecordDataset, RecordWriter
+from audiogpt_tpu_torch.data.textgrid import (is_sil_phoneme,
+                                              mel2ph_from_textgrid,
+                                              parse_textgrid)
 
-__all__ = ["ArrayDataLoader", "collate_mel_image", "load_split",
-           "RecordDataset", "RecordWriter"]
+__all__ = [
+    "BucketSpec", "EndlessSampler", "batch_by_size", "collate_1d",
+    "collate_2d", "ordered_indices", "BinarizeConfig", "Item",
+    "TTSBinarizer", "items_from_csv", "load_phone_encoder", "load_split",
+    "load_word_encoder", "mel2ph_from_durations", "ArrayDataLoader",
+    "TTSDataLoader", "VocoderDataLoader", "collate_mel_image",
+    "collate_tts", "collate_vocoder", "prefetch",
+    "RecordDataset", "RecordWriter",
+    "is_sil_phoneme", "mel2ph_from_textgrid", "parse_textgrid",
+]

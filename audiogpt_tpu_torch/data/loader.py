@@ -1,20 +1,28 @@
-"""Host input pipeline of the fixed-shape recipes: records → static-shape
-numpy batches.
+"""Host input pipeline: records → static-shape numpy batches.
 
-Counterpart of ``audiogpt_tpu/data/loader.py`` for the recipes that train on
-one static shape (``ArrayDataLoader``, ``collate_mel_image``; the LDM
-recipe). Every batch has the same shape, so the step's kernels, their
-launch configurations and the allocator's blocks repeat from step to step;
-the final short batch of an epoch pads with dummy rows of weight 0, so the
-loss is unchanged. Batches stay numpy: the trainer copies each to the device
-once. The token-budget loaders of the TTS recipes come with those recipes.
+Counterpart of ``audiogpt_tpu/data/loader.py``. The reference uses torch's
+``DataLoader`` with per-batch dynamic padding (``FastSpeechDataset.collater``
+in ``NeuralSeq/tasks/tts/dataset_utils.py``). Here, as in the JAX package,
+every batch is padded to a rung of a :class:`BucketSpec` (the token-budget
+TTS loader) or to one fixed shape (``ArrayDataLoader``, the vocoder crops),
+so a run sees a handful of batch shapes and the step's kernels, launch
+configurations and allocator blocks repeat. Dummy rows carry ``weight`` 0,
+so the loss is unchanged. Batches stay numpy: the trainer copies each to
+the device once. The shuffles and crops draw from numpy's ``default_rng``
+with JAX's keys, so the batch stream equals the JAX loader's.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterator
+import queue
+import threading
+from typing import Any, Callable, Iterator, Sequence
 
 import numpy as np
+
+from audiogpt_tpu_torch.data.batching import (BucketSpec, EndlessSampler,
+                                              batch_by_size, collate_1d,
+                                              collate_2d, ordered_indices)
 
 
 def _pad_tokens(tok, n: int) -> np.ndarray:
@@ -88,3 +96,214 @@ class ArrayDataLoader:
         while True:
             yield from self.epoch(e)
             e += 1
+
+
+# ---------------------------------------------------------------------------
+# The TTS recipes' token-budget loader and the vocoder's random crops
+# ---------------------------------------------------------------------------
+
+def collate_tts(samples: list[dict[str, Any]],
+                spec: BucketSpec | None) -> dict[str, np.ndarray]:
+    """Pad a list of binarized TTS records into one static-shape batch.
+
+    Emits the reference's batch schema (``dataset_utils.py`` collater):
+    txt_tokens, txt_lengths, mels, mel_lengths, (f0, uv, pitch, mel2ph,
+    mel2word, energy, the word fields and graph, the style vectors,
+    cwt_spec when present), spk_ids, plus ``weight`` [B] marking real
+    rows. The JAX collate's SVS score fields, emotion id, linear spec and
+    sample-level wav come with the recipes that read them.
+    """
+    tok_len = max(len(s["tokens"]) for s in samples)
+    mel_len = max(s["mel"].shape[0] for s in samples)
+    bsz = len(samples)
+    if spec is not None:
+        tok_len = spec.round_len(tok_len)
+        mel_len = spec.round_len(mel_len)
+        bsz = spec.round_batch(bsz)
+
+    def pad_rows(x: np.ndarray) -> np.ndarray:
+        if x.shape[0] == bsz:
+            return x
+        if x.shape[0] > bsz:
+            raise ValueError(
+                f"batch of {x.shape[0]} exceeds the largest batch bucket "
+                f"{bsz}; raise BucketSpec.max_batch or cap max_sentences")
+        pad = np.zeros((bsz - x.shape[0],) + x.shape[1:], x.dtype)
+        return np.concatenate([x, pad], axis=0)
+
+    batch = {
+        "txt_tokens": pad_rows(collate_1d([s["tokens"] for s in samples],
+                                          max_len=tok_len)),
+        "txt_lengths": pad_rows(np.asarray([len(s["tokens"])
+                                            for s in samples], np.int32)),
+        "mels": pad_rows(collate_2d([s["mel"] for s in samples],
+                                    max_len=mel_len)),
+        "mel_lengths": pad_rows(np.asarray([s["mel"].shape[0]
+                                            for s in samples], np.int32)),
+        "spk_ids": pad_rows(np.asarray([s.get("spk_id", 0) for s in samples],
+                                       np.int32)),
+        "weight": pad_rows(np.ones(len(samples), np.float32)),
+    }
+    for key in ("f0", "uv", "pitch", "mel2ph", "mel2word", "energy"):
+        if key in samples[0]:
+            dtype = np.int32 if key in ("pitch", "mel2ph", "mel2word") \
+                else np.float32
+            batch[key] = pad_rows(collate_1d(
+                [np.asarray(s[key], dtype) for s in samples], max_len=mel_len))
+    if "word_tokens" in samples[0]:
+        # word-level fields for PortaSpeech-class models; word length gets
+        # its own (small) bucketed axis
+        word_len = max(len(s["word_tokens"]) for s in samples)
+        if spec is not None:
+            word_len = spec.round_len(word_len)
+        batch["word_tokens"] = pad_rows(collate_1d(
+            [s["word_tokens"] for s in samples], max_len=word_len))
+        batch["word_lengths"] = pad_rows(np.asarray(
+            [len(s["word_tokens"]) for s in samples], np.int32))
+        batch["ph2word"] = pad_rows(collate_1d(
+            [np.asarray(s["ph2word"], np.int32) for s in samples],
+            max_len=tok_len))
+        if "graph_adj" in samples[0]:
+            adjs = []
+            for s in samples:
+                a = np.asarray(s["graph_adj"], np.float32)
+                pad_w = word_len - a.shape[1]
+                adjs.append(np.pad(a, ((0, 0), (0, pad_w), (0, pad_w))))
+            batch["graph_adj"] = pad_rows(np.stack(adjs))
+    for key in ("spk_embed", "emo_embed"):
+        # fixed-size style vectors (with_style_embed binarization)
+        if key in samples[0]:
+            batch[key] = pad_rows(np.stack(
+                [np.asarray(s[key], np.float32) for s in samples]))
+    if "cwt_spec" in samples[0]:
+        batch["cwt_spec"] = pad_rows(collate_2d(
+            [s["cwt_spec"] for s in samples], max_len=mel_len))
+        batch["f0_mean"] = pad_rows(np.asarray(
+            [s.get("f0_mean", 0.0) for s in samples], np.float32))
+        batch["f0_std"] = pad_rows(np.asarray(
+            [s.get("f0_std", 1.0) for s in samples], np.float32))
+    return batch
+
+
+class TTSDataLoader:
+    """Token-budget batches over a RecordDataset, reshuffled every epoch.
+
+    ``sizes`` (each record's ``len``, the binarizer's ``{split}_lengths.npy``)
+    spares reading every record to learn it."""
+
+    def __init__(self, ds, max_tokens: int = 30000,
+                 max_sentences: int = 100, spec: BucketSpec | None = None,
+                 sizes: Sequence[int] | None = None,
+                 shuffle: bool = True, seed: int = 1234):
+        self.ds = ds
+        self.spec = spec
+        self.max_tokens = max_tokens
+        if spec is not None:
+            # a batch can never exceed the largest batch bucket, else the
+            # static-shape pad would be negative
+            max_sentences = min(max_sentences, spec.batch_buckets[-1])
+        self.max_sentences = max_sentences
+        self.shuffle = shuffle
+        self.seed = seed
+        if sizes is None:
+            sizes = [ds[i]["len"] for i in range(len(ds))]
+        self.sizes = np.asarray(sizes, np.int64)
+        if len(self.sizes) != len(ds):
+            raise ValueError(f"{len(self.sizes)} sizes for {len(ds)} records")
+
+    def batches_for_epoch(self, epoch: int) -> list[list[int]]:
+        idx = ordered_indices(self.sizes, shuffle=self.shuffle,
+                              seed=(self.seed, epoch) if self.shuffle
+                              else None)
+        batches = batch_by_size(
+            idx, lambda i: int(self.sizes[i]), self.max_tokens,
+            self.max_sentences)
+        if not self.shuffle:
+            return batches
+        order = np.random.default_rng((self.seed, epoch, 7)).permutation(
+            len(batches))
+        return [batches[i] for i in order]
+
+    def epoch(self, epoch: int) -> Iterator[dict[str, np.ndarray]]:
+        for b in self.batches_for_epoch(epoch):
+            yield collate_tts([self.ds[i] for i in b], self.spec)
+
+    def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
+        e = 0
+        while True:
+            yield from self.epoch(e)
+            e += 1
+
+
+def prefetch(it: Iterator[Any], depth: int = 2) -> Iterator[Any]:
+    """Run ``it`` in a daemon thread, keeping ``depth`` items ready."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    done = object()
+
+    def worker():
+        try:
+            for x in it:
+                q.put(x)
+        finally:
+            q.put(done)
+
+    threading.Thread(target=worker, daemon=True).start()
+    while True:
+        x = q.get()
+        if x is done:
+            return
+        yield x
+
+
+def collate_vocoder(samples: list[dict], segment_frames: int, hop: int,
+                    rng: np.random.Generator | None = None
+                    ) -> dict[str, np.ndarray]:
+    """Random aligned (mel window, wav segment) crops for GAN vocoder
+    training (the reference's ``VocoderDataset`` crop,
+    ``tasks/vocoder/dataset_utils.py``). Records need ``mel`` and ``wav``
+    (binarize with ``with_wav=True``). Short items pad with zeros; one
+    ``rng.integers`` draw per item longer than the crop, in order."""
+    rng = rng or np.random.default_rng()
+    mels, wavs = [], []
+    for s in samples:
+        mel = np.asarray(s["mel"], np.float32)
+        wav = np.asarray(s["wav"], np.float32)
+        frames = mel.shape[0]
+        if frames <= segment_frames:
+            pad = segment_frames - frames
+            mel = np.pad(mel, ((0, pad), (0, 0)))
+            wav = np.pad(wav, (0, segment_frames * hop - len(wav)))[
+                : segment_frames * hop]
+        else:
+            start = int(rng.integers(0, frames - segment_frames + 1))
+            mel = mel[start: start + segment_frames]
+            w0 = start * hop
+            wav = np.pad(wav, (0, max(0, w0 + segment_frames * hop
+                                      - len(wav))))[w0: w0 + segment_frames
+                                                    * hop]
+        mels.append(mel)
+        wavs.append(wav)
+    return {"mels": np.stack(mels), "wav": np.stack(wavs),
+            "weight": np.ones(len(samples), np.float32)}
+
+
+class VocoderDataLoader:
+    """Endless random-crop batches for GAN vocoder training: one fixed
+    shape, [batch_size, segment_frames, n_mels] mels and
+    [batch_size, segment_frames · hop] wavs."""
+
+    def __init__(self, ds, segment_frames: int, hop: int, batch_size: int,
+                 seed: int = 0):
+        self.ds = ds
+        self.segment_frames = segment_frames
+        self.hop = hop
+        self.batch_size = batch_size
+        self.sampler = EndlessSampler(len(ds), seed=seed)
+        self.rng = np.random.default_rng(seed)
+
+    def __iter__(self):
+        it = iter(self.sampler)
+        while True:
+            idx = [next(it) for _ in range(self.batch_size)]
+            yield collate_vocoder([self.ds[i] for i in idx],
+                                  self.segment_frames, self.hop, self.rng)

@@ -21,8 +21,10 @@ the convs run on a transposed view. Submodules carry the flax scope names
 The attention passes a dense key-padding ``mask=``, so ``ops/attention.py``
 takes its plain path and the flash kernel never runs here, as in JAX.
 
-The config leaves out the JAX field ``dropout``: this model runs
-inference only.
+The forward is also the training forward (``train/tasks/fs2.py``): given
+the ground-truth ``mel2ph``, f0 and uv it predicts no alignment or pitch.
+The config leaves out the JAX field ``dropout``, which no JAX layer reads:
+neither package drops out in training.
 """
 
 from __future__ import annotations

@@ -5,8 +5,9 @@ Counterpart of ``audiogpt_tpu/train/metrics.py``. ``AvgrageMeter``
 ``metrics.jsonl`` in the work dir gets one line per log event with the keys
 of JAX's (``step``, ``t``, ``prefix`` and the scalars); TensorBoard scalars
 go beside it when ``torch.utils.tensorboard`` imports. One process writes.
-The validation mel figure (``log_mel_figure``) comes with the first recipe
-that draws one (``fs2``).
+``log_mel_figure`` writes the validation mel figure of the TTS recipes
+(``save_valid_result``), drawn with PIL: the card's machine has no
+matplotlib.
 """
 
 from __future__ import annotations
@@ -90,6 +91,43 @@ class MetricsLogger:
         if self._tb is not None:
             for k, v in scalars.items():
                 self._tb.add_scalar(f"{prefix}/{k}", v, step)
+
+    def log_mel_figure(self, step: int, name: str, mel, gt=None) -> None:
+        """The validation mel plot (``save_valid_result`` →
+        ``utils/plot.spec_to_figure`` in the reference; JAX's
+        ``log_mel_figure``): ``work_dir/figures/{name}_{step}.png`` and,
+        when TensorBoard is on, an image. ``mel`` / ``gt``: [frames,
+        n_mels] arrays. JAX's image: the frames of the ground truth, two
+        frames of the lowest value and the prediction's, in one colour
+        scale, mel bin 0 at the bottom; drawn here with PIL (jet colours,
+        4 pixels a frame and a bin). JAX's title calls the panels top and
+        bottom; they lie side by side, and this title says so."""
+        import numpy as np
+        from PIL import Image, ImageDraw
+
+        from audiogpt_tpu_torch.engines.analysis import _jet
+
+        data = np.asarray(mel, np.float32)
+        if gt is not None:
+            gt = np.asarray(gt, np.float32)
+            gap = np.full((2, data.shape[1]), min(data.min(), gt.min()))
+            data = np.concatenate([gt, gap, data], axis=0)
+        lo, hi = float(data.min()), float(data.max())
+        rgb = _jet((data.T[::-1] - lo) / max(hi - lo, 1e-12))
+        pic = Image.fromarray(rgb).resize((4 * rgb.shape[1],
+                                           4 * rgb.shape[0]), Image.NEAREST)
+        canvas = Image.new("RGB", (pic.width, pic.height + 20), "white")
+        canvas.paste(pic, (0, 20))
+        ImageDraw.Draw(canvas).text(
+            (4, 4), f"{name} @ {step}" + (" (left: gt, right: pred)"
+                                          if gt is not None else ""),
+            fill="black")
+        fig_dir = os.path.join(self.work_dir, "figures")
+        os.makedirs(fig_dir, exist_ok=True)
+        canvas.save(os.path.join(fig_dir, f"{name}_{step}.png"))
+        if self._tb is not None:
+            self._tb.add_image(f"val/{name}", np.asarray(canvas), step,
+                               dataformats="HWC")
 
     def close(self):
         self._f.close()

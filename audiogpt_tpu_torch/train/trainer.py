@@ -271,22 +271,40 @@ class Trainer:
         metrics["total_loss"] = total
         return metrics
 
+    def _visualize(self, batch) -> None:
+        self.generator.manual_seed(0)
+        try:
+            figs = self.task.visualize(batch, self.generator)
+            for name, (pred, gt) in figs.items():
+                self.logger.log_mel_figure(
+                    self.step, name, pred.float().cpu().numpy(),
+                    None if gt is None else gt.float().cpu().numpy())
+        except Exception as e:  # plots must never kill training (JAX's rule)
+            print(f"| visualize failed: {e!r}")
+
     # -- loops ---------------------------------------------------------------
     def validate(self, val_batches: Iterable, max_batches: int | None = None
                  ) -> dict[str, float]:
         """Average metrics over ``val_batches`` on the EMA params, every
-        batch drawing from the generator seeded with 0."""
+        batch drawing from the generator seeded with 0; then a task with
+        ``visualize(batch, generator) -> {name: (pred, gt | None)}`` draws
+        its figures of the first batch (``MetricsLogger.log_mel_figure``;
+        JAX's ``trainer.py:280-295``)."""
         bank = MeterBank()
+        first = None
         with self.ema_scope(), torch.no_grad():
             for i, batch in enumerate(val_batches):
                 if max_batches is not None and i >= max_batches:
                     break
                 batch = self._to_device(batch)
+                first = batch if first is None else first
                 self.generator.manual_seed(0)
                 metrics = self._val_metrics(batch, self.generator)
                 n = int(batch["weight"].sum()) if "weight" in batch \
                     else next(iter(batch.values())).shape[0]
                 bank.update(metrics, n=max(n, 1))
+            if first is not None and hasattr(self.task, "visualize"):
+                self._visualize(first)
         avgs = bank.averages()
         if "total_loss" not in avgs and avgs:
             avgs["total_loss"] = sum(

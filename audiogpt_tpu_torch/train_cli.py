@@ -9,8 +9,11 @@ Counterpart of ``audiogpt_tpu/train_cli.py``:
 trains on the card (``--device cpu`` for a run on the CPU). The resolved
 config persists to ``<exp_name>/config.yaml`` (hparams.py:109 behaviour)
 and the work dir holds checkpoints and ``metrics.jsonl``. The port's recipes
-so far: ``ldm``. Every other task of the JAX CLI raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+so far: ``ldm``, ``fs2`` (``configs/tts/fs2.yaml``, ``fs2_cwt.yaml``) and
+``vocoder_gan`` (``configs/vocoder/hifigan.yaml``), the TTS recipes on
+records written by ``data/binarizer.py`` ``TTSBinarizer``. Every other task
+of the JAX CLI raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -24,10 +27,9 @@ from audiogpt_tpu_torch.config import Config, load_config
 
 #: the JAX CLI's other tasks → the ROADMAP.md §A item that ports them
 _NOT_PORTED = {
-    "fs2": "A1 (the fs2 recipe)",
-    "vocoder_gan": "A2", "ps_adv": "A2", "synta_adv": "A2",
-    "diffsinger": "A3", "pe": "A3", "generspeech": "A3",
-    "portaspeech": "A3", "syntaspeech": "A3", "visinger": "A3",
+    "ps_adv": "A2 (the PortaSpeech family)", "synta_adv": "A2",
+    "portaspeech": "A2", "syntaspeech": "A2",
+    "diffsinger": "A3", "pe": "A3", "generspeech": "A3", "visinger": "A3",
     "audio2motion": "A3",
     "vae": "A4", "clap": "A4",
     "sed": "A5", "caption": "A5", "separation": "A5",
@@ -72,6 +74,23 @@ def build_task(cfg: Config, device=None):
     model = dict(cfg.get("model", {}))
     loss = dict(cfg.get("loss", {}))
     optim = _optim_from(cfg)
+    if name == "fs2":
+        from audiogpt_tpu_torch.train.tasks import FS2Task, FS2TaskConfig
+
+        return FS2Task(_fill(FS2TaskConfig, {
+            "model": model, "optim": dataclasses.asdict(optim), **loss}),
+            device=device)
+    if name == "vocoder_gan":
+        # full-width discriminators: the CLI passes no ``disc`` section,
+        # as JAX's does
+        from audiogpt_tpu_torch.train.tasks import (VocoderGANTask,
+                                                    VocoderGANTaskConfig)
+
+        return VocoderGANTask(_fill(VocoderGANTaskConfig, {
+            "gen": model, "segment_frames": cfg.get("segment_frames", 32),
+            "optim_gen": dataclasses.asdict(optim),
+            "optim_disc": dataclasses.asdict(optim), **loss}),
+            device=device)
     if name == "ldm":
         # T2A latent diffusion (ddpm_audio.py:43 as pl.LightningModule)
         from audiogpt_tpu_torch.train.tasks import LDMTask, LDMTaskConfig
@@ -86,13 +105,19 @@ def build_task(cfg: Config, device=None):
 
 def build_loaders(cfg: Config, task_name: str):
     """→ (an endless iterator of training batches, a function giving one
-    pass over the validation split, or None without a ``valid`` split)."""
+    pass over the validation split, or None without a ``valid`` split).
+    ``ldm``: fixed-shape batches; ``fs2``: token-budget batches on the
+    dyadic (batch, length) ladder of ``data.max_len`` / ``max_batch`` /
+    ``min_batch``; ``vocoder_gan``: endless random crops, no validation."""
     import functools
 
-    from audiogpt_tpu_torch.data import (ArrayDataLoader, collate_mel_image,
-                                         load_split)
+    import numpy as np
 
-    if task_name != "ldm":
+    from audiogpt_tpu_torch.data import (ArrayDataLoader, BucketSpec,
+                                         TTSDataLoader, VocoderDataLoader,
+                                         collate_mel_image, load_split)
+
+    if task_name not in ("ldm", "fs2", "vocoder_gan"):
         if task_name in _NOT_PORTED:
             raise _not_ported(task_name)
         raise ValueError(f"unknown task {task_name!r}")
@@ -100,17 +125,57 @@ def build_loaders(cfg: Config, task_name: str):
     bin_dir = d.get("binary_dir", "data/bin")
     train_ds = load_split(bin_dir, "train")
     has_valid = os.path.exists(os.path.join(bin_dir, "valid.idx"))
-    # fixed-shape recipe: one static shape per run
-    collate = functools.partial(collate_mel_image, width=d.get("width", 624),
-                                text_len=d.get("text_len", 77))
-    bs = cfg.get("batch_size", 16)
-    train = ArrayDataLoader(train_ds, collate, batch_size=bs)
+
+    if task_name == "vocoder_gan":
+        rates = cfg.get("model", {}).get("upsample_rates", (8, 8, 2, 2))
+        loader = VocoderDataLoader(
+            train_ds, segment_frames=cfg.get("segment_frames", 32),
+            hop=int(np.prod(tuple(rates))),
+            batch_size=cfg.get("batch_size", 16))
+        return iter(loader), None
+
+    if task_name == "ldm":
+        # fixed-shape recipe: one static shape per run
+        collate = functools.partial(collate_mel_image,
+                                    width=d.get("width", 624),
+                                    text_len=d.get("text_len", 77))
+        bs = cfg.get("batch_size", 16)
+        train = ArrayDataLoader(train_ds, collate, batch_size=bs)
+
+        def val_fn():
+            return ArrayDataLoader(load_split(bin_dir, "valid"), collate,
+                                   batch_size=bs, shuffle=False).epoch(0)
+
+        return iter(train), (val_fn if has_valid else None)
+
+    # the token-budget bucketed TTS recipe
+    phone_set = os.path.join(bin_dir, "phone_set.json")
+    vocab = cfg.get("model", {}).get("vocab_size", 100)
+    if os.path.exists(phone_set):
+        from audiogpt_tpu_torch.data import load_phone_encoder
+
+        n = len(load_phone_encoder(bin_dir))
+        if n > vocab:
+            # an id past the embedding is a device-side assert on the card
+            raise ValueError(f"{phone_set} holds {n} ids, more than "
+                             f"model.vocab_size={vocab}")
+    spec = BucketSpec.dyadic(d.get("max_len", 2048), d.get("max_batch", 64),
+                             min_batch=d.get("min_batch", 8))
+
+    def loader(split, ds, shuffle=True):
+        # the binarizer's lengths sidecar spares reading every record
+        lengths = os.path.join(bin_dir, f"{split}_lengths.npy")
+        return TTSDataLoader(ds, max_tokens=d.get("max_tokens", 30000),
+                             max_sentences=d.get("max_sentences", 100),
+                             spec=spec, shuffle=shuffle,
+                             sizes=np.load(lengths) if os.path.exists(lengths)
+                             else None)
 
     def val_fn():
-        return ArrayDataLoader(load_split(bin_dir, "valid"), collate,
-                               batch_size=bs, shuffle=False).epoch(0)
+        return loader("valid", load_split(bin_dir, "valid"),
+                      shuffle=False).epoch(0)
 
-    return iter(train), (val_fn if has_valid else None)
+    return iter(loader("train", train_ds)), (val_fn if has_valid else None)
 
 
 def trainer_config(cfg: Config, work_dir: str, max_updates: int | None = None):

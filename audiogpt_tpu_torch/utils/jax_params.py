@@ -15,8 +15,10 @@ its name and layout: Glow's ``actnorm_logs`` and ``inv1x1_w``, HTSAT's
 the relative-window encoder's ``emb_rel_k`` / ``emb_rel_v`` and its channel
 LayerNorm's ``gamma`` / ``beta``, the GGNN's ``etype_kernel`` ``[E, H, H]``
 (the port's modules hold ``nn.Parameter``s of those names and shapes). A
-2-D kernel of any window, HTSAT's ``(c_freq_bin, 3)`` ``tscam_conv`` among
-them, goes HWIO → OIHW. The GGNN's GRU cell is four denses, not an
+2-D kernel of any window, HTSAT's ``(c_freq_bin, 3)`` ``tscam_conv`` and
+the period discriminators' ``(5, 1)`` among them, goes HWIO → OIHW; a
+grouped 1-D kernel ``[k, in/g, out]`` (the scale discriminators') takes
+the same transpose as any 1-D one, to ``[out, in/g, k]``. The GGNN's GRU cell is four denses, not an
 ``nn.GRU``, and loads as denses. Loading is strict: a missed or extra
 parameter raises.
 """

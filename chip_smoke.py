@@ -226,6 +226,35 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 49. train_resume: a tiny config with a valid split (sanity and periodic
    validation on the card) stops after a checkpoint; a second ``fit`` on
    the same work dir continues at the saved step, with the saved params.
+50. binarize_tts: a seeded LJSpeech-like corpus (256 items of 1.5–10 s
+   at 22 050 Hz, ARPAbet phones with durations summing to each item's
+   frames, voiced phones on a moving f0) through the port's
+   ``TTSBinarizer`` with ``with_wav`` and ``with_f0`` (mel and f0 on the
+   card), and 64 of its items with ``with_f0cwt``: items/s, the mel's and
+   the f0's device time over the corpus, the f0 against the pitch each
+   item was made with and against a 220 Hz sine, the phone set's ids
+   against FS2's ``vocab_size``.
+51. train_fs2: ``configs/tts/fs2.yaml`` at its full widths on those
+   records through ``train_cli.build_task`` / ``build_loaders`` (30 000
+   tokens, 100 sentences, the 128–2048 × 8–64 ladder) and
+   ``Trainer.fit``, 60 steps and a validation at the last: the median
+   step time over steps whose batch shape was seen before (the first of
+   each shape counts its FLOPs), the count of shapes, valid mel
+   frames/s, MFU at the f32 FMA peak, peak memory, neither kernel, the
+   loss falling, no non-finite step, the validation figure's PNG; then,
+   on the run's largest batch, what a step allocates at its peak (a warm
+   step and one under ``FlopCounterMode``, the allocator's sites live at
+   the peak), the tensors a forward saves for the backward, and each
+   ``Conv1d`` alone at its input with what it asks beyond its tensors.
+52. train_fs2_cwt: ``configs/tts/fs2_cwt.yaml`` on the CWT split, 10
+   steps: the ``cwt``, ``uv``, ``f0_mean`` and ``f0_std`` terms finite.
+53. train_vocoder_gan: ``configs/vocoder/hifigan.yaml`` at full width
+   (HiFi-GAN V1; MPD + MSD), batch 16 × 32 frames, 40 steps of ``disc``
+   then ``gen``: each group's step time, peak memory, ``d_loss``,
+   ``g_mel`` falling, both groups' parameters moved, neither kernel.
+54. train_tts_small_reference: the CPU tests' tiny FS2 and vocoder-GAN
+   tasks on the card and on the CPU: each group's losses within 1e-5
+   relative, gradients within 1e-4 of each tensor's largest.
 
 The ``unet_bf16`` engine of phase 6 also inpaints (``inpaint_unet_bf16``):
 its f32 UNet gives the f32 engine's wav with the same draws.
@@ -4895,6 +4924,624 @@ def phase_train_resume(tmp: str) -> None:
           "sanity": [line for line in lines if line["prefix"] == "sanity"]})
 
 
+#: the TTS training phases. The LJSpeech-like fixture: items, their length
+#: range in seconds (LJSpeech's clips run 1–10 s), frames a phone (≈ 11
+#: phones a second at hop 256), the share of unvoiced phones, and the items
+#: of the CWT split. Steps of each run; the rsqrt warmup of the fs2 runs:
+#: 60 steps of fs2.yaml's 8000-step warmup stay under 1.1e-5, so the run
+#: uses 400 (9.4e-4 at step 60; the yaml's peak is 1.4e-3); the loss
+#: windows compared; the card-vs-CPU bounds of the small reference (f32,
+#: TF32 off): the losses relative, the gradients against each tensor's
+#: largest
+TTS_ITEMS, TTS_SECONDS, TTS_FRAMES_PER_PHONE = 256, (1.5, 10.0), 8
+TTS_UNVOICED, TTS_CWT_ITEMS = 0.2, 64
+FS2_STEPS, FS2_CWT_STEPS, GAN_STEPS, FS2_WARMUP = 60, 10, 40, 400
+TTS_LOSS_RTOL, TTS_GRAD_TOL = 1e-5, 1e-4
+#: the tiny tasks of the CPU tests (tests/test_torch_fs2_train.py MODEL,
+#: tests/test_torch_vocoder_gan.py GEN and DISC)
+TINY_FS2 = dict(vocab_size=30, hidden_size=16, enc_layers=1, dec_layers=1,
+                num_heads=2, enc_ffn_kernel_size=3, dec_ffn_kernel_size=3,
+                dur_predictor_layers=1, predictor_layers=2,
+                predictor_hidden=8, max_frames=64)
+TINY_GEN = dict(in_channels=20, upsample_rates=(4, 4),
+                upsample_kernel_sizes=(8, 8), upsample_initial_channel=16,
+                resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1, 3),))
+TINY_DISC = dict(periods=(2, 3), scales=2, period_channels=(4, 8),
+                 scale_channels=(8, 16, 16), scale_groups=(1, 1, 1))
+
+
+def tts_corpus(n: int, seed: int, sr: int = 22050, hop: int = 256):
+    """``n`` seeded LJSpeech-like items (``data/binarizer.py`` ``Item``):
+    1.5–10 s at 22 050 Hz, phones drawn from the ARPAbet set with durations
+    (≥ 1 frame, ≈ 8 a phone) that sum to the item's frames; each phone
+    voiced (two harmonics of a moving f0, 90–260 Hz base, plus noise) or,
+    one in five, unvoiced noise. → (items, the per-frame f0 each item was
+    made with, 0 where unvoiced)."""
+    import numpy as np
+
+    from audiogpt_tpu_torch.data import Item
+    from audiogpt_tpu_torch.text import default_arpabet_vocab
+
+    vocab = default_arpabet_vocab()
+    rng = np.random.default_rng(seed)
+    items, tracks = [], []
+    for i in range(n):
+        samples = int(rng.uniform(*TTS_SECONDS) * sr)
+        frames = 1 + samples // hop
+        n_ph = max(2, frames // TTS_FRAMES_PER_PHONE)
+        cuts = np.sort(rng.choice(np.arange(1, frames), n_ph - 1,
+                                  replace=False))
+        dur = np.diff(np.concatenate([[0], cuts, [frames]]))
+        voiced = np.repeat(rng.random(n_ph) >= TTS_UNVOICED, dur)
+        t = np.arange(frames) * hop / sr
+        f0 = rng.uniform(90, 260) * (1 + 0.1 * np.sin(
+            2 * np.pi * rng.uniform(0.3, 1.2) * t + rng.uniform(0, 6.3)))
+        f0_s = np.repeat(f0, hop)[:samples]
+        v_s = np.repeat(voiced, hop)[:samples]
+        ph = 2 * np.pi * np.cumsum(f0_s) / sr
+        wav = np.where(v_s, 0.3 * np.sin(ph) + 0.1 * np.sin(2 * ph),
+                       0.0) + rng.normal(0, 0.01, samples) \
+            + np.where(v_s, 0.0, rng.normal(0, 0.05, samples))
+        phones = [vocab[j] for j in rng.integers(0, len(vocab), n_ph)]
+        items.append(Item(name=f"LJ{i:04d}", wav=wav.astype(np.float32),
+                          phones=phones, durations=dur.tolist()))
+        tracks.append(np.where(voiced, f0, 0.0))
+    return items, tracks
+
+
+def phase_binarize_tts(tmp: str) -> dict:
+    """The port's ``TTSBinarizer`` (mel and f0 on the card) on the fixture
+    corpus with ``with_wav`` and ``with_f0`` (the fs2 and vocoder split),
+    and on its first ``TTS_CWT_ITEMS`` items with ``with_f0cwt`` too (the
+    split ``fs2_cwt.yaml`` reads): items/s, the device time of the mel and
+    the f0 over the corpus, the f0 against the pitch each item was made
+    with and against a 220 Hz sine, the phone set against ``vocab_size``."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.data import (BinarizeConfig, TTSBinarizer,
+                                         load_phone_encoder, load_split)
+    from audiogpt_tpu_torch.dsp.f0 import estimate_f0
+    from audiogpt_tpu_torch.dsp.mel import log_mel
+    from audiogpt_tpu_torch.models.tts import FastSpeech2Config
+
+    t0 = time.perf_counter()
+    items, tracks = tts_corpus(TTS_ITEMS, 31)
+    corpus_s = time.perf_counter() - t0
+    root = Path(tmp) / "tts_bin"
+    binz = TTSBinarizer(BinarizeConfig(with_wav=True, with_f0=True))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counts = binz.binarize(items, str(root / "lj"))
+    bin_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cwt_counts = TTSBinarizer(BinarizeConfig(
+        with_f0=True, with_f0cwt=True)).binarize(items[:TTS_CWT_ITEMS],
+                                                 str(root / "lj_cwt"))
+    cwt_s = time.perf_counter() - t0
+    # the device time of the two DSP steps over the corpus, item by item
+    # as the binarizer runs them
+    spec = binz.cfg.mel
+    wavs = [torch.from_numpy(it.wav).cuda() for it in items]
+    for fn in (lambda x: log_mel(x, spec),
+               lambda x: estimate_f0(x, spec.sr, spec.hop)):
+        fn(wavs[0])
+    dsp_ms = {}
+    for name, fn in (("mel", lambda x: log_mel(x, spec)),
+                     ("f0", lambda x: estimate_f0(x, spec.sr, spec.hop))):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        for x in wavs:
+            fn(x)
+        end.record()
+        end.synchronize()
+        dsp_ms[name] = start.elapsed_time(end)
+    del wavs
+    # f0 against the pitch each frame was made with: voiced frames whose
+    # phone is voiced on both neighbours (no onset), in cents
+    train = load_split(str(root / "lj"), "train")
+    n_valid = counts["valid"]
+    cents, uv_agree, frames = [], 0, 0
+    for j in range(len(train)):
+        rec, track = train[j], tracks[n_valid + j]
+        est = rec["f0"]
+        inner = (track > 0) & np.roll(track > 0, 1) & np.roll(track > 0, -1)
+        both = inner & (est > 0)
+        cents.append(1200 * np.abs(np.log2(est[both] / track[both])))
+        uv_agree += int(((est > 0) == (track > 0)).sum())
+        frames += len(track)
+    cents = np.concatenate(cents)
+    sr = spec.sr
+    sine = torch.sin(2 * math.pi * 220.0 * torch.arange(2 * sr) / sr
+                     ).cuda() * 0.5
+    hz, voiced = estimate_f0(sine, sr, spec.hop)
+    sine_err = float((hz[4:-4][voiced[4:-4] > 0] - 220.0).abs().max())
+    phones = len(load_phone_encoder(str(root / "lj")))
+    vocab = FastSpeech2Config().vocab_size
+    res = {"phase": "binarize_tts", "items": len(items),
+           "audio_s": sum(len(it.wav) for it in items) / sr,
+           "fixture_s": corpus_s, "splits": counts,
+           "binarize_s": bin_s, "items_per_s": len(items) / bin_s,
+           "cwt_split": cwt_counts, "cwt_binarize_s": cwt_s,
+           "device_ms_mel": dsp_ms["mel"], "device_ms_f0": dsp_ms["f0"],
+           "f0_cents_median": float(np.median(cents)),
+           "f0_cents_p95": float(np.percentile(cents, 95)),
+           "uv_agreement": uv_agree / frames,
+           "sine_220_max_abs_err_hz": sine_err,
+           "phone_ids": phones, "vocab_size": vocab,
+           "mel_frames": int(np.load(root / "lj" / "train_lengths.npy").sum())}
+    emit(res)
+    rec = train[0]
+    if phones > vocab or sine_err > 2.0 or res["f0_cents_median"] > 20 \
+            or res["uv_agreement"] < 0.9 or counts["train"] + \
+            counts["valid"] != TTS_ITEMS or rec["mel"].shape != (
+                rec["len"], 80) or "wav" not in rec \
+            or rec["mel2ph"].max() != len(rec["tokens"]):
+        raise AssertionError(f"binarize_tts: {res}")
+    return {"lj": str(root / "lj"), "lj_cwt": str(root / "lj_cwt")}
+
+
+def tts_trainer(config: str, bin_dir: str, work: str, extra: str = "",
+                **over):
+    """``configs/<config>`` through the port's ``load_config`` on
+    ``bin_dir``, ``train_cli.build_task`` and a ``Trainer`` with the CLI's
+    config, ``over`` replacing fields of it; → (cfg, task, trainer)."""
+    import dataclasses
+
+    from audiogpt_tpu_torch import train_cli
+    from audiogpt_tpu_torch.config import load_config
+    from audiogpt_tpu_torch.train import Trainer
+
+    cfg = load_config(str(ROOT / "configs" / config),
+                      overrides=f"data.binary_dir={bin_dir}"
+                      + ("," + extra if extra else ""))
+    task = train_cli.build_task(cfg)
+    tcfg = dataclasses.replace(train_cli.trainer_config(cfg, work),
+                               use_tensorboard=False, **over)
+    return cfg, task, Trainer(task, tcfg)
+
+
+def tapped(it, seen: list):
+    """``it``'s batches, each one's shapes and real mel frames appended to
+    ``seen`` as it is drawn."""
+    for b in it:
+        real = b["weight"] > 0
+        seen.append(((tuple(b["mels"].shape), tuple(b["txt_tokens"].shape)),
+                     int(b["mel_lengths"][real].sum())))
+        yield b
+
+
+def train_lines(work: Path) -> list:
+    return [line for line in (json.loads(x) for x in
+                              open(work / "metrics.jsonl"))
+            if line["prefix"] == "tr"]
+
+
+def peak_sites(events: list, base: int, top: int = 8) -> dict:
+    """Replay an allocator trace (``torch.cuda.memory._snapshot()``'s
+    ``device_traces``) from ``base`` allocated bytes: the peak, and the
+    blocks live at it grouped by the innermost frame of the package (or of
+    this script) that allocated them, in GB, with the largest blocks."""
+    def walk(stop=None):
+        live, total, best, at = {}, base, base, 0
+        for i, ev in enumerate(events):
+            if i == stop:
+                break
+            if ev["action"] == "alloc":
+                live[ev["addr"]] = ev
+                total += ev["size"]
+            elif ev["action"].startswith("free") and ev["addr"] in live:
+                total -= live.pop(ev["addr"])["size"]
+            if total > best:
+                best, at = total, i + 1
+        return live, best, at
+
+    def site(ev):
+        for f in ev.get("frames", []):
+            name = f["filename"].replace("\\", "/")
+            for root in ("audiogpt_tpu_torch/", "chip_smoke.py"):
+                if root in name:
+                    return (name[name.index(root):]
+                            + f":{f['line']} {f['name']}")
+        return "(no frame of the port)"
+
+    _, best, at = walk()
+    live, _, _ = walk(at)
+    by: Counter = Counter()
+    for ev in live.values():
+        by[site(ev)] += ev["size"]
+    blocks = sorted(live.values(), key=lambda ev: -ev["size"])[:5]
+    return {"peak_gb": (best - base) / 1e9,
+            "sites_gb": {k: v / 1e9 for k, v in by.most_common(top)},
+            "largest_blocks": [[ev["size"] / 1e9, site(ev)]
+                               for ev in blocks]}
+
+
+def fs2_memory_split(trainer, batch) -> dict:
+    """What one FS2 training step allocates at its peak, on ``batch`` (the
+    run's largest shape), after the fit: the trainer's held state (model,
+    Adam moments), then a warm ``train_step`` and one under
+    ``FlopCounterMode`` (as the first step of a shape runs), each under the
+    allocator's history with the sites live at its peak; and one forward
+    that keeps its graph, with what the backward would keep: the saved
+    tensors (each storage once, parameters left out) and the part of them
+    that is [.., T, T] attention maps."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    batch = trainer._to_device(batch)
+    T = batch["mels"].shape[1]
+    params = {p.untyped_storage().data_ptr()
+              for p in trainer.task.model.parameters()}
+    torch.cuda.synchronize()
+    out = {"shape": list(batch["mels"].shape),
+           "held_gb": torch.cuda.memory_allocated() / 1e9}
+    for name, mode in (("warm", None), ("flop_counter", FlopCounterMode)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.memory._record_memory_history(
+            enabled="all", stacks="python", max_entries=1_000_000)
+        if mode is None:
+            trainer.train_step("model", batch, 0)
+        else:
+            with mode(display=False):
+                trainer.train_step("model", batch, 0)
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+        torch.cuda.memory._record_memory_history(enabled=None)
+        out[name] = {"step_peak_gb": (torch.cuda.max_memory_allocated()
+                                      - base) / 1e9,
+                     **peak_sites(snap["device_traces"][
+                         torch.cuda.current_device()], base)}
+    saved: dict = {}
+
+    def pack(t):
+        key = t.untyped_storage().data_ptr()
+        if t.is_cuda and key not in params and key not in saved:
+            saved[key] = (t.untyped_storage().nbytes(),
+                          t.dim() >= 2 and t.shape[-1] == t.shape[-2] == T)
+        return t
+
+    base = torch.cuda.memory_allocated()
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss, _ = trainer.task.loss_fns["model"](batch, trainer.generator)
+    torch.cuda.synchronize()
+    out["forward_kept_gb"] = (torch.cuda.memory_allocated() - base) / 1e9
+    out["saved_gb"] = sum(n for n, _ in saved.values()) / 1e9
+    out["saved_TxT_gb"] = sum(n for n, tt in saved.values() if tt) / 1e9
+    del loss, _
+    out["conv_alone"] = conv_peaks(trainer, batch)
+    return out
+
+
+def conv_peaks(trainer, batch) -> list:
+    """Each distinct ``Conv1d`` of the FS2 model at the input it gets from
+    ``batch``, alone: the peak of its forward and its backward (input and
+    weight gradients) above what was allocated, against the bytes of its
+    input, output and their gradients; the rest is what the convolution
+    itself asks for (cuDNN's workspace). GB, largest first."""
+    import torch
+
+    seen: dict = {}
+
+    def hook(mod, args, _out):
+        x = args[0]
+        key = (mod.in_channels, mod.out_channels, mod.kernel_size[0],
+               tuple(x.shape))
+        seen.setdefault(key, mod)
+
+    convs = [m for m in trainer.task.model.modules()
+             if isinstance(m, torch.nn.Conv1d)]
+    hooks = [m.register_forward_hook(hook) for m in convs]
+    with torch.no_grad():
+        trainer.task.loss_fns["model"](batch, trainer.generator)
+    for h in hooks:
+        h.remove()
+    rows = []
+    for (cin, cout, k, shape), mod in seen.items():
+        # [B, C, T] as a transpose of [B, T, C], as conv_time feeds it
+        x = torch.randn(shape[0], shape[2], shape[1], device="cuda"
+                        ).transpose(1, 2).requires_grad_()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y = mod(x)
+        gx, gw = torch.autograd.grad(y, (x, mod.weight), torch.ones_like(y))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        io = 2 * (x.numel() + y.numel()) * 4 + gw.numel() * 4
+        rows.append({"conv": f"{cin}->{cout} k{k}", "input": list(shape),
+                     "peak_gb": peak / 1e9, "io_gb": io / 1e9,
+                     "rest_gb": (peak - io) / 1e9})
+        del x, y, gx, gw
+    return sorted(rows, key=lambda r: -r["peak_gb"])
+
+
+def phase_train_fs2(bins: dict, tmp: str) -> dict:
+    """``configs/tts/fs2.yaml`` at full width (hidden 256, 4 + 4 FFT
+    layers, 2 heads, FFN kernel 9, frame pitch with uv, 2048 frames) on the
+    binarized corpus, through the CLI's builders at the yaml's budget
+    (30 000 tokens, 100 sentences, the 128–2048 × 8–64 ladder) and
+    ``Trainer.fit`` for ``FS2_STEPS`` steps with the valid split checked at
+    the last step (its mel figure written)."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch import train_cli
+
+    work = Path(tmp) / "train_fs2"
+    cfg, task, trainer = tts_trainer(
+        "tts/fs2.yaml", bins["lj"], str(work),
+        f"optim.warmup_steps={FS2_WARMUP}", log_interval=1,
+        num_sanity_val_steps=0, val_check_interval=FS2_STEPS)
+    m = task.cfg.model
+    if (m.hidden_size, m.enc_layers, m.dec_layers, m.num_heads,
+            m.enc_ffn_kernel_size, m.pitch_type, m.use_uv, m.max_frames) != \
+            (256, 4, 4, 2, 9, "frame", True, 2048):
+        raise AssertionError(f"train_fs2: model {m}")
+    train_it, val_fn = train_cli.build_loaders(cfg, "fs2")
+    seen: list = []
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, fit_s, counts = counted(lambda: trainer.fit(
+        tapped(train_it, seen), val_fn, max_updates=FS2_STEPS))
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    tr = train_lines(work)
+    loss = [line["total_loss"] for line in tr]
+    first = statistics.fmean(loss[:TRAIN_WINDOW])
+    last = statistics.fmean(loss[-TRAIN_WINDOW:])
+    shapes = [key for key, _ in seen[:FS2_STEPS]]
+    repeat = [i for i in range(FS2_STEPS) if shapes[i] in shapes[:i]]
+    step_s = [1.0 / tr[i]["steps_per_sec"] for i in repeat]
+    png = work / "figures" / f"mel_0_{FS2_STEPS}.png"
+    val = [line for line in (json.loads(x) for x in
+                             open(work / "metrics.jsonl"))
+           if line["prefix"] == "val"]
+    res = {"phase": "train_fs2", "steps": FS2_STEPS,
+           "params": sum(p.numel() for p in task.model.parameters()),
+           "fit_s": fit_s, "warmup_steps": FS2_WARMUP,
+           "batch_shapes": len(set(shapes)),
+           "shapes": sorted({str(list(s)) for s in shapes}),
+           "repeat_steps": len(repeat),
+           "step_ms": 1e3 * statistics.median(step_s),
+           "step_ms_min": 1e3 * min(step_s),
+           "valid_frames_per_s": statistics.median(
+               seen[i][1] / s for i, s in zip(repeat, step_s)),
+           "peak_mem_gb": peak,
+           "k1_launches_per_step": counts["flash_attention"] / FS2_STEPS,
+           "k2_launches_per_step": counts["snake_aa"] / FS2_STEPS,
+           "loss_first_window": first, "loss_last_window": last,
+           "loss_first": loss[0], "loss_last": loss[-1],
+           "nonfinite": sum(line["nonfinite"] for line in tr),
+           "mfu": statistics.median(tr[i].get("mfu", math.nan)
+                                    for i in repeat),
+           "mfu_peak_tflops": F32_FLOPS / 1e12,
+           "step_gflop_median": statistics.median(
+               trainer._flops[k] for k in trainer._flops) / 1e9,
+           "val_total_loss": val[-1]["total_loss"] if val else None,
+           "figure_bytes": png.stat().st_size if png.exists() else 0}
+    big = max(shapes, key=lambda key: math.prod(key[0]))
+    batch = next(b for b in train_cli.build_loaders(cfg, "fs2")[0]
+                 if (tuple(b["mels"].shape), tuple(b["txt_tokens"].shape))
+                 == big)
+    res["memory"] = fs2_memory_split(trainer, batch)
+    emit(res)
+    check_no_kernels(counts, "train_fs2")
+    if len(tr) != FS2_STEPS or not np.isfinite(loss).all() \
+            or res["nonfinite"] or not last < first or not repeat \
+            or not res["figure_bytes"] or not val \
+            or trainer.step != FS2_STEPS:
+        raise AssertionError(f"train_fs2: {res}")
+    return {"launches": counts}
+
+
+def phase_train_fs2_cwt(bins: dict, tmp: str) -> dict:
+    """``configs/tts/fs2_cwt.yaml`` (FS2 with ``pitch_type: cwt``) on the
+    CWT split for ``FS2_CWT_STEPS`` steps: the ``cwt``, ``uv``,
+    ``f0_mean`` and ``f0_std`` terms present and finite at every step."""
+    import numpy as np
+
+    from audiogpt_tpu_torch import train_cli
+
+    work = Path(tmp) / "train_fs2_cwt"
+    cfg, task, trainer = tts_trainer(
+        "tts/fs2_cwt.yaml", bins["lj_cwt"], str(work),
+        f"optim.warmup_steps={FS2_WARMUP}", log_interval=1,
+        num_sanity_val_steps=0, val_check_interval=10 ** 9)
+    if task.cfg.model.pitch_type != "cwt":
+        raise AssertionError(f"train_fs2_cwt: model {task.cfg.model}")
+    train_it, _ = train_cli.build_loaders(cfg, "fs2")
+    _, fit_s, counts = counted(lambda: trainer.fit(
+        train_it, max_updates=FS2_CWT_STEPS))
+    tr = train_lines(work)
+    terms = ("cwt", "uv", "f0_mean", "f0_std")
+    res = {"phase": "train_fs2_cwt", "steps": len(tr), "fit_s": fit_s,
+           **{f"{k}_first": tr[0].get(k) for k in terms},
+           **{f"{k}_last": tr[-1].get(k) for k in terms},
+           "total_loss_first": tr[0]["total_loss"],
+           "total_loss_last": tr[-1]["total_loss"],
+           "nonfinite": sum(line["nonfinite"] for line in tr),
+           "k1_launches": counts["flash_attention"],
+           "k2_launches": counts["snake_aa"]}
+    emit(res)
+    check_no_kernels(counts, "train_fs2_cwt")
+    if len(tr) != FS2_CWT_STEPS or res["nonfinite"] or not all(
+            k in line and np.isfinite(line[k]) for line in tr
+            for k in terms):
+        raise AssertionError(f"train_fs2_cwt: {res}")
+    return {"launches": counts}
+
+
+def phase_train_vocoder_gan(bins: dict, tmp: str) -> dict:
+    """``configs/vocoder/hifigan.yaml`` at full width (HiFi-GAN V1: 512
+    channels, rates 8, 8, 2, 2; MPD periods 2, 3, 5, 7, 11 at 32–1024
+    channels; MSD 3 scales with groups 1, 4, 16, 16, 16, 16, 1; batch 16 ×
+    32 frames) on the binarized corpus through the CLI's builders and
+    ``Trainer.fit`` for ``GAN_STEPS`` steps (each ``disc`` then ``gen``);
+    then each group's step alone, timed on one batch."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch import train_cli
+
+    work = Path(tmp) / "train_vocoder_gan"
+    cfg, task, trainer = tts_trainer(
+        "vocoder/hifigan.yaml", bins["lj"], str(work), log_interval=1,
+        num_sanity_val_steps=0, val_check_interval=10 ** 9)
+    g, d = task.cfg.gen, task.cfg.disc
+    if (g.upsample_initial_channel, tuple(g.upsample_rates),
+            tuple(d.periods), d.scales, tuple(d.scale_groups),
+            cfg["batch_size"], task.cfg.segment_frames) != \
+            (512, (8, 8, 2, 2), (2, 3, 5, 7, 11), 3,
+             (1, 4, 16, 16, 16, 16, 1), 16, 32):
+        raise AssertionError(f"train_vocoder_gan: config {task.cfg}")
+    before = {grp: [p.detach().clone() for p in trainer.params[grp]]
+              for grp in trainer.groups}
+    train_it, val_fn = train_cli.build_loaders(cfg, "vocoder_gan")
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, fit_s, counts = counted(lambda: trainer.fit(train_it,
+                                                   max_updates=GAN_STEPS))
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    moved = {grp: max(float((p.detach() - q).abs().max()) for p, q in
+                      zip(trainer.params[grp], before[grp]))
+             for grp in trainer.groups}
+    tr = train_lines(work)
+    g_mel = [line["g_mel"] for line in tr]
+    step_s = [1.0 / line["steps_per_sec"] for line in tr[1:]]
+    batch = trainer._to_device(next(train_it))
+    group_ms = {}
+    for grp in trainer.groups:
+        times = []
+        for i in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(grp, batch, i)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        group_ms[grp] = 1e3 * statistics.median(times[1:])
+    flops = {key[0]: v for key, v in trainer._flops.items()}
+    res = {"phase": "train_vocoder_gan", "steps": GAN_STEPS,
+           "gen_params": sum(p.numel() for p in trainer.params["gen"]),
+           "disc_params": sum(p.numel() for p in trainer.params["disc"]),
+           "fit_s": fit_s, "step_ms": 1e3 * statistics.median(step_s),
+           "disc_step_ms": group_ms["disc"], "gen_step_ms": group_ms["gen"],
+           "samples_per_s": cfg["batch_size"] * task.cfg.segment_frames
+           * g.hop_size / statistics.median(step_s),
+           "peak_mem_gb": peak,
+           "d_loss_first": tr[0]["d_loss"], "d_loss_last": tr[-1]["d_loss"],
+           "g_mel_first_window": statistics.fmean(g_mel[:TRAIN_WINDOW]),
+           "g_mel_last_window": statistics.fmean(g_mel[-TRAIN_WINDOW:]),
+           "g_adv_last": tr[-1]["g_adv"], "g_fm_last": tr[-1]["g_fm"],
+           "params_moved": moved,
+           "nonfinite": sum(line["nonfinite"] for line in tr),
+           "disc_step_gflop": flops["disc"] / 1e9,
+           "gen_step_gflop": flops["gen"] / 1e9,
+           "mfu": statistics.median(line.get("mfu", math.nan)
+                                    for line in tr[1:]),
+           "k1_launches": counts["flash_attention"],
+           "k2_launches": counts["snake_aa"]}
+    emit(res)
+    check_no_kernels(counts, "train_vocoder_gan")
+    if len(tr) != GAN_STEPS or val_fn is not None or res["nonfinite"] \
+            or not np.isfinite(g_mel).all() or not all(moved.values()) \
+            or not res["g_mel_last_window"] < res["g_mel_first_window"]:
+        raise AssertionError(f"train_vocoder_gan: {res}")
+    return {"launches": counts}
+
+
+def tiny_fs2_batch(seed: int) -> dict:
+    """A padded FS2 batch of 4 (a dummy row of weight 0, unvoiced frames,
+    the CWT fields), the CPU tests' shapes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    b, t, f = 4, 12, 64
+    tok = rng.integers(3, 30, (b, t)).astype(np.int32)
+    tok[1, 9:] = 0
+    lens = (tok > 0).sum(1)
+    mlen = np.array([60, 40, 64, 20])
+    mel2ph = np.zeros((b, f), np.int32)
+    for i in range(b):
+        mel2ph[i, :mlen[i]] = np.minimum(
+            np.arange(mlen[i]) * lens[i] // mlen[i] + 1, lens[i])
+    valid = mel2ph > 0
+    return {"txt_tokens": tok, "txt_lengths": lens.astype(np.int32),
+            "mels": (rng.normal(size=(b, f, 80)) * valid[..., None])
+            .astype(np.float32), "mel_lengths": mlen.astype(np.int32),
+            "mel2ph": mel2ph, "weight": np.array([1, 1, 1, 0], np.float32),
+            "f0": (rng.uniform(100, 300, (b, f)) * valid
+                   * (rng.random((b, f)) > 0.2)).astype(np.float32)}
+
+
+def phase_train_tts_small_reference() -> None:
+    """The CPU tests' tiny FS2 task and vocoder-GAN task (both groups) on
+    the card and on the CPU with the same weights and batch, in one
+    process (TF32 off): one step's losses within ``TTS_LOSS_RTOL``
+    relative, every gradient within ``TTS_GRAD_TOL`` of its tensor's
+    largest."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.models.tts import FastSpeech2Config
+    from audiogpt_tpu_torch.models.vocoder import (DiscriminatorConfig,
+                                                   HifiGANConfig)
+    from audiogpt_tpu_torch.train.tasks import (FS2Task, FS2TaskConfig,
+                                                VocoderGANTask,
+                                                VocoderGANTaskConfig)
+
+    rng = np.random.default_rng(2)
+    builds = {
+        "fs2": (lambda dev: FS2Task(FS2TaskConfig(
+            model=FastSpeech2Config(**TINY_FS2)), device=dev),
+            tiny_fs2_batch(1)),
+        "vocoder_gan": (lambda dev: VocoderGANTask(VocoderGANTaskConfig(
+            gen=HifiGANConfig(**TINY_GEN),
+            disc=DiscriminatorConfig(**TINY_DISC), segment_frames=16,
+            lambda_stft=1.0), device=dev),
+            {"mels": rng.normal(size=(4, 16, 20)).astype(np.float32),
+             "wav": (rng.normal(size=(4, 256)) * 0.1).astype(np.float32),
+             "weight": np.ones(4, np.float32)})}
+    report, worst = {}, {}
+    for name, (build, batch) in builds.items():
+        cpu, card = build("cpu"), build("cuda")
+        for grp, mod in cpu.modules.items():
+            fill_random(mod, torch.Generator().manual_seed(7))
+            card.modules[grp].load_state_dict(mod.state_dict())
+        for grp in cpu.loss_fns:
+            out = {}
+            for dev, task in (("cpu", cpu), ("cuda", card)):
+                b = {k: torch.from_numpy(v).to(task.device)
+                     for k, v in batch.items()}
+                (loss, metrics), _, counts = counted(
+                    lambda: task.loss_fns[grp](b, None))
+                params = list(task.modules[grp].parameters())
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+                out[dev] = ({k: float(v) for k, v in metrics.items()},
+                            [torch.zeros_like(p) if g is None else g.cpu()
+                             for g, p in zip(grads, params)], counts)
+            (m_cpu, g_cpu, _), (m_card, g_card, c_card) = out["cpu"], \
+                out["cuda"]
+            check_no_kernels(c_card, f"train_tts_small_reference {name}")
+            loss_err = max(abs(m_card[k] - v) / max(abs(v), 1e-30)
+                           for k, v in m_cpu.items())
+            grad_err = max(float((a.cpu() - b).abs().max())
+                           / max(float(b.abs().max()), 1e-30)
+                           for a, b in zip(g_card, g_cpu))
+            key = f"{name}_{grp}"
+            report[key] = {"loss_max_rel_err": loss_err,
+                           "grad_max_rel_err": grad_err,
+                           "terms": sorted(m_cpu)}
+            worst[key] = (loss_err, grad_err)
+    emit({"phase": "train_tts_small_reference", "bounds": {
+        "loss_rtol": TTS_LOSS_RTOL, "grad_tol": TTS_GRAD_TOL}, **report})
+    bad = {k: v for k, v in worst.items()
+           if not (v[0] <= TTS_LOSS_RTOL and v[1] <= TTS_GRAD_TOL)}
+    if bad:
+        raise AssertionError(f"card vs CPU TTS training: {bad}")
+
+
 def path_record(k: dict, path: str, shapes: Counter, launches: int) -> dict:
     """A kernel's share of one path: its launches, which the counters read
     and the configs must give (``shapes``), and per-call times, each the
@@ -5014,6 +5661,11 @@ def main() -> int:
         train_bf16 = phase_train_ldm(tmp, bf16=True)
         phase_train_grad_check(train, gen)
         phase_train_resume(tmp)
+        bins = phase_binarize_tts(tmp)
+        quiet.update(train_fs2=phase_train_fs2(bins, tmp),
+                     train_fs2_cwt=phase_train_fs2_cwt(bins, tmp),
+                     train_vocoder_gan=phase_train_vocoder_gan(bins, tmp))
+        phase_train_tts_small_reference()
 
     eng = main_path["engine"]
     t2a, inp = t2a_path(eng), inpaint_path(eng)
@@ -5030,8 +5682,8 @@ def main() -> int:
         return c[name] - c[f"{name}_bf16"]
 
     def none_launched(k, name):
-        """The singing, style-transfer, GeneFace and PortaSpeech paths,
-        which launch neither kernel."""
+        """The singing, style-transfer, GeneFace and PortaSpeech paths and
+        the TTS training runs, which launch neither kernel."""
         return [path_record(k, key, Counter(), f32(quiet[key]["launches"],
                                                    name))
                 for key in quiet]

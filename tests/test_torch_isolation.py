@@ -92,7 +92,10 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "utils.media", "config", "data.records", "data.loader",
                  "data.binarizer", "train.optim", "train.checkpoint",
                  "train.metrics", "train.trainer", "train.tasks.ldm",
-                 "train_cli"):
+                 "train_cli", "data.batching", "data.textgrid",
+                 "data.wav_processors", "train.losses", "train.ssim",
+                 "train.stft_loss", "train.tasks.fs2",
+                 "train.tasks.vocoder_gan", "models.vocoder.discriminators"):
         assert f"audiogpt_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
     # the BPE word splitters use the standard library's re: the card's
@@ -141,11 +144,24 @@ def test_entry_points_need_cuda_without_device(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+    from audiogpt_tpu_torch.data import TTSBinarizer
+    from audiogpt_tpu_torch.data.wav_processors import apply_processors
     from audiogpt_tpu_torch.train import Trainer
-    from audiogpt_tpu_torch.train.tasks import LDMTask, LDMTaskConfig
+    from audiogpt_tpu_torch.train.tasks import (FS2Task, FS2TaskConfig,
+                                                LDMTask, LDMTaskConfig,
+                                                VocoderGANTask,
+                                                VocoderGANTaskConfig)
 
     with pytest.raises(RuntimeError, match="CUDA"):
         LDMTask(LDMTaskConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FS2Task(FS2TaskConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VocoderGANTask(VocoderGANTaskConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TTSBinarizer()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        apply_processors(["resample"], np.zeros(441, np.float32), 44100)
     toy = types.SimpleNamespace(modules={}, loss_fns={}, optim_cfgs={})
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(toy)
