@@ -6,8 +6,10 @@ label table."""
 from audiogpt_tpu_torch.data.batching import (BucketSpec, EndlessSampler,
                                               batch_by_size, collate_1d,
                                               collate_2d, ordered_indices)
-from audiogpt_tpu_torch.data.binarizer import (BinarizeConfig, Item,
+from audiogpt_tpu_torch.data.binarizer import (BinarizeConfig,
+                                               EmotionBinarizer, Item,
                                                TTSBinarizer, items_from_csv,
+                                               load_emo_map,
                                                load_phone_encoder,
                                                load_split, load_word_encoder,
                                                mel2ph_from_durations)
@@ -22,8 +24,9 @@ from audiogpt_tpu_torch.data.textgrid import (is_sil_phoneme,
 
 __all__ = [
     "BucketSpec", "EndlessSampler", "batch_by_size", "collate_1d",
-    "collate_2d", "ordered_indices", "BinarizeConfig", "Item",
-    "TTSBinarizer", "items_from_csv", "load_phone_encoder", "load_split",
+    "collate_2d", "ordered_indices", "BinarizeConfig", "EmotionBinarizer",
+    "Item", "TTSBinarizer", "items_from_csv", "load_emo_map",
+    "load_phone_encoder", "load_split",
     "load_word_encoder", "mel2ph_from_durations", "ArrayDataLoader",
     "TTSDataLoader", "VocoderDataLoader", "collate_mel_image",
     "collate_tts", "collate_vocoder", "prefetch",

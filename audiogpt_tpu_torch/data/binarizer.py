@@ -12,8 +12,9 @@ through the port's DSP frontend (``dsp/mel.py``, ``dsp/f0.py``), as the JAX
 package runs them on its device; the CWT targets, the energy and the word
 fields are computed on the host in numpy, as there. Alignments are an
 optional input: ``durations`` per item, or an MFA TextGrid
-(``data/textgrid.py``). The SVS, emotion and Mandarin binarizers of the JAX
-module are not ported yet.
+(``data/textgrid.py``). ``EmotionBinarizer`` (the GenerSpeech data
+path) adds ``emo_map.json`` and each record's ``emo_id``. The SVS and
+Mandarin binarizers of the JAX module are not ported yet.
 """
 
 from __future__ import annotations
@@ -308,6 +309,43 @@ def load_word_encoder(out_dir: str) -> TokenTextEncoder:
     """Word vocab written by ``with_words``/``with_graph`` binarization
     (reference: ``word_set.json``, tasks/tts/ps.py:21)."""
     return TokenTextEncoder.from_file(os.path.join(out_dir, "word_set.json"))
+
+
+class EmotionBinarizer(TTSBinarizer):
+    """Emotion-tagged binarization, the GenerSpeech data path
+    (``audiogpt_tpu/data/binarizer.py:358-396``; the reference's
+    ``EmotionBinarizer``, ``data_gen/tts/base_binarizer_emotion.py:28``):
+    a sorted ``emo_map.json`` maps each item's ``emotion`` (default
+    "Neutral") to an id, stored as the record's ``emo_id`` beside the
+    speaker id. The reference's two external embedding nets are the
+    global style encoder here: ``with_style_embed`` (on by default) stores
+    ``spk_embed`` / ``emo_embed``."""
+
+    def __init__(self, cfg: BinarizeConfig | None = None, **kw):
+        super().__init__(cfg or BinarizeConfig(with_style_embed=True), **kw)
+        self._emo_map: dict[str, int] = {}
+
+    def build_emo_map(self, items: Iterable[Item]) -> dict[str, int]:
+        emos = sorted({it.emotion for it in items})
+        return {e: i for i, e in enumerate(emos)}
+
+    def process_item(self, it, enc, spk_map):
+        rec = super().process_item(it, enc, spk_map)
+        if rec is not None:
+            rec["emo_id"] = int(self._emo_map.get(it.emotion, 0))
+        return rec
+
+    def binarize(self, items: Sequence[Item], out_dir: str) -> dict[str, int]:
+        os.makedirs(out_dir, exist_ok=True)
+        self._emo_map = self.build_emo_map(items)
+        with open(os.path.join(out_dir, "emo_map.json"), "w") as f:
+            json.dump(self._emo_map, f)
+        return super().binarize(items, out_dir)
+
+
+def load_emo_map(out_dir: str) -> dict[str, int]:
+    with open(os.path.join(out_dir, "emo_map.json")) as f:
+        return json.load(f)
 
 
 def items_from_csv(csv_path: str, wav_loader=None, sr: int = 22050,

@@ -108,10 +108,10 @@ def collate_tts(samples: list[dict[str, Any]],
 
     Emits the reference's batch schema (``dataset_utils.py`` collater):
     txt_tokens, txt_lengths, mels, mel_lengths, (f0, uv, pitch, mel2ph,
-    mel2word, energy, the word fields and graph, the style vectors,
-    cwt_spec when present), spk_ids, plus ``weight`` [B] marking real
-    rows. The JAX collate's SVS score fields, emotion id, linear spec and
-    sample-level wav come with the recipes that read them.
+    mel2word, energy, the word fields and graph, the emotion id, the
+    style vectors, cwt_spec when present), spk_ids, plus ``weight`` [B]
+    marking real rows. The JAX collate's SVS score fields, linear spec and
+    sample-level wav come with the SVS recipes that read them.
     """
     tok_len = max(len(s["tokens"]) for s in samples)
     mel_len = max(s["mel"].shape[0] for s in samples)
@@ -170,6 +170,11 @@ def collate_tts(samples: list[dict[str, Any]],
                 pad_w = word_len - a.shape[1]
                 adjs.append(np.pad(a, ((0, 0), (0, pad_w), (0, pad_w))))
             batch["graph_adj"] = pad_rows(np.stack(adjs))
+    if "emo_id" in samples[0]:
+        # categorical emotion label (EmotionBinarizer, the reference's
+        # base_binarizer_emotion.py emo_map)
+        batch["emo_ids"] = pad_rows(np.asarray(
+            [s["emo_id"] for s in samples], np.int32))
     for key in ("spk_embed", "emo_embed"):
         # fixed-size style vectors (with_style_embed binarization)
         if key in samples[0]:

@@ -47,6 +47,7 @@ from audiogpt_tpu_torch.models.tts import (
     PortaSpeech,
     PortaSpeechConfig,
 )
+from audiogpt_tpu_torch.models.tts.portaspeech import inference_tree
 from audiogpt_tpu_torch.text import (
     EnglishFrontend,
     TokenTextEncoder,
@@ -330,8 +331,9 @@ class PortaSpeechTTSEngine:
                  token_buckets=TOKEN_BUCKETS, word_buckets=WORD_BUCKETS,
                  noise_scale: float = 0.8, rng_seed: int = 0,
                  device: str | torch.device | None = None):
-        """``params``: the JAX engine's PortaSpeech tree as numpy arrays;
-        ``None`` keeps a seeded random init. ``vocoder`` defaults to
+        """``params``: the JAX engine's PortaSpeech tree as numpy arrays
+        (a training tree's posterior encoder is dropped); ``None`` keeps a
+        seeded random init. ``vocoder`` defaults to
         ``VocoderEngine("hifigan")`` on the same device. Words outside
         ``word_vocab`` are ``<UNK>``. ``device=None`` is the card, and
         raises without one."""
@@ -348,7 +350,8 @@ class PortaSpeechTTSEngine:
         if self.cfg.ph_vocab_size < vocab_size:
             self.cfg = dataclasses.replace(self.cfg, ph_vocab_size=vocab_size)
         self.model = on_device(seeded(rng_seed, lambda: PortaSpeech(
-            self.cfg)), self.device, params)
+            self.cfg)), self.device,
+            None if params is None else inference_tree(params))
         self.noise_scale = noise_scale
         self.vocoder = vocoder or VocoderEngine("hifigan", device=self.device)
         if self.vocoder.device != self.device:

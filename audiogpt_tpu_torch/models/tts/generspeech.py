@@ -1,7 +1,8 @@
-"""GenerSpeech: style-transfer TTS for an out-of-domain reference voice.
+"""GenerSpeech: style-transfer TTS for an out-of-domain reference voice,
+at inference and in training.
 
-Counterpart of ``audiogpt_tpu/models/tts/generspeech.py:50-520`` at
-inference (the reference's ``GenerSpeech``,
+Counterpart of ``audiogpt_tpu/models/tts/generspeech.py:50-520`` (the
+reference's ``GenerSpeech``,
 ``NeuralSeq/modules/GenerSpeech/model/generspeech.py:15``): a FastSpeech2
 body whose duration, pitch and decoder inputs carry a global style (the
 JAX package's GST-style reference encoder in place of the reference's
@@ -12,11 +13,14 @@ conditioned on [mel, decoder input] (``run_post_glow``,
 generspeech.py:233).
 
 At inference ``MixStyle`` is the identity (``x + cond``) and the VQ reads
-its codebook only: the EMA update, the commitment and guided-attention
-losses and the training branches wait for the training slice, with the
-JAX config's ``vq_ema=False`` (a codebook parameter for its jitted
-trainer). The codebook sits in the ``vq_stats`` collection of the JAX
-tree, here the buffers ``embedding``, ``ema_weight`` and ``ema_count``.
+its codebook only. With ``train=True`` the forward mixes the feature
+statistics (``MixStyle``, its draws replayable), returns the VQ
+commitment (with ``vq_ema=False`` the codebook loss too), the aligners'
+guided-attention loss and the post-flow's NLL of the target mel. With
+``vq_ema`` (the JAX default) the codebook sits in the ``vq_stats``
+collection of the JAX tree, here the buffers ``embedding``,
+``ema_weight`` and ``ema_count``, and the EMA update is not ported (the
+training recipe builds ``vq_ema=False``: the codebook is a parameter).
 Every attention passes a dense key-padding mask, so it takes the plain
 path, as in JAX. The flax ``LayerNorm`` defaults to ε = 1e-6 and
 ``jax.nn.gelu`` to the tanh form; both are kept.
@@ -51,26 +55,31 @@ from audiogpt_tpu_torch.ops.attention import attention
 
 
 class VQEmbeddingEMA(nn.Module):
-    """Nearest-code vector quantizer (``prosody_util.py:16``) at inference.
-    The codebook and its EMA statistics are buffers (the JAX ``vq_stats``
-    collection)."""
+    """Nearest-code vector quantizer (``prosody_util.py:16``). With ``ema``
+    the codebook and its EMA statistics are buffers (the JAX ``vq_stats``
+    collection); without, the codebook is a parameter that the codebook
+    loss trains (JAX ``vq_ema=False``)."""
 
-    def __init__(self, n_codes: int = 64, dim: int = 256):
+    def __init__(self, n_codes: int = 64, dim: int = 256, ema: bool = True):
         super().__init__()
-        self.dim = dim
+        self.dim, self.ema = dim, ema
         init = torch.randn(n_codes, dim) * 0.1
-        self.register_buffer("embedding", init)
-        self.register_buffer("ema_weight", init.clone())
-        self.register_buffer("ema_count", torch.ones(n_codes))
+        if ema:
+            self.register_buffer("embedding", init)
+            self.register_buffer("ema_weight", init.clone())
+            self.register_buffer("ema_count", torch.ones(n_codes))
+        else:
+            self.embedding = nn.Parameter(init)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B, T, D] → the nearest code of each row [B, T, D], in the
-        straight-through form ``x + (code − x)`` as JAX computes it."""
+    def forward(self, x: torch.Tensor):
+        """x [B, T, D] → (the straight-through code ``x + sg(code − x)``,
+        whose gradient reaches x and not the codebook; the code itself)."""
         e = self.embedding
         flat = x.reshape(-1, self.dim)
         d = ((flat ** 2).sum(1, keepdim=True) - 2 * flat @ e.T
              + (e ** 2).sum(1)[None])
-        return x + (e[d.argmin(-1)].reshape(x.shape) - x)
+        quant = e[d.argmin(-1)].reshape(x.shape)
+        return x + (quant - x).detach(), quant
 
 
 class ConvStack(nn.Module):
@@ -109,20 +118,38 @@ class ConvStack(nn.Module):
 
 class LocalStyleAdaptor(nn.Module):
     """Reference mel → VQ-coded local style [B, T_ref, hidden]
-    (``prosody_util.py:172``)."""
+    (``prosody_util.py:172``); :meth:`losses` adds its loss: the
+    commitment ``mean((h − sg(code))²)``, plus without EMA the codebook
+    loss ``mean((sg(h) − code)²)`` (VQ-VAE eq. 3)."""
 
-    def __init__(self, in_dim: int, hidden: int, n_codes: int = 64):
+    def __init__(self, in_dim: int, hidden: int, n_codes: int = 64,
+                 ema: bool = True):
         super().__init__()
         self.encoder = ConvStack(in_dim, hidden)
-        self.vq = VQEmbeddingEMA(n_codes, hidden)
+        self.vq = VQEmbeddingEMA(n_codes, hidden, ema)
 
-    def forward(self, ref_mel, ref_nonpad=None):
-        return self.vq(self.encoder(ref_mel, ref_nonpad))
+    def forward(self, ref_mel, ref_nonpad=None) -> torch.Tensor:
+        return self.vq(self.encoder(ref_mel, ref_nonpad))[0]
+
+    def losses(self, ref_mel, ref_nonpad=None):
+        """The training branch → (the coded style, its VQ loss)."""
+        h = self.encoder(ref_mel, ref_nonpad)
+        quant_st, quant = self.vq(h)
+        commit = ((h - quant.detach()) ** 2).mean()
+        if not self.vq.ema:
+            commit = commit + ((h.detach() - quant) ** 2).mean()
+        return quant_st, commit
 
 
 class ProsodyAligner(nn.Module):
     """Text ← style cross-attention (``prosody_util.py:129``): 2 post-LN
-    layers of 2 heads over the style's valid frames."""
+    layers of 2 heads over the style's valid frames. In training
+    (:meth:`forward_guided`, given the text's mask) each layer also
+    scores its head-averaged attention against a near-diagonal prior
+    (``_make_guided_attention_mask``, σ = 0.3): the guided-attention
+    loss, summed over the layers."""
+
+    GUIDED_SIGMA = 0.3
 
     def __init__(self, hidden: int, num_layers: int = 2, heads: int = 2):
         super().__init__()
@@ -135,25 +162,106 @@ class ProsodyAligner(nn.Module):
             self.add_module(f"ff2_{li}", nn.Linear(4 * hidden, hidden))
             self.add_module(f"ln2_{li}", nn.LayerNorm(hidden, eps=1e-6))
 
+    def guided_weight(self, text_nonpad, style_nonpad) -> torch.Tensor:
+        """1 − exp(−(t/T − s/S)² / 2σ²) [B, T_text, T_style]: small on the
+        diagonal of each pair's valid lengths."""
+        tl = text_nonpad.sum(-1, keepdim=True).clamp_min(1.0)[..., None]
+        sl = style_nonpad.sum(-1, keepdim=True).clamp_min(1.0)[..., None]
+        ti = torch.arange(text_nonpad.shape[1],
+                          device=tl.device)[None, :, None]
+        si = torch.arange(style_nonpad.shape[1],
+                          device=tl.device)[None, None, :]
+        return 1.0 - torch.exp(-(ti / tl - si / sl) ** 2
+                               / (2 * self.GUIDED_SIGMA ** 2))
+
     def forward(self, text_h: torch.Tensor, style_h: torch.Tensor,
                 style_nonpad: torch.Tensor) -> torch.Tensor:
+        """→ the aligned style [B, T_text, H]."""
+        return self._layers(text_h, style_h, style_nonpad)[0]
+
+    def forward_guided(self, text_h, style_h, style_nonpad, text_nonpad):
+        """The training branch → (the aligned style, the guided-attention
+        loss)."""
+        return self._layers(text_h, style_h, style_nonpad, text_nonpad)
+
+    def _layers(self, text_h, style_h, style_nonpad, text_nonpad=None):
         x = text_h
         mask = style_nonpad[:, None, None, :] > 0
+        heads = self.heads
 
         def split(t):
-            return t.reshape(t.shape[0], t.shape[1], self.heads, -1)
+            return t.reshape(t.shape[0], t.shape[1], heads, -1)
 
+        guided = None
+        if text_nonpad is not None:
+            guided = 0.0
+            w = self.guided_weight(text_nonpad, style_nonpad)
+            pair = text_nonpad[:, :, None] * style_nonpad[:, None, :]
         for li in range(self.num_layers):
             layer = lambda n: getattr(self, f"{n}{li}")  # noqa: E731
-            out = attention(split(layer("q")(x)), split(layer("k")(style_h)),
-                            split(layer("v")(style_h)), mask=mask)
+            q, k = split(layer("q")(x)), split(layer("k")(style_h))
+            out = attention(q, k, split(layer("v")(style_h)), mask=mask)
+            if guided is not None:
+                # the head-averaged logits of this layer's q and k
+                logits = torch.einsum("bthd,bshd->bhts", q, k).mean(1) \
+                    / math.sqrt(q.shape[-1])
+                probs = torch.softmax(logits.masked_fill(
+                    style_nonpad[:, None, :] <= 0, -1e30), -1)
+                guided = guided + (probs * w * pair).sum() \
+                    / pair.sum().clamp_min(1.0)
             x = layer("ln1_")(x + layer("o")(out.reshape(x.shape)))
             h = torch.relu(layer("ff1_")(x))
             x = layer("ln2_")(x + layer("ff2_")(h))
-        return x
+        return x, guided
 
 
-def _same_pad_2d(x: torch.Tensor, k: int = 3, s: int = 2) -> torch.Tensor:
+class MixStyle(nn.Module):
+    """Feature-statistics mixing (``mixstyle.py``): in training, each
+    item's mean and std over time are mixed with those of a permuted item
+    of the batch, by λ ~ Beta(α, α) per item (α = 0.1), for the whole
+    batch or for none (one Bernoulli(0.5) draw); the identity on
+    ``x + cond`` otherwise.
+    The std is the population one, as ``jnp.var``'s.
+
+    ``draws`` come from an explicit generator (:meth:`draws`) or are
+    replayed. ``torch.distributions.Beta`` and ``torch._standard_gamma``
+    take no generator, so λ is drawn by Jöhnk's method in the log domain:
+    from uniforms u, v, log X = log(u)/α and log Y = log(v)/α; the pair is
+    accepted when X + Y ≤ 1, and then λ = X / (X + Y) is Beta(α, α)
+    distributed. Each λ takes the first accepted of ``TRIES`` pairs (at
+    α = 0.1 a pair is accepted with probability 0.986, so all 8 fail with
+    probability ≈ 1e-15; then the first pair is taken)."""
+
+    P, ALPHA, EPS, TRIES = 0.5, 0.1, 1e-6, 8
+
+    def draws(self, batch: int, generator: torch.Generator,
+              device: torch.device) -> dict:
+        """{"perm": [B] long, "lam": [B, 1, 1], "apply": bool scalar}."""
+        perm = torch.randperm(batch, generator=generator, device=device)
+        u, v = (torch.rand((self.TRIES, batch), generator=generator,
+                           device=device, dtype=torch.float64)
+                for _ in "uv")
+        lx, ly = torch.log(u) / self.ALPHA, torch.log(v) / self.ALPHA
+        first = (torch.logaddexp(lx, ly) <= 0).to(torch.uint8).argmax(0)
+        lam = torch.sigmoid(lx - ly).gather(0, first[None])[0]
+        apply = torch.rand((), generator=generator, device=device) < self.P
+        return {"perm": perm, "lam": lam.float()[:, None, None],
+                "apply": apply}
+
+    def forward(self, x: torch.Tensor, cond: torch.Tensor,
+                draws: dict | None = None) -> torch.Tensor:
+        x = x + cond
+        if draws is None:
+            return x
+        mu = x.mean(1, keepdim=True)
+        sig = torch.sqrt(x.var(1, keepdim=True, correction=0) + self.EPS)
+        perm, lam = draws["perm"], draws["lam"]
+        mixed = (x - mu) / sig * (lam * sig + (1 - lam) * sig[perm]) \
+            + (lam * mu + (1 - lam) * mu[perm])
+        return torch.where(draws["apply"], mixed, x)
+
+
+def same_pad_2d(x: torch.Tensor, k: int = 3, s: int = 2) -> torch.Tensor:
     """lax's SAME padding of a strided conv on x [B, C, H, W]: the total
     ``max((ceil(n/s) − 1)·s + k − n, 0)`` per axis, the extra one after
     (an even axis pads (0, 1), not torch's symmetric (1, 1))."""
@@ -186,7 +294,7 @@ class GlobalStyleEncoder(nn.Module):
     def forward(self, ref_mel: torch.Tensor):
         x = ref_mel[:, None]                                 # [B, 1, T, M]
         for i in range(len(self.CHANNELS)):
-            x = getattr(self, f"conv{i}")(_same_pad_2d(x))
+            x = getattr(self, f"conv{i}")(same_pad_2d(x))
             x = torch.relu(getattr(self, f"ln{i}")(x.permute(0, 2, 3, 1))
                            ).permute(0, 3, 1, 2)
         b, c, t, m = x.shape
@@ -354,6 +462,7 @@ class GenerSpeechConfig:
     glow_steps: int = 4
     glow_wn_layers: int = 3
     use_post_flow: bool = True
+    vq_ema: bool = True             # False → codebook-loss VQ (training)
 
 
 LEVELS = ("utter", "ph", "word")
@@ -378,9 +487,10 @@ class GenerSpeech(nn.Module):
         self.global_style = GlobalStyleEncoder(fs.n_mels, cfg.emb_dim)
         self.spk_embed_proj = nn.Linear(cfg.emb_dim, d)
         self.emo_embed_proj = nn.Linear(cfg.emb_dim, d)
+        self.mixstyle = MixStyle()
         for level in LEVELS:
             self.add_module(f"style_{level}", LocalStyleAdaptor(
-                fs.n_mels, d, cfg.n_vq))
+                fs.n_mels, d, cfg.n_vq, cfg.vq_ema))
             self.add_module(f"align_{level}", ProsodyAligner(d))
         self.pitch_embed = nn.Embedding(300, d)
         self.pitch_inpainter = ConvPredictor(d, d, 3, fs.predictor_kernel, 2,
@@ -389,11 +499,15 @@ class GenerSpeech(nn.Module):
             self.post_flow = Glow(fs.n_mels, fs.n_mels + d, cfg.glow_hidden,
                                   cfg.glow_steps, cfg.glow_wn_layers)
 
-    def style(self, ref_mel: torch.Tensor, ref_nonpad: torch.Tensor):
+    def style(self, ref_mel: torch.Tensor, ref_nonpad: torch.Tensor,
+              train: bool = False):
         """The reference's global style (spk, emo [B, 1, H]) and its three
-        VQ-coded local style sequences."""
+        VQ-coded local style sequences, each with its VQ loss in
+        training (None at inference)."""
         spk_e, emo_e = self.global_style(ref_mel)
-        local = [getattr(self, f"style_{level}")(ref_mel, ref_nonpad)
+        local = [getattr(self, f"style_{level}").losses(ref_mel, ref_nonpad)
+                 if train else
+                 (getattr(self, f"style_{level}")(ref_mel, ref_nonpad), None)
                  for level in LEVELS]
         return (self.spk_embed_proj(spk_e)[:, None],
                 self.emo_embed_proj(emo_e)[:, None], local)
@@ -402,13 +516,20 @@ class GenerSpeech(nn.Module):
                 ref_nonpad: torch.Tensor | None = None,
                 mel2ph: torch.Tensor | None = None,
                 f0: torch.Tensor | None = None, uv: torch.Tensor | None = None,
-                draws: torch.Generator | torch.Tensor | None = None,
-                infer_postflow: bool = True) -> dict:
+                draws: torch.Generator | torch.Tensor | dict | None = None,
+                infer_postflow: bool = True, train: bool = False) -> dict:
         """tokens [B, T], reference mel [B, T_ref, M] (all-zero frames are
         padding) → dict of mel_out [B, F, M], mel2ph, dur, pitch_pred,
         f0_denorm, decoder_inp, and with the post-flow off ``postflow_nll``.
         ``draws``: the post-flow's z [B, F/2, 2M] or a generator (default:
-        one seeded with 0)."""
+        one seeded with 0).
+
+        ``train=True`` is the training branch (JAX ``train=True``): the
+        reference is the target mel [B, F, M] with ``mel2ph`` [B, F];
+        ``MixStyle`` mixes with ``draws`` (:meth:`MixStyle.draws`' dict,
+        or a generator to draw it from; default: one seeded with 0), and
+        the dict adds ``vq_commit``, ``guided_attn`` and ``postflow_nll``
+        (the post-flow forward on the target mel)."""
         cfg = self.cfg.fs2
         ret = {}
         src_nonpad = (tokens > 0).float()
@@ -416,7 +537,7 @@ class GenerSpeech(nn.Module):
             ref_nonpad = (ref_mel.abs().sum(-1) > 0).float()
         x = self.embed_tokens(tokens) * math.sqrt(cfg.hidden_size)
         encoder_out = self.encoder(x + self.enc_pos(src_nonpad), src_nonpad)
-        spk, emo, local = self.style(ref_mel, ref_nonpad)
+        spk, emo, local = self.style(ref_mel, ref_nonpad, train)
 
         dur_inp = (encoder_out + spk + emo) * src_nonpad[..., None]
         dur_log = self.dur_predictor(dur_inp, src_nonpad)[..., 0]
@@ -429,12 +550,27 @@ class GenerSpeech(nn.Module):
         tgt_nonpad = (mel2ph > 0).float()
         m = tgt_nonpad[..., None]
 
-        # MixStyle at inference: the identity on x + cond
-        decoder_inp = FastSpeech2.expand_states(encoder_out, mel2ph) \
-            + (spk + emo)
-        prosody = sum(getattr(self, f"align_{level}")(decoder_inp, quant,
-                                                      ref_nonpad)
-                      for level, quant in zip(LEVELS, local))
+        mix = None
+        if train:
+            if draws is None:
+                draws = torch.Generator(tokens.device).manual_seed(0)
+            mix = draws if isinstance(draws, dict) else \
+                self.mixstyle.draws(tokens.shape[0], draws, tokens.device)
+        decoder_inp = self.mixstyle(
+            FastSpeech2.expand_states(encoder_out, mel2ph), spk + emo, mix)
+        prosody, guided = 0.0, 0.0
+        for level, (quant, _) in zip(LEVELS, local):
+            align = getattr(self, f"align_{level}")
+            if train:
+                aligned, g = align.forward_guided(decoder_inp, quant,
+                                                  ref_nonpad, tgt_nonpad)
+                guided = guided + g
+            else:
+                aligned = align(decoder_inp, quant, ref_nonpad)
+            prosody = prosody + aligned
+        if train:
+            ret["vq_commit"] = sum(c for _, c in local)
+            ret["guided_attn"] = guided
 
         pitch_inp = (decoder_inp + spk + emo + prosody) * m
         pitch_pred = self.pitch_inpainter(pitch_inp, nonpad=tgt_nonpad,
@@ -453,7 +589,10 @@ class GenerSpeech(nn.Module):
 
         if self.cfg.use_post_flow:
             cond = torch.cat([mel, decoder_inp], -1)
-            if infer_postflow:
+            if train:
+                _, ret["postflow_nll"] = self.post_flow(
+                    ref_mel[:, :mel.shape[1]], cond, tgt_nonpad)
+            elif infer_postflow:
                 if draws is None:
                     draws = torch.Generator(tokens.device).manual_seed(0)
                 ret["mel_out"] = self.post_flow.reverse(cond, tgt_nonpad,

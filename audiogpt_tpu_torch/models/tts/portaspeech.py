@@ -1,5 +1,5 @@
-"""PortaSpeech / SyntaSpeech at inference: word-level VAE TTS with a
-flow-enhanced prior.
+"""PortaSpeech / SyntaSpeech: word-level VAE TTS with a flow-enhanced
+prior, at inference and in training.
 
 Counterpart of ``audiogpt_tpu/models/tts/portaspeech.py:55-539`` (the JAX
 package's rebuild of the reference's missing ``modules.portaspeech``; the
@@ -13,12 +13,21 @@ grid (every 4th frame) through the reverse of the conditional coupling
 flow (with ``use_graph`` its condition gains a GGNN over the frames'
 words) → the FVAE decoder → mel [B, max_frames, 80].
 
+Training (:meth:`PortaSpeech.train_forward`) takes the ground-truth
+``mel2word`` and mel instead: the posterior encoder (``FVAEEncoder``)
+gives (m, logs) on the latent grid, z = m + exp(logs)·ε, the prior flow
+takes z forward to the prior's space and the KL is taken there (the
+couplings are volume-preserving: no log-determinant). flax binds the
+posterior only when the training branch runs, so the inference tree has
+no ``fvae_enc``: the model owns one only when built with
+``posterior=True``, and :func:`inference_tree` drops it from a training
+tree for the engine.
+
 Word grouping and in-word positions are one-hot products, the GGNN a
-dense per-edge-type adjacency product, as in JAX. Only the inference path
-is here: flax binds the posterior encoder (``fvae_enc``) only when the
-training branch runs, so the inference tree has none, and the training
-slice adds it with the KL. The flax defaults are kept: LayerNorm ε = 1e-6,
-and the exact GELU of ``ResConvStack`` and ``CondCoupling``.
+dense per-edge-type adjacency product, as in JAX. The flax defaults are
+kept: LayerNorm ε = 1e-6, the exact GELU of ``ResConvStack`` and
+``CondCoupling``, and the SAME padding of the posterior's strided conv
+(kernel 2s, stride s: 2 frames before and 2 after for s = 4).
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ from audiogpt_tpu_torch.models.tts.fastspeech2 import (
     conv_time,
     length_regulator,
 )
-from audiogpt_tpu_torch.ops.conv import FlaxConvTranspose1d
+from audiogpt_tpu_torch.ops.conv import FlaxConvTranspose1d, pad_same
 from audiogpt_tpu_torch.ops.rel_attention import RelTransformerEncoder
 
 
@@ -203,7 +212,7 @@ class GraphAuxEnc(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# FVAE decoder and prior flow
+# FVAE and prior flow
 # ---------------------------------------------------------------------------
 
 
@@ -233,6 +242,30 @@ class ResConvStack(nn.Module):
             if mask is not None:
                 x = x * mask
         return x
+
+
+class FVAEEncoder(nn.Module):
+    """The posterior: mel [B, F, n_mels] → (m, logs) [B, F/s, latent] by
+    a strided SAME conv (kernel 2s, stride s), the conditioned conv stack
+    and a zero-initialised projection (the posterior starts at N(0, I))."""
+
+    def __init__(self, cfg: PortaSpeechConfig):
+        super().__init__()
+        s, h = cfg.fvae_strides, cfg.fvae_hidden
+        self.stride = s
+        self.down = nn.Conv1d(cfg.n_mels, h, 2 * s, stride=s)
+        self.stack = ResConvStack(h, cfg.fvae_enc_layers, cfg.fvae_kernel,
+                                  cond_dim=cfg.hidden_size)
+        self.proj = nn.Linear(h, 2 * cfg.latent_size)
+        nn.init.zeros_(self.proj.weight)
+        nn.init.zeros_(self.proj.bias)
+
+    def forward(self, mels, cond_lat, lat_mask):
+        s = self.stride
+        h = self.down(pad_same(mels.transpose(1, 2), 2 * s, s))
+        h = self.stack(h.transpose(1, 2) * lat_mask, cond_lat, lat_mask)
+        m, logs = (self.proj(h) * lat_mask).chunk(2, -1)
+        return m, logs
 
 
 class FVAEDecoder(nn.Module):
@@ -344,8 +377,20 @@ class WordDurationPredictor(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def inference_tree(tree: dict) -> dict:
+    """A JAX PortaSpeech variable tree without the posterior encoder: a
+    training tree drives the inference model (which owns no
+    ``fvae_enc``)."""
+    params = tree.get("params", tree)
+    params = {k: v for k, v in params.items() if k != "fvae_enc"}
+    return {**tree, "params": params} if "params" in tree else params
+
+
 class PortaSpeech(nn.Module):
-    def __init__(self, cfg: PortaSpeechConfig):
+    """``posterior=True`` builds the posterior encoder (``fvae_enc``) for
+    :meth:`train_forward`; inference needs none."""
+
+    def __init__(self, cfg: PortaSpeechConfig, posterior: bool = False):
         super().__init__()
         self.cfg = cfg
         d = cfg.hidden_size
@@ -376,6 +421,8 @@ class PortaSpeech(nn.Module):
         self.attn_o = nn.Linear(d, d, bias=False)
         self.word_pos_proj = nn.Linear(d, d)
         self.dur_predictor = WordDurationPredictor(cfg)
+        if posterior:
+            self.fvae_enc = FVAEEncoder(cfg)
         self.fvae_dec = FVAEDecoder(cfg)
         self.prior_flow = PriorFlow(cfg)
         if cfg.use_graph:
@@ -393,11 +440,12 @@ class PortaSpeech(nn.Module):
         w = torch.softmax(scores.masked_fill(word_mask_ft <= 0, -1e9), -1)
         return self.attn_o(w @ self.attn_v(ph_kv)), w
 
-    def encode(self, txt_tokens, word_tokens, ph2word,
-               graph_adj=None) -> dict:
-        """The text side: the encoders, the word durations on the canvas
-        and the word-to-mel attention → the decoder input ``x`` [B, F, d],
-        ``dur``, ``mel2word``, ``attn``."""
+    def encode(self, txt_tokens, word_tokens, ph2word, graph_adj=None,
+               mel2word=None) -> dict:
+        """The text side: the encoders, the word durations and the
+        word-to-mel attention → the decoder input ``x`` [B, F, d], ``dur``,
+        ``mel2word``, ``attn``. Without ``mel2word`` (training passes the
+        ground truth) the durations lay the words on the canvas."""
         cfg = self.cfg
         d = cfg.hidden_size
         max_words = word_tokens.shape[1]
@@ -415,8 +463,9 @@ class PortaSpeech(nn.Module):
 
         dur = self.dur_predictor(ph_enc * src_nonpad[..., None], src_nonpad,
                                  ph2word, max_words, graph_adj)
-        mel2word = clip_mel2word_to_multiple(
-            length_regulator(dur, cfg.max_frames), cfg.frames_multiple)
+        if mel2word is None:
+            mel2word = clip_mel2word_to_multiple(
+                length_regulator(dur, cfg.max_frames), cfg.frames_multiple)
         tgt_nonpad = (mel2word > 0).float()
 
         enc_pos = self.sin_pos(in_word_position(ph2word, max_words))
@@ -433,6 +482,23 @@ class PortaSpeech(nn.Module):
         x = x * tgt_nonpad[..., None]
         return {"x": x, "dur": dur, "mel2word": mel2word, "attn": attn}
 
+    def prior_cond(self, x, mel2word, graph_adj):
+        """The prior flow's condition on the latent grid and its mask
+        [B, F/s, 1]: the decoder input every s-th frame, with
+        ``use_graph`` plus the projected GGNN over the frames' words."""
+        cfg = self.cfg
+        s = cfg.fvae_strides
+        lat_mask = (mel2word > 0).float()[:, ::s, None]
+        cond = x[:, ::s]
+        if cfg.use_graph and graph_adj is not None:
+            max_words = graph_adj.shape[-1]
+            g = self.prior_graph_enc(
+                group_hidden_by_words(x, mel2word, max_words), graph_adj,
+                (word_onehot(mel2word, max_words).sum(-1) > 0).float())
+            cond = cond + self.prior_graph_proj(
+                expand_word_states(g, mel2word)[:, ::s])
+        return cond, lat_mask
+
     def prior(self, x, mel2word, graph_adj,
               draws: torch.Generator | torch.Tensor,
               noise_scale: float = 1.0) -> torch.Tensor:
@@ -440,21 +506,58 @@ class PortaSpeech(nn.Module):
         (``draws`` [B, max_frames/s, latent] or a generator) · scale on
         the latent grid, through the flow's reverse."""
         cfg = self.cfg
-        s = cfg.fvae_strides
-        lat_mask = (mel2word > 0).float()[:, ::s, None]
-        prior_cond = x[:, ::s]
-        if cfg.use_graph and graph_adj is not None:
-            max_words = graph_adj.shape[-1]
-            g = self.prior_graph_enc(
-                group_hidden_by_words(x, mel2word, max_words), graph_adj,
-                (word_onehot(mel2word, max_words).sum(-1) > 0).float())
-            prior_cond = prior_cond + self.prior_graph_proj(
-                expand_word_states(g, mel2word)[:, ::s])
-        shape = (x.shape[0], cfg.max_frames // s, cfg.latent_size)
+        cond, lat_mask = self.prior_cond(x, mel2word, graph_adj)
+        shape = (x.shape[0], cfg.max_frames // cfg.fvae_strides,
+                 cfg.latent_size)
         if isinstance(draws, torch.Generator):
             draws = torch.randn(shape, generator=draws, device=x.device)
         z = draws * noise_scale * lat_mask
-        return self.prior_flow(z, prior_cond, lat_mask, reverse=True)
+        return self.prior_flow(z, cond, lat_mask, reverse=True)
+
+    def posterior(self, x, mel2word, tgt_mels, graph_adj,
+                  eps: torch.Tensor) -> dict:
+        """The training latent: the posterior's (m, logs) on the target mel,
+        ``z_q = (m + exp(logs)·eps)`` on the latent grid, the flow forward
+        to ``z_p`` and the KL(q ‖ p) per latent element over the grid."""
+        cfg = self.cfg
+        cond, lat_mask = self.prior_cond(x, mel2word, graph_adj)
+        m_q, logs_q = self.fvae_enc(tgt_mels, x[:, ::cfg.fvae_strides],
+                                    lat_mask)
+        z_q = (m_q + torch.exp(logs_q) * eps) * lat_mask
+        z_p = self.prior_flow(z_q, cond, lat_mask)
+        kl = -logs_q + 0.5 * (z_p ** 2 - eps ** 2)
+        denom = (lat_mask.sum() * cfg.latent_size).clamp_min(1.0)
+        return {"z_q": z_q, "z_p": z_p, "m_q": m_q, "logs_q": logs_q,
+                "kl": (kl * lat_mask).sum() / denom}
+
+    def eps_shape(self, batch: int, frames: int) -> tuple:
+        """The posterior's draw for mels of ``frames`` frames."""
+        s = self.cfg.fvae_strides
+        return batch, -(-frames // s), self.cfg.latent_size
+
+    def train_forward(self, txt_tokens, word_tokens, ph2word, mel2word,
+                      tgt_mels, graph_adj=None,
+                      draws: torch.Generator | torch.Tensor | None = None
+                      ) -> dict:
+        """The training branch (JAX ``infer=False``): ground-truth
+        ``mel2word`` [B, F] and mel [B, F, n_mels]; ``draws`` is ε
+        [B, ⌈F/s⌉, latent] or a generator (default: one seeded with 0).
+        → ``mel_out``, ``kl``, ``dur``, ``mel2word``, ``attn``, ``m_q``,
+        ``logs_q``, ``z_p``, ``decoder_inp``."""
+        ret = self.encode(txt_tokens, word_tokens, ph2word, graph_adj,
+                          mel2word=mel2word)
+        x = ret["x"]
+        if draws is None:
+            draws = torch.Generator(x.device).manual_seed(0)
+        if isinstance(draws, torch.Generator):
+            draws = torch.randn(self.eps_shape(*mel2word.shape),
+                                generator=draws, device=x.device)
+        post = self.posterior(x, mel2word, tgt_mels, graph_adj, draws)
+        return {"mel_out": self.decode(post["z_q"], x, mel2word),
+                "kl": post["kl"], "dur": ret["dur"], "mel2word": mel2word,
+                "attn": ret["attn"], "m_q": post["m_q"],
+                "logs_q": post["logs_q"], "z_p": post["z_p"],
+                "decoder_inp": x}
 
     def decode(self, z, x, mel2word) -> torch.Tensor:
         """The FVAE decoder on the latent, conditioned on the decoder input

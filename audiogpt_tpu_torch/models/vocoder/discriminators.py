@@ -27,16 +27,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from audiogpt_tpu_torch.ops.conv import pad_same
+
 
 def _lrelu(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, 0.1)
-
-
-def _same_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
-    """lax's SAME padding of a stride-``s`` window ``k`` on the last axis."""
-    n = x.shape[-1]
-    total = max((-(-n // s) - 1) * s + k - n, 0)
-    return F.pad(x, (total // 2, total - total // 2))
 
 
 class PeriodDiscriminator(nn.Module):
@@ -94,9 +89,9 @@ class ScaleDiscriminator(nn.Module):
         x = wav[:, None]
         fmaps = []
         for i, (_, k, s, _) in enumerate(self.layers):
-            x = _lrelu(getattr(self, f"Conv_{i}")(_same_pad(x, k, s)))
+            x = _lrelu(getattr(self, f"Conv_{i}")(pad_same(x, k, s)))
             fmaps.append(x)
-        x = getattr(self, f"Conv_{len(self.layers)}")(_same_pad(x, 3, 1))
+        x = getattr(self, f"Conv_{len(self.layers)}")(pad_same(x, 3, 1))
         return x.reshape(x.shape[0], -1), fmaps
 
 
@@ -142,7 +137,7 @@ class HifiGANDiscriminator(nn.Module):
             fmaps.append(f)
             if i + 1 < self.cfg.scales:
                 # avg-pool 4, stride 2 (hifigan.py MultiScale meanpools)
-                x = F.avg_pool1d(_same_pad(x[:, None], 4, 2), 4, 2)[:, 0]
+                x = F.avg_pool1d(pad_same(x[:, None], 4, 2), 4, 2)[:, 0]
         return logits, fmaps
 
 

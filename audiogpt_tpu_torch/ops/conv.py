@@ -19,6 +19,15 @@ def same_pad(kernel_size: int, dilation: int = 1) -> int:
     return (kernel_size * dilation - dilation) // 2
 
 
+def pad_same(x: torch.Tensor, kernel_size: int, stride: int) -> torch.Tensor:
+    """lax's SAME padding of a stride-``stride`` window ``kernel_size`` on
+    the last axis of ``x``: ``max((⌈n/s⌉ − 1)·s + k − n, 0)`` in all, the
+    odd one after (torch's ``padding="same"`` refuses a stride)."""
+    n = x.shape[-1]
+    total = max((-(-n // stride) - 1) * stride + kernel_size - n, 0)
+    return F.pad(x, (total // 2, total - total // 2))
+
+
 class Conv1d(nn.Module):
     """1-D conv on x [B, C, T] with explicit symmetric padding (``None`` =
     SAME for stride 1), as the JAX ``Conv1d`` (``ops/conv.py:24-53``)."""

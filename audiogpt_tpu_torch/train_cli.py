@@ -9,11 +9,17 @@ Counterpart of ``audiogpt_tpu/train_cli.py``:
 trains on the card (``--device cpu`` for a run on the CPU). The resolved
 config persists to ``<exp_name>/config.yaml`` (hparams.py:109 behaviour)
 and the work dir holds checkpoints and ``metrics.jsonl``. The port's recipes
-so far: ``ldm``, ``fs2`` (``configs/tts/fs2.yaml``, ``fs2_cwt.yaml``) and
-``vocoder_gan`` (``configs/vocoder/hifigan.yaml``), the TTS recipes on
-records written by ``data/binarizer.py`` ``TTSBinarizer``. Every other task
-of the JAX CLI raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+so far: ``ldm``; ``fs2`` (``configs/tts/fs2.yaml``, ``fs2_cwt.yaml``) and
+``vocoder_gan`` (``configs/vocoder/hifigan.yaml``); ``portaspeech``,
+``syntaspeech``, ``ps_adv`` and ``synta_adv`` (``configs/tts/
+portaspeech.yaml``, ``syntaspeech.yaml``, ``ps_adv.yaml``; ``synta_adv``
+is ``syntaspeech.yaml`` with ``--hparams task=synta_adv``),
+``generspeech`` and ``pe``. The TTS recipes train on records written by
+``data/binarizer.py`` ``TTSBinarizer`` (the PortaSpeech family with
+``with_words``, and ``with_graph`` for SyntaSpeech) or
+``EmotionBinarizer`` (GenerSpeech), batched by the token-budget loader.
+Every other task of the JAX CLI raises ``NotImplementedError`` naming the
+ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -27,10 +33,7 @@ from audiogpt_tpu_torch.config import Config, load_config
 
 #: the JAX CLI's other tasks → the ROADMAP.md §A item that ports them
 _NOT_PORTED = {
-    "ps_adv": "A2 (the PortaSpeech family)", "synta_adv": "A2",
-    "portaspeech": "A2", "syntaspeech": "A2",
-    "diffsinger": "A3", "pe": "A3", "generspeech": "A3", "visinger": "A3",
-    "audio2motion": "A3",
+    "diffsinger": "A3", "visinger": "A3", "audio2motion": "A3",
     "vae": "A4", "clap": "A4",
     "sed": "A5", "caption": "A5", "separation": "A5",
 }
@@ -91,6 +94,33 @@ def build_task(cfg: Config, device=None):
             "optim_gen": dataclasses.asdict(optim),
             "optim_disc": dataclasses.asdict(optim), **loss}),
             device=device)
+    if name == "generspeech":
+        from audiogpt_tpu_torch.train.tasks import (GenerSpeechTask,
+                                                    GenerSpeechTaskConfig)
+
+        return GenerSpeechTask(_fill(GenerSpeechTaskConfig, {
+            "model": model, "optim": dataclasses.asdict(optim), **loss}),
+            device=device)
+    if name in ("portaspeech", "syntaspeech", "ps_adv", "synta_adv"):
+        from audiogpt_tpu_torch.train.tasks import (PortaSpeechAdvTask,
+                                                    PortaSpeechAdvTaskConfig,
+                                                    PortaSpeechTask,
+                                                    PortaSpeechTaskConfig)
+
+        if name in ("syntaspeech", "synta_adv"):
+            model.setdefault("use_graph", True)
+        ps_kw = {"model": model, "optim": dataclasses.asdict(optim), **loss}
+        if name in ("ps_adv", "synta_adv"):
+            return PortaSpeechAdvTask(_fill(PortaSpeechAdvTaskConfig, {
+                "ps": ps_kw, **dict(cfg.get("adv", {}))}), device=device)
+        return PortaSpeechTask(_fill(PortaSpeechTaskConfig, ps_kw),
+                               device=device)
+    if name == "pe":
+        from audiogpt_tpu_torch.train.tasks import PETask, PETaskConfig
+
+        return PETask(_fill(PETaskConfig, {
+            "model": model, "optim": dataclasses.asdict(optim), **loss}),
+            device=device)
     if name == "ldm":
         # T2A latent diffusion (ddpm_audio.py:43 as pl.LightningModule)
         from audiogpt_tpu_torch.train.tasks import LDMTask, LDMTaskConfig
@@ -103,12 +133,48 @@ def build_task(cfg: Config, device=None):
     raise ValueError(f"unknown task {name!r}")
 
 
+#: the token-budget TTS recipes → the vocab files of the binarized
+#: corpus and the model field (default 100) that each one's ids must
+#: stay below
+_TTS_VOCABS = {
+    "fs2": (("phone_set.json", "vocab_size"),),
+    "generspeech": (("phone_set.json", "fs2.vocab_size"),),
+    "pe": (),
+    **{name: (("phone_set.json", "ph_vocab_size"),
+              ("word_set.json", "word_vocab_size"))
+       for name in ("portaspeech", "syntaspeech", "ps_adv", "synta_adv")},
+}
+
+
+def check_vocabs(cfg: Config, task_name: str, bin_dir: str) -> None:
+    """Refuse a binarized phone or word set with more ids than the model's
+    embedding holds: on the card an id past an embedding is a device-side
+    assert (JAX's gather clamps it silently)."""
+    from audiogpt_tpu_torch.text.encoder import TokenTextEncoder
+
+    for fname, field in _TTS_VOCABS[task_name]:
+        path = os.path.join(bin_dir, fname)
+        if not os.path.exists(path):
+            continue
+        node = cfg.get("model", {})
+        *outer, leaf = field.split(".")
+        for key in outer:
+            node = node.get(key, {})
+        limit = node.get(leaf, 100)
+        n = len(TokenTextEncoder.from_file(path))
+        if n > limit:
+            raise ValueError(f"{path} holds {n} ids, more than "
+                             f"model.{field}={limit}")
+
+
 def build_loaders(cfg: Config, task_name: str):
     """→ (an endless iterator of training batches, a function giving one
     pass over the validation split, or None without a ``valid`` split).
-    ``ldm``: fixed-shape batches; ``fs2``: token-budget batches on the
-    dyadic (batch, length) ladder of ``data.max_len`` / ``max_batch`` /
-    ``min_batch``; ``vocoder_gan``: endless random crops, no validation."""
+    ``ldm``: fixed-shape batches; the TTS recipes (``fs2``, the
+    PortaSpeech family, ``generspeech``, ``pe``): token-budget batches on
+    the dyadic (batch, length) ladder of ``data.max_len`` / ``max_batch``
+    / ``min_batch``; ``vocoder_gan``: endless random crops, no
+    validation."""
     import functools
 
     import numpy as np
@@ -117,7 +183,7 @@ def build_loaders(cfg: Config, task_name: str):
                                          TTSDataLoader, VocoderDataLoader,
                                          collate_mel_image, load_split)
 
-    if task_name not in ("ldm", "fs2", "vocoder_gan"):
+    if task_name not in ("ldm", "vocoder_gan", *_TTS_VOCABS):
         if task_name in _NOT_PORTED:
             raise _not_ported(task_name)
         raise ValueError(f"unknown task {task_name!r}")
@@ -148,17 +214,8 @@ def build_loaders(cfg: Config, task_name: str):
 
         return iter(train), (val_fn if has_valid else None)
 
-    # the token-budget bucketed TTS recipe
-    phone_set = os.path.join(bin_dir, "phone_set.json")
-    vocab = cfg.get("model", {}).get("vocab_size", 100)
-    if os.path.exists(phone_set):
-        from audiogpt_tpu_torch.data import load_phone_encoder
-
-        n = len(load_phone_encoder(bin_dir))
-        if n > vocab:
-            # an id past the embedding is a device-side assert on the card
-            raise ValueError(f"{phone_set} holds {n} ids, more than "
-                             f"model.vocab_size={vocab}")
+    # the token-budget bucketed TTS recipes
+    check_vocabs(cfg, task_name, bin_dir)
     spec = BucketSpec.dyadic(d.get("max_len", 2048), d.get("max_batch", 64),
                              min_batch=d.get("min_batch", 8))
 

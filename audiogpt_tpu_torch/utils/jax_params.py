@@ -14,7 +14,10 @@ its name and layout: Glow's ``actnorm_logs`` and ``inv1x1_w``, HTSAT's
 ``rel_pos_bias`` ``[(2w − 1)², heads]`` and ``bn0_{mean,var,scale,bias}``,
 the relative-window encoder's ``emb_rel_k`` / ``emb_rel_v`` and its channel
 LayerNorm's ``gamma`` / ``beta``, the GGNN's ``etype_kernel`` ``[E, H, H]``
-(the port's modules hold ``nn.Parameter``s of those names and shapes). A
+(the port's modules hold ``nn.Parameter``s of those names and shapes),
+and so does GenerSpeech's ``vq_ema=False`` codebook ``embedding`` (an
+``embedding`` leaf stays so where the owner holds a parameter of that
+name, and is an ``nn.Embedding``'s ``weight`` elsewhere). A
 2-D kernel of any window, HTSAT's ``(c_freq_bin, 3)`` ``tscam_conv`` and
 the period discriminators' ``(5, 1)`` among them, goes HWIO → OIHW; a
 grouped 1-D kernel ``[k, in/g, out]`` (the scale discriminators') takes
@@ -108,7 +111,8 @@ def load_jax_params(module: nn.Module, tree: Mapping) -> None:
     collections: BatchNorm's ``batch_stats`` (``mean`` / ``var`` become the
     ``running_mean`` / ``running_var`` buffers; ``num_batches_tracked`` is
     set to 0, which eval mode never reads) and GenerSpeech's ``vq_stats``
-    (buffers of the same names)."""
+    (buffers of the same names; a ``vq_ema=False`` tree has no such
+    collection and its codebooks are params)."""
     stats, buffers = {}, {}
     if "params" in tree and set(tree) <= {"params", "batch_stats",
                                           "vq_stats"}:
@@ -126,14 +130,16 @@ def load_jax_params(module: nn.Module, tree: Mapping) -> None:
     state.update(_pack_recurrent(module, flat))
     for key, arr in flat.items():
         prefix, _, leaf = key.rpartition(".")
-        name = f"{prefix}.{_LEAF.get(leaf, leaf)}" if prefix else \
-            _LEAF.get(leaf, leaf)
-        if leaf == "kernel":
-            try:
-                owner = module.get_submodule(prefix)
-            except AttributeError:
-                owner = None   # no such submodule: strict loading reports it
-            if owner is not None:
-                arr = _kernel_layout(owner, arr)
+        try:
+            owner = module.get_submodule(prefix)
+        except AttributeError:
+            owner = None   # no such submodule: strict loading reports it
+        torch_leaf = _LEAF.get(leaf, leaf)
+        if leaf == "embedding" and owner is not None and isinstance(
+                getattr(owner, leaf, None), nn.Parameter):
+            torch_leaf = leaf   # a raw codebook param (the VQ's)
+        name = f"{prefix}.{torch_leaf}" if prefix else torch_leaf
+        if leaf == "kernel" and owner is not None:
+            arr = _kernel_layout(owner, arr)
         state[name] = torch.tensor(arr, dtype=torch.float32)
     module.load_state_dict(state, strict=True)

@@ -95,7 +95,9 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "train_cli", "data.batching", "data.textgrid",
                  "data.wav_processors", "train.losses", "train.ssim",
                  "train.stft_loss", "train.tasks.fs2",
-                 "train.tasks.vocoder_gan", "models.vocoder.discriminators"):
+                 "train.tasks.vocoder_gan", "models.vocoder.discriminators",
+                 "train.tasks.portaspeech", "train.tasks.tts_adv",
+                 "train.tasks.generspeech", "train.tasks.pe"):
         assert f"audiogpt_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
     # the BPE word splitters use the standard library's re: the card's
@@ -144,22 +146,19 @@ def test_entry_points_need_cuda_without_device(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
-    from audiogpt_tpu_torch.data import TTSBinarizer
+    from audiogpt_tpu_torch.data import EmotionBinarizer, TTSBinarizer
     from audiogpt_tpu_torch.data.wav_processors import apply_processors
     from audiogpt_tpu_torch.train import Trainer
-    from audiogpt_tpu_torch.train.tasks import (FS2Task, FS2TaskConfig,
-                                                LDMTask, LDMTaskConfig,
-                                                VocoderGANTask,
-                                                VocoderGANTaskConfig)
+    from audiogpt_tpu_torch.train import tasks
 
-    with pytest.raises(RuntimeError, match="CUDA"):
-        LDMTask(LDMTaskConfig())
-    with pytest.raises(RuntimeError, match="CUDA"):
-        FS2Task(FS2TaskConfig())
-    with pytest.raises(RuntimeError, match="CUDA"):
-        VocoderGANTask(VocoderGANTaskConfig())
-    with pytest.raises(RuntimeError, match="CUDA"):
-        TTSBinarizer()
+    for task in ("LDMTask", "FS2Task", "VocoderGANTask", "PortaSpeechTask",
+                 "PortaSpeechAdvTask", "AdvTTSTask", "GenerSpeechTask",
+                 "PETask"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            getattr(tasks, task)(getattr(tasks, task + "Config")())
+    for binarizer in (TTSBinarizer, EmotionBinarizer):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            binarizer()
     with pytest.raises(RuntimeError, match="CUDA"):
         apply_processors(["resample"], np.zeros(441, np.float32), 44100)
     toy = types.SimpleNamespace(modules={}, loss_fns={}, optim_cfgs={})
