@@ -13,8 +13,11 @@ package runs them on its device; the CWT targets, the energy and the word
 fields are computed on the host in numpy, as there. Alignments are an
 optional input: ``durations`` per item, or an MFA TextGrid
 (``data/textgrid.py``). ``EmotionBinarizer`` (the GenerSpeech data
-path) adds ``emo_map.json`` and each record's ``emo_id``. The SVS and
-Mandarin binarizers of the JAX module are not ported yet.
+path) adds ``emo_map.json`` and each record's ``emo_id``;
+``SVSBinarizer`` (the DiffSinger and VISinger data path) reads
+opencpop-style scores into the MIDI fields and a score alignment;
+``ZhBinarizer`` runs the Mandarin frontend (``text/zh.py``) and the
+reference's two duration rules.
 """
 
 from __future__ import annotations
@@ -346,6 +349,140 @@ class EmotionBinarizer(TTSBinarizer):
 def load_emo_map(out_dir: str) -> dict[str, int]:
     with open(os.path.join(out_dir, "emo_map.json")) as f:
         return json.load(f)
+
+
+@dataclasses.dataclass
+class SVSItem:
+    """One scored singing utterance (opencpop transcription format:
+    pinyin words, '|'-windowed note names and note durations in
+    seconds)."""
+
+    name: str
+    wav: np.ndarray
+    text: str                  # pinyin words, e.g. "xiao jiu wo SP"
+    notes: str                 # "C#4/Db4 | F#4/Gb4 | rest"
+    notes_duration: str        # "0.407 | 0.376 | 0.2"
+    spk: str = "SPK1"
+
+
+class SVSBinarizer(TTSBinarizer):
+    """Score-annotated singing → records with the MIDI conditioning fields
+    DiffSinger-MIDI trains on (``audiogpt_tpu/data/binarizer.py:291-349``;
+    ``pitch_midi`` / ``midi_dur`` / ``is_slur`` are read at the reference's
+    ``tasks/svs/diffsinger_task.py:30``), with the score grammar of the SVS
+    engines (``engines/svs.py`` ``parse_score``, ``note_to_midi``).
+
+    ``mel2ph`` comes from the score: each word's base note duration is
+    split evenly over its non-slur phones, a slur repeat keeps its own
+    note's duration, and a phone takes ``round(seconds · sr / hop)``
+    frames (half to even, as ``np.round``)."""
+
+    def _phones_of(self, it) -> list[str]:
+        if not isinstance(it, SVSItem):     # the base Item of process_item
+            return super()._phones_of(it)
+        from audiogpt_tpu_torch.engines.svs import parse_score
+
+        return parse_score(it.text, it.notes, it.notes_duration)[0]
+
+    def process_item(self, it, enc: TokenTextEncoder,
+                     spk_map: Mapping[str, int]) -> dict[str, Any] | None:
+        from audiogpt_tpu_torch.engines.svs import note_to_midi, parse_score
+
+        base = Item(name=it.name, wav=it.wav, phones=self._phones_of(it),
+                    spk=it.spk)
+        rec = super().process_item(base, enc, spk_map)
+        if rec is None:
+            return None
+        _, notes, durs, slur, ph2word = parse_score(
+            it.text, it.notes, it.notes_duration)
+        rec["txt"] = it.text
+        rec["pitch_midi"] = np.asarray([note_to_midi(n) for n in notes],
+                                       np.int32)
+        rec["midi_dur"] = np.asarray([float(d) for d in durs], np.float32)
+        rec["is_slur"] = np.asarray(slur, np.int32)
+        rec["ph2word"] = np.asarray(ph2word, np.int32)
+        sec = np.asarray([float(d) for d in durs], np.float64)
+        w = np.asarray(ph2word)
+        s = np.asarray(slur)
+        base_cnt = np.zeros(w.max() + 1, np.int64)
+        np.add.at(base_cnt, w[s == 0], 1)
+        share = np.where(s == 0, sec / np.maximum(base_cnt[w], 1), sec)
+        frames = np.round(share * self.cfg.mel.sr /
+                          self.cfg.mel.hop).astype(np.int64)
+        rec["mel2ph"] = mel2ph_from_durations(frames, rec["mel"].shape[0])
+        return rec
+
+
+class ZhBinarizer(TTSBinarizer):
+    """Mandarin binarization with the reference's duration post-processing
+    (``audiogpt_tpu/data/binarizer.py:399-467``; the reference's
+    ``data_gen/tts/binarizer_zh.py:12`` ``get_align``), applied in this
+    order to an aligned item:
+
+      1. a separator or punctuation phone gives its leading voiced frames
+         (f0 > 0) to the preceding final, so a pause starts where voicing
+         stops, and collapses into it entirely when fewer than
+         :attr:`min_sep_frames` remain;
+      2. an initial and its following final split their total evenly (the
+         initial takes ``total // 2``).
+
+    Phones come from ``text/zh.py`` ``ZhTTSFrontend``; the initials are its
+    ``INITIALS`` (the reference's ``ALL_SHENMU``). An item without an
+    alignment or an f0 track is written as the base binarizer writes it."""
+
+    #: rule 1's collapse threshold in frames (the reference's hard 100)
+    min_sep_frames: int = 100
+
+    def __init__(self, cfg: BinarizeConfig | None = None, frontend=None,
+                 **kw):
+        if frontend is None:
+            from audiogpt_tpu_torch.text.zh import ZhTTSFrontend
+
+            frontend = ZhTTSFrontend()
+        super().__init__(cfg, frontend=frontend, **kw)
+
+    def _fix_durations(self, dur: np.ndarray, phones: Sequence[str],
+                       f0: np.ndarray) -> np.ndarray:
+        from audiogpt_tpu_torch.text.zh import INITIALS
+
+        dur = np.asarray(dur, np.int64).copy()
+        initials = set(INITIALS)
+        ends = np.cumsum(dur)
+        starts = ends - dur
+        for i, p in enumerate(phones):
+            if i == 0 or p[0] == "<" or p[0].isalnum():
+                continue
+            seg = f0[starts[i]:ends[i]]
+            j = 0
+            while j < len(seg) and seg[j] != 0:
+                j += 1
+            dur[i - 1] += j
+            dur[i] -= j
+            if dur[i] < self.min_sep_frames:
+                dur[i - 1] += dur[i]
+                dur[i] = 0
+        for i, p in enumerate(phones[:-1]):
+            if p in initials and dur[i] > 0:
+                nxt = phones[i + 1]
+                if nxt[0].isalpha() and nxt not in initials:
+                    total = dur[i] + dur[i + 1]
+                    dur[i] = total // 2
+                    dur[i + 1] = total - dur[i]
+        return dur
+
+    def process_item(self, it, enc, spk_map):
+        rec = super().process_item(it, enc, spk_map)
+        if rec is None or "mel2ph" not in rec or "f0" not in rec:
+            return rec
+        phones = rec["ph"].split(" ")
+        dur = rec.get("dur")
+        if dur is None:
+            dur = np.bincount(rec["mel2ph"],
+                              minlength=len(phones) + 1)[1:len(phones) + 1]
+        dur = self._fix_durations(np.asarray(dur), phones, rec["f0"])
+        rec["dur"] = dur.astype(np.int32)
+        rec["mel2ph"] = mel2ph_from_durations(dur, rec["mel"].shape[0])
+        return rec
 
 
 def items_from_csv(csv_path: str, wav_loader=None, sr: int = 22050,

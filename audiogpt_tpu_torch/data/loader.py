@@ -53,6 +53,61 @@ def collate_mel_image(samples: list[dict], width: int,
     return batch
 
 
+def _pad_or_crop_1d(x, n: int) -> np.ndarray:
+    x = np.asarray(x, np.float32)[:n]
+    return np.pad(x, (0, n - len(x)))
+
+
+def collate_audio_text(samples: list[dict], n_samples: int, text_len: int,
+                       schema: str = "caption") -> dict[str, np.ndarray]:
+    """Fixed-length wav crops ``wav`` [B, n_samples] with their lengths
+    ``wav_len``, and the text: the captioner's ``tokens`` / ``token_len``
+    (``schema="caption"``, the records' ``tokens``) or CLAP's contrastive
+    ``text_ids`` / ``text_mask`` (``schema="clap"``, the records'
+    ``text_ids``; the mask is ``ids != 0``)."""
+    wav = np.stack([_pad_or_crop_1d(s["wav"], n_samples) for s in samples])
+    wav_len = np.asarray([min(len(s["wav"]), n_samples) for s in samples],
+                         np.int32)
+    base = {"wav": wav, "wav_len": wav_len,
+            "weight": np.ones(len(samples), np.float32)}
+    key = "tokens" if schema == "caption" else "text_ids"
+    toks = np.stack([_pad_tokens(s[key], text_len) for s in samples])
+    if schema == "caption":
+        base["tokens"] = toks
+        base["token_len"] = np.asarray(
+            [min(len(s[key]), text_len) for s in samples], np.int32)
+    else:
+        base["text_ids"] = toks
+        base["text_mask"] = (toks != 0).astype(np.int32)
+    return base
+
+
+def collate_motion(samples: list[dict], mel_len: int, video_len: int,
+                   out_dim: int = 136) -> dict[str, np.ndarray]:
+    """Audio2Motion batch: ``mels`` [B, mel_len, M] cut or padded, and
+    ``motion`` [B, video_len, out_dim] landmark-offset targets, a record's
+    own ``motion`` (from video) when it has one, else the energy
+    articulation pseudo-target of its padded mel
+    (``models/face/audio2motion.py`` ``pseudo_motion_targets``), so the
+    recipe trains on any binarized speech corpus."""
+    from audiogpt_tpu_torch.models.face.audio2motion import \
+        pseudo_motion_targets
+
+    mels, motions = [], []
+    for s in samples:
+        m = np.asarray(s["mel"], np.float32)[:mel_len]
+        m = np.pad(m, ((0, mel_len - m.shape[0]), (0, 0)))
+        mels.append(m)
+        if "motion" in s:
+            mo = np.asarray(s["motion"], np.float32)[:video_len]
+            mo = np.pad(mo, ((0, video_len - mo.shape[0]), (0, 0)))
+        else:
+            mo = pseudo_motion_targets(m, video_len)
+        motions.append(mo[:, :out_dim])
+    return {"mels": np.stack(mels), "motion": np.stack(motions),
+            "weight": np.ones(len(samples), np.float32)}
+
+
 class ArrayDataLoader:
     """Fixed-batch, fixed-shape loader for the non-bucketed recipes.
 
@@ -102,16 +157,19 @@ class ArrayDataLoader:
 # The TTS recipes' token-budget loader and the vocoder's random crops
 # ---------------------------------------------------------------------------
 
-def collate_tts(samples: list[dict[str, Any]],
-                spec: BucketSpec | None) -> dict[str, np.ndarray]:
+def collate_tts(samples: list[dict[str, Any]], spec: BucketSpec | None,
+                wav_hop: int | None = None) -> dict[str, np.ndarray]:
     """Pad a list of binarized TTS records into one static-shape batch.
 
     Emits the reference's batch schema (``dataset_utils.py`` collater):
     txt_tokens, txt_lengths, mels, mel_lengths, (f0, uv, pitch, mel2ph,
-    mel2word, energy, the word fields and graph, the emotion id, the
-    style vectors, cwt_spec when present), spk_ids, plus ``weight`` [B]
-    marking real rows. The JAX collate's SVS score fields, linear spec and
-    sample-level wav come with the SVS recipes that read them.
+    mel2word, energy, the SVS score fields ``pitch_midi`` / ``midi_dur`` /
+    ``is_slur`` on the token axis, the word fields and graph, the emotion
+    id, the style vectors, the linear ``spec`` on the mel's frame axis,
+    cwt_spec when present), spk_ids, plus ``weight`` [B] marking real rows.
+    ``wav_hop`` also emits the sample-level ``wav``, cut or padded to
+    ``mel_len · wav_hop`` (the end-to-end VISinger recipe). The JAX
+    signature's ``n_mels`` is unused there and left out.
     """
     tok_len = max(len(s["tokens"]) for s in samples)
     mel_len = max(s["mel"].shape[0] for s in samples)
@@ -150,6 +208,13 @@ def collate_tts(samples: list[dict[str, Any]],
                 else np.float32
             batch[key] = pad_rows(collate_1d(
                 [np.asarray(s[key], dtype) for s in samples], max_len=mel_len))
+    for key in ("pitch_midi", "midi_dur", "is_slur"):
+        # token-level SVS score fields (diffsinger_task.py batch schema)
+        if key in samples[0]:
+            dtype = np.float32 if key == "midi_dur" else np.int32
+            batch[key] = pad_rows(collate_1d(
+                [np.asarray(s[key], dtype) for s in samples],
+                max_len=tok_len))
     if "word_tokens" in samples[0]:
         # word-level fields for PortaSpeech-class models; word length gets
         # its own (small) bucketed axis
@@ -180,6 +245,19 @@ def collate_tts(samples: list[dict[str, Any]],
         if key in samples[0]:
             batch[key] = pad_rows(np.stack(
                 [np.asarray(s[key], np.float32) for s in samples]))
+    if "spec" in samples[0]:
+        # linear spectrogram frames (the VISinger posterior's input), on
+        # the mel's frame axis
+        batch["spec"] = pad_rows(collate_2d(
+            [np.asarray(s["spec"], np.float32) for s in samples],
+            max_len=mel_len))
+    if wav_hop is not None and "wav" in samples[0]:
+        n = mel_len * wav_hop
+        wavs = []
+        for s in samples:
+            w = np.asarray(s["wav"], np.float32)[:n]
+            wavs.append(np.pad(w, (0, n - len(w))))
+        batch["wav"] = pad_rows(np.stack(wavs))
     if "cwt_spec" in samples[0]:
         batch["cwt_spec"] = pad_rows(collate_2d(
             [s["cwt_spec"] for s in samples], max_len=mel_len))
@@ -194,13 +272,16 @@ class TTSDataLoader:
     """Token-budget batches over a RecordDataset, reshuffled every epoch.
 
     ``sizes`` (each record's ``len``, the binarizer's ``{split}_lengths.npy``)
-    spares reading every record to learn it."""
+    spares reading every record to learn it. ``collate_fn(samples, spec)``
+    replaces :func:`collate_tts` (VISinger's binds ``wav_hop``)."""
 
     def __init__(self, ds, max_tokens: int = 30000,
                  max_sentences: int = 100, spec: BucketSpec | None = None,
                  sizes: Sequence[int] | None = None,
-                 shuffle: bool = True, seed: int = 1234):
+                 shuffle: bool = True, seed: int = 1234,
+                 collate_fn: Callable[..., dict] | None = None):
         self.ds = ds
+        self.collate_fn = collate_fn or collate_tts
         self.spec = spec
         self.max_tokens = max_tokens
         if spec is not None:
@@ -231,7 +312,7 @@ class TTSDataLoader:
 
     def epoch(self, epoch: int) -> Iterator[dict[str, np.ndarray]]:
         for b in self.batches_for_epoch(epoch):
-            yield collate_tts([self.ds[i] for i in b], self.spec)
+            yield self.collate_fn([self.ds[i] for i in b], self.spec)
 
     def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
         e = 0

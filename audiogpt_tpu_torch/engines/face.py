@@ -42,6 +42,7 @@ from audiogpt_tpu_torch.models.face import (
     energy_articulation,
     template_landmarks,
 )
+from audiogpt_tpu_torch.models.face.audio2motion import inference_tree
 from audiogpt_tpu_torch.utils.media import resolve_media
 from audiogpt_tpu_torch.utils.video_io import write_mjpeg_avi
 
@@ -55,14 +56,16 @@ class GeneFaceEngine(TimedCalls):
                  buckets: tuple[int, ...] = (256, 512, 1024, 2048),
                  rng_seed: int = 0, use_energy_prior: bool = True,
                  device: str | torch.device | None = None):
-        """``params``: the JAX engine's Audio2Motion tree as numpy arrays;
-        ``None`` keeps a seeded random init. ``portrait``: [H, W, 3] in
+        """``params``: the JAX engine's Audio2Motion tree as numpy arrays
+        (a training tree's posterior heads are dropped); ``None`` keeps a
+        seeded random init. ``portrait``: [H, W, 3] in
         [0, 1] or uint8 (default: the procedural one). ``device=None`` is
         the card, and raises without one."""
         self.device = resolve_device(device)
         self.cfg = cfg or Audio2MotionConfig()
         self.model = on_device(seeded(rng_seed, lambda: Audio2MotionVAE(
-            self.cfg)), self.device, params)
+            self.cfg)), self.device,
+            None if params is None else inference_tree(params))
         self.media_root = media_root
         self.use_energy_prior = use_energy_prior
         self.bucketer = Bucketer(buckets)

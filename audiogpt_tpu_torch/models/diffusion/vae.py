@@ -177,10 +177,15 @@ class GaussianMoments(NamedTuple):
     mean: torch.Tensor
     logvar: torch.Tensor
 
-    def sample(self, generator: torch.Generator | None = None) -> torch.Tensor:
+    def sample(self, noise: torch.Generator | torch.Tensor | None = None
+               ) -> torch.Tensor:
+        """mean + std · ε, ε drawn from the generator ``noise`` or given
+        (a replayed draw of the mean's shape)."""
         std = torch.exp(0.5 * self.logvar.clamp(-30.0, 20.0))
-        noise = torch.randn(self.mean.shape, generator=generator,
-                            device=self.mean.device, dtype=self.mean.dtype)
+        if not isinstance(noise, torch.Tensor):
+            noise = torch.randn(self.mean.shape, generator=noise,
+                                device=self.mean.device,
+                                dtype=self.mean.dtype)
         return self.mean + std * noise
 
     def mode(self) -> torch.Tensor:

@@ -15,6 +15,8 @@ each flax ``nn.Conv`` a bare ``torch.nn.Conv1d``.
 
 Draws are explicit: a ``torch.Generator``, or replayed tensors (``x_T``,
 and for DDPM one tensor per step), so a test can replay JAX's keys.
+Training (``train/tasks/diffusion.py``) runs FS2's training forward
+through :meth:`DiffSinger.train_loss_inputs_full`, then the denoiser.
 """
 
 from __future__ import annotations
@@ -181,7 +183,9 @@ class DiffSinger(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.fs2 = FastSpeech2(cfg.fs2)
-        self.denoiser = DiffNet(cfg.net)
+        # the condition is FS2's decoder input: flax infers its width
+        self.denoiser = DiffNet(dataclasses.replace(
+            cfg.net, encoder_hidden=cfg.fs2.hidden_size))
         self.schedule = cfg.schedule()
         self.register_buffer("spec_min", torch.tensor(cfg.spec_min),
                              persistent=False)
@@ -205,6 +209,19 @@ class DiffSinger(nn.Module):
         condition, ``mel_out`` the FS2 mel, ``mel2ph`` the alignment."""
         return self.fs2(tokens, mel2ph=mel2ph, pitch_midi=pitch_midi,
                         midi_dur=midi_dur, is_slur=is_slur)
+
+    def train_loss_inputs_full(self, tokens: torch.Tensor,
+                               mel2ph: torch.Tensor, ref_mels: torch.Tensor,
+                               **kw) -> tuple[torch.Tensor, torch.Tensor,
+                                              dict]:
+        """FS2's training forward on the ground-truth ``mel2ph`` (``kw``:
+        ``f0`` normalised, ``uv``, ``pitch_midi``, ``midi_dur``,
+        ``is_slur``) → (cond = ``decoder_inp`` [B, F, H], x0 = the
+        normalised ``ref_mels``, the FS2 output dict for the duration and
+        pitch losses; the reference trains the conditioner jointly,
+        ``diffsinger_task.py:30``)."""
+        ret = self.fs2(tokens, mel2ph=mel2ph, **kw)
+        return ret["decoder_inp"], self.norm_spec(ref_mels), ret
 
     def sample(self, ret: dict, draws: Draws,
                pndm_speedup: int | None = 10) -> torch.Tensor:

@@ -7,10 +7,14 @@ natively): a score encoder (phone + MIDI-pitch + slur embeddings → FFT
 blocks → prior stats), a mean-only residual-coupling flow run in reverse
 from the prior, and the HiFi-GAN decoder z → wav
 (``models/vocoder/hifigan.py``). Frames come from the score's note
-durations or the duration head. The posterior encoder only trains the
-flow; it is kept so that the JAX parameter tree loads strictly. Tensors
-are frame-major ``[B, T, C]`` at the boundary, as in JAX; the flax ``nn.Conv``
-layers are bare ``torch.nn.Conv1d`` under the flax scope names.
+durations or the duration head. Training (:meth:`VISinger.train_step_outputs`,
+``train/tasks/visinger.py``) runs the posterior encoder on the linear
+spectrogram, the flow forward into prior space, the KL against the
+expanded prior and the decoder on the whole posterior z. The decoder's
+input width is ``latent_dim`` whatever ``decoder.in_channels`` says, as
+flax infers it from z. Tensors are frame-major ``[B, T, C]`` at the
+boundary, as in JAX; the flax ``nn.Conv`` layers are bare
+``torch.nn.Conv1d`` under the flax scope names.
 """
 
 from __future__ import annotations
@@ -119,15 +123,25 @@ class ResidualCouplingFlow(nn.Module):
 
 
 class PosteriorEncoder(nn.Module):
-    """The parameters of the posterior encoder (linear spectrogram →
-    latent), which only trains the flow: its forward comes with the
-    training slice."""
+    """Linear spectrogram → the posterior (z, m_q, logs_q), each
+    [B, F, latent] and zero on the padded frames."""
 
     def __init__(self, cfg: VISingerConfig):
         super().__init__()
         self.pre = nn.Linear(cfg.spec_bins, cfg.hidden)
         self.wn = WNStack(cfg.hidden, cfg.posterior_layers)
         self.proj = nn.Linear(cfg.hidden, 2 * cfg.latent_dim)
+
+    def forward(self, spec: torch.Tensor, mask: torch.Tensor,
+                draws: torch.Generator | torch.Tensor):
+        """``spec`` [B, F, bins], ``mask`` [B, F]; ``draws`` the ε
+        [B, F, latent] of z = m + exp(logs)·ε, or a generator."""
+        m_ = mask[..., None]
+        h = self.wn(self.pre(spec) * m_)
+        m, logs = (self.proj(h) * m_).chunk(2, -1)
+        if isinstance(draws, torch.Generator):
+            draws = torch.randn(m.shape, generator=draws, device=m.device)
+        return (m + torch.exp(logs) * draws) * m_, m, logs
 
 
 class ScoreEncoder(nn.Module):
@@ -159,7 +173,36 @@ class VISinger(nn.Module):
         self.posterior_encoder = PosteriorEncoder(cfg)
         self.flow = ResidualCouplingFlow(cfg.latent_dim, cfg.hidden,
                                          cfg.flow_layers, cfg.flow_wn_layers)
-        self.decoder = HifiGANGenerator(cfg.decoder)
+        self.decoder = HifiGANGenerator(dataclasses.replace(
+            cfg.decoder, in_channels=cfg.latent_dim))
+
+    def train_step_outputs(self, tokens: torch.Tensor,
+                           pitch_midi: torch.Tensor, is_slur: torch.Tensor,
+                           mel2ph: torch.Tensor, spec: torch.Tensor,
+                           draws: torch.Generator | torch.Tensor) -> dict:
+        """The training forward on the score's ``mel2ph`` [B, F] and the
+        linear ``spec`` [B, F, bins] → dict of ``wav`` [B, F · hop] (the
+        decoder on the whole z), ``kl`` (KL(q ‖ p) after the flow, summed
+        over the frames with a phone and divided by their count ·
+        latent), ``dur`` (log-domain, per token), ``nonpad``, ``z`` and
+        ``mask``. ``draws``: the posterior's ε [B, F, latent] or a
+        generator."""
+        m_p_ph, logs_p_ph, dur_log, nonpad = self.score_encoder(
+            tokens, pitch_midi, is_slur)
+        mask = (mel2ph > 0).float()
+        # phone 0 is the pad: expand_states pads one zero row in front
+        m_p = FastSpeech2.expand_states(m_p_ph, mel2ph)
+        logs_p = FastSpeech2.expand_states(logs_p_ph, mel2ph)
+        z, m_q, logs_q = self.posterior_encoder(spec, mask, draws)
+        z_p = self.flow(z, mask)
+        kl = logs_p - logs_q - 0.5 + 0.5 * (torch.exp(2 * logs_q)
+                                            + (z_p - m_p) ** 2) \
+            * torch.exp(-2 * logs_p)
+        kl = (kl * mask[..., None]).sum() \
+            / (mask.sum() * kl.shape[-1]).clamp_min(1.0)
+        wav = self.decoder(z.transpose(1, 2))
+        return {"wav": wav, "kl": kl, "dur": dur_log, "nonpad": nonpad,
+                "z": z, "mask": mask}
 
     def forward(self, tokens: torch.Tensor, pitch_midi: torch.Tensor,
                 is_slur: torch.Tensor, note_durs: torch.Tensor | None = None,

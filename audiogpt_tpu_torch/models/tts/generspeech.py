@@ -48,6 +48,7 @@ from audiogpt_tpu_torch.models.tts.fastspeech2 import (
     length_regulator,
 )
 from audiogpt_tpu_torch.ops.attention import attention
+from audiogpt_tpu_torch.ops.conv import pad_same
 
 # ---------------------------------------------------------------------------
 # Style modules
@@ -261,17 +262,6 @@ class MixStyle(nn.Module):
         return torch.where(draws["apply"], mixed, x)
 
 
-def same_pad_2d(x: torch.Tensor, k: int = 3, s: int = 2) -> torch.Tensor:
-    """lax's SAME padding of a strided conv on x [B, C, H, W]: the total
-    ``max((ceil(n/s) − 1)·s + k − n, 0)`` per axis, the extra one after
-    (an even axis pads (0, 1), not torch's symmetric (1, 1))."""
-    pads = []
-    for n in (x.shape[3], x.shape[2]):
-        total = max((-(-n // s) - 1) * s + k - n, 0)
-        pads += [total // 2, total - total // 2]
-    return F.pad(x, pads)
-
-
 class GlobalStyleEncoder(nn.Module):
     """Reference mel → (spk_embed, emo_embed): four stride-2 3×3 convs with
     a LayerNorm over channels, the frames' mean (unmasked, as in JAX),
@@ -294,7 +284,7 @@ class GlobalStyleEncoder(nn.Module):
     def forward(self, ref_mel: torch.Tensor):
         x = ref_mel[:, None]                                 # [B, 1, T, M]
         for i in range(len(self.CHANNELS)):
-            x = getattr(self, f"conv{i}")(same_pad_2d(x))
+            x = getattr(self, f"conv{i}")(pad_same(x, 3, 2, dims=2))
             x = torch.relu(getattr(self, f"ln{i}")(x.permute(0, 2, 3, 1))
                            ).permute(0, 3, 1, 2)
         b, c, t, m = x.shape

@@ -19,13 +19,17 @@ def same_pad(kernel_size: int, dilation: int = 1) -> int:
     return (kernel_size * dilation - dilation) // 2
 
 
-def pad_same(x: torch.Tensor, kernel_size: int, stride: int) -> torch.Tensor:
+def pad_same(x: torch.Tensor, kernel_size: int, stride: int,
+             dims: int = 1) -> torch.Tensor:
     """lax's SAME padding of a stride-``stride`` window ``kernel_size`` on
-    the last axis of ``x``: ``max((⌈n/s⌉ − 1)·s + k − n, 0)`` in all, the
-    odd one after (torch's ``padding="same"`` refuses a stride)."""
-    n = x.shape[-1]
-    total = max((-(-n // stride) - 1) * stride + kernel_size - n, 0)
-    return F.pad(x, (total // 2, total - total // 2))
+    each of the last ``dims`` axes of ``x``: ``max((⌈n/s⌉ − 1)·s + k − n,
+    0)`` in all on an axis, the odd one after (torch's ``padding="same"``
+    refuses a stride)."""
+    pads = []
+    for n in reversed(x.shape[x.ndim - dims:]):     # F.pad: last axis first
+        total = max((-(-n // stride) - 1) * stride + kernel_size - n, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads)
 
 
 class Conv1d(nn.Module):

@@ -144,8 +144,7 @@ class LDMTask:
             post = self.vae.encode(batch["mels"].permute(0, 3, 1, 2).float())
             if draws is None:
                 draws = self.draws(tuple(post.mean.shape), generator)
-            std = torch.exp(0.5 * post.logvar.clamp(-30.0, 20.0))
-            z0 = (post.mean + std * draws["post"]) * cfg.scale_factor
+            z0 = post.sample(draws["post"]) * cfg.scale_factor
             mask = batch.get("text_mask")
             ctx = self.clap(batch["text_ids"].long(),
                             None if mask is None else mask.long())

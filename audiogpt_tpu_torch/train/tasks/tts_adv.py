@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from audiogpt_tpu_torch.engines.base import resolve_device, seeded
-from audiogpt_tpu_torch.models.tts.generspeech import same_pad_2d
+from audiogpt_tpu_torch.ops.conv import pad_same
 from audiogpt_tpu_torch.train.optim import OptimConfig
 from audiogpt_tpu_torch.train.tasks.fs2 import FS2Task, FS2TaskConfig
 from audiogpt_tpu_torch.train.tasks.portaspeech import (PortaSpeechTask,
@@ -61,7 +61,8 @@ class SingleWindowDisc(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(3):
-            x = F.leaky_relu(getattr(self, f"conv{i}")(same_pad_2d(x)), 0.2)
+            x = getattr(self, f"conv{i}")(pad_same(x, 3, 2, dims=2))
+            x = F.leaky_relu(x, 0.2)
             if i < 2:
                 x = getattr(self, f"norm{i}")(x.permute(0, 2, 3, 1)
                                               ).permute(0, 3, 1, 2)

@@ -8,18 +8,25 @@ Counterpart of ``audiogpt_tpu/train_cli.py``:
 
 trains on the card (``--device cpu`` for a run on the CPU). The resolved
 config persists to ``<exp_name>/config.yaml`` (hparams.py:109 behaviour)
-and the work dir holds checkpoints and ``metrics.jsonl``. The port's recipes
-so far: ``ldm``; ``fs2`` (``configs/tts/fs2.yaml``, ``fs2_cwt.yaml``) and
-``vocoder_gan`` (``configs/vocoder/hifigan.yaml``); ``portaspeech``,
-``syntaspeech``, ``ps_adv`` and ``synta_adv`` (``configs/tts/
-portaspeech.yaml``, ``syntaspeech.yaml``, ``ps_adv.yaml``; ``synta_adv``
-is ``syntaspeech.yaml`` with ``--hparams task=synta_adv``),
-``generspeech`` and ``pe``. The TTS recipes train on records written by
-``data/binarizer.py`` ``TTSBinarizer`` (the PortaSpeech family with
-``with_words``, and ``with_graph`` for SyntaSpeech) or
-``EmotionBinarizer`` (GenerSpeech), batched by the token-budget loader.
-Every other task of the JAX CLI raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+and the work dir holds checkpoints and ``metrics.jsonl``. The port's
+recipes: the LDM family, ``ldm``, ``vae`` and ``clap``
+(``configs/t2a/{ldm,vae,clap}.yaml``); ``fs2`` (``configs/tts/fs2.yaml``,
+``fs2_cwt.yaml``) and ``vocoder_gan`` (``configs/vocoder/hifigan.yaml``);
+``portaspeech``, ``syntaspeech``, ``ps_adv`` and ``synta_adv``
+(``configs/tts/portaspeech.yaml``, ``syntaspeech.yaml``, ``ps_adv.yaml``;
+``synta_adv`` is ``syntaspeech.yaml`` with ``--hparams task=synta_adv``),
+``generspeech`` and ``pe``; the SVS recipes ``diffsinger`` and
+``visinger`` (``configs/svs/``); ``audio2motion``
+(``configs/face/audio2motion.yaml``). The TTS and SVS recipes train on
+records written by ``data/binarizer.py`` (``TTSBinarizer``, the
+PortaSpeech family with ``with_words`` and SyntaSpeech with
+``with_graph``; ``EmotionBinarizer`` for GenerSpeech; ``SVSBinarizer`` for
+the SVS recipes, VISinger's records with ``with_wav`` and a linear
+``spec``), batched by the token-budget loader; ``ldm``, ``vae``, ``clap``
+and ``audio2motion`` on fixed-shape batches (mel images, wav-and-text
+records, mels with their motion or its pseudo-target). The analysis
+recipes (``sed``, ``caption``, ``separation``) raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -32,11 +39,7 @@ from typing import Any
 from audiogpt_tpu_torch.config import Config, load_config
 
 #: the JAX CLI's other tasks → the ROADMAP.md §A item that ports them
-_NOT_PORTED = {
-    "diffsinger": "A3", "visinger": "A3", "audio2motion": "A3",
-    "vae": "A4", "clap": "A4",
-    "sed": "A5", "caption": "A5", "separation": "A5",
-}
+_NOT_PORTED = {"sed": "A5", "caption": "A5", "separation": "A5"}
 
 
 def _not_ported(name: str):
@@ -128,6 +131,44 @@ def build_task(cfg: Config, device=None):
         return LDMTask(_fill(LDMTaskConfig, {
             **model, "optim": dataclasses.asdict(optim), **loss}),
             device=device)
+    if name == "diffsinger":
+        from audiogpt_tpu_torch.train.tasks import (DiffSingerTask,
+                                                    DiffSingerTaskConfig)
+
+        return DiffSingerTask(_fill(DiffSingerTaskConfig, {
+            "model": model, "optim": dataclasses.asdict(optim), **loss}),
+            device=device)
+    if name == "visinger":
+        from audiogpt_tpu_torch.train.tasks import (VISingerTask,
+                                                    VISingerTaskConfig)
+
+        return VISingerTask(_fill(VISingerTaskConfig, {
+            "model": model, "disc": dict(cfg.get("disc", {})),
+            "optim_model": dataclasses.asdict(optim),
+            "optim_disc": dataclasses.asdict(optim), **loss}),
+            device=device)
+    if name == "audio2motion":
+        # GeneFace-class variational motion generator (models/face/)
+        from audiogpt_tpu_torch.train.tasks import (Audio2MotionTask,
+                                                    Audio2MotionTaskConfig)
+
+        return Audio2MotionTask(_fill(Audio2MotionTaskConfig, {
+            "model": model, "optim": dataclasses.asdict(optim), **loss}),
+            device=device)
+    if name == "vae":
+        # first-stage AutoencoderKL GAN recipe (ldm/models/autoencoder.py:305)
+        from audiogpt_tpu_torch.train.tasks import VAETask, VAETaskConfig
+
+        return VAETask(_fill(VAETaskConfig, {
+            **model, "optim_vae": dataclasses.asdict(optim),
+            "optim_disc": dataclasses.asdict(optim), **loss}), device=device)
+    if name == "clap":
+        # contrastive audio-text pretraining (open_clap/loss.py:306)
+        from audiogpt_tpu_torch.train.tasks import CLAPTask, CLAPTaskConfig
+
+        return CLAPTask(_fill(CLAPTaskConfig, {
+            **model, "optim": dataclasses.asdict(optim), **loss}),
+            device=device)
     if name in _NOT_PORTED:
         raise _not_ported(name)
     raise ValueError(f"unknown task {name!r}")
@@ -140,6 +181,8 @@ _TTS_VOCABS = {
     "fs2": (("phone_set.json", "vocab_size"),),
     "generspeech": (("phone_set.json", "fs2.vocab_size"),),
     "pe": (),
+    "diffsinger": (("phone_set.json", "fs2.vocab_size"),),
+    "visinger": (("phone_set.json", "vocab_size"),),
     **{name: (("phone_set.json", "ph_vocab_size"),
               ("word_set.json", "word_vocab_size"))
        for name in ("portaspeech", "syntaspeech", "ps_adv", "synta_adv")},
@@ -170,10 +213,13 @@ def check_vocabs(cfg: Config, task_name: str, bin_dir: str) -> None:
 def build_loaders(cfg: Config, task_name: str):
     """→ (an endless iterator of training batches, a function giving one
     pass over the validation split, or None without a ``valid`` split).
-    ``ldm``: fixed-shape batches; the TTS recipes (``fs2``, the
-    PortaSpeech family, ``generspeech``, ``pe``): token-budget batches on
-    the dyadic (batch, length) ladder of ``data.max_len`` / ``max_batch``
-    / ``min_batch``; ``vocoder_gan``: endless random crops, no
+    ``ldm``, ``vae``, ``clap`` and ``audio2motion``: fixed-shape batches
+    of ``batch_size``; the TTS and SVS recipes (``fs2``, the PortaSpeech
+    family, ``generspeech``, ``pe``, ``diffsinger``, ``visinger``):
+    token-budget batches on the dyadic (batch, length) ladder of
+    ``data.max_len`` / ``max_batch`` / ``min_batch``, VISinger's with the
+    sample-level wav at the hop of its decoder (the product of its
+    upsample rates); ``vocoder_gan``: endless random crops, no
     validation."""
     import functools
 
@@ -181,30 +227,47 @@ def build_loaders(cfg: Config, task_name: str):
 
     from audiogpt_tpu_torch.data import (ArrayDataLoader, BucketSpec,
                                          TTSDataLoader, VocoderDataLoader,
-                                         collate_mel_image, load_split)
+                                         collate_audio_text,
+                                         collate_mel_image, collate_motion,
+                                         collate_tts, load_split)
 
-    if task_name not in ("ldm", "vocoder_gan", *_TTS_VOCABS):
+    model = cfg.get("model", {})
+    d = cfg.get("data", {})
+    # fixed-shape recipes: one static shape per run
+    fixed_collates = {
+        "ldm": lambda: functools.partial(
+            collate_mel_image, width=d.get("width", 624),
+            text_len=d.get("text_len", 77)),
+        "vae": lambda: functools.partial(
+            collate_mel_image, width=d.get("width", 624)),
+        "clap": lambda: functools.partial(
+            collate_audio_text,
+            n_samples=int(d.get("sample_rate", 16000)
+                          * d.get("clip_seconds", 10.0)),
+            text_len=d.get("text_len", 77), schema="clap"),
+        "audio2motion": lambda: functools.partial(
+            collate_motion, mel_len=d.get("mel_len", 512),
+            video_len=d.get("mel_len", 512) * model.get("fps", 25)
+            * model.get("hop", 256) // model.get("sample_rate", 16000)),
+    }
+    if task_name not in ("vocoder_gan", *fixed_collates, *_TTS_VOCABS):
         if task_name in _NOT_PORTED:
             raise _not_ported(task_name)
         raise ValueError(f"unknown task {task_name!r}")
-    d = cfg.get("data", {})
     bin_dir = d.get("binary_dir", "data/bin")
     train_ds = load_split(bin_dir, "train")
     has_valid = os.path.exists(os.path.join(bin_dir, "valid.idx"))
 
     if task_name == "vocoder_gan":
-        rates = cfg.get("model", {}).get("upsample_rates", (8, 8, 2, 2))
+        rates = model.get("upsample_rates", (8, 8, 2, 2))
         loader = VocoderDataLoader(
             train_ds, segment_frames=cfg.get("segment_frames", 32),
             hop=int(np.prod(tuple(rates))),
             batch_size=cfg.get("batch_size", 16))
         return iter(loader), None
 
-    if task_name == "ldm":
-        # fixed-shape recipe: one static shape per run
-        collate = functools.partial(collate_mel_image,
-                                    width=d.get("width", 624),
-                                    text_len=d.get("text_len", 77))
+    if task_name in fixed_collates:
+        collate = fixed_collates[task_name]()
         bs = cfg.get("batch_size", 16)
         train = ArrayDataLoader(train_ds, collate, batch_size=bs)
 
@@ -214,10 +277,16 @@ def build_loaders(cfg: Config, task_name: str):
 
         return iter(train), (val_fn if has_valid else None)
 
-    # the token-budget bucketed TTS recipes
+    # the token-budget bucketed TTS and SVS recipes
     check_vocabs(cfg, task_name, bin_dir)
     spec = BucketSpec.dyadic(d.get("max_len", 2048), d.get("max_batch", 64),
                              min_batch=d.get("min_batch", 8))
+    collate_fn = None
+    if task_name == "visinger":
+        # end-to-end SVS reads the wav too, at the decoder's hop
+        rates = model.get("decoder", {}).get("upsample_rates", (8, 8, 2, 2))
+        collate_fn = functools.partial(collate_tts,
+                                       wav_hop=int(np.prod(tuple(rates))))
 
     def loader(split, ds, shuffle=True):
         # the binarizer's lengths sidecar spares reading every record
@@ -226,7 +295,7 @@ def build_loaders(cfg: Config, task_name: str):
                              max_sentences=d.get("max_sentences", 100),
                              spec=spec, shuffle=shuffle,
                              sizes=np.load(lengths) if os.path.exists(lengths)
-                             else None)
+                             else None, collate_fn=collate_fn)
 
     def val_fn():
         return loader("valid", load_split(bin_dir, "valid"),

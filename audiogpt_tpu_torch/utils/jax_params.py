@@ -22,8 +22,13 @@ name, and is an ``nn.Embedding``'s ``weight`` elsewhere). A
 the period discriminators' ``(5, 1)`` among them, goes HWIO → OIHW; a
 grouped 1-D kernel ``[k, in/g, out]`` (the scale discriminators') takes
 the same transpose as any 1-D one, to ``[out, in/g, k]``. The GGNN's GRU cell is four denses, not an
-``nn.GRU``, and loads as denses. Loading is strict: a missed or extra
-parameter raises.
+``nn.GRU``, and loads as denses. The training trees load the same way:
+Audio2Motion's with ``motion_enc`` and ``post_head`` (the model built with
+its posterior), VISinger's ``{"model", "disc"}``, the VAE task's
+``PatchDiscriminator`` (4×4 HWIO kernels to OIHW, its LayerNorms as they
+are) and CLAP's ``{text, audio, logit_scale}`` with Cnn14's
+``batch_stats`` (the 0-d ``logit_scale`` a raw parameter). Loading is
+strict: a missed or extra parameter raises.
 """
 
 from __future__ import annotations

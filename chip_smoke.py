@@ -211,7 +211,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    ``model.bf16_compute=false``, on a fixture of 64 seeded records written
    by the port's ``RecordWriter`` (mel [624, 80] in [0, 1], BERT ids),
    driven through ``train_cli.build_task``, ``build_loaders`` and
-   ``Trainer.fit`` for 60 steps: the trainable and frozen parameter counts,
+   ``Trainer.fit`` for 40 steps: the trainable and frozen parameter counts,
    the median step time over the steady steps (each step ends in the
    metrics' copy to the host), samples/s, peak memory, K1 launches a step
    by shape (5 at [16, 780, 780, 8, 40]) and K2's (0), the mean loss of
@@ -237,7 +237,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 51. train_fs2: ``configs/tts/fs2.yaml`` at its full widths on those
    records through ``train_cli.build_task`` / ``build_loaders`` (30 000
    tokens, 100 sentences, the 128–2048 × 8–64 ladder) and
-   ``Trainer.fit``, 60 steps and a validation at the last: the median
+   ``Trainer.fit``, 40 steps and a validation at the last: the median
    step time over steps whose batch shape was seen before (the first of
    each shape counts its FLOPs), the count of shapes, valid mel
    frames/s, MFU at the f32 FMA peak, peak memory, neither kernel, the
@@ -249,7 +249,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 52. train_fs2_cwt: ``configs/tts/fs2_cwt.yaml`` on the CWT split, 10
    steps: the ``cwt``, ``uv``, ``f0_mean`` and ``f0_std`` terms finite.
 53. train_vocoder_gan: ``configs/vocoder/hifigan.yaml`` at full width
-   (HiFi-GAN V1; MPD + MSD), batch 16 × 32 frames, 40 steps of ``disc``
+   (HiFi-GAN V1; MPD + MSD), batch 16 × 32 frames, 30 steps of ``disc``
    then ``gen``: each group's step time, peak memory, ``d_loss``,
    ``g_mel`` falling, both groups' parameters moved, neither kernel.
 54. train_tts_small_reference: the CPU tests' tiny FS2, vocoder-GAN,
@@ -264,7 +264,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    ``with_style_embed``: items/s, the phone and word sets and the emotion
    map against the configs' vocab sizes.
 56. train_portaspeech: ``configs/tts/portaspeech.yaml`` at full width on
-   the word split, 40 steps and a validation at the last: parameters,
+   the word split, 30 steps and a validation at the last: parameters,
    shapes, the median step time at seen shapes, valid frames/s, MFU, peak
    memory, ``mel``, ``ssim``, ``kl_v``, ``kl``, ``wdur`` over the first
    and last 10 steps (the total falling, ``kl`` on its ramp), neither
@@ -278,6 +278,37 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    ``commit``, ``guided``, ``postflow`` finite; each ``Conv1d`` alone.
 60. train_pe: ``pe.yaml``, 20 steps, its warm-up cut to 100: ``f0`` and
    ``uv`` falling.
+61. binarize_svs: a seeded sung corpus in Opencpop's score format (128
+   items of 2–5 s at 24 kHz, under 512 frames at hop 256: pinyin words,
+   note names with slurs and rests, note durations; voiced tones at the
+   notes' pitches) through
+   ``SVSBinarizer`` at ``opencpop.yaml``'s mel (hop 128), a second pass at
+   hop 256 with the wav for VISinger plus the fixture's linear spec (n_fft
+   1024, 513 bins, on the mel's frames), and a seeded Mandarin corpus
+   through ``ZhBinarizer``: items/s, the phone and note counts.
+62. train_diffsinger: ``configs/svs/diffsinger.yaml`` at full width (K_step
+   1000, FS2-MIDI 256 wide with ``rel_pos``, DiffNet 20 × 256), 12 steps:
+   step time, MFU, peak, shapes, ``diff`` and ``pdur`` first and last.
+63. train_visinger: ``configs/svs/visinger.yaml`` at full width, 4 steps
+   of ``disc`` then ``model`` at ``data.max_tokens`` 1 500 (the decoder
+   and both critics see the whole F · 256 wav; the yaml's 30 000 does not
+   fit): each group's step alone, the peak, both groups moved.
+64. train_audio2motion: ``configs/face/audio2motion.yaml`` at full width
+   (512 mel frames → 204 video frames, batch 16) on the TTS fixture's
+   mels and their pseudo-targets, 12 steps.
+65. train_vae: ``configs/t2a/vae.yaml`` at full width (ch 128, ch_mult
+   1-2-2-4, batch 8, 624 frames) on ``train_ldm``'s mel images, 8 steps
+   of ``disc`` then ``model``: each group's step alone, the peak.
+66. train_clap: ``configs/t2a/clap.yaml`` at full width (BERT-base, Cnn14,
+   ``d_proj`` 1024, batch 32 of 10 s at 16 kHz, 77 tokens), 8 steps:
+   step time, MFU, ``acc``, ``scale``, Cnn14's BatchNorm buffers unmoved.
+67. train_svs_small_reference: the CPU tests' tiny DiffSinger (pitch
+   embedding off and on), VISinger (both groups), Audio2Motion, VAE (both
+   groups) and CLAP tasks on the card and on the CPU with the same
+   weights, batch and draws, all in f32: losses within 1e-6 relative,
+   gradients within 5e-5 of each tensor's largest. CLAP's Cnn14 holds the
+   running statistics of one forward on the batch, so its embeddings are
+   not collinear (their cosines are printed).
 
 The ``unet_bf16`` engine of phase 6 also inpaints (``inpaint_unet_bf16``):
 its f32 UNet gives the f32 engine's wav with the same draws.
@@ -4641,12 +4672,13 @@ def tool_text_tsd(eng, wav) -> str:
     return "; ".join(f"({s:.2f}s, {t:.2f}s)" for s, t in spans)
 
 
-#: the training phases: steps of each full-width run, its fixture's size,
+#: the training phases: steps of each full-width run (40, cut from 60 to
+#: keep the whole script inside its time limit), its fixture's size,
 #: the loss windows compared (the first and the last steps), the steps left
 #: out of the step-time median (the FLOP-counted step, the allocator's
 #: first blocks), and the bound on the UNet gradients with K1 against the
 #: plain attention path (f32, TF32 off): max|Δg| / max|g|
-TRAIN_STEPS, TRAIN_RECORDS, TRAIN_WINDOW, TRAIN_WARM_SKIP = 60, 64, 10, 3
+TRAIN_STEPS, TRAIN_RECORDS, TRAIN_WINDOW, TRAIN_WARM_SKIP = 40, 64, 10, 3
 TRAIN_GRAD_TOL = 1e-4
 #: the mel canvas of ldm.yaml (``data.width``) and its mel bins
 LDM_FRAMES, LDM_MELS = 624, 80
@@ -4950,15 +4982,16 @@ def phase_train_resume(tmp: str) -> None:
 #: the TTS training phases. The LJSpeech-like fixture: items, their length
 #: range in seconds (LJSpeech's clips run 1–10 s), frames a phone (≈ 11
 #: phones a second at hop 256), the share of unvoiced phones, and the items
-#: of the CWT split. Steps of each run; the rsqrt warmup of the fs2 runs:
-#: 60 steps of fs2.yaml's 8000-step warmup stay under 1.1e-5, so the run
-#: uses 400 (9.4e-4 at step 60; the yaml's peak is 1.4e-3); the loss
+#: of the CWT split. Steps of each run (cut from 60 and 40 to keep the
+#: whole script inside its time limit); the rsqrt warmup of the fs2 runs:
+#: fs2.yaml's 8000-step warmup stays under 1.1e-5 over such a run, so the
+#: run uses 400 (6.3e-4 at step 40; the yaml's peak is 1.4e-3); the loss
 #: windows compared; the card-vs-CPU bounds of the small reference (f32,
 #: TF32 off): the losses relative, the gradients against each tensor's
 #: largest
 TTS_ITEMS, TTS_SECONDS, TTS_FRAMES_PER_PHONE = 256, (1.5, 10.0), 8
 TTS_UNVOICED, TTS_CWT_ITEMS = 0.2, 64
-FS2_STEPS, FS2_CWT_STEPS, GAN_STEPS, FS2_WARMUP = 60, 10, 40, 400
+FS2_STEPS, FS2_CWT_STEPS, GAN_STEPS, FS2_WARMUP = 40, 10, 30, 400
 TTS_LOSS_RTOL, TTS_GRAD_TOL = 1e-5, 1e-4
 #: a vanishing gradient (an attention's key bias) of the PR 13 recipes,
 #: against the group's largest gradient (the CPU tests' bound)
@@ -4987,7 +5020,7 @@ TTS_WORDS = (
     "walked looked turned back down over under near again").split()
 TTS_EMOTIONS = ("Neutral", "Happy", "Sad", "Angry", "Surprise")
 TTS_WORD_ITEMS, TTS_EMO_ITEMS = 128, 64
-PS_STEPS, SYNTA_STEPS, PS_ADV_STEPS, GS_STEPS, PE_STEPS = 40, 10, 20, 20, 20
+PS_STEPS, SYNTA_STEPS, PS_ADV_STEPS, GS_STEPS, PE_STEPS = 30, 10, 20, 20, 20
 PE_WARMUP = 100
 #: the tiny PortaSpeech, GenerSpeech and pitch extractor of the CPU tests
 #: (tests/test_torch_portaspeech_train.py PS, tests/test_torch_generspeech.py
@@ -5174,12 +5207,20 @@ def tts_trainer(config: str, bin_dir: str, work: str, extra: str = "",
 
 
 def tapped(it, seen: list):
-    """``it``'s batches, each one's shapes and real mel frames appended to
-    ``seen`` as it is drawn."""
+    """``it``'s batches, each one's shapes and real units appended to
+    ``seen`` as it is drawn: a token-budget batch's real mel frames; a
+    fixed-shape batch's real rows times its frames (a mel image's width)
+    or samples."""
     for b in it:
         real = b["weight"] > 0
-        seen.append(((tuple(b["mels"].shape), tuple(b["txt_tokens"].shape)),
-                     int(b["mel_lengths"][real].sum())))
+        if "txt_tokens" in b:
+            seen.append(((tuple(b["mels"].shape),
+                          tuple(b["txt_tokens"].shape)),
+                         int(b["mel_lengths"][real].sum())))
+        else:
+            x = b["mels"] if "mels" in b else b["wav"]
+            seen.append(((tuple(x.shape),), int(real.sum())
+                         * x.shape[2 if x.ndim == 4 else 1]))
         yield b
 
 
@@ -5771,15 +5812,15 @@ def phase_train_syntaspeech(bins: dict, tmp: str) -> dict:
     return {"launches": run["counts"]}
 
 
-def group_step_ms(trainer, batch) -> dict:
+def group_step_ms(trainer, batch, iters: int = 6) -> dict:
     """Each group's ``train_step`` alone on one device batch, the median of
-    5 after one warm step."""
+    ``iters`` − 1 after one warm step."""
     import torch
 
     out = {}
     for grp in trainer.groups:
         times = []
-        for i in range(6):
+        for i in range(iters):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             trainer.train_step(grp, batch, i)
@@ -5858,6 +5899,369 @@ def phase_train_pe(bins: dict, tmp: str) -> dict:
     return {"launches": run["counts"]}
 
 
+#: the SVS, face and LDM-family training phases. The sung fixture: items
+#: and their length range in seconds before the last note (Opencpop's
+#: segments run 2–10 s; ≤ 5.1 s keeps VISinger's hop-256 items under 512
+#: frames, so its batches stay on the 512 rung or below), the
+#: syllables and note names of its scores; the Mandarin fixture's
+#: sentences and items. Steps of each run; the CLAP fixture's records (a
+#: multiple of the batch: a padded row of zero length has no Cnn14 frame
+#: and makes the loss NaN, ROADMAP §C)
+SVS_ITEMS, SVS_SECONDS = 128, (2.0, 4.5)
+SVS_SYLLABLES = ("xiao jiu wo ni hao ai shi tian di ren yue liang xing "
+                 "kong feng hua xue yu chun qiu meng xiang guang ming "
+                 "zhi dao you yi").split()
+SVS_NOTES = ("C4 C#4/Db4 D4 D#4/Eb4 E4 F4 F#4/Gb4 G4 G#4/Ab4 A4 A#4/Bb4 "
+             "B4 C5 D5 E5").split()
+ZH_TEXTS = ("你好，世界。", "今天天气很好，我们去公园散步。", "音乐让我快乐！",
+            "我有2个苹果和3个梨。", "春风吹过山谷，花开满地。")
+ZH_ITEMS = 32
+DS_STEPS, VIS_STEPS, A2M_STEPS, VAE_STEPS, CLAP_STEPS = 12, 4, 12, 8, 8
+#: VISinger's ``data.max_tokens`` on the card (the yaml's: 30 000)
+VIS_MAX_TOKENS = 1500
+CLAP_RECORDS = 64
+CLAP_CAPTIONS = ("a dog barks in the rain", "birds sing at dawn",
+                 "a car passes on a wet road", "people talk in a cafe",
+                 "a piano plays a slow tune", "thunder rolls far away")
+#: the 24 kHz, hop-256 mel of the VISinger records (the decoder's hop)
+VIS_MEL = dict(sr=24000, n_fft=1024, hop=256, win_length=1024, n_mels=80,
+               fmin=30.0, fmax=12000.0, power=1.0, pad_mode="constant",
+               log="log10", amin=1e-5)
+
+
+def svs_corpus(n: int, seed: int, sr: int = 24000):
+    """``n`` seeded Opencpop-style items: pinyin words (one in 12 a rest,
+    ``SP`` or ``AP``), one note each or, one in five, a slur of two, each
+    note 0.15–0.6 s; the wav a tone at each note's pitch (two harmonics
+    and noise, continuous phase), noise on the rests."""
+    import numpy as np
+
+    from audiogpt_tpu_torch.data import SVSItem
+    from audiogpt_tpu_torch.engines.svs import note_to_midi
+
+    rng = np.random.default_rng(seed)
+    items = []
+    for i in range(n):
+        target = rng.uniform(*SVS_SECONDS)
+        words, notes, durs, total = [], [], [], 0.0
+        while total < target:
+            if rng.random() < 1 / 12:
+                words.append(("SP", "AP")[int(rng.integers(2))])
+                ns = ["rest"]
+            else:
+                words.append(SVS_SYLLABLES[int(rng.integers(
+                    len(SVS_SYLLABLES)))])
+                ns = [SVS_NOTES[int(rng.integers(len(SVS_NOTES)))]
+                      for _ in range(2 if rng.random() < 0.2 else 1)]
+            ds = [float(f"{rng.uniform(0.15, 0.6):.3f}") for _ in ns]
+            notes.append(" ".join(ns))
+            durs.append(" ".join(f"{d:.3f}" for d in ds))
+            total += sum(ds)
+        parts, phase = [], 0.0
+        for ns, ds in zip(notes, durs):
+            for note, d in zip(ns.split(), map(float, ds.split())):
+                m = int(round(d * sr))
+                midi = note_to_midi(note)
+                if midi == 0:
+                    parts.append(rng.normal(0, 0.02, m))
+                    continue
+                hz = 440.0 * 2 ** ((midi - 69) / 12)
+                ph = phase + 2 * np.pi * hz * np.arange(1, m + 1) / sr
+                phase = float(ph[-1])
+                parts.append(0.3 * np.sin(ph) + 0.1 * np.sin(2 * ph)
+                             + rng.normal(0, 0.01, m))
+        items.append(SVSItem(
+            name=f"OPC{i:04d}", wav=np.concatenate(parts).astype(np.float32),
+            text=" ".join(words), notes=" | ".join(notes),
+            notes_duration=" | ".join(durs)))
+    return items
+
+
+def zh_corpus(n: int, seed: int, sr: int = 22050, hop: int = 256):
+    """``n`` seeded Mandarin items of 1.5–4 s: ``ZH_TEXTS`` sentences, the
+    frames cut at random over the Mandarin frontend's phones (``|`` and
+    punctuation included), each ≥ 1 frame, as ``tts_corpus``'s."""
+    import numpy as np
+
+    from audiogpt_tpu_torch.data import Item
+    from audiogpt_tpu_torch.text.zh import ZhTTSFrontend
+
+    frontend = ZhTTSFrontend()
+    rng = np.random.default_rng(seed)
+    items = []
+    for i in range(n):
+        text = ZH_TEXTS[i % len(ZH_TEXTS)]
+        samples = int(rng.uniform(1.5, 4.0) * sr)
+        frames = 1 + samples // hop
+        n_ph = len(frontend(text).phones)
+        cuts = np.sort(rng.choice(np.arange(1, frames), n_ph - 1,
+                                  replace=False))
+        dur = np.diff(np.concatenate([[0], cuts, [frames]]))
+        wav, _ = voiced_wav(rng, samples, dur, sr, hop)
+        items.append(Item(name=f"ZH{i:04d}", wav=wav, text=text,
+                          durations=dur.tolist()))
+    return items
+
+
+def phase_binarize_svs(tmp: str) -> dict:
+    """The sung fixture through ``SVSBinarizer`` at ``opencpop.yaml``'s mel
+    (24 kHz, hop 128; DiffSinger reads it) and again at hop 256 with the
+    wav, its records rewritten with the fixture's linear spec (the port's
+    STFT, n_fft 1024, 513 bins on the mel's frames; VISinger reads it: no
+    binarizer writes a spec, as in the JAX package); the Mandarin fixture
+    through ``ZhBinarizer``: items/s, the phone set, the notes, slurs and
+    rests, and the Mandarin durations after the two rules."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.data import (BinarizeConfig, RecordWriter,
+                                         SVSBinarizer, ZhBinarizer,
+                                         load_phone_encoder, load_split)
+    from audiogpt_tpu_torch.dsp.mel import NEURALSEQ_MEL_24K, MelSpec
+    from audiogpt_tpu_torch.dsp.stft import spectrogram
+
+    t0 = time.perf_counter()
+    items = svs_corpus(SVS_ITEMS, 41)
+    corpus_s = time.perf_counter() - t0
+    root = Path(tmp) / "svs_bin"
+    t0 = time.perf_counter()
+    counts = SVSBinarizer(BinarizeConfig(
+        mel=NEURALSEQ_MEL_24K, with_f0=True)).binarize(
+        items, str(root / "opencpop"))
+    svs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raw = root / "opencpop_wav"
+    SVSBinarizer(BinarizeConfig(mel=MelSpec(**VIS_MEL), with_f0=False,
+                                with_wav=True)).binarize(items, str(raw))
+    vis = root / "visinger"
+    vis.mkdir()
+    for f in raw.iterdir():
+        if f.suffix in (".json", ".npy"):
+            shutil.copy(f, vis / f.name)
+    for split in ("train", "valid", "test"):
+        ds = load_split(str(raw), split)
+        with RecordWriter(str(vis / split)) as w:
+            for i in range(len(ds)):
+                rec = ds[i]
+                spec = spectrogram(torch.from_numpy(rec["wav"]).cuda(),
+                                   1024, 256, 1024, center=True,
+                                   pad_mode="constant", power=1.0)
+                rec["spec"] = spec[:rec["len"]].cpu().numpy()
+                w.add(rec)
+    vis_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zh_items = zh_corpus(ZH_ITEMS, 43)
+    zh_counts = ZhBinarizer(BinarizeConfig(with_f0=True)).binarize(
+        zh_items, str(root / "zh"))
+    zh_s = time.perf_counter() - t0
+    train = load_split(str(root / "opencpop"), "train")
+    recs = [train[i] for i in range(len(train))]
+    vrec = load_split(str(vis), "train")[0]
+    zh = [load_split(str(root / "zh"), "train")[i] for i in range(8)]
+    phones = len(load_phone_encoder(str(root / "opencpop")))
+    res = {"phase": "binarize_svs", "items": len(items),
+           "audio_s": sum(len(it.wav) for it in items) / 24000,
+           "fixture_s": corpus_s, "splits": counts, "binarize_s": svs_s,
+           "items_per_s": len(items) / svs_s,
+           "visinger_binarize_and_spec_s": vis_s,
+           "visinger_items_per_s": len(items) / vis_s,
+           "phone_ids": phones, "vocab_size": 100,
+           "phones": int(sum(len(r["tokens"]) for r in recs)),
+           "notes": int(sum((r["pitch_midi"] > 0).sum() for r in recs)),
+           "rests": int(sum((r["pitch_midi"] == 0).sum() for r in recs)),
+           "slurs": int(sum(r["is_slur"].sum() for r in recs)),
+           "midi_range": [int(min(r["pitch_midi"][r["pitch_midi"] > 0].min()
+                                  for r in recs)),
+                          int(max(r["pitch_midi"].max() for r in recs))],
+           "aligned_share": float(np.mean([(r["mel2ph"] > 0).mean()
+                                           for r in recs])),
+           "mel_frames": int(sum(r["len"] for r in recs)),
+           "visinger_spec_shape": list(vrec["spec"].shape),
+           "visinger_wav_per_frame": len(vrec["wav"]) / vrec["len"],
+           "zh_splits": zh_counts, "zh_binarize_s": zh_s,
+           "zh_items_per_s": ZH_ITEMS / zh_s,
+           "zh_phone_ids": len(load_phone_encoder(str(root / "zh"))),
+           "zh_separators_collapsed": int(sum(
+               (r["dur"] == 0).sum() for r in zh)),
+           "zh_durations_exact": all(int(r["dur"].sum()) == r["len"]
+                                     for r in zh)}
+    emit(res)
+    if phones > 100 or counts["train"] + counts["valid"] != SVS_ITEMS \
+            or not res["slurs"] or not res["rests"] \
+            or res["aligned_share"] < 0.95 \
+            or any(r["mel2ph"].max() > len(r["tokens"]) for r in recs) \
+            or vrec["spec"].shape != (vrec["len"], 513) \
+            or zh_counts["train"] + zh_counts["valid"] != ZH_ITEMS \
+            or not res["zh_separators_collapsed"] \
+            or not res["zh_durations_exact"]:
+        raise AssertionError(f"binarize_svs: {res}")
+    return {"svs": str(root / "opencpop"), "visinger": str(vis)}
+
+
+def phase_train_diffsinger(bins: dict, tmp: str) -> dict:
+    """``configs/svs/diffsinger.yaml`` at full width (FS2-MIDI 256 wide
+    with ``rel_pos``, no pitch embedding; DiffNet 20 × 256; t over K_step
+    1000) on the hop-128 records for ``DS_STEPS`` steps, the warm-up cut
+    from 8000 to ``FS2_WARMUP`` steps as ``train_fs2``'s: step time, MFU,
+    peak, the batch shapes, ``diff`` and ``pdur`` first and last."""
+    run = fit_run("train_diffsinger", "svs/diffsinger.yaml", bins["svs"],
+                  tmp, DS_STEPS, f"optim.warmup_steps={FS2_WARMUP}")
+    m, tr = run["task"].cfg.model, run["tr"]
+    if (m.timesteps, m.K_step, m.fs2.hidden_size, m.fs2.use_midi,
+            m.fs2.rel_pos, m.fs2.use_pitch_embed, m.net.residual_layers,
+            m.net.residual_channels) != (1000, 1000, 256, True, True,
+                                         False, 20, 256):
+        raise AssertionError(f"train_diffsinger: model {m}")
+    terms = ("diff", "pdur", "sdur", "total_loss")
+    res = {"phase": "train_diffsinger", **fit_report(run, terms),
+           "warmup_steps": [8000, FS2_WARMUP],
+           "diff_first": tr[0]["diff"], "diff_last": tr[-1]["diff"],
+           "pdur_first": tr[0]["pdur"], "pdur_last": tr[-1]["pdur"]}
+    emit(res)
+    if res["nonfinite"] or not finite_terms(tr, terms) \
+            or not all(run["moved"].values()):
+        raise AssertionError(f"train_diffsinger: {res}")
+    return {"launches": run["counts"]}
+
+
+def phase_train_visinger(bins: dict, tmp: str) -> dict:
+    """``configs/svs/visinger.yaml`` at full width (score encoder 192 wide,
+    posterior 8 WaveNet layers, flow 4 × 4, HiFi-GAN at 256 channels,
+    MPD + MSD) for ``VIS_STEPS`` steps at ``data.max_tokens`` cut to
+    ``VIS_MAX_TOKENS``: the decoder and both critics run on the whole
+    F · 256 wav, and the yaml's 30 000 tokens do not fit the card (a
+    padded frame of a step takes 6.48 MB). A budget that no longer fits
+    fails the phase with the allocator's error. Each group's step alone on
+    the run's largest batch, the peak, both groups moved."""
+    run = fit_run("train_visinger", "svs/visinger.yaml", bins["visinger"],
+                  tmp, VIS_STEPS, f"data.max_tokens={VIS_MAX_TOKENS}")
+    task, tr = run["task"], run["tr"]
+    m = task.cfg.model
+    if (m.hidden, m.latent_dim, m.spec_bins, m.posterior_layers,
+            m.flow_layers, m.decoder.upsample_initial_channel,
+            m.decoder.hop_size, task.cfg.disc.periods) != (
+                192, 192, 513, 8, 4, 256, 256, (2, 3, 5, 7, 11)):
+        raise AssertionError(f"train_visinger: config {task.cfg}")
+    terms = ("d_loss", "kl", "mel", "adv", "fm", "pdur", "total_loss")
+    res = {"phase": "train_visinger", **fit_report(run, terms),
+           "max_tokens": [30000, VIS_MAX_TOKENS]}
+    groups = group_step_ms(run["trainer"], run["trainer"]._to_device(
+        largest_batch(run)), iters=3)
+    res.update(disc_step_ms=groups["disc"], model_step_ms=groups["model"],
+               d_loss_first=tr[0]["d_loss"], d_loss_last=tr[-1]["d_loss"],
+               mel_first=tr[0]["mel"], mel_last=tr[-1]["mel"],
+               kl_first=tr[0]["kl"], kl_last=tr[-1]["kl"])
+    emit(res)
+    if res["nonfinite"] or not finite_terms(tr, terms) \
+            or not all(run["moved"].values()):
+        raise AssertionError(f"train_visinger: {res}")
+    return {"launches": run["counts"]}
+
+
+def phase_train_audio2motion(bins: dict, tmp: str) -> dict:
+    """``configs/face/audio2motion.yaml`` at full width (hidden 256, latent
+    16, 3 conv layers; 512 mel frames → 204 video frames, batch 16) on the
+    TTS fixture's mels and their energy pseudo-targets for ``A2M_STEPS``
+    steps (the yaml's 2000-step warm-up kept: the steps move the weights
+    little): step time, MFU, the three terms first and last."""
+    run = fit_run("train_audio2motion", "face/audio2motion.yaml",
+                  bins["lj"], tmp, A2M_STEPS)
+    m, tr = run["task"].cfg.model, run["tr"]
+    if (m.hidden, m.latent, m.conv_layers, m.mel_bins, m.video_len(512)) \
+            != (256, 16, 3, 80, 204) or run["shapes"][0] != ((16, 512, 80),):
+        raise AssertionError(f"train_audio2motion: {m}, {run['shapes']}")
+    terms = ("recon_loss", "kl_loss", "vel_loss", "total_loss")
+    res = {"phase": "train_audio2motion", **fit_report(run, terms)}
+    emit(res)
+    if res["nonfinite"] or not finite_terms(tr, terms) \
+            or not all(run["moved"].values()):
+        raise AssertionError(f"train_audio2motion: {res}")
+    return {"launches": run["counts"]}
+
+
+def phase_train_vae(tmp: str) -> dict:
+    """``configs/t2a/vae.yaml`` at full width (ch 128, ch_mult 1-2-2-4, 2
+    res blocks, the mid block's single-head attention at 512 channels)
+    with the PatchGAN critic, batch 8 of [80, 624] mel images, on the
+    records ``train_ldm`` wrote, ``VAE_STEPS`` steps of ``disc`` then
+    ``model``: each group's step alone, the peak, both groups moved."""
+    from audiogpt_tpu_torch import train_cli
+
+    run = fit_run("train_vae", "t2a/vae.yaml",
+                  str(Path(tmp) / "train_ldm" / "bin"), tmp, VAE_STEPS)
+    task, tr = run["task"], run["tr"]
+    v = task.cfg.vae
+    if (v.ch, tuple(v.ch_mult), v.num_res_blocks, tuple(v.attn_resolutions),
+            run["shapes"][0]) != (128, (1, 2, 2, 4), 2, (),
+                                  ((8, 80, 624, 1),)):
+        raise AssertionError(f"train_vae: {v}, {run['shapes']}")
+    terms = ("d_loss", "rec", "kl", "g_adv", "total_loss")
+    res = {"phase": "train_vae", **fit_report(run, terms)}
+    groups = group_step_ms(run["trainer"], run["trainer"]._to_device(
+        next(iter(train_cli.build_loaders(run["cfg"], "vae")[0]))), iters=3)
+    res.update(disc_step_ms=groups["disc"], model_step_ms=groups["model"],
+               rec_first=tr[0]["rec"], rec_last=tr[-1]["rec"],
+               d_loss_first=tr[0]["d_loss"], d_loss_last=tr[-1]["d_loss"])
+    emit(res)
+    if res["nonfinite"] or not finite_terms(tr, terms) \
+            or not all(run["moved"].values()):
+        raise AssertionError(f"train_vae: {res}")
+    return {"launches": run["counts"]}
+
+
+def clap_fixture(root: Path, n: int, seed: int) -> str:
+    """``n`` seeded CLAP records (``wav``: 10 s at 16 kHz of sound events;
+    ``text_ids``: a caption through the bundled WordPiece vocab) as the
+    train split; → the binary dir."""
+    import numpy as np
+
+    from audiogpt_tpu_torch.data import RecordWriter
+    from audiogpt_tpu_torch.models.textenc.clap import WordPieceTokenizer
+
+    tok = WordPieceTokenizer()
+    with RecordWriter(str(root / "bin" / "train")) as w:
+        for i in range(n):
+            ids, mask = tok.encode(CLAP_CAPTIONS[i % len(CLAP_CAPTIONS)], 77)
+            w.add({"wav": events_like(10.0, 16000, seed + i),
+                   "text_ids": ids[:int(mask.sum())]})
+    return str(root / "bin")
+
+
+def phase_train_clap(tmp: str) -> dict:
+    """``configs/t2a/clap.yaml`` at full width (BERT-base text tower, the
+    PANN Cnn14 audio tower, ``d_proj`` 1024, the learned temperature),
+    batch 32 of 10 s clips at 16 kHz and 77-token captions, for
+    ``CLAP_STEPS`` steps: step time, MFU, ``acc`` and ``scale``, and every
+    BatchNorm buffer of Cnn14 where its init left it (the tower runs on
+    its running statistics, as JAX's ``train=False``)."""
+    import torch
+
+    bin_dir = clap_fixture(Path(tmp) / "clap", CLAP_RECORDS, 51)
+    run = fit_run("train_clap", "t2a/clap.yaml", bin_dir, tmp, CLAP_STEPS)
+    task, tr = run["task"], run["tr"]
+    t, a = task.cfg.text.bert, task.model.audio.backbone.cfg
+    if (t.hidden_size, t.num_layers, task.cfg.d_proj, a.channels[-1],
+            run["shapes"][0]) != (768, 12, 1024, 2048, ((32, 160000),)):
+        raise AssertionError(f"train_clap: {task.cfg}, {run['shapes']}")
+    bufs = dict(task.model.audio.named_buffers())
+    moved = [n for n, b in bufs.items()
+             if (n.endswith("running_mean") and bool(b.any()))
+             or (n.endswith("running_var") and not bool((b == 1).all()))
+             or (n.endswith("num_batches_tracked") and int(b) != 0)]
+    terms = ("total_loss", "nce_a", "nce_t", "scale", "acc")
+    res = {"phase": "train_clap", **fit_report(run, terms),
+           "acc_first": tr[0]["acc"], "acc_last": tr[-1]["acc"],
+           "scale_first": tr[0]["scale"], "scale_last": tr[-1]["scale"],
+           "bn_buffers": len(bufs), "bn_buffers_moved": moved,
+           "audio_tower_training": task.model.audio.training}
+    emit(res)
+    if res["nonfinite"] or not finite_terms(tr, terms) or moved \
+            or task.model.audio.training or not all(run["moved"].values()) \
+            or not torch.isfinite(task.model.logit_scale):
+        raise AssertionError(f"train_clap: {res}")
+    return {"launches": run["counts"]}
+
+
 def tiny_ps_batch(seed: int) -> dict:
     """The CPU tests' PortaSpeech batch (``ps_batch``): three items of 12,
     9 and 7 phones over 6, 4 and 3 words and 64, 48 and 36 frames, and a
@@ -5916,6 +6320,80 @@ def tiny_fs2_batch(seed: int) -> dict:
             "mel2ph": mel2ph, "weight": np.array([1, 1, 1, 0], np.float32),
             "f0": (rng.uniform(100, 300, (b, f)) * valid
                    * (rng.random((b, f)) > 0.2)).astype(np.float32)}
+
+
+def card_vs_cpu_steps(builds: dict, what: str, exact: tuple = (),
+                      grad_tol: float = TTS_GRAD_TOL,
+                      prime: dict | None = None) -> tuple[dict, dict]:
+    """Each task of ``builds`` (name → (build(device), batch, draws as
+    numpy or None)) on the CPU and on the card with the same seeded
+    weights (for a name in ``prime``, its ``prime[name](cpu_task)`` sets
+    more of the CPU task's state after the fill, before the card's copy,
+    and its report is the fixture's), each group's loss terms and
+    gradients on the same batch and draws, the card's launches none. →
+    (report, worst): each group's
+    largest relative loss error and gradient error against the tensor's
+    largest CPU gradient, floored, for the tasks not in ``exact``, at
+    ``TTS_ZERO_GRAD_TOL / grad_tol`` of the group's largest (an
+    attention's key bias, or a conv bias before a one-channel group norm,
+    has a vanishing gradient: rounding noise on both devices)."""
+    import torch
+
+    def on(dev, x):
+        if isinstance(x, dict):
+            return {k: on(dev, v) for k, v in x.items()}
+        return None if x is None else torch.as_tensor(x).to(dev)
+
+    report, worst = {}, {}
+    for name, (build, batch, draws) in builds.items():
+        cpu, card = build("cpu"), build("cuda")
+        ortho = torch.Generator().manual_seed(8)
+        for grp, mod in cpu.modules.items():
+            fill_random(mod, torch.Generator().manual_seed(7))
+            for key, p in mod.state_dict().items():
+                if key.endswith("inv1x1_w"):
+                    # a Glow 1×1 orthogonal, as initialised: its
+                    # log-determinant's gradient is its inverse
+                    p.copy_(torch.linalg.qr(torch.randn(
+                        p.shape, generator=ortho))[0])
+        if name in (prime or {}):
+            report[f"{name}_fixture"] = prime[name](cpu)
+        for grp, mod in cpu.modules.items():
+            card.modules[grp].load_state_dict(mod.state_dict())
+        for grp in cpu.loss_fns:
+            out = {}
+            for dev, task in (("cpu", cpu), ("cuda", card)):
+                b = on(task.device, batch)
+                kw = {} if draws is None else {"draws": on(task.device,
+                                                           draws)}
+                (loss, metrics), _, counts = counted(
+                    lambda: task.loss_fns[grp](b, None, **kw))
+                params = list(task.modules[grp].parameters())
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+                out[dev] = ({k: float(v) for k, v in metrics.items()},
+                            [torch.zeros_like(p) if g is None else g.cpu()
+                             for g, p in zip(grads, params)], counts)
+            (m_cpu, g_cpu, _), (m_card, g_card, c_card) = out["cpu"], \
+                out["cuda"]
+            check_no_kernels(c_card, f"{what} {name}")
+            loss_err = max(abs(m_card[k] - v) / max(abs(v), 1e-30)
+                           for k, v in m_cpu.items())
+            # each tensor's error over its largest gradient, floored
+            floor = 0.0 if name in exact else \
+                TTS_ZERO_GRAD_TOL / grad_tol \
+                * max(float(b.abs().max()) for b in g_cpu)
+            names = [n for n, _ in task.modules[grp].named_parameters()]
+            errs = {n: float((a.cpu() - b).abs().max())
+                    / max(float(b.abs().max()), floor, 1e-30)
+                    for n, a, b in zip(names, g_card, g_cpu)}
+            grad_err = max(errs.values())
+            key = f"{name}_{grp}"
+            report[key] = {"loss_max_rel_err": loss_err,
+                           "grad_max_rel_err": grad_err,
+                           "worst_grad": max(errs, key=errs.get),
+                           "terms": sorted(m_cpu)}
+            worst[key] = (loss_err, grad_err)
+    return report, worst
 
 
 def phase_train_tts_small_reference() -> None:
@@ -5983,61 +6461,8 @@ def phase_train_tts_small_reference() -> None:
             model=PitchExtractorConfig(**TINY_PE)), device=dev), gs_batch,
             None)}
 
-    def on(dev, x):
-        if isinstance(x, dict):
-            return {k: on(dev, v) for k, v in x.items()}
-        return None if x is None else torch.as_tensor(x).to(dev)
-
-    report, worst = {}, {}
-    for name, (build, batch, draws) in builds.items():
-        cpu, card = build("cpu"), build("cuda")
-        ortho = torch.Generator().manual_seed(8)
-        for grp, mod in cpu.modules.items():
-            fill_random(mod, torch.Generator().manual_seed(7))
-            for key, p in mod.state_dict().items():
-                if key.endswith("inv1x1_w"):
-                    # a Glow 1×1 orthogonal, as initialised: its
-                    # log-determinant's gradient is its inverse
-                    p.copy_(torch.linalg.qr(torch.randn(
-                        p.shape, generator=ortho))[0])
-            card.modules[grp].load_state_dict(mod.state_dict())
-        for grp in cpu.loss_fns:
-            out = {}
-            for dev, task in (("cpu", cpu), ("cuda", card)):
-                b = on(task.device, batch)
-                kw = {} if draws is None else {"draws": on(task.device,
-                                                           draws)}
-                (loss, metrics), _, counts = counted(
-                    lambda: task.loss_fns[grp](b, None, **kw))
-                params = list(task.modules[grp].parameters())
-                grads = torch.autograd.grad(loss, params, allow_unused=True)
-                out[dev] = ({k: float(v) for k, v in metrics.items()},
-                            [torch.zeros_like(p) if g is None else g.cpu()
-                             for g, p in zip(grads, params)], counts)
-            (m_cpu, g_cpu, _), (m_card, g_card, c_card) = out["cpu"], \
-                out["cuda"]
-            check_no_kernels(c_card, f"train_tts_small_reference {name}")
-            loss_err = max(abs(m_card[k] - v) / max(abs(v), 1e-30)
-                           for k, v in m_cpu.items())
-            # each tensor's error over its largest gradient; the recipes
-            # of PR 13 floor that at TTS_ZERO_GRAD_TOL / TTS_GRAD_TOL of
-            # the group's largest: an attention's key bias gets a
-            # vanishing gradient (a softmax ignores a shift of its
-            # logits), rounding noise on both devices
-            floor = 0.0 if name in ("fs2", "vocoder_gan") else \
-                TTS_ZERO_GRAD_TOL / TTS_GRAD_TOL \
-                * max(float(b.abs().max()) for b in g_cpu)
-            names = [n for n, _ in task.modules[grp].named_parameters()]
-            errs = {n: float((a.cpu() - b).abs().max())
-                    / max(float(b.abs().max()), floor, 1e-30)
-                    for n, a, b in zip(names, g_card, g_cpu)}
-            grad_err = max(errs.values())
-            key = f"{name}_{grp}"
-            report[key] = {"loss_max_rel_err": loss_err,
-                           "grad_max_rel_err": grad_err,
-                           "worst_grad": max(errs, key=errs.get),
-                           "terms": sorted(m_cpu)}
-            worst[key] = (loss_err, grad_err)
+    report, worst = card_vs_cpu_steps(builds, "train_tts_small_reference",
+                                      exact=("fs2", "vocoder_gan"))
     emit({"phase": "train_tts_small_reference", "bounds": {
         "loss_rtol": TTS_LOSS_RTOL, "grad_tol": TTS_GRAD_TOL,
         "zero_grad_tol": TTS_ZERO_GRAD_TOL}, **report})
@@ -6045,6 +6470,195 @@ def phase_train_tts_small_reference() -> None:
            if not (v[0] <= TTS_LOSS_RTOL and v[1] <= TTS_GRAD_TOL)}
     if bad:
         raise AssertionError(f"card vs CPU TTS training: {bad}")
+
+
+#: the tiny SVS, face and LDM-family tasks of the CPU tests
+#: (tests/test_torch_svs_train.py, tests/test_torch_ldm_family_train.py)
+#: and the card-vs-CPU bounds of their small reference (f32, TF32 off)
+TINY_DS_FS2 = dict(use_midi=True, rel_pos=True, vocab_size=30,
+                   hidden_size=16, enc_layers=1, dec_layers=1, num_heads=2,
+                   enc_ffn_kernel_size=3, dec_ffn_kernel_size=3,
+                   dur_predictor_layers=1, predictor_layers=1,
+                   predictor_hidden=8, max_frames=64, n_mels=16)
+TINY_DS = dict(timesteps=50, K_step=40, spec_min=(-6.0,) * 16,
+               spec_max=(1.5,) * 16)
+TINY_NET = dict(mel_bins=16, encoder_hidden=16, residual_layers=2,
+                residual_channels=8)
+TINY_VIS = dict(vocab_size=30, hidden=16, enc_layers=1, enc_heads=2,
+                latent_dim=8, spec_bins=33, posterior_layers=2,
+                flow_layers=2, flow_wn_layers=1, max_frames=64)
+TINY_A2M = dict(mel_bins=16, hidden=16, latent=4, conv_layers=2)
+TINY_VAE = dict(ch=64, ch_mult=(1, 2), num_res_blocks=1,
+                attn_resolutions=(8,), resolution=16)
+TINY_BERT = dict(vocab_size=100, hidden_size=16, num_layers=1, num_heads=2,
+                 intermediate_size=32, max_position=32)
+SVS_LOSS_RTOL, SVS_GRAD_TOL = 1e-6, 5e-5
+
+
+def tiny_score_batch(seed: int) -> dict:
+    """The CPU tests' scored batch (``score_batch``): three items of 10, 7
+    and 4 phones over 64, 40 and 24 frames and a padded row of zeros, the
+    score fields, f0, a 33-bin spec and the wav at hop 16."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    b, t, f, m = 4, 10, 64, 16
+    n_ph, n_fr = (10, 7, 4, 0), (64, 40, 24, 0)
+    tok = np.zeros((b, t), np.int32)
+    mel2ph = np.zeros((b, f), np.int32)
+    for i in range(3):
+        tok[i, :n_ph[i]] = rng.integers(3, 30, n_ph[i])
+        cuts = np.sort(rng.choice(np.arange(1, n_fr[i]), n_ph[i] - 1,
+                                  replace=False))
+        parts = np.diff(np.concatenate([[0], cuts, [n_fr[i]]]))
+        mel2ph[i, :n_fr[i]] = np.repeat(np.arange(1, n_ph[i] + 1), parts)
+    valid, nonpad = mel2ph > 0, tok > 0
+    return {
+        "txt_tokens": tok, "txt_lengths": np.asarray(n_ph, np.int32),
+        "mels": (rng.uniform(-5.5, 1.0, (b, f, m)) * valid[..., None]
+                 ).astype(np.float32),
+        "mel_lengths": np.asarray(n_fr, np.int32), "mel2ph": mel2ph,
+        "pitch_midi": (rng.integers(48, 80, (b, t)) * nonpad
+                       ).astype(np.int32),
+        "midi_dur": (rng.uniform(0.1, 0.6, (b, t)) * nonpad
+                     ).astype(np.float32),
+        "is_slur": ((rng.random((b, t)) < 0.3) * nonpad).astype(np.int32),
+        "spec": (np.abs(rng.normal(size=(b, f, 33))) * valid[..., None]
+                 ).astype(np.float32),
+        "wav": (0.1 * rng.normal(size=(b, f * 16))
+                * np.repeat(valid, 16, axis=1)).astype(np.float32),
+        "weight": np.asarray([1, 1, 1, 0], np.float32),
+        "f0": (rng.uniform(100, 300, (b, f)) * (rng.random((b, f)) > 0.2)
+               * valid).astype(np.float32)}
+
+
+def calibrate_bn(module, *inputs) -> None:
+    """Every BatchNorm of ``module`` takes the statistics of one forward on
+    ``inputs`` as its running ones (momentum 1 for that pass), then the
+    module is back in eval mode."""
+    import torch
+    from torch import nn
+
+    norms = [m for m in module.modules()
+             if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+    momenta = [m.momentum for m in norms]
+    for m in norms:
+        m.momentum = 1.0
+    module.train()
+    with torch.no_grad():
+        module(*inputs)
+    module.eval()
+    for m, mom in zip(norms, momenta):
+        m.momentum = mom
+
+
+def phase_train_svs_small_reference() -> None:
+    """The CPU tests' tiny DiffSinger (the pitch embedding off, as
+    ``diffsinger.yaml``, and on), VISinger (both groups), Audio2Motion, VAE
+    (both groups) and CLAP tasks on the card and on the CPU with the same
+    weights, batch and draws (DiffSinger's t and ε, the posteriors' ε),
+    TF32 off: one step's losses within ``SVS_LOSS_RTOL`` relative, every
+    gradient within ``SVS_GRAD_TOL`` of its tensor's largest (a vanishing
+    one within ``TTS_ZERO_GRAD_TOL`` of the group's largest). The tiny CLAP
+    task's Cnn14 holds the running statistics of one forward on the batch
+    (``calibrate_bn``), as a trained tower's fit its data: with the fill's
+    statistics (mean 0, variance 1) its random convolutions map every clip
+    to one direction (the embeddings' cosines are 1.0000), the InfoNCE
+    gradient becomes a difference of nearly equal vectors, and the card's
+    f32 gradients missed the CPU's by 1.49e-4. The audio and text
+    embeddings' cosines are reported."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.models.caption import Cnn14Config
+    from audiogpt_tpu_torch.models.diffusion.vae import VAEConfig
+    from audiogpt_tpu_torch.models.face import (Audio2MotionConfig,
+                                                pseudo_motion_targets)
+    from audiogpt_tpu_torch.models.svs import (DiffNetConfig,
+                                               DiffSingerConfig,
+                                               VISingerConfig)
+    from audiogpt_tpu_torch.models.textenc.bert import BertConfig
+    from audiogpt_tpu_torch.models.textenc.clap import CLAPTextConfig
+    from audiogpt_tpu_torch.models.tts import FastSpeech2Config
+    from audiogpt_tpu_torch.models.vocoder import (DiscriminatorConfig,
+                                                   HifiGANConfig)
+    from audiogpt_tpu_torch.train.tasks import (
+        Audio2MotionTask, Audio2MotionTaskConfig, CLAPTask, CLAPTaskConfig,
+        DiffSingerTask, DiffSingerTaskConfig, VAETask, VAETaskConfig,
+        VISingerTask, VISingerTaskConfig)
+
+    rng = np.random.default_rng(5)
+    score = tiny_score_batch(1)
+    ds_draws = {"t": rng.integers(0, TINY_DS["K_step"], 4),
+                "noise": rng.normal(size=(4, 64, 16)).astype(np.float32)}
+    mels = rng.uniform(0, 1, (4, 64, 16)).astype(np.float32)
+    motion = np.stack([pseudo_motion_targets(m, 25) for m in mels])
+    t = np.arange(16000) / 16000.0
+    wav = 0.2 * rng.normal(size=(4, 16000)) + 0.5 * np.sin(
+        2 * np.pi * np.asarray([220.0, 880.0, 3000.0, 440.0])[:, None] * t)
+    # zero past each clip's length, as collate_audio_text pads
+    wav_len = np.asarray([16000, 12000, 14000, 11000], np.int32)
+    wav = (wav * (np.arange(16000) < wav_len[:, None])).astype(np.float32)
+    ids = np.zeros((4, 8), np.int32)
+    for i, n in enumerate((8, 5, 6, 3)):
+        ids[i, :n] = rng.integers(3, 100, n)
+    clap_batch = {"wav": wav, "wav_len": wav_len, "text_ids": ids,
+                  "text_mask": (ids != 0).astype(np.int32),
+                  "weight": np.asarray([1, 1, 1, 0], np.float32)}
+
+    def clap_prime(task) -> dict:
+        """Cnn14's statistics from the batch; the embeddings' cosines."""
+        b = {k: torch.as_tensor(v) for k, v in clap_batch.items()}
+        calibrate_bn(task.model.audio, b["wav"], b["wav_len"].long())
+        with torch.no_grad():
+            a, t_emb, _ = task.model(b["wav"], b["text_ids"].long(),
+                                     b["text_mask"].long(),
+                                     b["wav_len"].long())
+        return {f"{k}_cosines": [[round(float(c), 4) for c in row]
+                                 for row in x @ x.T]
+                for k, x in (("audio", a), ("text", t_emb))}
+
+    def diffsinger(pitch):
+        return lambda dev: DiffSingerTask(DiffSingerTaskConfig(
+            model=DiffSingerConfig(fs2=FastSpeech2Config(
+                use_pitch_embed=pitch, **TINY_DS_FS2),
+                net=DiffNetConfig(**TINY_NET), **TINY_DS)), device=dev)
+
+    builds = {
+        "diffsinger": (diffsinger(False), score, ds_draws),
+        "diffsinger_f0": (diffsinger(True), score, ds_draws),
+        "visinger": (lambda dev: VISingerTask(VISingerTaskConfig(
+            model=VISingerConfig(decoder=HifiGANConfig(
+                in_channels=8, upsample_rates=(4, 4),
+                upsample_kernel_sizes=(8, 8), upsample_initial_channel=16,
+                resblock_kernel_sizes=(3,),
+                resblock_dilation_sizes=((1, 3),)), **TINY_VIS),
+            disc=DiscriminatorConfig(**TINY_DISC)), device=dev), score,
+            rng.normal(size=(4, 64, 8)).astype(np.float32)),
+        "audio2motion": (lambda dev: Audio2MotionTask(Audio2MotionTaskConfig(
+            model=Audio2MotionConfig(**TINY_A2M)), device=dev),
+            {"mels": mels, "motion": motion.astype(np.float32),
+             "weight": np.asarray([1, 1, 1, 0], np.float32)},
+            rng.normal(size=(4, 25, 4)).astype(np.float32)),
+        "vae": (lambda dev: VAETask(VAETaskConfig(vae=VAEConfig(**TINY_VAE)),
+                                    device=dev),
+                {"mels": rng.uniform(-1, 1, (2, 16, 20, 1)).astype(
+                    np.float32), "weight": np.ones(2, np.float32)},
+                rng.normal(size=(2, 4, 8, 10)).astype(np.float32)),
+        "clap": (lambda dev: CLAPTask(CLAPTaskConfig(
+            text=CLAPTextConfig(bert=BertConfig(**TINY_BERT), d_proj=16),
+            d_proj=16, audio=Cnn14Config(channels=(4, 4, 8, 8, 16, 16))),
+            device=dev), clap_batch, None)}
+    report, worst = card_vs_cpu_steps(builds, "train_svs_small_reference",
+                                      grad_tol=SVS_GRAD_TOL,
+                                      prime={"clap": clap_prime})
+    emit({"phase": "train_svs_small_reference", "bounds": {
+        "loss_rtol": SVS_LOSS_RTOL, "grad_tol": SVS_GRAD_TOL,
+        "zero_grad_tol": TTS_ZERO_GRAD_TOL}, **report})
+    bad = {k: v for k, v in worst.items()
+           if not (v[0] <= SVS_LOSS_RTOL and v[1] <= SVS_GRAD_TOL)}
+    if bad:
+        raise AssertionError(f"card vs CPU SVS, face and LDM training: {bad}")
 
 
 def path_record(k: dict, path: str, shapes: Counter, launches: int) -> dict:
@@ -6178,6 +6792,14 @@ def main() -> int:
             train_ps_adv=phase_train_ps_adv(bins, tmp),
             train_generspeech=phase_train_generspeech(bins, tmp),
             train_pe=phase_train_pe(bins, tmp))
+        bins.update(phase_binarize_svs(tmp))
+        quiet.update(
+            train_diffsinger=phase_train_diffsinger(bins, tmp),
+            train_visinger=phase_train_visinger(bins, tmp),
+            train_audio2motion=phase_train_audio2motion(bins, tmp),
+            train_vae=phase_train_vae(tmp),
+            train_clap=phase_train_clap(tmp))
+        phase_train_svs_small_reference()
 
     eng = main_path["engine"]
     t2a, inp = t2a_path(eng), inpaint_path(eng)
@@ -6195,9 +6817,10 @@ def main() -> int:
 
     def none_launched(k, name):
         """The singing, style-transfer, GeneFace and PortaSpeech paths and
-        the TTS training runs (FS2, the vocoder GAN, the PortaSpeech
-        family, GenerSpeech, the pitch extractor), which launch neither
-        kernel."""
+        the TTS, SVS, face and LDM-family training runs (FS2, the vocoder
+        GAN, the PortaSpeech family, GenerSpeech, the pitch extractor,
+        DiffSinger, VISinger, Audio2Motion, the VAE, CLAP), which launch
+        neither kernel."""
         return [path_record(k, key, Counter(), f32(quiet[key]["launches"],
                                                    name))
                 for key in quiet]

@@ -97,7 +97,10 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "train.stft_loss", "train.tasks.fs2",
                  "train.tasks.vocoder_gan", "models.vocoder.discriminators",
                  "train.tasks.portaspeech", "train.tasks.tts_adv",
-                 "train.tasks.generspeech", "train.tasks.pe"):
+                 "train.tasks.generspeech", "train.tasks.pe",
+                 "train.tasks.diffusion", "train.tasks.visinger",
+                 "train.tasks.audio2motion", "train.tasks.vae",
+                 "train.tasks.clap"):
         assert f"audiogpt_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
     # the BPE word splitters use the standard library's re: the card's
@@ -146,17 +149,20 @@ def test_entry_points_need_cuda_without_device(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
-    from audiogpt_tpu_torch.data import EmotionBinarizer, TTSBinarizer
+    from audiogpt_tpu_torch.data import (EmotionBinarizer, SVSBinarizer,
+                                         TTSBinarizer, ZhBinarizer)
     from audiogpt_tpu_torch.data.wav_processors import apply_processors
     from audiogpt_tpu_torch.train import Trainer
     from audiogpt_tpu_torch.train import tasks
 
     for task in ("LDMTask", "FS2Task", "VocoderGANTask", "PortaSpeechTask",
                  "PortaSpeechAdvTask", "AdvTTSTask", "GenerSpeechTask",
-                 "PETask"):
+                 "PETask", "DiffSingerTask", "VISingerTask",
+                 "Audio2MotionTask", "VAETask", "CLAPTask"):
         with pytest.raises(RuntimeError, match="CUDA"):
             getattr(tasks, task)(getattr(tasks, task + "Config")())
-    for binarizer in (TTSBinarizer, EmotionBinarizer):
+    for binarizer in (TTSBinarizer, EmotionBinarizer, SVSBinarizer,
+                      ZhBinarizer):
         with pytest.raises(RuntimeError, match="CUDA"):
             binarizer()
     with pytest.raises(RuntimeError, match="CUDA"):

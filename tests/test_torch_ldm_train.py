@@ -208,4 +208,4 @@ def test_train_cli_trains_and_resumes(tmp_path, capsys):
         train_cli.main(argv + ["--export", str(tmp_path / "out")])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_cli.build_task(train_cli.load_config(argv[1],
-                                                   overrides="task=diffsinger"))
+                                                   overrides="task=sed"))
