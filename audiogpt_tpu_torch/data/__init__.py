@@ -18,7 +18,9 @@ from audiogpt_tpu_torch.data.loader import (ArrayDataLoader, TTSDataLoader,
                                             VocoderDataLoader,
                                             collate_audio_text,
                                             collate_mel_image,
-                                            collate_motion, collate_tts,
+                                            collate_mixture,
+                                            collate_motion, collate_tagging,
+                                            collate_tts,
                                             collate_vocoder, prefetch)
 from audiogpt_tpu_torch.data.records import RecordDataset, RecordWriter
 from audiogpt_tpu_torch.data.textgrid import (is_sil_phoneme,
@@ -33,7 +35,8 @@ __all__ = [
     "load_phone_encoder", "load_split",
     "load_word_encoder", "mel2ph_from_durations", "ArrayDataLoader",
     "TTSDataLoader", "VocoderDataLoader", "collate_audio_text",
-    "collate_mel_image", "collate_motion", "collate_tts", "collate_vocoder",
+    "collate_mel_image", "collate_mixture", "collate_motion",
+    "collate_tagging", "collate_tts", "collate_vocoder",
     "prefetch",
     "RecordDataset", "RecordWriter",
     "is_sil_phoneme", "mel2ph_from_textgrid", "parse_textgrid",

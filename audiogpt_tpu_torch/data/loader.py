@@ -58,6 +58,35 @@ def _pad_or_crop_1d(x, n: int) -> np.ndarray:
     return np.pad(x, (0, n - len(x)))
 
 
+def collate_tagging(samples: list[dict], n_samples: int
+                    ) -> dict[str, np.ndarray]:
+    """SED batch (AudioSet tagging, ``audio_infer/pytorch/main.py:377``'s
+    schema): ``wav`` [B, n_samples] cut or padded, ``wav_len``, the
+    multi-hot ``target`` [B, C] and ``weight`` ones."""
+    return {
+        "wav": np.stack([_pad_or_crop_1d(s["wav"], n_samples)
+                         for s in samples]),
+        "wav_len": np.asarray([min(len(s["wav"]), n_samples)
+                               for s in samples], np.int32),
+        "target": np.stack([np.asarray(s["target"], np.float32)
+                            for s in samples]),
+        "weight": np.ones(len(samples), np.float32),
+    }
+
+
+def collate_mixture(samples: list[dict], n_samples: int
+                    ) -> dict[str, np.ndarray]:
+    """Separation batch: ``mix`` [B, n_samples] and ``sources`` [B, n_src,
+    n_samples], each cut or padded, and ``weight`` ones."""
+    mixes, srcs = [], []
+    for s in samples:
+        mixes.append(_pad_or_crop_1d(s["mix"], n_samples))
+        srcs.append(np.stack([_pad_or_crop_1d(x, n_samples)
+                              for x in np.asarray(s["sources"], np.float32)]))
+    return {"mix": np.stack(mixes), "sources": np.stack(srcs),
+            "weight": np.ones(len(samples), np.float32)}
+
+
 def collate_audio_text(samples: list[dict], n_samples: int, text_len: int,
                        schema: str = "caption") -> dict[str, np.ndarray]:
     """Fixed-length wav crops ``wav`` [B, n_samples] with their lengths

@@ -21,7 +21,8 @@ import torch
 
 from audiogpt_tpu_torch.dsp.mel import MelSpec, log_mel
 from audiogpt_tpu_torch.dsp.stft import stft
-from audiogpt_tpu_torch.engines.base import (Bucketer, TimedCalls,
+from audiogpt_tpu_torch.engines.base import (Bucketer, ParamsEntry,
+                                             TimedCalls,
                                              on_device, resolve_device,
                                              seeded)
 from audiogpt_tpu_torch.models.caption.blip import (BlipCaptioner,
@@ -42,7 +43,7 @@ from audiogpt_tpu_torch.models.textenc.clap import (CLAPTextConfig,
 from audiogpt_tpu_torch.utils.media import resolve_media
 
 
-class CaptionEngine(TimedCalls):
+class CaptionEngine(ParamsEntry, TimedCalls):
     """wav (32 kHz) → caption string. ``vocab``: the id → word list; without
     one, ids render as ``<id>``."""
 
@@ -99,7 +100,7 @@ class CaptionEngine(TimedCalls):
         return self._timed(self.name, run)
 
 
-class SEDEngine(TimedCalls):
+class SEDEngine(ParamsEntry, TimedCalls):
     """wav (32 kHz) → AudioSet framewise events (and the top-k summary or
     its figure)."""
 
@@ -214,7 +215,7 @@ def render_sed_figure(panels: dict, out_path: str, width: int = 1000,
     img.save(out_path)
 
 
-class TSDEngine(TimedCalls):
+class TSDEngine(ParamsEntry, TimedCalls):
     """(wav, text query) → on/offset seconds of the described sound. The
     query embeds through the CLAP text tower's CLS projection, cut to the
     TSD net's conditioning width (no reference embedding file needed)."""
@@ -274,7 +275,7 @@ class TSDEngine(TimedCalls):
         return self._timed(self.name, run)
 
 
-class ImageCaptionEngine(TimedCalls):
+class ImageCaptionEngine(ParamsEntry, TimedCalls):
     """Image → caption string with the BLIP captioner.
 
     ``vocab_path``: a BERT ``vocab.txt`` for the WordPiece decode; without

@@ -20,7 +20,8 @@ import zlib
 import numpy as np
 import torch
 
-from audiogpt_tpu_torch.engines.base import resolve_device, run_copy
+from audiogpt_tpu_torch.engines.base import (ParamsEntry, resolve_device,
+                                             run_copy)
 from audiogpt_tpu_torch.models.asr.whisper import (
     WhisperConfig,
     WhisperModel,
@@ -36,7 +37,6 @@ from audiogpt_tpu_torch.text.bpe import (
     non_speech_ids,
     warn_fallback,
 )
-from audiogpt_tpu_torch.utils.jax_params import load_jax_params
 
 # whisper-multilingual special tokens (vocab 51865)
 SOT = 50258
@@ -97,7 +97,7 @@ def pad_or_trim(wav: np.ndarray, n_samples: int) -> np.ndarray:
     return np.pad(wav, width)
 
 
-class ASREngine:
+class ASREngine(ParamsEntry):
     name = "asr"
 
     def __init__(self, cfg: WhisperConfig | None = None, params=None,
@@ -134,7 +134,7 @@ class ASREngine:
         if params is not None:
             self.load_jax_params(params)
         else:
-            self._run = run_copy(self.model, bf16)
+            self._weights_loaded()
         if vocab is not None:
             self.set_vocab(vocab)
         else:
@@ -147,14 +147,8 @@ class ASREngine:
             except FileNotFoundError:
                 pass  # no bundled data: raw token-id strings + warning
 
-    def load_jax_params(self, params) -> None:
-        """Load a JAX whisper tree (numpy leaves), strictly."""
-        load_jax_params(self.model, params)
-        self._run = run_copy(self.model, self.bf16)
-
-    def load_state_dict(self, state: dict) -> None:
-        """Load f32 parameters (a ``model.state_dict()``), strictly."""
-        self.model.load_state_dict(state)
+    def _weights_loaded(self) -> None:
+        # ``model`` keeps the f32 parameters; the run copy is cast again
         self._run = run_copy(self.model, self.bf16)
 
     def set_vocab(self, vocab) -> None:

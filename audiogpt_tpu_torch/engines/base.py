@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import copy
 import time
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Mapping, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -52,6 +52,84 @@ def run_copy(model: torch.nn.Module, bf16: bool) -> torch.nn.Module:
     bfloat16 copy of it. The engine keeps ``model`` in f32 and calls this
     once per weight load, so the copy never re-reads the f32 weights."""
     return copy.deepcopy(model).to(torch.bfloat16) if bf16 else model
+
+
+def without_subtrees(tree: Mapping, names: Sequence[str]) -> Mapping:
+    """A JAX variable tree (``{"params": ...}`` or bare) without the
+    top-level ``params`` subtrees ``names``."""
+    if not names:
+        return tree
+    inner = tree.get("params", tree)
+    inner = {k: v for k, v in inner.items() if k not in names}
+    return {**tree, "params": inner} if "params" in tree else inner
+
+
+def is_trainer_weights(params: Mapping) -> bool:
+    """Whether ``params`` is a trainer checkpoint's weights
+    (``{group: {name: tensor}}``, ``import_ckpt.restore_weights``) rather
+    than a JAX tree (numpy leaves)."""
+    return bool(params) and all(
+        isinstance(g, Mapping) and g
+        and all(isinstance(t, torch.Tensor) for t in g.values())
+        for g in params.values())
+
+
+def load_trainer_state(module: torch.nn.Module, state: Mapping,
+                       training_only: Sequence[str] = ()) -> None:
+    """Load a trainer group's parameters into ``module``: every parameter
+    must be there and nothing else, but the entries under a
+    ``training_only`` prefix (posterior encoders the inference module does
+    not own) are dropped; buffers the trainer does not write (BatchNorm's
+    running statistics) keep their values."""
+    state = {k: v for k, v in state.items()
+             if k.split(".")[0] not in training_only}
+    missing, unexpected = module.load_state_dict(state, strict=False)
+    names = dict(module.named_parameters())
+    missing = [k for k in missing if k in names]
+    if missing or unexpected:
+        raise KeyError(f"trainer weights do not fit "
+                       f"{type(module).__name__}: missing {missing[:5]}, "
+                       f"unexpected {list(unexpected)[:5]}")
+
+
+class ParamsEntry:
+    """The weight entry of every engine, where the JAX app sets
+    ``eng.params`` (``--ckpt ENGINE=PATH``, ``infer_cli --params``):
+    :meth:`load_params` takes the tree that the JAX engine keeps in
+    ``params`` (numpy leaves, the flax layout: ``import_ckpt``'s output),
+    which :meth:`load_jax_params` loads strictly into ``model``, or a
+    trainer checkpoint's weights (``{group: {name: tensor}}``), whose group
+    ``train_group`` :meth:`load_state_dict` loads.
+
+    An engine names the trainer group that trains ``model``
+    (``train_group``; ``None`` hands :meth:`load_state_dict` every group,
+    for an engine whose tree spans several modules and that overrides both
+    loaders) and the subtrees only training builds (``training_only``).
+    Every load ends in :meth:`_weights_loaded`, the one place where an
+    engine refreshes what it derives from its weights (a bf16 run copy, a
+    cached embedding); an engine's ``__init__`` calls it too."""
+
+    train_group: str | None = "model"
+    training_only: tuple[str, ...] = ()
+
+    def load_params(self, params: Mapping) -> None:
+        if is_trainer_weights(params):
+            self.load_state_dict(params if self.train_group is None
+                                 else params[self.train_group])
+        else:
+            self.load_jax_params(params)
+
+    def load_jax_params(self, params: Mapping) -> None:
+        load_jax_params(self.model,
+                        without_subtrees(params, self.training_only))
+        self._weights_loaded()
+
+    def load_state_dict(self, state: Mapping) -> None:
+        load_trainer_state(self.model, state, self.training_only)
+        self._weights_loaded()
+
+    def _weights_loaded(self) -> None:
+        pass
 
 
 class Bucketer:

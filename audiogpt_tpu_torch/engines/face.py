@@ -29,6 +29,7 @@ import torch
 from audiogpt_tpu_torch.dsp.mel import LDM_MEL_16K, ldm_normalize, log_mel
 from audiogpt_tpu_torch.engines.base import (
     Bucketer,
+    ParamsEntry,
     TimedCalls,
     on_device,
     resolve_device,
@@ -42,13 +43,16 @@ from audiogpt_tpu_torch.models.face import (
     energy_articulation,
     template_landmarks,
 )
-from audiogpt_tpu_torch.models.face.audio2motion import inference_tree
+from audiogpt_tpu_torch.models.face.audio2motion import (POSTERIOR,
+                                                       inference_tree)
 from audiogpt_tpu_torch.utils.media import resolve_media
 from audiogpt_tpu_torch.utils.video_io import write_mjpeg_avi
 
 
-class GeneFaceEngine(TimedCalls):
+class GeneFaceEngine(ParamsEntry, TimedCalls):
     name = "geneface"
+    #: the posterior heads of a training tree or trainer checkpoint
+    training_only = POSTERIOR
 
     def __init__(self, cfg: Audio2MotionConfig | None = None, params=None,
                  portrait: np.ndarray | None = None,

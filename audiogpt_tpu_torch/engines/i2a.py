@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from audiogpt_tpu_torch.engines.base import resolve_device
+from audiogpt_tpu_torch.engines.base import ParamsEntry, resolve_device
 from audiogpt_tpu_torch.engines.t2a import T2AEngine
 from audiogpt_tpu_torch.models.textenc.clip import (
     CLIPTextConfig,
@@ -24,8 +24,9 @@ from audiogpt_tpu_torch.models.textenc.clip import (
 from audiogpt_tpu_torch.utils.jax_params import load_jax_params
 
 
-class I2AEngine:
+class I2AEngine(ParamsEntry):
     name = "i2a"
+    train_group = None
 
     def __init__(self, t2a: T2AEngine,
                  vision_cfg: CLIPVisionConfig | None = None,
@@ -57,6 +58,29 @@ class I2AEngine:
             load_jax_params(self.vision, vision_params)
         if text_params is not None:
             load_jax_params(self.text, text_params)
+        self._weights_loaded()
+
+    def load_jax_params(self, params: dict) -> None:
+        """Load the CLIP towers' ``{"vision", "text"}`` trees (numpy
+        leaves; either may be absent), strictly. A tree with neither key is
+        one tower's, as ``import_ckpt --family clip_vision`` writes it, and
+        loads into the vision tower, strictly (a text tower's tree raises).
+        The JAX engine keeps no ``params`` of its own, and its app's
+        ``--ckpt i2a=`` sets an attribute that nothing reads."""
+        towers = {k: params[k] for k in ("vision", "text") if k in params}
+        for key, tree in (towers or {"vision": params}).items():
+            load_jax_params(getattr(self, key), tree)
+        self._weights_loaded()
+
+    def load_state_dict(self, states: dict) -> None:
+        """Load ``{"vision": ..., "text": ...}`` state dicts (any subset),
+        strictly."""
+        for key, state in states.items():
+            getattr(self, key).load_state_dict(state)
+        self._weights_loaded()
+
+    def _weights_loaded(self) -> None:
+        # the unconditional embedding is computed again at its next use
         self._uncond = None
 
     @property

@@ -28,6 +28,7 @@ import torch
 
 from audiogpt_tpu_torch.engines.base import (
     Bucketer,
+    ParamsEntry,
     on_device,
     resolve_device,
     seeded,
@@ -137,7 +138,7 @@ def score_tensors(engine, text: str, notes: str, notes_duration: str):
     return out
 
 
-class SVSEngine:
+class SVSEngine(ParamsEntry):
     name = "svs"
 
     def __init__(self, cfg: DiffSingerConfig | None = None, params=None,
@@ -215,7 +216,7 @@ class SVSEngine:
         return wav[0].cpu().numpy()
 
 
-class VISingerEngine:
+class VISingerEngine(ParamsEntry):
     """VITS-class end-to-end SVS (the reference's ``t2s_VISinger`` tool,
     audio-chatgpt.py:341): the score surface of :class:`SVSEngine`, frames
     from the note durations, the wav straight from the model."""

@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from audiogpt_tpu_torch.dsp.mel import LDM_MEL_16K, ldm_normalize, log_mel
-from audiogpt_tpu_torch.engines.base import resolve_device, run_copy
+from audiogpt_tpu_torch.engines.base import (ParamsEntry, resolve_device,
+                                             run_copy)
 from audiogpt_tpu_torch.engines.vocoder import VocoderEngine
 from audiogpt_tpu_torch.models.diffusion.samplers import (
     DiffusionSchedule,
@@ -78,8 +79,10 @@ class T2AConfig:
         return self.mel_bins // self.vae_factor, self.mel_len // self.vae_factor
 
 
-class T2AEngine:
+class T2AEngine(ParamsEntry):
     name = "t2a"
+    #: a trainer checkpoint's groups load by name (``ldm``'s ``unet``)
+    train_group = None
 
     def __init__(self, cfg: T2AConfig | None = None, params: dict | None = None,
                  vocoder: VocoderEngine | None = None,
@@ -107,8 +110,7 @@ class T2AEngine:
         if params is not None:
             self.load_jax_params(params)
         else:
-            # the UNet the samplers of txt2audio run (inpaint runs ``unet``)
-            self._run = run_copy(self.unet, cfg.unet_bf16)
+            self._weights_loaded()
         self.schedule = DiffusionSchedule.linear(
             cfg.timesteps, cfg.linear_start, cfg.linear_end)
         self.tokenizer = WordPieceTokenizer(vocab_size=cfg.clap.bert.vocab_size)
@@ -121,13 +123,17 @@ class T2AEngine:
         leaves), strictly."""
         for key in ("unet", "vae", "clap"):
             load_jax_params(getattr(self, key), params[key])
-        self._run = run_copy(self.unet, self.cfg.unet_bf16)
+        self._weights_loaded()
 
     def load_state_dict(self, states: dict) -> None:
         """Load f32 parameters: ``{"unet": ..., "vae": ..., "clap": ...}``
         state dicts (any subset), strictly."""
         for key, state in states.items():
             getattr(self, key).load_state_dict(state)
+        self._weights_loaded()
+
+    def _weights_loaded(self) -> None:
+        # the UNet the samplers of txt2audio run (inpaint runs ``unet``)
         self._run = run_copy(self.unet, self.cfg.unet_bf16)
 
     # -- conditioning -------------------------------------------------------

@@ -24,7 +24,8 @@ import os
 import numpy as np
 import torch
 
-from audiogpt_tpu_torch.engines.base import resolve_device, run_copy
+from audiogpt_tpu_torch.engines.base import (ParamsEntry, resolve_device,
+                                             run_copy)
 from audiogpt_tpu_torch.models.diffusion.samplers import (
     DiffusionSchedule,
     ddim_sample,
@@ -78,8 +79,11 @@ class T2IConfig:
         return self.height // self.vae_factor, self.width // self.vae_factor
 
 
-class T2IEngine:
+class T2IEngine(ParamsEntry):
     name = "t2i"
+    #: a trainer checkpoint's groups load by name (``unet``, ``vae``,
+    #: ``text``)
+    train_group = None
 
     def __init__(self, cfg: T2IConfig | None = None,
                  params: dict | None = None,
@@ -104,7 +108,7 @@ class T2IEngine:
         if params is not None:
             self.load_jax_params(params)
         else:
-            self._run = run_copy(self.unet, cfg.unet_bf16)
+            self._weights_loaded()
         self.schedule = DiffusionSchedule.linear(
             cfg.timesteps, cfg.linear_start, cfg.linear_end)
         if tokenizer == "auto":
@@ -121,13 +125,16 @@ class T2IEngine:
         leaves), strictly."""
         for key in ("unet", "vae", "text"):
             load_jax_params(getattr(self, key), params[key])
-        self._run = run_copy(self.unet, self.cfg.unet_bf16)
+        self._weights_loaded()
 
     def load_state_dict(self, states: dict) -> None:
         """Load f32 parameters: ``{"unet": ..., "vae": ..., "text": ...}``
         state dicts (any subset), strictly."""
         for key, state in states.items():
             getattr(self, key).load_state_dict(state)
+        self._weights_loaded()
+
+    def _weights_loaded(self) -> None:
         self._run = run_copy(self.unet, self.cfg.unet_bf16)
 
     # -- conditioning -------------------------------------------------------

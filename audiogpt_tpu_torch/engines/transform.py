@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from audiogpt_tpu_torch.dsp.stft import istft, stft
-from audiogpt_tpu_torch.engines.base import (Bucketer, TimedCalls,
+from audiogpt_tpu_torch.engines.base import (Bucketer, ParamsEntry,
+                                             TimedCalls,
                                              on_device, resolve_device,
                                              seeded)
 from audiogpt_tpu_torch.models.binaural.binaural import (BinauralConfig,
@@ -30,7 +31,7 @@ from audiogpt_tpu_torch.models.separation.convtasnet import (
 from audiogpt_tpu_torch.models.textenc.clap import WordPieceTokenizer
 
 
-class ExtractionEngine(TimedCalls):
+class ExtractionEngine(ParamsEntry, TimedCalls):
     """(mixture wav, text query) → the extracted source: LASSNet's
     magnitude mask on the STFT, resynthesised with the mixture's phase
     (``audio-chatgpt.py:697-705``)."""
@@ -73,7 +74,7 @@ class ExtractionEngine(TimedCalls):
         return self._timed(self.name, lambda: self._extract(wav, text))
 
 
-class SeparationEngine(TimedCalls):
+class SeparationEngine(ParamsEntry, TimedCalls):
     """Conv-TasNet enhancement (n_src = 1) or separation (n_src = 2),
     streamed with overlap-add (2.4 s / 0.8 s, the reference's ESPnet
     contract)."""
@@ -107,7 +108,7 @@ class SeparationEngine(TimedCalls):
         return self.separate(wav)[0]
 
 
-class BinauralEngine(TimedCalls):
+class BinauralEngine(ParamsEntry, TimedCalls):
     """mono (48 kHz) + listener trajectory → stereo binaural. Without a
     trajectory, a slow 1 m orbit (the reference samples a stored
     tx-position file, ``audio-chatgpt.py:727-736``)."""

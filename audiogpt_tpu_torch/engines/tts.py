@@ -36,6 +36,7 @@ import torch
 
 from audiogpt_tpu_torch.engines.base import (
     Bucketer,
+    ParamsEntry,
     on_device,
     resolve_device,
     seeded,
@@ -149,7 +150,7 @@ def _trimmed_len(mel: np.ndarray) -> int:
     return int(nz[-1]) + 1 if len(nz) else 1
 
 
-class TTSEngine:
+class TTSEngine(ParamsEntry):
     name = "tts"
 
     def __init__(self, cfg: FastSpeech2Config | None = None, params=None,
@@ -313,7 +314,7 @@ def _padded(ids, bucketer: Bucketer) -> np.ndarray:
     return out
 
 
-class PortaSpeechTTSEngine:
+class PortaSpeechTTSEngine(ParamsEntry):
     """PortaSpeech / SyntaSpeech text → mel → wav: the app's
     ``tts_portaspeech`` and ``syntaspeech`` engines. With ``cfg.use_graph``
     the dense syntactic word graph is built for each chunk. Every call
@@ -322,6 +323,8 @@ class PortaSpeechTTSEngine:
     explicitly."""
 
     name = "tts_portaspeech"
+    #: the posterior encoder of a training tree or trainer checkpoint
+    training_only = ("fvae_enc",)
 
     def __init__(self, cfg: PortaSpeechConfig | None = None, params=None,
                  vocoder: VocoderEngine | None = None,

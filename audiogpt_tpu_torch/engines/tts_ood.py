@@ -33,6 +33,7 @@ import torch
 from audiogpt_tpu_torch.dsp.mel import NEURALSEQ_MEL_22K, MelSpec, log_mel
 from audiogpt_tpu_torch.engines.base import (
     Bucketer,
+    ParamsEntry,
     on_device,
     resolve_device,
     seeded,
@@ -49,7 +50,7 @@ from audiogpt_tpu_torch.text import (
 )
 
 
-class StyleTransferEngine:
+class StyleTransferEngine(ParamsEntry):
     name = "tts_ood"
 
     #: sample the mel through the Glow post-flow (``run_post_glow``,

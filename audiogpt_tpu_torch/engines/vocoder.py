@@ -15,6 +15,7 @@ import torch
 
 from audiogpt_tpu_torch.engines.base import (
     Bucketer,
+    ParamsEntry,
     resolve_device,
     run_copy,
 )
@@ -39,8 +40,10 @@ KINDS = {"hifigan": (HifiGANConfig, HifiGANGenerator),
          "melgan": (MelGANConfig, MelGANGenerator)}
 
 
-class VocoderEngine:
+class VocoderEngine(ParamsEntry):
     name = "vocoder"
+    #: the generator's group of the ``vocoder_gan`` recipe
+    train_group = "gen"
 
     def __init__(self, kind: str = "hifigan", cfg: Any = None,
                  params: Any = None, buckets=DEFAULT_BUCKETS,
@@ -77,13 +80,12 @@ class VocoderEngine:
         self.n_mels = getattr(self.cfg, "in_channels", None) \
             or getattr(self.cfg, "num_mels", 80)
         self.bf16 = bf16
-        self._run = run_copy(self.model, bf16)
+        self._weights_loaded()
         self.bucketer = Bucketer(buckets)
         self._gen = torch.Generator(self.device).manual_seed(rng_seed)
 
-    def load_state_dict(self, state: dict) -> None:
-        """Load f32 parameters (a ``model.state_dict()``), strictly."""
-        self.model.load_state_dict(state)
+    def _weights_loaded(self) -> None:
+        # ``model`` keeps the f32 parameters; the run copy is cast again
         self._run = run_copy(self.model, self.bf16)
 
     @property

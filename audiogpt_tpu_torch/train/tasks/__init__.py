@@ -5,10 +5,14 @@ vocoder GAN (``vocoder_gan``), PortaSpeech and SyntaSpeech
 (``portaspeech``), the adversarial ``ps_adv`` family and its FastSpeech2
 counterpart (``tts_adv``), GenerSpeech (``generspeech``), the pitch
 extractor (``pe``), the SVS recipes DiffSinger (``diffusion``) and VISinger
-(``visinger``), and GeneFace's motion generator (``audio2motion``)."""
+(``visinger``), GeneFace's motion generator (``audio2motion``), and the
+analysis recipes: AudioSet tagging (``sed``), audio captioning
+(``caption``) and separation / enhancement (``separation``)."""
 
 from audiogpt_tpu_torch.train.tasks.audio2motion import (
     Audio2MotionTask, Audio2MotionTaskConfig)
+from audiogpt_tpu_torch.train.tasks.caption import (CaptionTask,
+                                                    CaptionTaskConfig)
 from audiogpt_tpu_torch.train.tasks.clap import CLAPTask, CLAPTaskConfig
 from audiogpt_tpu_torch.train.tasks.diffusion import (DiffSingerTask,
                                                       DiffSingerTaskConfig)
@@ -19,6 +23,9 @@ from audiogpt_tpu_torch.train.tasks.ldm import LDMTask, LDMTaskConfig
 from audiogpt_tpu_torch.train.tasks.pe import PETask, PETaskConfig
 from audiogpt_tpu_torch.train.tasks.portaspeech import (PortaSpeechTask,
                                                         PortaSpeechTaskConfig)
+from audiogpt_tpu_torch.train.tasks.sed import SEDTask, SEDTaskConfig
+from audiogpt_tpu_torch.train.tasks.separation import (SeparationTask,
+                                                       SeparationTaskConfig)
 from audiogpt_tpu_torch.train.tasks.tts_adv import (AdvTTSTask,
                                                     AdvTTSTaskConfig,
                                                     PortaSpeechAdvTask,
@@ -30,11 +37,14 @@ from audiogpt_tpu_torch.train.tasks.vocoder_gan import (VocoderGANTask,
                                                         VocoderGANTaskConfig)
 
 __all__ = ["AdvTTSTask", "AdvTTSTaskConfig", "Audio2MotionTask",
-           "Audio2MotionTaskConfig", "CLAPTask", "CLAPTaskConfig",
+           "Audio2MotionTaskConfig", "CaptionTask", "CaptionTaskConfig",
+           "CLAPTask", "CLAPTaskConfig",
            "DiffSingerTask", "DiffSingerTaskConfig", "FS2Task",
            "FS2TaskConfig", "GenerSpeechTask", "GenerSpeechTaskConfig",
            "LDMTask", "LDMTaskConfig", "PETask", "PETaskConfig",
            "PortaSpeechAdvTask", "PortaSpeechAdvTaskConfig",
-           "PortaSpeechTask", "PortaSpeechTaskConfig", "VAETask",
+           "PortaSpeechTask", "PortaSpeechTaskConfig", "SEDTask",
+           "SEDTaskConfig", "SeparationTask", "SeparationTaskConfig",
+           "VAETask",
            "VAETaskConfig", "VISingerTask", "VISingerTaskConfig",
            "VocoderGANTask", "VocoderGANTaskConfig"]

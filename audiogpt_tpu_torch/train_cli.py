@@ -24,9 +24,14 @@ PortaSpeech family with ``with_words`` and SyntaSpeech with
 the SVS recipes, VISinger's records with ``with_wav`` and a linear
 ``spec``), batched by the token-budget loader; ``ldm``, ``vae``, ``clap``
 and ``audio2motion`` on fixed-shape batches (mel images, wav-and-text
-records, mels with their motion or its pseudo-target). The analysis
-recipes (``sed``, ``caption``, ``separation``) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+records, mels with their motion or its pseudo-target), and so do the
+analysis recipes ``sed`` (``configs/sed/panns.yaml``: tagged 10 s clips
+at 32 kHz), ``caption`` (``configs/caption/cnn14rnn.yaml``: 10 s clips
+and 22 tokens) and ``separation`` (``configs/separation/convtasnet.yaml``:
+4 s mixtures at 16 kHz with their sources). Every task of the JAX CLI
+trains here. ``--export PATH`` writes the weights after the run (each
+group's EMA shadows where the recipe keeps them), which the app's
+``--ckpt`` and ``infer_cli --params`` load.
 """
 
 from __future__ import annotations
@@ -37,16 +42,6 @@ import os
 from typing import Any
 
 from audiogpt_tpu_torch.config import Config, load_config
-
-#: the JAX CLI's other tasks → the ROADMAP.md §A item that ports them
-_NOT_PORTED = {"sed": "A5", "caption": "A5", "separation": "A5"}
-
-
-def _not_ported(name: str):
-    return NotImplementedError(
-        f"task {name!r} is not ported yet: ROADMAP.md §A item "
-        f"{_NOT_PORTED[name]}")
-
 
 def _fill(dc_cls, data: dict) -> Any:
     """Build a (nested) dataclass from a plain dict, keeping defaults for
@@ -169,8 +164,27 @@ def build_task(cfg: Config, device=None):
         return CLAPTask(_fill(CLAPTaskConfig, {
             **model, "optim": dataclasses.asdict(optim), **loss}),
             device=device)
-    if name in _NOT_PORTED:
-        raise _not_ported(name)
+    if name == "sed":
+        # AudioSet tagging (audio_infer/pytorch/main.py:377)
+        from audiogpt_tpu_torch.train.tasks import SEDTask, SEDTaskConfig
+
+        return SEDTask(_fill(SEDTaskConfig, {
+            "model": model, "optim": dataclasses.asdict(optim), **loss}),
+            device=device)
+    if name == "caption":
+        from audiogpt_tpu_torch.train.tasks import (CaptionTask,
+                                                    CaptionTaskConfig)
+
+        return CaptionTask(_fill(CaptionTaskConfig, {
+            "model": model, "optim": dataclasses.asdict(optim), **loss}),
+            device=device)
+    if name == "separation":
+        from audiogpt_tpu_torch.train.tasks import (SeparationTask,
+                                                    SeparationTaskConfig)
+
+        return SeparationTask(_fill(SeparationTaskConfig, {
+            "model": model, "optim": dataclasses.asdict(optim), **loss}),
+            device=device)
     raise ValueError(f"unknown task {name!r}")
 
 
@@ -213,8 +227,8 @@ def check_vocabs(cfg: Config, task_name: str, bin_dir: str) -> None:
 def build_loaders(cfg: Config, task_name: str):
     """→ (an endless iterator of training batches, a function giving one
     pass over the validation split, or None without a ``valid`` split).
-    ``ldm``, ``vae``, ``clap`` and ``audio2motion``: fixed-shape batches
-    of ``batch_size``; the TTS and SVS recipes (``fs2``, the PortaSpeech
+    ``ldm``, ``vae``, ``clap``, ``audio2motion``, ``sed``, ``caption`` and
+    ``separation``: fixed-shape batches of ``batch_size``; the TTS and SVS recipes (``fs2``, the PortaSpeech
     family, ``generspeech``, ``pe``, ``diffsinger``, ``visinger``):
     token-budget batches on the dyadic (batch, length) ladder of
     ``data.max_len`` / ``max_batch`` / ``min_batch``, VISinger's with the
@@ -228,7 +242,8 @@ def build_loaders(cfg: Config, task_name: str):
     from audiogpt_tpu_torch.data import (ArrayDataLoader, BucketSpec,
                                          TTSDataLoader, VocoderDataLoader,
                                          collate_audio_text,
-                                         collate_mel_image, collate_motion,
+                                         collate_mel_image, collate_mixture,
+                                         collate_motion, collate_tagging,
                                          collate_tts, load_split)
 
     model = cfg.get("model", {})
@@ -240,19 +255,30 @@ def build_loaders(cfg: Config, task_name: str):
             text_len=d.get("text_len", 77)),
         "vae": lambda: functools.partial(
             collate_mel_image, width=d.get("width", 624)),
+        "sed": lambda: functools.partial(
+            collate_tagging,
+            n_samples=int(d.get("sample_rate", 32000)
+                          * d.get("clip_seconds", 10.0))),
+        "caption": lambda: functools.partial(
+            collate_audio_text,
+            n_samples=int(d.get("sample_rate", 32000)
+                          * d.get("clip_seconds", 10.0)),
+            text_len=d.get("text_len", 22), schema="caption"),
         "clap": lambda: functools.partial(
             collate_audio_text,
             n_samples=int(d.get("sample_rate", 16000)
                           * d.get("clip_seconds", 10.0)),
             text_len=d.get("text_len", 77), schema="clap"),
+        "separation": lambda: functools.partial(
+            collate_mixture,
+            n_samples=int(d.get("sample_rate", 8000)
+                          * d.get("clip_seconds", 4.0))),
         "audio2motion": lambda: functools.partial(
             collate_motion, mel_len=d.get("mel_len", 512),
             video_len=d.get("mel_len", 512) * model.get("fps", 25)
             * model.get("hop", 256) // model.get("sample_rate", 16000)),
     }
     if task_name not in ("vocoder_gan", *fixed_collates, *_TTS_VOCABS):
-        if task_name in _NOT_PORTED:
-            raise _not_ported(task_name)
         raise ValueError(f"unknown task {task_name!r}")
     bin_dir = d.get("binary_dir", "data/bin")
     train_ds = load_split(bin_dir, "train")
@@ -318,6 +344,22 @@ def trainer_config(cfg: Config, work_dir: str, max_updates: int | None = None):
         use_tensorboard=cfg.get("use_tensorboard", True))
 
 
+def export_weights(trainer, out: str) -> str:
+    """Write a ``Trainer``'s weights (each group's params, its EMA shadows
+    where the recipe keeps them, and the step) to ``out`` (a ``.pt`` file,
+    or a directory that gets ``params.pt``) → the file's path, which
+    ``app.py --ckpt`` and ``infer_cli --params`` load."""
+    import torch
+
+    from audiogpt_tpu_torch.import_ckpt import weights_file
+
+    state = trainer.state()
+    path = weights_file(out)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save({k: state[k] for k in ("params", "ema", "step")}, path)
+    return path
+
+
 def main(argv=None):
     from audiogpt_tpu_torch.train import Trainer
 
@@ -328,15 +370,12 @@ def main(argv=None):
     ap.add_argument("--max_updates", type=int, default=None)
     ap.add_argument("--device", default=None,
                     help="'cuda' (the default) or 'cpu'")
-    ap.add_argument("--export", default=None, metavar="DIR",
-                    help="not ported yet: exporting inference params waits "
-                         "for the checkpoint import (ROADMAP.md §A item 6), "
-                         "which gives the port's app --ckpt; the flag "
-                         "raises")
+    ap.add_argument("--export", default=None, metavar="PATH",
+                    help="after training, write the weights (each group's "
+                         "EMA shadows where the recipe keeps them) to PATH "
+                         "(a .pt file, or a directory that gets params.pt); "
+                         "load with app.py --ckpt or infer_cli --params")
     args = ap.parse_args(argv)
-    if args.export:
-        raise NotImplementedError("--export waits for the checkpoint import "
-                                  "(ROADMAP.md §A item 6)")
 
     cfg = load_config(args.config, overrides=args.hparams)
     cfg.save(os.path.join(args.exp_name, "config.yaml"))
@@ -348,6 +387,8 @@ def main(argv=None):
     train_it, val_fn = build_loaders(cfg, cfg.get("task", "fs2"))
     trainer.fit(train_it, val_fn)
     trainer.logger.close()
+    if args.export:
+        print(f"| exported weights -> {export_weights(trainer, args.export)}")
 
 
 if __name__ == "__main__":

@@ -309,6 +309,37 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    gradients within 5e-5 of each tensor's largest. CLAP's Cnn14 holds the
    running statistics of one forward on the batch, so its embeddings are
    not collinear (their cosines are printed).
+68. train_sed: ``configs/sed/panns.yaml`` at full width (PANN-SED on
+   Cnn14, 527 classes), batch 32 of 10 s at 32 kHz on seeded tagged
+   clips, mixup drawn on the card, 6 steps: step time, MFU, peak,
+   ``clip_bce`` first and last, neither kernel, the BatchNorm buffers
+   unmoved.
+69. train_caption: ``configs/caption/cnn14rnn.yaml`` (Cnn14, the
+   bidirectional GRU of 512 on cuDNN under autograd, a 2-layer decoder
+   over 4 981 words), batch 32, 22 tokens, 6 steps.
+70. train_separation: ``configs/separation/convtasnet.yaml`` (two
+   sources, 512/128/512 × 8 × 3), batch 8 of 4 s mixtures at 16 kHz of
+   two speech-like sources, PIT SI-SNR, 8 steps.
+71. train_analysis_small_reference: the CPU tests' tiny SED (mixup's λ
+   and permutation replayed), caption and Conv-TasNet (one and two
+   sources) tasks on the card and on the CPU, f32: losses within 1e-6
+   relative, gradients within 5e-5.
+72. import_cli: synthetic reference ``.ckpt`` files at full width for
+   ``hifigan`` and ``bigvgan`` through ``python -m
+   audiogpt_tpu_torch.import_ckpt`` in two subprocesses, loaded into
+   engines by ``app.load_engine_ckpts``: the vocoded wav equals the
+   engine's with the tree loaded directly; the import seconds and the
+   files' sizes; ``infer_cli --engine separate --params`` on the weights
+   ``train_separation`` exported, through the app's own factory: its
+   stems equal a directly loaded engine's within one int16 step;
+   ``infer_cli`` for ``tts``, ``enhance`` and ``t2a`` on the app's
+   engines of the earlier phases, ``t2a``'s K1 and K2 launches
+   (PLMS-25 with CFG: 125 and 73) against the configs'.
+73. gpt2_refiner: the refiner's LM at GPT-2 small's width on a 16-token
+   prompt with 40 new tokens: wall times, prefill, ms per decode token,
+   device launches per decode step, K1 launches (0: a 16-token prefill
+   is under 256² pairs); at a tiny config the card's greedy ids equal the
+   CPU's.
 
 The ``unet_bf16`` engine of phase 6 also inpaints (``inpaint_unet_bf16``):
 its f32 UNet gives the f32 engine's wav with the same draws.
@@ -5218,7 +5249,7 @@ def tapped(it, seen: list):
                           tuple(b["txt_tokens"].shape)),
                          int(b["mel_lengths"][real].sum())))
         else:
-            x = b["mels"] if "mels" in b else b["wav"]
+            x = b["mels"] if "mels" in b else b.get("wav", b.get("mix"))
             seen.append(((tuple(x.shape),), int(real.sum())
                          * x.shape[2 if x.ndim == 4 else 1]))
         yield b
@@ -6661,6 +6692,501 @@ def phase_train_svs_small_reference() -> None:
         raise AssertionError(f"card vs CPU SVS, face and LDM training: {bad}")
 
 
+#: the analysis recipes' phases: steps of each run (the yamls' widths and
+#: batches; steps cut from ``max_updates`` to what the time limit allows),
+#: the fixtures' records (two batches of each recipe) and their lengths
+SED_STEPS, CAPTION_STEPS, SEP_STEPS = 6, 6, 8
+SED_RECORDS, SEP_RECORDS = 64, 16
+SED_CLASSES, CAPTION_TOKENS = 527, (5, 21)
+#: the CPU tests' tiny analysis tasks (``tests/test_torch_analysis_train``)
+TINY_CNN = (4, 4, 8, 8, 16, 16)
+TINY_CAPTION = dict(rnn_hidden=8, vocab_size=40, emb_dim=16, nhead=2,
+                    nlayers=1, dim_feedforward=32, max_caption_len=8)
+TINY_TASNET = dict(enc_dim=32, bottleneck=8, hidden=16, skip=8, n_blocks=2,
+                   n_repeats=1, sample_rate=8000)
+#: ``infer_cli --engine t2a``: PLMS over 25 steps, one sample (the CFG pair
+#: makes the UNet's batch 2)
+INFER_T2A_STEPS = 25
+#: the GPT-2 refiner at GPT-2 small's width: prompt and new tokens
+GPT2_PROMPT, GPT2_NEW = 16, 40
+GPT2_TINY = dict(vocab_size=300, n_positions=64, width=128, layers=2,
+                 heads=2, eos_id=299)
+
+
+def analysis_fixtures(root: Path) -> dict:
+    """Seeded records of the three analysis recipes, written by the port's
+    ``RecordWriter``: AudioSet-like clips (10 s of sound events at 32 kHz)
+    with multi-hot targets over 527 classes (1–4 labels) and captions
+    (``<sos>`` 0, 5–21 word ids below 4 981, ``<eos>`` 9), one split that
+    ``sed`` and ``caption`` share; 4 s mixtures at 16 kHz of two
+    speech-like sources at 0 dB. → the binary dirs."""
+    import numpy as np
+
+    from audiogpt_tpu_torch.data import RecordWriter
+
+    rng = np.random.default_rng(61)
+    with RecordWriter(str(root / "tagged" / "bin" / "train")) as w:
+        for i in range(SED_RECORDS):
+            target = np.zeros(SED_CLASSES, np.float32)
+            target[rng.choice(SED_CLASSES, int(rng.integers(1, 5)),
+                              replace=False)] = 1.0
+            n = int(rng.integers(*CAPTION_TOKENS))
+            tokens = np.concatenate([[0], rng.integers(10, 4981, n),
+                                     [9]]).astype(np.int32)
+            w.add({"wav": events_like(10.0, 32000, 700 + i),
+                   "target": target, "tokens": tokens})
+    with RecordWriter(str(root / "mixtures" / "bin" / "train")) as w:
+        for i in range(SEP_RECORDS):
+            src = np.stack([speech_like(4.0, 16000, 800 + 2 * i),
+                            speech_like(4.0, 16000, 801 + 2 * i)])
+            w.add({"mix": src.sum(0), "sources": src})
+    tagged = str(root / "tagged" / "bin")
+    return {"sed": tagged, "caption": tagged,
+            "separation": str(root / "mixtures" / "bin")}
+
+
+def bn_buffers_moved(module) -> list:
+    """The BatchNorm buffers of ``module`` that left their init (mean 0,
+    variance 1, no batches counted)."""
+    return [n for n, b in module.named_buffers()
+            if (n.endswith("running_mean") and bool(b.any()))
+            or (n.endswith("running_var") and not bool((b == 1).all()))
+            or (n.endswith("num_batches_tracked") and int(b) != 0)]
+
+
+def analysis_report(run: dict, terms: tuple) -> dict:
+    """``fit_report`` and each term at the first and the last step."""
+    tr = run["tr"]
+    res = fit_report(run, terms)
+    for k in terms:
+        res[f"{k}_first"], res[f"{k}_last"] = tr[0][k], tr[-1][k]
+    return res
+
+
+def phase_train_sed(dirs: dict, tmp: str) -> dict:
+    """``configs/sed/panns.yaml`` at full width (PANN-SED: Cnn14 2048 wide,
+    527 classes), batch 32 of 10 s at 32 kHz, mixup α 1 drawn on the card,
+    ``SED_STEPS`` steps: step time, MFU, peak, ``clip_bce`` first and last,
+    neither kernel, and every BatchNorm buffer where its init left it (the
+    model runs on its running statistics, JAX's ``train=False``)."""
+    run = fit_run("train_sed", "sed/panns.yaml", dirs["sed"], tmp, SED_STEPS)
+    task, tr = run["task"], run["tr"]
+    cnn = task.model.backbone.cfg
+    if (cnn.channels[-1], task.cfg.model.classes_num, task.cfg.mixup_alpha,
+            run["shapes"][0]) != (2048, 527, 1.0, ((32, 320000),)):
+        raise AssertionError(f"train_sed: {task.cfg}, {run['shapes']}")
+    terms = ("clip_bce", "total_loss")
+    moved = bn_buffers_moved(task.model)
+    res = {"phase": "train_sed", **analysis_report(run, terms),
+           "bn_buffers_moved": moved, "model_training": task.model.training}
+    emit(res)
+    if res["nonfinite"] or not finite_terms(tr, terms) or moved \
+            or task.model.training or not all(run["moved"].values()):
+        raise AssertionError(f"train_sed: {res}")
+    return {"launches": run["counts"]}
+
+
+def phase_train_caption(dirs: dict, tmp: str) -> dict:
+    """``configs/caption/cnn14rnn.yaml`` at full width (Cnn14, the
+    bidirectional GRU of 512 under autograd, a 2-layer decoder over 4 981
+    words), batch 32 of 10 s at 32 kHz and 22 tokens, ``CAPTION_STEPS``
+    steps on the rsqrt warm-up: step time, MFU, peak, ``ce`` and
+    ``token_acc`` first and last, neither kernel, Cnn14 in eval mode with
+    its buffers unmoved (cuDNN's GRU trains in training mode)."""
+    run = fit_run("train_caption", "caption/cnn14rnn.yaml", dirs["caption"],
+                  tmp, CAPTION_STEPS)
+    task, tr = run["task"], run["tr"]
+    m = task.cfg.model
+    if (m.cnn14.channels[-1], m.rnn_hidden, m.vocab_size, m.nlayers,
+            run["shapes"][0]) != (2048, 512, 4981, 2, ((32, 320000),)):
+        raise AssertionError(f"train_caption: {m}, {run['shapes']}")
+    terms = ("ce", "token_acc", "total_loss")
+    moved = bn_buffers_moved(task.model)
+    res = {"phase": "train_caption", **analysis_report(run, terms),
+           "bn_buffers_moved": moved,
+           "cnn14_training": task.model.cnn.training}
+    emit(res)
+    if res["nonfinite"] or not finite_terms(tr, terms) or moved \
+            or task.model.cnn.training or not all(run["moved"].values()):
+        raise AssertionError(f"train_caption: {res}")
+    return {"launches": run["counts"]}
+
+
+def phase_train_separation(dirs: dict, tmp: str) -> dict:
+    """``configs/separation/convtasnet.yaml`` at full width (Conv-TasNet
+    512/128/512, 8 blocks × 3 repeats, two sources), batch 8 of 4 s
+    mixtures at 16 kHz, PIT SI-SNR, ``SEP_STEPS`` steps: step time, MFU,
+    peak, ``neg_si_snr`` first and last, neither kernel. The weights are
+    then written as ``train_cli --export`` writes them (``export``)."""
+    from audiogpt_tpu_torch.train_cli import export_weights
+
+    run = fit_run("train_separation", "separation/convtasnet.yaml",
+                  dirs["separation"], tmp, SEP_STEPS)
+    task, tr = run["task"], run["tr"]
+    m = task.cfg.model
+    if (m.n_src, m.enc_dim, m.bottleneck, m.hidden, m.n_blocks, m.n_repeats,
+            run["shapes"][0]) != (2, 512, 128, 512, 8, 3, ((8, 64000),)):
+        raise AssertionError(f"train_separation: {m}, {run['shapes']}")
+    terms = ("neg_si_snr", "total_loss")
+    res = {"phase": "train_separation", **analysis_report(run, terms)}
+    emit(res)
+    if res["nonfinite"] or not finite_terms(tr, terms) \
+            or not all(run["moved"].values()):
+        raise AssertionError(f"train_separation: {res}")
+    return {"launches": run["counts"],
+            "export": export_weights(run["trainer"], str(run["work"]))}
+
+
+def phase_train_analysis_small_reference() -> None:
+    """The CPU tests' tiny SED (mixup on replayed draws, strong labels and
+    a weight-0 row), caption and Conv-TasNet (one and two sources) tasks
+    on the card and on the CPU with the same weights, batch and draws, TF32
+    off: one step's losses within ``SVS_LOSS_RTOL`` relative, every
+    gradient within ``SVS_GRAD_TOL`` of its tensor's largest. Each Cnn14
+    holds the running statistics of one forward on the batch
+    (``calibrate_bn``)."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.models.caption import Cnn14Config
+    from audiogpt_tpu_torch.models.caption.captioner import CaptionConfig
+    from audiogpt_tpu_torch.models.sed.panns_sed import SEDConfig
+    from audiogpt_tpu_torch.models.separation import ConvTasNetConfig
+    from audiogpt_tpu_torch.train.tasks import (CaptionTask,
+                                                CaptionTaskConfig, SEDTask,
+                                                SEDTaskConfig,
+                                                SeparationTask,
+                                                SeparationTaskConfig)
+
+    rng = np.random.default_rng(9)
+    n = 32000
+    t = np.arange(n) / 32000.0
+    lens = np.asarray([n, 24000, 28000], np.int32)
+    wav = 0.2 * rng.normal(size=(3, n)) + 0.5 * np.sin(
+        2 * np.pi * rng.uniform(200, 4000, (3, 1)) * t)
+    wav = (wav * (np.arange(n) < lens[:, None])).astype(np.float32)
+    sed_batch = {"wav": wav, "wav_len": lens,
+                 "target": (rng.random((3, 10)) < 0.3).astype(np.float32),
+                 "frame_target": (rng.random((3, 32, 10)) < 0.2).astype(
+                     np.float32),
+                 "weight": np.asarray([1, 1, 0], np.float32)}
+    tokens = np.zeros((3, 7), np.int32)
+    tok_len = np.asarray([6, 4, 5], np.int32)
+    for i, k in enumerate(tok_len):
+        tokens[i, 1:k] = rng.integers(1, 40, k - 1)
+    cap_batch = {"wav": wav, "wav_len": lens, "tokens": tokens,
+                 "token_len": tok_len,
+                 "weight": np.asarray([1, 0, 1], np.float32)}
+
+    def mixture(n_src):
+        src = (0.3 * rng.normal(size=(3, n_src, 4000))).astype(np.float32)
+        return {"mix": src.sum(1), "sources": src,
+                "weight": np.asarray([1, 1, 0], np.float32)}
+
+    cnn = Cnn14Config(channels=TINY_CNN)
+    t_wav, t_len = torch.from_numpy(wav), torch.from_numpy(lens).long()
+    builds = {
+        "sed": (lambda dev: SEDTask(SEDTaskConfig(model=SEDConfig(
+            cnn14=cnn, classes_num=10)), device=dev), sed_batch,
+            {"lam": np.float32(rng.beta(1.0, 1.0)),
+             "perm": np.asarray([2, 0, 1], np.int64)}),
+        "caption": (lambda dev: CaptionTask(CaptionTaskConfig(
+            model=CaptionConfig(cnn14=cnn, **TINY_CAPTION)), device=dev),
+            cap_batch, None),
+        **{f"separation_{k}": (lambda dev, k=k: SeparationTask(
+            SeparationTaskConfig(model=ConvTasNetConfig(
+                n_src=k, **TINY_TASNET)), device=dev), mixture(k), None)
+           for k in (1, 2)}}
+    prime = {"sed": lambda task: calibrate_bn(task.model.backbone, t_wav,
+                                              t_len),
+             "caption": lambda task: calibrate_bn(task.model.cnn, t_wav,
+                                                  t_len)}
+    report, worst = card_vs_cpu_steps(builds, "train_analysis_small_reference",
+                                      grad_tol=SVS_GRAD_TOL, prime=prime)
+    emit({"phase": "train_analysis_small_reference", "bounds": {
+        "loss_rtol": SVS_LOSS_RTOL, "grad_tol": SVS_GRAD_TOL,
+        "zero_grad_tol": TTS_ZERO_GRAD_TOL}, **report})
+    bad = {k: v for k, v in worst.items()
+           if not (v[0] <= SVS_LOSS_RTOL and v[1] <= SVS_GRAD_TOL)}
+    if bad:
+        raise AssertionError(f"card vs CPU analysis training: {bad}")
+
+
+def reference_vocoder_names(kind: str, cfg, state: dict) -> dict:
+    """A port HiFi-GAN or BigVGAN generator's state under the reference
+    checkpoint's names (``NeuralSeq/modules/hifigan/hifigan.py:104`` and
+    ``Make_An_Audio/vocoder/bigvgan/models.py:133``: ``ups``,
+    ``resblocks.{i · kernels + j}.convs{1,2}``, BigVGAN's
+    ``activations.{n}.act``), HiFi-GAN's convs as torch weight-norm pairs
+    (g = ‖w‖ per output channel, v = 2w), under ``generator.``."""
+    import torch
+
+    nk = len(cfg.resblock_kernel_sizes)
+    amp = kind == "bigvgan"
+
+    def block(m):
+        i, j, what, k = (int(m.group(1)), int(m.group(2)), m.group(3),
+                         int(m.group(4)))
+        r = f"resblocks.{i * nk + j}"
+        return f"{r}.activations.{k}.act." if what == "SnakeAA" \
+            else f"{r}.convs{1 + k % 2}.{k // 2}."
+
+    out = {}
+    for key, t in state.items():
+        key = re.sub(r"^conv_(pre|post)\.Conv_0\.", r"conv_\1.", key)
+        key = re.sub(r"^up_(\d+)\.", r"ups.\1.0." if amp else r"ups.\1.",
+                     key)
+        key = re.sub(r"^(?:amp|res)_(\d+)_(\d+)\.(Conv1d|SnakeAA)_(\d+)\."
+                     r"(?:Conv_0\.)?", block, key)
+        key = re.sub(r"^act_post\.", "activation_post.act.", key)
+        if not amp and t.ndim == 3 and key.endswith("weight") \
+                and key.startswith(("ups", "resblocks")):
+            g = t.double().pow(2).sum((1, 2), keepdim=True).sqrt().float()
+            out["generator." + key[:-6] + "weight_g"] = g
+            out["generator." + key[:-6] + "weight_v"] = 2 * t
+        else:
+            out["generator." + key] = t
+    return {k: torch.as_tensor(v).contiguous() for k, v in out.items()}
+
+
+def phase_import_cli(main: dict, tts: dict, separation: dict,
+                     exported: str, tmp: str) -> dict:
+    """Checkpoint import and the CLIs on the card. A synthetic reference
+    ``.ckpt`` at full width for ``hifigan`` (V1, weight-norm pairs) and
+    ``bigvgan`` (the T2A vocoder), each from a seeded generator under the
+    reference's names, goes through ``python -m
+    audiogpt_tpu_torch.import_ckpt`` in a subprocess (the two at once); the
+    trees load into engines built by ``app.build_engines`` through
+    ``app.load_engine_ckpts`` (no kernel launched), and each vocodes a
+    seeded mel to the wav of the same engine with the tree converted in
+    this process and passed directly (equal, bitwise). ``infer_cli
+    --engine separate --params`` on the weights that ``train_separation``
+    exported builds its engine through the app's own factory, on the card,
+    and writes the stems that a ``SeparationEngine`` given those weights
+    directly writes (within one int16 step). Then ``infer_cli`` runs
+    ``tts``, ``enhance`` and ``t2a`` on the card, in this process, on the
+    app's engines as the earlier phases built them (the factories return
+    them): the files' lengths and finiteness, and ``t2a``'s K1 and
+    K2 launches against the counts derived from the configs (PLMS-25, the
+    CFG pair, one vocoded clip). The import seconds and the files'
+    sizes."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch import app, import_ckpt, infer_cli
+    from audiogpt_tpu_torch.engines import SeparationEngine, VocoderEngine
+    from audiogpt_tpu_torch.models.separation import ConvTasNetConfig
+    from audiogpt_tpu_torch.utils.audio_io import load_wav, save_wav
+
+    root = Path(tmp) / "import_cli"
+    root.mkdir(parents=True)
+    sizes, ckpts = {}, {}
+    for kind in ("hifigan", "bigvgan"):
+        cfg = import_ckpt.default_config(kind)
+        gen = VocoderEngine(kind, cfg=cfg, device="cpu").model
+        fill_random(gen, torch.Generator().manual_seed(71))
+        sd = reference_vocoder_names(kind, cfg, gen.state_dict())
+        ckpts[kind] = str(root / f"{kind}.ckpt")
+        torch.save({"state_dict": sd, "global_step": 1000}, ckpts[kind])
+        sizes[f"{kind}_ckpt_mb"] = os.path.getsize(ckpts[kind]) / 1e6
+    t0 = time.perf_counter()
+    procs = {kind: subprocess.Popen(
+        [sys.executable, "-m", "audiogpt_tpu_torch.import_ckpt", "--family",
+         kind, "--ckpt", ckpts[kind], "--out", str(root / kind)],
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for kind in ckpts}
+    import_s, logs = {}, {}
+    for kind, p in procs.items():
+        out, err = p.communicate(timeout=300)
+        import_s[kind] = time.perf_counter() - t0
+        if p.returncode:
+            raise AssertionError(f"import_ckpt {kind}: {err[-2000:]}")
+        logs[kind] = out.strip().splitlines()[-1]
+        sizes[f"{kind}_params_mb"] = os.path.getsize(
+            root / kind / import_ckpt.PARAMS_FILE) / 1e6
+    engines = app.build_engines({
+        "hifigan": VocoderEngine("hifigan", buckets=(256,)),
+        "bigvgan": VocoderEngine("bigvgan", buckets=(256,))})
+    _, load_s, load_counts = counted(lambda: app.load_engine_ckpts(
+        engines, [f"{kind}={root / kind}" for kind in ckpts]))
+    check_no_kernels(load_counts, "import_cli load")
+    mel = torch.from_numpy(np.random.default_rng(72).normal(
+        -4.0, 1.5, (1, 80, 200)).astype(np.float32)).cuda()
+    equal = {}
+    for kind in ckpts:
+        direct = VocoderEngine(kind, params=import_ckpt.convert(
+            kind, import_ckpt.load_torch_state_dict(ckpts[kind]),
+            import_ckpt.default_config(kind)), buckets=(256,))
+        a, b = engines[kind].vocode(mel), direct.vocode(mel)
+        equal[kind] = float((a - b).abs().max())
+        if equal[kind] != 0.0 or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"import_cli {kind}: |Δwav| {equal[kind]}")
+    noisy = str(root / "noisy.wav")
+    save_wav(speech_like(10.0, 16000, 73), noisy, 16000)
+    # infer_cli --params on the trained weights, through the app's factory
+    stems = str(root / "separate.wav")
+    rc, sep_s, sep_counts = counted(lambda: infer_cli.main(
+        ["--engine", "separate", "--in", noisy, "--out", stems,
+         "--params", exported]))
+    check_no_kernels(sep_counts, "infer_cli separate")
+    weights = torch.load(exported, map_location="cpu", weights_only=True)
+    if rc != 0 or weights["ema"]:
+        raise AssertionError(f"infer_cli separate: rc {rc}, ema "
+                             f"{list(weights['ema'])}")
+    direct = SeparationEngine(ConvTasNetConfig(n_src=2))
+    direct.model.load_state_dict(weights["params"]["model"])
+    direct_stems = np.atleast_2d(direct.separate(load_wav(noisy)[0]))
+    sep_diff = []
+    for i, stem in enumerate(direct_stems):
+        save_wav(stem, str(root / f"direct_{i}.wav"), 16000)
+        a = load_wav(stems.replace(".wav", f"_{i}.wav"))[0]
+        b = load_wav(str(root / f"direct_{i}.wav"))[0]
+        sep_diff.append(float(np.abs(a - b).max()))
+    if len(direct_stems) != 2 or max(sep_diff) > 1.0 / 32768 \
+            or not np.isfinite(direct_stems).all() \
+            or not np.abs(direct_stems).max() > 0:
+        raise AssertionError(f"infer_cli separate vs direct: {sep_diff}")
+    # infer_cli on the app's engines of the earlier phases
+    saved = dict(app._FACTORIES)
+    app._FACTORIES.update(
+        t2a=lambda device=None: main["engine"],
+        tts=lambda device=None: tts["engine"],
+        enhance=lambda device=None: separation["enhance"]["engine"])
+    runs = {}
+    try:
+        for name, args in (
+                ("tts", ["--text", TTS_TEXT]),
+                ("enhance", ["--in", noisy]),
+                ("t2a", ["--text", TEXT])):
+            out = str(root / f"{name}.wav")
+            rc, secs, counts = counted(lambda: infer_cli.main(
+                ["--engine", name, "--out", out, *args]))
+            wav, sr = load_wav(out)
+            runs[name] = {"rc": rc, "s": secs, "counts": counts,
+                          "samples": int(wav.size), "sr": sr,
+                          "finite": bool(np.isfinite(wav).all()),
+                          "rms": float(np.sqrt(np.mean(wav ** 2)))}
+    finally:
+        app._FACTORIES.clear()
+        app._FACTORIES.update(saved)
+    eng = main["engine"]
+    cfg = eng.cfg
+    flash = flash_shapes(cfg, 2, cfg.latent_hw, INFER_T2A_STEPS,
+                         cfg.clap.max_length)
+    snake = snake_shapes(eng.vocoder.cfg, 1, cfg.mel_len)
+    want = expected_counts(flash, snake)
+    res = {"phase": "import_cli", "import_s": import_s, "load_s": load_s,
+           "sizes_mb": sizes, "import_logs": logs,
+           "vocoded_max_abs_diff": equal,
+           "infer_cli_separate_params": {
+               "s": sep_s, "stems_max_abs_diff": sep_diff,
+               "int16_step": 1.0 / 32768, "counts": sep_counts},
+           "infer_cli": {k: {**v, "counts": v["counts"]}
+                         for k, v in runs.items()},
+           "t2a_expected_counts": want}
+    emit(res)
+    for name, r in runs.items():
+        if r["rc"] != 0 or not r["finite"] or r["samples"] == 0 \
+                or r["rms"] == 0.0:
+            raise AssertionError(f"infer_cli {name}: {r}")
+        if name != "t2a":
+            check_no_kernels(r["counts"], f"infer_cli {name}")
+    if runs["t2a"]["counts"] != want \
+            or runs["t2a"]["samples"] != cfg.mel_len * eng.vocoder.hop_size:
+        raise AssertionError(f"infer_cli t2a: {runs['t2a']}, want {want}")
+    return {"import": {"launches": load_counts},
+            "infer_cli_separate": {"launches": sep_counts},
+            "infer_cli_tts": {"launches": runs["tts"]["counts"]},
+            "infer_cli_enhance": {"launches": runs["enhance"]["counts"]},
+            "t2a": {"launches": runs["t2a"]["counts"], "flash": flash,
+                    "snake": snake}}
+
+
+def phase_gpt2_refiner() -> dict:
+    """The T2I prompt refiner's LM at GPT-2 small's width (12 × 768, 12
+    heads, 50 257 ids, tied head; seeded random weights, no GPT-2 vocab in
+    the repository): ``generate_tokens`` on a ``GPT2_PROMPT``-token prompt
+    (its bucket) with ``GPT2_NEW`` new tokens: cold and warm (median of 3)
+    wall times, the prefill alone, ms per decode token, the device
+    launches of one decode step (traced), K1 launches against the count
+    the dispatch rule gives (a prefill of Tq·Tk ≥ 256², per layer). At a
+    tiny config the card's greedy ids equal the CPU's."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.engines.base import seeded
+    from audiogpt_tpu_torch.models.textenc.gpt2 import (GPT2Config, GPT2LM,
+                                                        bucket_prompt,
+                                                        generate_tokens,
+                                                        greedy_generate)
+    from audiogpt_tpu_torch.ops.attention import FLASH_MIN_PAIRS, KVCache
+
+    cfg = GPT2Config()
+    t0 = time.perf_counter()
+    model = seeded(0, lambda: GPT2LM(cfg)).cuda().eval()
+    fill_random(model, torch.Generator("cuda").manual_seed(81))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(82)
+    prompt = [int(x) for x in rng.integers(0, cfg.eos_id, GPT2_PROMPT)]
+    toks, val = (torch.from_numpy(a).cuda()
+                 for a in bucket_prompt(prompt, cfg.eos_id))
+    L = toks.shape[1]
+
+    def generate():
+        return generate_tokens(model, toks, val, GPT2_NEW)
+
+    out, cold_s, counts = counted(generate)
+    warm = [counted(generate)[1] for _ in range(3)]
+    want_k1 = cfg.layers * int(L * L >= FLASH_MIN_PAIRS)
+    heads, d = cfg.heads, cfg.width // cfg.heads
+
+    def caches():
+        return [KVCache.create(1, L + GPT2_NEW, heads, d, device="cuda")
+                for _ in range(cfg.layers)]
+
+    kv = torch.cat([val, torch.ones(1, GPT2_NEW, dtype=val.dtype,
+                                    device="cuda")], 1)
+    pos = (val.cumsum(1) - 1).clamp_min(0)
+
+    def prefill():
+        with torch.inference_mode():
+            return model(toks, pos, caches(), kv)
+
+    prefill_s = statistics.median(counted(prefill)[1] for _ in range(3))
+    cs = caches()
+    with torch.inference_mode():
+        model(toks, pos, cs, kv)
+        step_tok = out[:, :1]
+        step_launches = device_launches(
+            lambda: model(step_tok, pos[:, -1:] + 1, cs, kv))
+    warm_s = statistics.median(warm)
+    # the tiny config on the card and on the CPU, the same weights
+    tiny = GPT2Config(**GPT2_TINY)
+    cpu_model = seeded(1, lambda: GPT2LM(tiny)).eval()
+    fill_random(cpu_model, torch.Generator().manual_seed(83))
+    card_model = GPT2LM(tiny).cuda().eval()
+    card_model.load_state_dict(cpu_model.state_dict())
+    tiny_prompt = [int(x) for x in rng.integers(0, tiny.eos_id, 11)]
+    ids_cpu = greedy_generate(cpu_model, tiny_prompt, 24)
+    ids_card = greedy_generate(card_model, tiny_prompt, 24)
+    res = {"phase": "gpt2_refiner", "layers": cfg.layers,
+           "width": cfg.width, "vocab": cfg.vocab_size, "bucket": L,
+           "prompt": GPT2_PROMPT, "new_tokens": GPT2_NEW,
+           "setup_s": setup_s, "cold_s": cold_s, "warm_s": warm_s,
+           "prefill_ms": 1e3 * prefill_s,
+           "decode_ms_per_token": 1e3 * (warm_s - prefill_s) / GPT2_NEW,
+           "device_launches_per_decode_step": step_launches,
+           "k1_launches": counts["flash_attention"], "k1_expected": want_k1,
+           "k2_launches": counts["snake_aa"],
+           "tiny_ids_equal": ids_cpu == ids_card, "tiny_ids": ids_card}
+    emit(res)
+    if counts["flash_attention"] != want_k1 or counts["snake_aa"] \
+            or ids_cpu != ids_card or out.shape != (1, GPT2_NEW):
+        raise AssertionError(f"gpt2_refiner: {res}")
+    return {"launches": counts}
+
+
 def path_record(k: dict, path: str, shapes: Counter, launches: int) -> dict:
     """A kernel's share of one path: its launches, which the counters read
     and the configs must give (``shapes``), and per-call times, each the
@@ -6800,6 +7326,18 @@ def main() -> int:
             train_vae=phase_train_vae(tmp),
             train_clap=phase_train_clap(tmp))
         phase_train_svs_small_reference()
+        dirs = analysis_fixtures(Path(tmp) / "analysis")
+        quiet.update(train_sed=phase_train_sed(dirs, tmp),
+                     train_caption=phase_train_caption(dirs, tmp),
+                     train_separation=phase_train_separation(dirs, tmp))
+        phase_train_analysis_small_reference()
+        cli = phase_import_cli(main_path, tts, separation,
+                               quiet["train_separation"]["export"], tmp)
+        quiet.update(import_cli=cli["import"],
+                     infer_cli_separate=cli["infer_cli_separate"],
+                     infer_cli_tts=cli["infer_cli_tts"],
+                     infer_cli_enhance=cli["infer_cli_enhance"],
+                     gpt2_refiner=phase_gpt2_refiner())
 
     eng = main_path["engine"]
     t2a, inp = t2a_path(eng), inpaint_path(eng)
@@ -6816,11 +7354,13 @@ def main() -> int:
         return c[name] - c[f"{name}_bf16"]
 
     def none_launched(k, name):
-        """The singing, style-transfer, GeneFace and PortaSpeech paths and
-        the TTS, SVS, face and LDM-family training runs (FS2, the vocoder
-        GAN, the PortaSpeech family, GenerSpeech, the pitch extractor,
-        DiffSinger, VISinger, Audio2Motion, the VAE, CLAP), which launch
-        neither kernel."""
+        """The singing, style-transfer, GeneFace and PortaSpeech paths,
+        the TTS, SVS, face, LDM-family and analysis training runs (FS2, the
+        vocoder GAN, the PortaSpeech family, GenerSpeech, the pitch
+        extractor, DiffSinger, VISinger, Audio2Motion, the VAE, CLAP, SED,
+        captioning, separation), the checkpoint import, ``infer_cli``'s
+        ``tts`` and ``enhance`` and the GPT-2 refiner, which launch neither
+        kernel."""
         return [path_record(k, key, Counter(), f32(quiet[key]["launches"],
                                                    name))
                 for key in quiet]
@@ -6851,6 +7391,9 @@ def main() -> int:
                         f32(t2a_htsat["launches"], "flash_attention")),
             path_record(flash["float32"], "train_ldm", train["shapes"],
                         f32(train["launches"], "flash_attention")),
+            path_record(flash["float32"], "infer_cli_t2a",
+                        cli["t2a"]["flash"],
+                        f32(cli["t2a"]["launches"], "flash_attention")),
             *none_launched(flash["float32"], "flash_attention")],
             flash_src, flash_tpu),
         kernel_entry(flash["bfloat16"], [
@@ -6876,6 +7419,9 @@ def main() -> int:
                         f32(i2a["launches"], "snake_aa")),
             path_record(snake["float32"], "t2a_htsat", t2a["snake"],
                         f32(t2a_htsat["launches"], "snake_aa")),
+            path_record(snake["float32"], "infer_cli_t2a",
+                        cli["t2a"]["snake"],
+                        f32(cli["t2a"]["launches"], "snake_aa")),
             *(path_record(snake["float32"], key, Counter(),
                           run["launches"]["snake_aa"])
               for key, run in (("train_ldm", train),

@@ -54,7 +54,7 @@ def text():
 def test_vision_tower_matches_jax(vision):
     jm, params, pm = vision
     img = np.random.RandomState(3).randn(2, 32, 32, 3).astype(np.float32)
-    ref = np.asarray(jm.apply(params, jnp.asarray(img)))
+    ref = np.asarray(jax.jit(jm.apply)(params, jnp.asarray(img)))
     with torch.no_grad():
         got = pm(torch.from_numpy(img)).numpy()
     assert got.shape == ref.shape == (2, 32)

@@ -216,16 +216,19 @@ def gs_reference():
 
     def loss(p):
         total, metrics = jtask._loss({"model": p}, batch, KEY)
-        train_out = {k: seen[k] for k in OUT_KEYS}
-        # the inference forward on the same tree: no mixing, the VQ's
-        # codebook a param, the post-flow's NLL of the predicted mel
+        return total, (metrics, {k: seen[k] for k in OUT_KEYS})
+
+    def run(p):
+        (_, aux), grads = jax.value_and_grad(loss, has_aux=True)(p)
+        # the inference forward on the same tree, outside the gradient: no
+        # mixing, the VQ's codebook a param, the post-flow's NLL of the
+        # predicted mel
         infer = model.apply(p, batch["txt_tokens"], batch["mels"],
                             mel2ph=batch["mel2ph"], f0=f0n, uv=uv,
                             infer_postflow=False)
-        return total, (metrics, train_out, {k: infer[k] for k in INFER_KEYS})
+        return aux, {k: infer[k] for k in INFER_KEYS}, grads
 
-    (_, (metrics, out, infer)), grads = jax.jit(jax.value_and_grad(
-        loss, has_aux=True))(params["model"])
+    (metrics, out), infer, grads = jax.jit(run)(params["model"])
     return {"params": params, "batch": batch,
             "metrics": jax.tree.map(np.asarray, metrics),
             "out": jax.tree.map(np.asarray, out),

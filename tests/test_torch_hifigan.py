@@ -65,7 +65,7 @@ def test_hifigan_matches_jax(resblock):
     jcfg = jh.HifiGANConfig(resblock=resblock, **HIFI)
     m = mel(10, seed=1)
     params = init_params(jh.HifiGANGenerator(jcfg), jnp.asarray(m))
-    ref = np.asarray(jh.HifiGANGenerator(jcfg).apply(params, m))
+    ref = np.asarray(jax.jit(jh.HifiGANGenerator(jcfg).apply)(params, m))
     model = port(ph.HifiGANGenerator, ph.HifiGANConfig(resblock=resblock,
                                                        **HIFI), params)
     with torch.no_grad():
@@ -83,14 +83,18 @@ def test_hifigan_nsf_matches_jax_with_replayed_draws(resblock):
     params = init_params(jh.HifiGANGenerator(jcfg), jnp.asarray(m),
                          jnp.asarray(f0), seed=4)
     key = jax.random.PRNGKey(7)
-    ref = np.asarray(jh.HifiGANGenerator(jcfg).apply(params, m, f0,
-                                                     rng=key))
-    k_noise, k_phase = jax.random.split(key)
     h = jcfg.harmonic_num + 1
-    draws = (torch.from_numpy(np.array(
-                 jax.random.uniform(k_phase, (2, 1, h)))),
-             torch.from_numpy(np.array(
-                 jax.random.normal(k_noise, (2, 160, h)))))
+
+    def run(params, m, f0):
+        """The generator, its source's draws and the source alone."""
+        k_noise, k_phase = jax.random.split(key)
+        return (jh.HifiGANGenerator(jcfg).apply(params, m, f0, rng=key),
+                jax.random.uniform(k_phase, (2, 1, h)),
+                jax.random.normal(k_noise, (2, 160, h)),
+                jh.harmonic_source(f0, 16, 22050, 2, 0.1, 0.003, 0.0, key))
+
+    ref, phase, noise, jsrc = map(np.array, jax.jit(run)(params, m, f0))
+    draws = (torch.from_numpy(phase), torch.from_numpy(noise))
     model = port(ph.HifiGANGenerator,
                  ph.HifiGANConfig(resblock=resblock, use_nsf=True, **HIFI),
                  params)
@@ -99,9 +103,7 @@ def test_hifigan_nsf_matches_jax_with_replayed_draws(resblock):
         src = ph.harmonic_source(torch.from_numpy(f0), 16, 22050, 2, 0.1,
                                  0.003, 0.0, draws)
     np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
-    jsrc = jh.harmonic_source(jnp.asarray(f0), 16, 22050, 2, 0.1, 0.003, 0.0,
-                              key)
-    np.testing.assert_allclose(src.numpy(), np.asarray(jsrc).transpose(0, 2, 1),
+    np.testing.assert_allclose(src.numpy(), jsrc.transpose(0, 2, 1),
                                atol=ATOL, rtol=0)
     # the source is not silent, and the noise convs carry it
     with torch.no_grad():
@@ -116,7 +118,7 @@ def test_pwg_matches_jax_with_replayed_noise(upsample):
     params = init_params(jp.PWGGenerator(jcfg), jnp.asarray(m), seed=6)
     noise = np.array(jax.random.normal(jax.random.PRNGKey(0), (2, 60)))
     # no noise given: the JAX generator draws PRNGKey(0), which is `noise`
-    ref = np.asarray(jp.PWGGenerator(jcfg).apply(params, m))
+    ref = np.asarray(jax.jit(jp.PWGGenerator(jcfg).apply)(params, m))
     model = port(pp.PWGGenerator, pp.PWGConfig(upsample=upsample, **PWG),
                  params)
     with torch.no_grad():
@@ -134,7 +136,7 @@ def test_melgan_matches_jax(scales):
     jcfg = jp.MelGANConfig(upsample_scales=scales, **MELGAN)
     m = mel(10, seed=7)
     params = init_params(jp.MelGANGenerator(jcfg), jnp.asarray(m), seed=8)
-    ref = np.asarray(jp.MelGANGenerator(jcfg).apply(params, m))
+    ref = np.asarray(jax.jit(jp.MelGANGenerator(jcfg).apply)(params, m))
     model = port(pp.MelGANGenerator,
                  pp.MelGANConfig(upsample_scales=scales, **MELGAN), params)
     with torch.no_grad():

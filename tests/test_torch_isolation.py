@@ -100,7 +100,10 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "train.tasks.generspeech", "train.tasks.pe",
                  "train.tasks.diffusion", "train.tasks.visinger",
                  "train.tasks.audio2motion", "train.tasks.vae",
-                 "train.tasks.clap"):
+                 "train.tasks.clap", "train.tasks.sed",
+                 "train.tasks.caption", "train.tasks.separation",
+                 "utils.torch_import", "import_ckpt", "infer_cli",
+                 "models.textenc.gpt2"):
         assert f"audiogpt_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
     # the BPE word splitters use the standard library's re: the card's
@@ -158,7 +161,8 @@ def test_entry_points_need_cuda_without_device(monkeypatch):
     for task in ("LDMTask", "FS2Task", "VocoderGANTask", "PortaSpeechTask",
                  "PortaSpeechAdvTask", "AdvTTSTask", "GenerSpeechTask",
                  "PETask", "DiffSingerTask", "VISingerTask",
-                 "Audio2MotionTask", "VAETask", "CLAPTask"):
+                 "Audio2MotionTask", "VAETask", "CLAPTask", "SEDTask",
+                 "CaptionTask", "SeparationTask"):
         with pytest.raises(RuntimeError, match="CUDA"):
             getattr(tasks, task)(getattr(tasks, task + "Config")())
     for binarizer in (TTSBinarizer, EmotionBinarizer, SVSBinarizer,
@@ -167,6 +171,16 @@ def test_entry_points_need_cuda_without_device(monkeypatch):
             binarizer()
     with pytest.raises(RuntimeError, match="CUDA"):
         apply_processors(["resample"], np.zeros(441, np.float32), 44100)
+    from audiogpt_tpu_torch.models.textenc.gpt2 import (GPT2Config,
+                                                        MagicPromptRefiner)
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MagicPromptRefiner(GPT2Config(vocab_size=8, n_positions=4, width=8,
+                                      layers=1, heads=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        from audiogpt_tpu_torch import infer_cli
+
+        infer_cli.main(["--engine", "enhance", "--in", "x.wav"])
     toy = types.SimpleNamespace(modules={}, loss_fns={}, optim_cfgs={})
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(toy)

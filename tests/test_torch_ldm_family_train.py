@@ -74,6 +74,9 @@ def vae_reference():
     params = numpy_tree(random_variables(
         jax.eval_shape(jtask.init_params, KEY), seed=21))
     batch = vae_batch()
+    # the posterior's shape alone: traced, not run
+    post = jax.eval_shape(lambda: jtask.vae.apply(
+        params["model"], jnp.asarray(batch["mels"]), method=jtask.vae.encode))
 
     def both(p):
         d = jax.value_and_grad(lambda d_: jtask._disc_loss(
@@ -82,12 +85,10 @@ def vae_reference():
         m = jax.value_and_grad(lambda m_: jtask._model_loss(
             {"model": m_, "disc": p["disc"]}, batch, KEY),
             has_aux=True)(p["model"])
-        return d, m
+        return d, m, jax.random.normal(KEY, post.mean.shape)
 
-    ((_, dm), dg), ((_, mm), mg) = jax.jit(both)(params)
-    post = jtask.vae.apply(params["model"], jnp.asarray(batch["mels"]),
-                           method=jtask.vae.encode)
-    eps = np.array(jax.random.normal(KEY, post.mean.shape))
+    ((_, dm), dg), ((_, mm), mg), eps = jax.jit(both)(params)
+    eps = np.array(eps)
     return {"params": params, "batch": batch,
             "eps": torch.from_numpy(eps.transpose(0, 3, 1, 2)),
             "disc": ({k: float(v) for k, v in dm.items()}, numpy_tree(dg)),

@@ -2,8 +2,8 @@
 tiny config of ``tests/test_train.py:514-525``: JAX's parameters (from
 ``jax.eval_shape``, filled with seeded numpy) loaded into the port, the four
 draws of JAX's ``_loss`` replayed, the f32 loss and every UNet gradient
-against JAX's ``value_and_grad`` (one compiled program for the module), the
-``bf16_compute`` loss, two ``Trainer`` steps, and ``train_cli.main`` on a
+against JAX's ``value_and_grad`` and the ``bf16_compute`` loss (one
+compiled program for the module), two ``Trainer`` steps, and ``train_cli.main`` on a
 fixture dataset with a resume."""
 
 import dataclasses
@@ -22,6 +22,7 @@ from audiogpt_tpu.train.tasks import LDMTask as JaxLDMTask
 from audiogpt_tpu.train.tasks import LDMTaskConfig as JaxLDMTaskConfig
 from audiogpt_tpu_torch import train_cli
 from audiogpt_tpu_torch.data import RecordWriter
+from audiogpt_tpu_torch.import_ckpt import restore_weights
 from audiogpt_tpu_torch.models.diffusion import (UNetConfig, UNetModel,
                                                  VAEConfig)
 from audiogpt_tpu_torch.models.textenc import BertConfig, CLAPTextConfig
@@ -70,8 +71,9 @@ def port_cfg(bf16=False):
 
 @pytest.fixture(scope="module")
 def shared():
-    """JAX's params, a batch, the replayed draws and JAX's f32
-    ``value_and_grad`` of ``_loss`` in the UNet params."""
+    """JAX's params, a batch, the replayed draws, and one compiled JAX
+    program: the f32 ``value_and_grad`` of ``_loss`` in the UNet params
+    and the ``bf16_compute`` task's loss on the same params."""
     jtask = JaxLDMTask(jax_cfg())
     params = _random_params(jax.eval_shape(jtask.init_params,
                                            jax.random.PRNGKey(0)), seed=5)
@@ -82,19 +84,30 @@ def shared():
              "text_ids": rng.randint(1, 100, (B, 6)).astype(np.int32),
              "text_mask": np.ones((B, 6), np.int32), "weight": weight}
     key = jax.random.PRNGKey(3)
-    k_t, k_noise, k_drop, k_post = jax.random.split(key, 4)
-    shape = (B, *LATENT, 4)
-    draws = {"post": jax.random.normal(k_post, shape),
-             "drop": jax.random.bernoulli(k_drop, TASK["cond_drop_prob"],
-                                          (B, 1, 1)),
-             "t": jax.random.randint(k_t, (B,), 0, TASK["timesteps"]),
-             "noise": jax.random.normal(k_noise, shape)}
-    assert 0 < int(draws["drop"].sum()) < B
+
+    def draw():
+        k_t, k_noise, k_drop, k_post = jax.random.split(key, 4)
+        shape = (B, *LATENT, 4)
+        return {"post": jax.random.normal(k_post, shape),
+                "drop": jax.random.bernoulli(k_drop, TASK["cond_drop_prob"],
+                                             (B, 1, 1)),
+                "t": jax.random.randint(k_t, (B,), 0, TASK["timesteps"]),
+                "noise": jax.random.normal(k_noise, shape)}
 
     def loss(unet_p):
         return jtask._loss({**params, "unet": unet_p}, batch, key)[0]
 
-    value, grads = jax.jit(jax.value_and_grad(loss))(params["unet"])
+    # the bf16_compute loss and the draws of ``key`` ride in the same
+    # program
+    jtask_bf16 = JaxLDMTask(jax_cfg(bf16=True))
+
+    def both(unet_p):
+        return (jax.value_and_grad(loss)(unet_p),
+                jtask_bf16._loss({**params, "unet": unet_p}, batch, key)[0],
+                draw())
+
+    (value, grads), bf16_loss, draws = jax.jit(both)(params["unet"])
+    assert 0 < int(draws["drop"].sum()) < B
     port_draws = {
         "post": torch.from_numpy(np.asarray(draws["post"])
                                  .transpose(0, 3, 1, 2).copy()),
@@ -104,6 +117,7 @@ def shared():
         "t": torch.from_numpy(np.asarray(draws["t"])).long()}
     return {"params": params, "batch": batch, "key": key,
             "draws": port_draws, "loss": float(value),
+            "bf16_loss": float(bf16_loss),
             "grads": jax.tree.map(np.asarray, grads)}
 
 
@@ -137,9 +151,7 @@ def test_bf16_compute_loss_matches_jax(shared):
     """``bf16_compute``: the UNet in bf16 on f32 masters, in both
     packages; the loss within the bf16 bound, and every UNet parameter
     gets an f32 gradient through the cast."""
-    jtask = JaxLDMTask(jax_cfg(bf16=True))
-    ref = jax.jit(lambda p: jtask._loss(p, shared["batch"],
-                                        shared["key"])[0])(shared["params"])
+    ref = shared["bf16_loss"]
     task = LDMTask(port_cfg(bf16=True), params=shared["params"],
                    device="cpu")
     loss, _ = task.loss(torch_batch(shared["batch"]), draws=shared["draws"])
@@ -173,7 +185,8 @@ def test_two_trainer_steps_move_only_the_unet(shared, tmp_path):
 def test_train_cli_trains_and_resumes(tmp_path, capsys):
     """``train_cli.main`` on a fixture dataset (the repository's
     ``ldm.yaml`` narrowed by ``--hparams``) writes the config, the metrics
-    and checkpoints; a second call resumes from the last one."""
+    and checkpoints; a second call resumes from the last one, and a third
+    at that step exports the weights (``--export``)."""
     rng = np.random.default_rng(0)
     for split, n in (("train", 12), ("valid", 4)):
         with RecordWriter(str(tmp_path / "bin" / split)) as w:
@@ -204,8 +217,15 @@ def test_train_cli_trains_and_resumes(tmp_path, capsys):
     with open(os.path.join(exp, "metrics.jsonl")) as f:
         lines = [line for line in f if '"tr"' in line]
     assert len(lines) == 4
-    with pytest.raises(NotImplementedError, match="item 6"):
-        train_cli.main(argv + ["--export", str(tmp_path / "out")])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # at step 4 already: no step more, the weights exported (the UNet's
+    # EMA shadows where the recipe keeps them, else its params)
+    train_cli.main(argv + ["--max_updates", "4", "--export",
+                           str(tmp_path / "out")])
+    exported = restore_weights(str(tmp_path / "out"))
+    ck = torch.load(os.path.join(exp, "ckpt", "4.pt"), weights_only=True)
+    assert set(exported) == {"unet"}
+    for name, t in (ck["ema"].get("unet") or ck["params"]["unet"]).items():
+        assert torch.equal(exported["unet"][name], t), name
+    with pytest.raises(ValueError, match="unknown task"):
         train_cli.build_task(train_cli.load_config(argv[1],
-                                                   overrides="task=sed"))
+                                                   overrides="task=nope"))

@@ -14,7 +14,9 @@ JAX's parameters come from ``jax.eval_shape`` filled with seeded numpy
 comparison sees them; the tests check that. Draws are replayed: ε is
 ``jax.random.normal(rng, …)`` of the key the JAX loss gets, each window's
 start JAX's ``randint`` of ``fold_in(rng, window)``. One compiled JAX
-program a recipe, shared by its tests.
+program a recipe, shared by its tests; ``PortaSpeechTask`` and ``ps_adv``
+share one (``ps_program``: ``ps_adv``'s ``_model_loss`` at
+``lambda_adv`` 0 is ``PortaSpeechTask``'s loss).
 
 Tolerances (f32): loss terms within 1e-5 relative, forward outputs within
 1e-5 of each array's largest, every gradient within 1e-4 of its tensor's
@@ -122,10 +124,11 @@ def torch_batch(batch):
     return {k: torch.as_tensor(v) for k, v in batch.items()}
 
 
-def eps_of(key, batch):
+def eps_of(batch):
+    """The posterior's ε as JAX's loss draws it from ``KEY``, traced in the
+    reference program that returns it."""
     b, f = batch["mels"].shape[:2]
-    return torch.from_numpy(np.array(jax.random.normal(
-        key, (b, f // 4, PS["latent_size"]))))
+    return jax.random.normal(KEY, (b, f // 4, PS["latent_size"]))
 
 
 def jax_starts(key, mel_len, windows=WINDOWS):
@@ -183,31 +186,72 @@ def assert_close(got, ref, key):
 OUT_KEYS = ("mel_out", "kl", "dur", "z_p", "m_q", "logs_q", "attn")
 
 
+PS_TASK = JaxPSTaskConfig(model=jps.PortaSpeechConfig(**PS),
+                          lambda_sent_dur=0.5, kl_start_steps=KL_START)
+
+
+@functools.lru_cache(maxsize=None)
+def ps_program():
+    """One compiled JAX program that both recipes' tests share: JAX's
+    ``PortaSpeechAdvTask`` on ``PS_TASK`` (graph off, sentence term on)
+    with the step and ``lambda_adv`` traced → the critic's terms and the
+    gradient of ``_disc_loss`` in ``disc``; the terms, the training
+    forward's outputs and the gradient of ``_model_loss`` in ``model``.
+    ``_model_loss`` is ``PortaSpeechTask``'s loss plus ``lambda_adv`` ×
+    the adversarial term, so at ``lambda_adv`` 0 it is
+    ``PortaSpeechTask``'s value and gradient (its ``adv`` term 0)."""
+
+    def run(params, batch, step, lambda_adv):
+        jtask = jadv.PortaSpeechAdvTask(jadv.PortaSpeechAdvTaskConfig(
+            ps=PS_TASK, disc_windows=WINDOWS, disc_hidden=DISC_HIDDEN,
+            lambda_adv=lambda_adv))
+        batch = dict(batch, step=step)
+        seen, forward = {}, jtask.ps_task.forward_and_losses
+
+        def keep(*args):
+            total, metrics, out = forward(*args)
+            seen.update(out)
+            return total, metrics, out
+
+        jtask.ps_task.forward_and_losses = keep
+        (_, d_m), g_d = jax.value_and_grad(
+            lambda pd: jtask._disc_loss({**params, "disc": pd}, batch, KEY),
+            has_aux=True)(params["disc"])
+
+        def model_loss(pm):
+            total, metrics = jtask._model_loss({**params, "model": pm},
+                                               batch, KEY)
+            return total, (metrics, {k: seen[k] for k in OUT_KEYS})
+
+        (_, (m_m, out)), g_m = jax.value_and_grad(
+            model_loss, has_aux=True)(params["model"])
+        return d_m, g_d, m_m, out, g_m, eps_of(batch)
+
+    jtask = jadv.PortaSpeechAdvTask(jadv.PortaSpeechAdvTaskConfig(
+        ps=PS_TASK, disc_windows=WINDOWS, disc_hidden=DISC_HIDDEN))
+    return jtask, jax.jit(run)
+
+
+def ps_run(params, batch, step, lambda_adv):
+    _, fn = ps_program()
+    return jax.tree.map(np.array, fn(params, batch, jnp.int32(step),
+                                     jnp.float32(lambda_adv)))
+
+
 @functools.lru_cache(maxsize=None)
 def ps_reference():
-    """JAX's ``PortaSpeechTask`` (graph off, sentence term on): one
-    compiled ``value_and_grad`` in the model params with the step traced,
-    run at each of ``STEPS``; its aux holds the loss terms and the
-    forward's outputs."""
-    jtask = JaxPSTask(JaxPSTaskConfig(
-        model=jps.PortaSpeechConfig(**PS), lambda_sent_dur=0.5,
-        kl_start_steps=KL_START))
+    """``PortaSpeechTask`` at each of ``STEPS``: the shared program at
+    ``lambda_adv`` 0, its ``adv`` term dropped from the loss terms."""
+    jtask, _ = ps_program()
     params = ps_params(jtask, seed=5)
     batch = ps_batch()
-
-    def loss(p, step):
-        total, metrics, out = jtask.forward_and_losses(
-            {"model": p}, dict(batch, step=step), KEY)
-        return total, (metrics, {k: out[k] for k in OUT_KEYS})
-
-    fn = jax.jit(jax.value_and_grad(loss, has_aux=True))
     runs = {}
     for step in STEPS:
-        (_, (metrics, out)), grads = fn(params["model"], jnp.int32(step))
-        runs[step] = (jax.tree.map(np.asarray, metrics),
-                      jax.tree.map(np.asarray, out),
-                      jax.tree.map(np.asarray, grads))
-    return {"params": params, "batch": batch, "runs": runs}
+        _, _, metrics, out, grads, eps = ps_run(params, batch, step, 0.0)
+        assert float(metrics.pop("adv")) == 0.0
+        runs[step] = (metrics, out, grads)
+    return {"params": {"model": params["model"]}, "batch": batch,
+            "runs": runs, "eps": torch.from_numpy(eps)}
 
 
 def ps_task(params, **kw):
@@ -250,7 +294,7 @@ def test_training_forward_matches_jax():
         out = task.model.train_forward(
             batch["txt_tokens"].long(), batch["word_tokens"].long(),
             batch["ph2word"].long(), batch["mel2word"].long(),
-            batch["mels"], draws=eps_of(KEY, shared["batch"]))
+            batch["mels"], draws=shared["eps"])
     ref = shared["runs"][STEPS[0]][1]
     for k in OUT_KEYS:
         assert_close(out[k], ref[k], k)
@@ -266,14 +310,14 @@ def test_syntaspeech_training_forward_and_losses_match_jax():
     assert np.abs(params["model"]["params"]["prior_graph_proj"]["kernel"]
                   ).min() > 0
     batch = ps_batch(2, graph=True)
-    total, metrics, out = jax.jit(
-        lambda p, b: jtask.forward_and_losses(p, b, KEY))(params, batch)
+    (total, metrics, out), eps = jax.jit(lambda p, b: (
+        jtask.forward_and_losses(p, b, KEY), eps_of(b)))(params, batch)
     task = PortaSpeechTask(PortaSpeechTaskConfig(
         model=pps.PortaSpeechConfig(**PS, use_graph=True),
         kl_start_steps=KL_START), params=params, device="cpu")
     with torch.no_grad():
         got_total, got, got_out = task.forward_and_losses(
-            torch_batch(batch), eps_of(KEY, batch))
+            torch_batch(batch), torch.from_numpy(np.array(eps)))
     assert_metrics(got, metrics)
     for k in ("mel_out", "kl", "dur", "z_p"):
         assert_close(got_out[k], out[k], k)
@@ -287,7 +331,7 @@ def test_portaspeech_task_losses_match_jax(step):
     task = ps_task(shared["params"])
     metrics, _, _ = shared["runs"][step]
     batch = dict(torch_batch(shared["batch"]), step=step)
-    _, got = task.loss(batch, draws=eps_of(KEY, shared["batch"]))
+    _, got = task.loss(batch, draws=shared["eps"])
     assert_metrics(got, metrics)
     ramp = min(step / KL_START, 1.0)
     np.testing.assert_allclose(float(got["kl"]), float(got["kl_v"]) * ramp,
@@ -299,7 +343,7 @@ def test_portaspeech_task_grads_match_jax():
     shared = ps_reference()
     task = ps_task(shared["params"])
     batch = dict(torch_batch(shared["batch"]), step=STEPS[1])
-    loss, _ = task.loss(batch, draws=eps_of(KEY, shared["batch"]))
+    loss, _ = task.loss(batch, draws=shared["eps"])
     assert_grads(task.model, loss, shared["runs"][STEPS[1]][2],
                  lambda: pps.PortaSpeech(task.cfg.model, posterior=True))
 
@@ -358,12 +402,13 @@ def _adv_reference(jtask, params, batch):
 
 @functools.lru_cache(maxsize=None)
 def ps_adv_reference():
-    jtask = jadv.PortaSpeechAdvTask(jadv.PortaSpeechAdvTaskConfig(
-        ps=JaxPSTaskConfig(model=jps.PortaSpeechConfig(**PS)),
-        disc_windows=WINDOWS, disc_hidden=DISC_HIDDEN))
+    """``ps_adv`` at its own ``lambda_adv``, the step past the ramp."""
+    jtask, _ = ps_program()
     params = ps_params(jtask, seed=9)
     batch = ps_batch(3)
-    return params, batch, _adv_reference(jtask, params, batch)
+    d_m, g_d, m_m, _, g_m, eps = ps_run(params, batch, KL_START,
+                                         jtask.cfg.lambda_adv)
+    return params, batch, (d_m, g_d, m_m, g_m), torch.from_numpy(eps)
 
 
 @pytest.mark.parametrize("group", ["disc", "model"])
@@ -372,13 +417,15 @@ def test_ps_adv_groups_match_jax(group):
     with ε and the starts replayed: each group's terms and the gradient of
     its own params (the critic's in ``disc``, the generator's in
     ``model``)."""
-    params, batch, (d_m, g_d, m_m, g_m) = ps_adv_reference()
+    params, batch, (d_m, g_d, m_m, g_m), eps = ps_adv_reference()
     task = PortaSpeechAdvTask(PortaSpeechAdvTaskConfig(
-        ps=PortaSpeechTaskConfig(model=pps.PortaSpeechConfig(**PS)),
+        ps=PortaSpeechTaskConfig(model=pps.PortaSpeechConfig(**PS),
+                                 lambda_sent_dur=0.5,
+                                 kl_start_steps=KL_START),
         disc_windows=WINDOWS, disc_hidden=DISC_HIDDEN), params=params,
         device="cpu")
     assert list(task.loss_fns) == ["disc", "model"]
-    draws = {"eps": eps_of(KEY, batch),
+    draws = {"eps": eps,
              "starts": jax_starts(KEY, batch["mel_lengths"])}
     assert draws["starts"].tolist() == [0, 0]
     loss, metrics = task.loss_fns[group](torch_batch(batch), draws=draws)

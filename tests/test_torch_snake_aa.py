@@ -8,6 +8,7 @@ and edge substitutions."""
 import re
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -84,7 +85,7 @@ def test_module_matches_jax_literal(variant):
     tree = {"params": {"alpha": log_a}}
     if variant == "snakebeta":
         tree["params"]["beta"] = log_b
-    ref = JaxSnakeAA(8, variant, True, impl="literal").apply(
+    ref = jax.jit(JaxSnakeAA(8, variant, True, impl="literal").apply)(
         {"params": {k: jnp.asarray(v) for k, v in tree["params"].items()}},
         jnp.asarray(x))
     mod = SnakeAA(8, variant, True)

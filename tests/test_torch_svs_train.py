@@ -185,13 +185,15 @@ def ds_reference(pitch_embed):
     def loss(p):
         return jtask._loss({"model": p}, batch, KEY)
 
-    (value, metrics), grads = jax.jit(jax.value_and_grad(
-        loss, has_aux=True))(params["model"])
-    k1, k2 = jax.random.split(KEY)
-    draws = {"t": torch.from_numpy(np.array(jax.random.randint(
-        k1, (B,), 0, jcfg.K_step))),
-        "noise": torch.from_numpy(np.array(jax.random.normal(
-            k2, (B, F, M))))}
+    def run(p):
+        k1, k2 = jax.random.split(KEY)
+        return (jax.value_and_grad(loss, has_aux=True)(p),
+                jax.random.randint(k1, (B,), 0, jcfg.K_step),
+                jax.random.normal(k2, (B, F, M)))
+
+    ((value, metrics), grads), t, noise = jax.jit(run)(params["model"])
+    draws = {"t": torch.from_numpy(np.array(t)),
+             "noise": torch.from_numpy(np.array(noise))}
     return {"params": params, "batch": batch, "draws": draws,
             "metrics": {k: float(v) for k, v in metrics.items()},
             "grads": numpy_tree(grads)}
@@ -262,11 +264,10 @@ def vis_reference():
         m = jax.value_and_grad(lambda m_: jtask._model_loss(
             {"model": m_, "disc": p["disc"]}, batch, KEY),
             has_aux=True)(p["model"])
-        return d, m
+        return d, m, jax.random.normal(KEY, (B, F, VIS["latent_dim"]))
 
-    ((_, dm), dg), ((_, mm), mg) = jax.jit(both)(params)
-    eps = torch.from_numpy(np.array(jax.random.normal(
-        KEY, (B, F, VIS["latent_dim"]))))
+    ((_, dm), dg), ((_, mm), mg), eps = jax.jit(both)(params)
+    eps = torch.from_numpy(np.array(eps))
     return {"params": params, "batch": batch, "eps": eps,
             "disc": ({k: float(v) for k, v in dm.items()}, numpy_tree(dg)),
             "model": ({k: float(v) for k, v in mm.items()}, numpy_tree(mg))}
@@ -362,11 +363,15 @@ def a2m_reference():
     def loss(p):
         return jtask._loss({"model": p}, batch, KEY)
 
-    (_, metrics), grads = jax.jit(jax.value_and_grad(
-        loss, has_aux=True))(params["model"])
     cfg = ja2m.Audio2MotionConfig(**A2M)
-    eps = torch.from_numpy(np.array(jax.random.normal(
-        KEY, (B, cfg.video_len(MEL_LEN), A2M["latent"]))))
+
+    def run(p):
+        return (jax.value_and_grad(loss, has_aux=True)(p),
+                jax.random.normal(KEY, (B, cfg.video_len(MEL_LEN),
+                                        A2M["latent"])))
+
+    ((_, metrics), grads), eps = jax.jit(run)(params["model"])
+    eps = torch.from_numpy(np.array(eps))
     return {"params": params, "batch": batch, "eps": eps,
             "metrics": {k: float(v) for k, v in metrics.items()},
             "grads": numpy_tree(grads)}

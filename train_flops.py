@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""FLOPs of one training step of the SVS, face and LDM-family recipes at
-their configs' full widths, counted on the CPU.
+"""FLOPs of one training step of the SVS, face, LDM-family and analysis
+recipes at their configs' full widths, counted on the CPU.
 
     python3 train_flops.py
 
@@ -9,8 +9,10 @@ CPU), moved to the meta device, and one step of each optimized group (the
 loss's forward and the gradient of its group) runs under
 ``FlopCounterMode`` on meta tensors of fixed batch shapes: DiffSinger
 [32, 1024] frames, VISinger [8, 512] (its wav 256 samples a frame),
-Audio2Motion [16, 512] mel frames, the VAE [8, 80, 624] and CLAP 32 clips
-of 160 000 samples with 77 tokens. The shapes only, no data and no
+Audio2Motion [16, 512] mel frames, the VAE [8, 80, 624], CLAP 32 clips
+of 160 000 samples with 77 tokens, SED and captioning 32 clips of 320 000
+samples (captions of 22 tokens) and separation 8 mixtures of 64 000
+samples with two sources. The shapes only, no data and no
 arithmetic, so the count takes seconds. The counts are aten's
 (convolutions and matmuls), as the trainer's own count of a step's first
 batch of a shape; elementwise work is not counted.
@@ -107,6 +109,18 @@ def main() -> int:
         "wav": _meta(32, 160000), "wav_len": _meta(32, dtype=i64),
         "text_ids": _meta(32, 77, dtype=i64),
         "text_mask": _meta(32, 77, dtype=i64), "weight": _meta(32)}, {}))
+    b, n = 32, 320000
+    res.append(count("sed", "sed/panns.yaml", {
+        "wav": _meta(b, n), "wav_len": _meta(b, dtype=i64),
+        "target": _meta(b, 527), "weight": _meta(b)},
+        {"model": {"lam": _meta(()), "perm": _meta(b, dtype=i64)}}))
+    res.append(count("caption", "caption/cnn14rnn.yaml", {
+        "wav": _meta(b, n), "wav_len": _meta(b, dtype=i64),
+        "tokens": _meta(b, 22, dtype=i64), "token_len": _meta(b, dtype=i64),
+        "weight": _meta(b)}, {}))
+    res.append(count("separation", "separation/convtasnet.yaml", {
+        "mix": _meta(8, 64000), "sources": _meta(8, 2, 64000),
+        "weight": _meta(8)}, {}))
     print(json.dumps({"train_flops": res}))
     return 0
 
