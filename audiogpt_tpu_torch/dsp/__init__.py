@@ -1,2 +1,3 @@
 """Signal processing: windows (``window``), STFT (``stft``), mel filterbanks
-the log-mel frontends (``mel``) and the CWT f0 recomposition (``f0``)."""
+the log-mel frontends (``mel``), the CWT f0 recomposition (``f0``) and the
+host-side DTW metric (``dtw``)."""

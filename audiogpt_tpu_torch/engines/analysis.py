@@ -40,9 +40,11 @@ from audiogpt_tpu_torch.models.sed.tsd import (TSDConfig, TSDModel,
 from audiogpt_tpu_torch.models.textenc.clap import (CLAPTextConfig,
                                                     CLAPTextEncoder,
                                                     WordPieceTokenizer)
+from audiogpt_tpu_torch.registry import ENGINES
 from audiogpt_tpu_torch.utils.media import resolve_media
 
 
+@ENGINES.register("caption")
 class CaptionEngine(ParamsEntry, TimedCalls):
     """wav (32 kHz) → caption string. ``vocab``: the id → word list; without
     one, ids render as ``<id>``."""
@@ -100,6 +102,7 @@ class CaptionEngine(ParamsEntry, TimedCalls):
         return self._timed(self.name, run)
 
 
+@ENGINES.register("sed")
 class SEDEngine(ParamsEntry, TimedCalls):
     """wav (32 kHz) → AudioSet framewise events (and the top-k summary or
     its figure)."""
@@ -215,6 +218,7 @@ def render_sed_figure(panels: dict, out_path: str, width: int = 1000,
     img.save(out_path)
 
 
+@ENGINES.register("tsd")
 class TSDEngine(ParamsEntry, TimedCalls):
     """(wav, text query) → on/offset seconds of the described sound. The
     query embeds through the CLAP text tower's CLS projection, cut to the
@@ -275,6 +279,7 @@ class TSDEngine(ParamsEntry, TimedCalls):
         return self._timed(self.name, run)
 
 
+@ENGINES.register("i2t")
 class ImageCaptionEngine(ParamsEntry, TimedCalls):
     """Image → caption string with the BLIP captioner.
 

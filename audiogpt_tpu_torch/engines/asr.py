@@ -29,6 +29,7 @@ from audiogpt_tpu_torch.models.asr.whisper import (
     prime,
     whisper_log_mel,
 )
+from audiogpt_tpu_torch.registry import ENGINES
 from audiogpt_tpu_torch.text.bpe import (
     ByteBPE,
     WhisperDetokenizer,
@@ -97,6 +98,7 @@ def pad_or_trim(wav: np.ndarray, n_samples: int) -> np.ndarray:
     return np.pad(wav, width)
 
 
+@ENGINES.register("asr")
 class ASREngine(ParamsEntry):
     name = "asr"
 

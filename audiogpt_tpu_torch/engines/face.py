@@ -45,10 +45,12 @@ from audiogpt_tpu_torch.models.face import (
 )
 from audiogpt_tpu_torch.models.face.audio2motion import (POSTERIOR,
                                                        inference_tree)
+from audiogpt_tpu_torch.registry import ENGINES
 from audiogpt_tpu_torch.utils.media import resolve_media
 from audiogpt_tpu_torch.utils.video_io import write_mjpeg_avi
 
 
+@ENGINES.register("geneface")
 class GeneFaceEngine(ParamsEntry, TimedCalls):
     name = "geneface"
     #: the posterior heads of a training tree or trainer checkpoint

@@ -21,9 +21,11 @@ from audiogpt_tpu_torch.models.textenc.clip import (
     CLIPVisionEncoder,
     preprocess_image,
 )
+from audiogpt_tpu_torch.registry import ENGINES
 from audiogpt_tpu_torch.utils.jax_params import load_jax_params
 
 
+@ENGINES.register("i2a")
 class I2AEngine(ParamsEntry):
     name = "i2a"
     train_group = None

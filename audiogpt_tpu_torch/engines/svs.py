@@ -41,6 +41,7 @@ from audiogpt_tpu_torch.models.svs import (
     VISingerConfig,
 )
 from audiogpt_tpu_torch.models.tts.pitch_extractor import PitchExtractor
+from audiogpt_tpu_torch.registry import ENGINES
 from audiogpt_tpu_torch.text.encoder import TokenTextEncoder
 from audiogpt_tpu_torch.text.zh import INITIALS, split_pinyin
 
@@ -138,6 +139,7 @@ def score_tensors(engine, text: str, notes: str, notes_duration: str):
     return out
 
 
+@ENGINES.register("svs")
 class SVSEngine(ParamsEntry):
     name = "svs"
 
@@ -216,6 +218,7 @@ class SVSEngine(ParamsEntry):
         return wav[0].cpu().numpy()
 
 
+@ENGINES.register("visinger")
 class VISingerEngine(ParamsEntry):
     """VITS-class end-to-end SVS (the reference's ``t2s_VISinger`` tool,
     audio-chatgpt.py:341): the score surface of :class:`SVSEngine`, frames

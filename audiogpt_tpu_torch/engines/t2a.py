@@ -35,6 +35,7 @@ from audiogpt_tpu_torch.models.textenc.clap import (
     CLAPTextEncoder,
     WordPieceTokenizer,
 )
+from audiogpt_tpu_torch.registry import ENGINES
 from audiogpt_tpu_torch.utils.jax_params import load_jax_params
 
 SAMPLERS = {"ddim": ddim_sample, "plms": plms_sample, "dpmpp": dpmpp_sample}
@@ -79,6 +80,7 @@ class T2AConfig:
         return self.mel_bins // self.vae_factor, self.mel_len // self.vae_factor
 
 
+@ENGINES.register("t2a")
 class T2AEngine(ParamsEntry):
     name = "t2a"
     #: a trainer checkpoint's groups load by name (``ldm``'s ``unet``)

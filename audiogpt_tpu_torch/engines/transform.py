@@ -29,8 +29,10 @@ from audiogpt_tpu_torch.models.extraction.lassnet import (LASSNet,
 from audiogpt_tpu_torch.models.separation.convtasnet import (
     ConvTasNet, ConvTasNetConfig, separate_streaming)
 from audiogpt_tpu_torch.models.textenc.clap import WordPieceTokenizer
+from audiogpt_tpu_torch.registry import ENGINES
 
 
+@ENGINES.register("extraction")
 class ExtractionEngine(ParamsEntry, TimedCalls):
     """(mixture wav, text query) → the extracted source: LASSNet's
     magnitude mask on the STFT, resynthesised with the mixture's phase
@@ -74,6 +76,7 @@ class ExtractionEngine(ParamsEntry, TimedCalls):
         return self._timed(self.name, lambda: self._extract(wav, text))
 
 
+@ENGINES.register("separation")
 class SeparationEngine(ParamsEntry, TimedCalls):
     """Conv-TasNet enhancement (n_src = 1) or separation (n_src = 2),
     streamed with overlap-add (2.4 s / 0.8 s, the reference's ESPnet
@@ -108,6 +111,7 @@ class SeparationEngine(ParamsEntry, TimedCalls):
         return self.separate(wav)[0]
 
 
+@ENGINES.register("binaural")
 class BinauralEngine(ParamsEntry, TimedCalls):
     """mono (48 kHz) + listener trajectory → stereo binaural. Without a
     trajectory, a slow 1 m orbit (the reference samples a stored

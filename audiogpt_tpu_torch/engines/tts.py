@@ -49,6 +49,7 @@ from audiogpt_tpu_torch.models.tts import (
     PortaSpeechConfig,
 )
 from audiogpt_tpu_torch.models.tts.portaspeech import inference_tree
+from audiogpt_tpu_torch.registry import ENGINES
 from audiogpt_tpu_torch.text import (
     EnglishFrontend,
     TokenTextEncoder,
@@ -150,6 +151,7 @@ def _trimmed_len(mel: np.ndarray) -> int:
     return int(nz[-1]) + 1 if len(nz) else 1
 
 
+@ENGINES.register("tts")
 class TTSEngine(ParamsEntry):
     name = "tts"
 
@@ -314,6 +316,7 @@ def _padded(ids, bucketer: Bucketer) -> np.ndarray:
     return out
 
 
+@ENGINES.register("tts_portaspeech")
 class PortaSpeechTTSEngine(ParamsEntry):
     """PortaSpeech / SyntaSpeech text → mel → wav: the app's
     ``tts_portaspeech`` and ``syntaspeech`` engines. With ``cfg.use_graph``

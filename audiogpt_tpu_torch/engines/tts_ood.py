@@ -43,6 +43,7 @@ from audiogpt_tpu_torch.models.tts.generspeech import (
     GenerSpeech,
     GenerSpeechConfig,
 )
+from audiogpt_tpu_torch.registry import ENGINES
 from audiogpt_tpu_torch.text import (
     EnglishFrontend,
     TokenTextEncoder,
@@ -50,6 +51,7 @@ from audiogpt_tpu_torch.text import (
 )
 
 
+@ENGINES.register("tts_ood")
 class StyleTransferEngine(ParamsEntry):
     name = "tts_ood"
 

@@ -29,6 +29,7 @@ from audiogpt_tpu_torch.models.vocoder import (
     PWGConfig,
     PWGGenerator,
 )
+from audiogpt_tpu_torch.registry import ENGINES
 from audiogpt_tpu_torch.utils.jax_params import load_jax_params
 
 DEFAULT_BUCKETS = (128, 256, 512, 1024, 2048)
@@ -40,6 +41,7 @@ KINDS = {"hifigan": (HifiGANConfig, HifiGANGenerator),
          "melgan": (MelGANConfig, MelGANGenerator)}
 
 
+@ENGINES.register("vocoder")
 class VocoderEngine(ParamsEntry):
     name = "vocoder"
     #: the generator's group of the ``vocoder_gan`` recipe

@@ -25,7 +25,6 @@ reads a trainer checkpoint (``train/checkpoint.py``'s ``<step>.pt``).
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import os
 from typing import Any, Mapping
 
@@ -96,14 +95,6 @@ def convert(family: str, sd: Mapping[str, np.ndarray], cfg: Any) -> dict:
     return table[family](sd, cfg)
 
 
-@dataclasses.dataclass(frozen=True)
-class T5Config:
-    """The fields of the JAX ``T5Config`` (flan-t5-large) that
-    ``convert_t5`` reads; the port has no T5 encoder yet."""
-    num_layers: int = 24
-    feed_forward: str = "gated-gelu"
-
-
 def default_config(family: str) -> Any:
     """The family's default config, the port's config dataclasses (JAX's
     table: ``htsat`` and ``clip_text_hf`` have none)."""
@@ -142,6 +133,8 @@ def default_config(family: str) -> Any:
 
         return DiffNetConfig()
     if family == "t5":
+        from audiogpt_tpu_torch.models.textenc.t5 import T5Config
+
         return T5Config()
     if family == "cnn14":
         from audiogpt_tpu_torch.models.caption.cnn14 import Cnn14Config

@@ -262,9 +262,18 @@ class UNetModel(nn.Module):
 
         def run(mod, h, cond):
             # nn.remat's counterpart: keep only the block's inputs and
-            # recompute its inside in the backward
+            # recompute its inside in the backward. The block's parameters
+            # are inputs too, so the recompute sees the tensors the forward
+            # saw: under a caller's functional_call (the trainer's bf16
+            # copies) the module's own are back by then
             if remat:
-                return checkpoint(mod, h, cond, use_reentrant=False)
+                names, params = zip(*mod.named_parameters())
+
+                def call(h, cond, *params):
+                    return torch.func.functional_call(
+                        mod, dict(zip(names, params)), (h, cond))
+
+                return checkpoint(call, h, cond, *params, use_reentrant=False)
             return mod(h, cond)
 
         def res(name, h):

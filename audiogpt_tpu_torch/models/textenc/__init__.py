@@ -11,3 +11,8 @@ from audiogpt_tpu_torch.models.textenc.htsat import (  # noqa: F401
     HTSATAudioEncoder,
     HTSATConfig,
 )
+from audiogpt_tpu_torch.models.textenc.t5 import (  # noqa: F401
+    T5Conditioner,
+    T5Config,
+    T5Encoder,
+)

@@ -19,8 +19,9 @@ commitment (with ``vq_ema=False`` the codebook loss too), the aligners'
 guided-attention loss and the post-flow's NLL of the target mel. With
 ``vq_ema`` (the JAX default) the codebook sits in the ``vq_stats``
 collection of the JAX tree, here the buffers ``embedding``,
-``ema_weight`` and ``ema_count``, and the EMA update is not ported (the
-training recipe builds ``vq_ema=False``: the codebook is a parameter).
+``ema_weight`` and ``ema_count``, and the training branch updates them
+in place by the EMA rule, as JAX's ``train=True`` does (the training
+recipe builds ``vq_ema=False``: the codebook is a parameter).
 Every attention passes a dense key-padding mask, so it takes the plain
 path, as in JAX. The flax ``LayerNorm`` defaults to ε = 1e-6 and
 ``jax.nn.gelu`` to the tanh form; both are kept.
@@ -58,12 +59,15 @@ from audiogpt_tpu_torch.ops.conv import pad_same
 class VQEmbeddingEMA(nn.Module):
     """Nearest-code vector quantizer (``prosody_util.py:16``). With ``ema``
     the codebook and its EMA statistics are buffers (the JAX ``vq_stats``
-    collection); without, the codebook is a parameter that the codebook
-    loss trains (JAX ``vq_ema=False``)."""
+    collection), which a training call updates; without, the codebook is a
+    parameter that the codebook loss trains (JAX ``vq_ema=False``)."""
+
+    #: the EMA's decay and the counts' Laplace smoothing (JAX's defaults)
+    decay, epsilon = 0.999, 1e-5
 
     def __init__(self, n_codes: int = 64, dim: int = 256, ema: bool = True):
         super().__init__()
-        self.dim, self.ema = dim, ema
+        self.n_codes, self.dim, self.ema = n_codes, dim, ema
         init = torch.randn(n_codes, dim) * 0.1
         if ema:
             self.register_buffer("embedding", init)
@@ -72,15 +76,38 @@ class VQEmbeddingEMA(nn.Module):
         else:
             self.embedding = nn.Parameter(init)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, train: bool = False):
         """x [B, T, D] → (the straight-through code ``x + sg(code − x)``,
-        whose gradient reaches x and not the codebook; the code itself)."""
+        whose gradient reaches x and not the codebook; the code itself).
+        With ``ema`` and ``train`` the codebook then moves by the EMA rule
+        (:meth:`ema_update`); the code returned is the one read before."""
         e = self.embedding
         flat = x.reshape(-1, self.dim)
         d = ((flat ** 2).sum(1, keepdim=True) - 2 * flat @ e.T
              + (e ** 2).sum(1)[None])
-        quant = e[d.argmin(-1)].reshape(x.shape)
+        idx = d.argmin(-1)
+        quant = e[idx].reshape(x.shape)
+        if self.ema and train:
+            self.ema_update(flat, idx)
         return x + (quant - x).detach(), quant
+
+    @torch.no_grad()
+    def ema_update(self, flat: torch.Tensor, idx: torch.Tensor) -> None:
+        """JAX's ``vq_stats`` update (``generspeech.py:92-102``): the
+        counts and code sums of ``flat`` [N, D] by its codes ``idx`` [N]
+        decay into ``ema_count`` and ``ema_weight``, and the codebook is
+        their ratio with Laplace-smoothed counts."""
+        onehot = F.one_hot(idx, self.n_codes).to(flat.dtype)
+        n = onehot.sum(0)
+        dw = onehot.T @ flat.detach()
+        count = self.decay * self.ema_count + (1 - self.decay) * n
+        weight = self.decay * self.ema_weight + (1 - self.decay) * dw
+        tot = count.sum()
+        stable = (count + self.epsilon) / (tot + self.n_codes
+                                           * self.epsilon) * tot
+        self.ema_count.copy_(count)
+        self.ema_weight.copy_(weight)
+        self.embedding.copy_(weight / stable[:, None])
 
 
 class ConvStack(nn.Module):
@@ -119,9 +146,10 @@ class ConvStack(nn.Module):
 
 class LocalStyleAdaptor(nn.Module):
     """Reference mel → VQ-coded local style [B, T_ref, hidden]
-    (``prosody_util.py:172``); :meth:`losses` adds its loss: the
-    commitment ``mean((h − sg(code))²)``, plus without EMA the codebook
-    loss ``mean((sg(h) − code)²)`` (VQ-VAE eq. 3)."""
+    (``prosody_util.py:172``); :meth:`losses`, the training branch, adds
+    its loss: the commitment ``mean((h − sg(code))²)``, plus without EMA
+    the codebook loss ``mean((sg(h) − code)²)`` (VQ-VAE eq. 3); with EMA
+    it moves the codebook instead."""
 
     def __init__(self, in_dim: int, hidden: int, n_codes: int = 64,
                  ema: bool = True):
@@ -135,7 +163,7 @@ class LocalStyleAdaptor(nn.Module):
     def losses(self, ref_mel, ref_nonpad=None):
         """The training branch → (the coded style, its VQ loss)."""
         h = self.encoder(ref_mel, ref_nonpad)
-        quant_st, quant = self.vq(h)
+        quant_st, quant = self.vq(h, train=True)
         commit = ((h - quant.detach()) ** 2).mean()
         if not self.vq.ema:
             commit = commit + ((h.detach() - quant) ** 2).mean()

@@ -4,20 +4,27 @@ prior, at inference and in training.
 Counterpart of ``audiogpt_tpu/models/tts/portaspeech.py:55-539`` (the JAX
 package's rebuild of the reference's missing ``modules.portaspeech``; the
 wiring follows ``modules/syntaspeech/syntaspeech.py``): phone, word and
-phone-to-word relative-window encoders → word durations (a phone-level
+phone-to-word encoders (relative-window transformers, or with
+``encoder_type="fft"`` FFT blocks) → word durations (a phone-level
 conv stack summed per word; with ``use_graph`` the GGNN encoding of each
 word is added first) → the length regulator on the ``max_frames`` canvas,
 cut to a multiple of 4 frames → a word-to-mel attention in which a frame
 sees only the phones of its own word → the prior: noise on the latent
 grid (every 4th frame) through the reverse of the conditional coupling
 flow (with ``use_graph`` its condition gains a GGNN over the frames'
-words) → the FVAE decoder → mel [B, max_frames, 80].
+words; ``use_prior_flow=False`` leaves the noise as it is) → the FVAE
+decoder → mel [B, max_frames, 80]. With ``num_spk > 0`` a speaker
+embedding (``num_spk + 1`` rows) is the style, added to the phone and
+word encodings and to the decoder input; without ``text_encoder_postnet``
+the attention's query is its own projection of the decoder input
+(``dec_query_proj``) in place of the residual conv stack's output.
 
 Training (:meth:`PortaSpeech.train_forward`) takes the ground-truth
 ``mel2word`` and mel instead: the posterior encoder (``FVAEEncoder``)
 gives (m, logs) on the latent grid, z = m + exp(logs)·ε, the prior flow
-takes z forward to the prior's space and the KL is taken there (the
-couplings are volume-preserving: no log-determinant). flax binds the
+takes z forward to the prior's space (or leaves it, without
+``use_prior_flow``) and the KL is taken there (the couplings are
+volume-preserving: no log-determinant). flax binds the
 posterior only when the training branch runs, so the inference tree has
 no ``fvae_enc``: the model owns one only when built with
 ``posterior=True``, and :func:`inference_tree` drops it from a training
@@ -40,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from audiogpt_tpu_torch.models.tts.fastspeech2 import (
+    FFTBlocks,
     conv_time,
     length_regulator,
 )
@@ -56,10 +64,7 @@ class PortaSpeechConfig:
     word_enc_layers: int = 4
     num_heads: int = 2
     enc_ffn_kernel_size: int = 5
-    #: 'rel_fft' = relative-window transformer (the JAX config's 'fft',
-    #: plain FFT blocks, is not ported: no engine uses it; nor are the
-    #: other JAX switches below away from the app's values, see
-    #: ``PortaSpeech``)
+    #: 'rel_fft' = relative-window transformer; 'fft' = FFT blocks
     encoder_type: str = "rel_fft"
     rel_window: int = 4
     dur_predictor_layers: int = 3
@@ -396,25 +401,26 @@ class PortaSpeech(nn.Module):
         d = cfg.hidden_size
         self.ph_embed = nn.Embedding(cfg.ph_vocab_size, d)
         self.word_embed = nn.Embedding(cfg.word_vocab_size, d)
-        app = dict(encoder_type="rel_fft", text_encoder_postnet=True,
-                   use_prior_flow=True, num_spk=0)
-        for k, v in app.items():
-            if getattr(cfg, k) != v:
-                raise ValueError(f"{k}={getattr(cfg, k)!r}: only the app's "
-                                 f"{v!r} is ported")
 
-        def enc(layers):
-            return RelTransformerEncoder(d, 4 * d, cfg.num_heads, layers,
-                                         cfg.enc_ffn_kernel_size,
-                                         cfg.rel_window)
+        def enc(layers, use_pos_embed=True):
+            if cfg.encoder_type == "rel_fft":
+                return RelTransformerEncoder(d, 4 * d, cfg.num_heads, layers,
+                                             cfg.enc_ffn_kernel_size,
+                                             cfg.rel_window)
+            return FFTBlocks(d, layers, cfg.num_heads,
+                             cfg.enc_ffn_kernel_size,
+                             use_pos_embed=use_pos_embed)
 
         self.encoder = enc(cfg.enc_layers)
         self.word_encoder = enc(cfg.word_enc_layers)
-        self.ph2word_encoder = enc(cfg.word_enc_layers)
+        self.ph2word_encoder = enc(cfg.word_enc_layers, use_pos_embed=False)
         self.sin_pos = ContinuousSinPos(d)
         self.enc_pos_proj = nn.Linear(2 * d, d)
         self.dec_res_proj = nn.Linear(2 * d, d)
-        self.text_postnet = ResConvStack(d, 3, 5)
+        if cfg.text_encoder_postnet:
+            self.text_postnet = ResConvStack(d, 3, 5)
+        else:
+            self.dec_query_proj = nn.Linear(2 * d, d)
         self.attn_q = nn.Linear(d, d, bias=False)
         self.attn_k = nn.Linear(d, d, bias=False)
         self.attn_v = nn.Linear(d, d, bias=False)
@@ -424,12 +430,15 @@ class PortaSpeech(nn.Module):
         if posterior:
             self.fvae_enc = FVAEEncoder(cfg)
         self.fvae_dec = FVAEDecoder(cfg)
-        self.prior_flow = PriorFlow(cfg)
+        if cfg.use_prior_flow:
+            self.prior_flow = PriorFlow(cfg)
         if cfg.use_graph:
             self.prior_graph_enc = GraphAuxEnc(d, cfg.graph_steps,
                                                cfg.n_edge_types)
             self.prior_graph_proj = nn.Linear(d, d)
             nn.init.zeros_(self.prior_graph_proj.weight)
+        if cfg.num_spk > 0:
+            self.spk_embed = nn.Embedding(cfg.num_spk + 1, d)
 
     def _attention(self, ph_kv, dec_q, word_mask_ft):
         """Word-to-mel attention: frame f attends to the phones of its own
@@ -441,22 +450,27 @@ class PortaSpeech(nn.Module):
         return self.attn_o(w @ self.attn_v(ph_kv)), w
 
     def encode(self, txt_tokens, word_tokens, ph2word, graph_adj=None,
-               mel2word=None) -> dict:
+               mel2word=None, spk_id=None) -> dict:
         """The text side: the encoders, the word durations and the
         word-to-mel attention → the decoder input ``x`` [B, F, d], ``dur``,
         ``mel2word``, ``attn``. Without ``mel2word`` (training passes the
-        ground truth) the durations lay the words on the canvas."""
+        ground truth) the durations lay the words on the canvas. With
+        ``num_spk > 0``, ``spk_id`` [B] picks the speaker style (none: no
+        style, as in JAX)."""
         cfg = self.cfg
         d = cfg.hidden_size
         max_words = word_tokens.shape[1]
         src_nonpad = (txt_tokens > 0).float()
         word_nonpad = (word_tokens > 0).float()
+        style = 0.0
+        if cfg.num_spk > 0 and spk_id is not None:
+            style = self.spk_embed(spk_id)[:, None, :]
 
         ph_enc = self.encoder(self.ph_embed(txt_tokens) * math.sqrt(d),
-                              src_nonpad) * src_nonpad[..., None]
+                              src_nonpad) * src_nonpad[..., None] + style
         word_emb_enc = self.word_encoder(
             self.word_embed(word_tokens) * math.sqrt(d), word_nonpad)
-        ph_enc = ph_enc + expand_word_states(word_emb_enc, ph2word)
+        ph_enc = ph_enc + expand_word_states(word_emb_enc + style, ph2word)
         ph_enc = ph_enc * src_nonpad[..., None]
         h_gb_word = group_hidden_by_words(ph_enc, ph2word, max_words)
         word_enc = self.ph2word_encoder(h_gb_word, word_nonpad) + word_emb_enc
@@ -473,13 +487,18 @@ class PortaSpeech(nn.Module):
         ph_kv = self.enc_pos_proj(torch.cat([ph_enc, enc_pos], -1))
         dec_inp_cat = torch.cat([expand_word_states(word_enc, mel2word),
                                  dec_pos], -1)
-        x_res = self.text_postnet(self.dec_res_proj(dec_inp_cat),
-                                  mask=tgt_nonpad[..., None])
+        if cfg.text_encoder_postnet:
+            x_res = self.text_postnet(self.dec_res_proj(dec_inp_cat),
+                                      mask=tgt_nonpad[..., None])
+            dec_q = x_res
+        else:
+            dec_q = self.dec_query_proj(dec_inp_cat)
+            x_res = self.dec_res_proj(dec_inp_cat)
         word_mask_ft = word_onehot(mel2word, max_words).transpose(1, 2) \
             @ word_onehot(ph2word, max_words)
-        attn_out, attn = self._attention(ph_kv, x_res, word_mask_ft)
+        attn_out, attn = self._attention(ph_kv, dec_q, word_mask_ft)
         x = attn_out + x_res + self.word_pos_proj(dec_pos)
-        x = x * tgt_nonpad[..., None]
+        x = (x + style) * tgt_nonpad[..., None]
         return {"x": x, "dur": dur, "mel2word": mel2word, "attn": attn}
 
     def prior_cond(self, x, mel2word, graph_adj):
@@ -504,7 +523,8 @@ class PortaSpeech(nn.Module):
               noise_scale: float = 1.0) -> torch.Tensor:
         """The prior's latent [B, F/s, latent] for the decoder: noise
         (``draws`` [B, max_frames/s, latent] or a generator) · scale on
-        the latent grid, through the flow's reverse."""
+        the latent grid, through the flow's reverse (with
+        ``use_prior_flow``)."""
         cfg = self.cfg
         cond, lat_mask = self.prior_cond(x, mel2word, graph_adj)
         shape = (x.shape[0], cfg.max_frames // cfg.fvae_strides,
@@ -512,19 +532,23 @@ class PortaSpeech(nn.Module):
         if isinstance(draws, torch.Generator):
             draws = torch.randn(shape, generator=draws, device=x.device)
         z = draws * noise_scale * lat_mask
+        if not cfg.use_prior_flow:
+            return z
         return self.prior_flow(z, cond, lat_mask, reverse=True)
 
     def posterior(self, x, mel2word, tgt_mels, graph_adj,
                   eps: torch.Tensor) -> dict:
         """The training latent: the posterior's (m, logs) on the target mel,
         ``z_q = (m + exp(logs)·eps)`` on the latent grid, the flow forward
-        to ``z_p`` and the KL(q ‖ p) per latent element over the grid."""
+        to ``z_p`` (``z_q`` itself without ``use_prior_flow``) and the
+        KL(q ‖ p) per latent element over the grid."""
         cfg = self.cfg
         cond, lat_mask = self.prior_cond(x, mel2word, graph_adj)
         m_q, logs_q = self.fvae_enc(tgt_mels, x[:, ::cfg.fvae_strides],
                                     lat_mask)
         z_q = (m_q + torch.exp(logs_q) * eps) * lat_mask
-        z_p = self.prior_flow(z_q, cond, lat_mask)
+        z_p = self.prior_flow(z_q, cond, lat_mask) if cfg.use_prior_flow \
+            else z_q
         kl = -logs_q + 0.5 * (z_p ** 2 - eps ** 2)
         denom = (lat_mask.sum() * cfg.latent_size).clamp_min(1.0)
         return {"z_q": z_q, "z_p": z_p, "m_q": m_q, "logs_q": logs_q,
@@ -537,15 +561,15 @@ class PortaSpeech(nn.Module):
 
     def train_forward(self, txt_tokens, word_tokens, ph2word, mel2word,
                       tgt_mels, graph_adj=None,
-                      draws: torch.Generator | torch.Tensor | None = None
-                      ) -> dict:
+                      draws: torch.Generator | torch.Tensor | None = None,
+                      spk_id: torch.Tensor | None = None) -> dict:
         """The training branch (JAX ``infer=False``): ground-truth
         ``mel2word`` [B, F] and mel [B, F, n_mels]; ``draws`` is ε
         [B, ⌈F/s⌉, latent] or a generator (default: one seeded with 0).
         → ``mel_out``, ``kl``, ``dur``, ``mel2word``, ``attn``, ``m_q``,
         ``logs_q``, ``z_p``, ``decoder_inp``."""
         ret = self.encode(txt_tokens, word_tokens, ph2word, graph_adj,
-                          mel2word=mel2word)
+                          mel2word=mel2word, spk_id=spk_id)
         x = ret["x"]
         if draws is None:
             draws = torch.Generator(x.device).manual_seed(0)
@@ -569,12 +593,14 @@ class PortaSpeech(nn.Module):
 
     def forward(self, txt_tokens, word_tokens, ph2word, graph_adj=None,
                 draws: torch.Generator | torch.Tensor | None = None,
-                noise_scale: float = 1.0) -> dict:
+                noise_scale: float = 1.0,
+                spk_id: torch.Tensor | None = None) -> dict:
         """txt_tokens [B, T_ph], word_tokens [B, W], ph2word [B, T_ph]
         (1-based, 0 = pad); ``graph_adj`` [B, E, W, W] with ``use_graph``.
         → ``mel_out`` [B, max_frames, n_mels], ``dur`` [B, W] (frames),
         ``mel2word``, ``attn`` [B, F, T_ph], ``decoder_inp``."""
-        ret = self.encode(txt_tokens, word_tokens, ph2word, graph_adj)
+        ret = self.encode(txt_tokens, word_tokens, ph2word, graph_adj,
+                          spk_id=spk_id)
         if draws is None:
             draws = torch.Generator(txt_tokens.device).manual_seed(0)
         z = self.prior(ret["x"], ret["mel2word"], graph_adj, draws,

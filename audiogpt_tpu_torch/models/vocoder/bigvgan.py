@@ -19,6 +19,7 @@ from torch import nn
 
 from audiogpt_tpu_torch.ops.conv import Conv1d, ConvTranspose1d
 from audiogpt_tpu_torch.ops.snake_aa import snake_aa
+from audiogpt_tpu_torch.registry import VOCODERS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +105,7 @@ class AMPBlock2(nn.Module):
         return x
 
 
+@VOCODERS.register("bigvgan")
 class BigVGANGenerator(nn.Module):
     """mel [B, n_mels, frames] → wav [B, frames · hop]."""
 

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from audiogpt_tpu_torch.ops.conv import Conv1d, ConvTranspose1d
+from audiogpt_tpu_torch.registry import VOCODERS
 
 LRELU_SLOPE = 0.1
 
@@ -138,6 +139,7 @@ def harmonic_source(f0: torch.Tensor, upsample: int, sample_rate: int,
     return torch.tanh(sines.mean(1, keepdim=True))
 
 
+@VOCODERS.register("hifigan")
 class HifiGANGenerator(nn.Module):
     """mel [B, n_mels, frames] (+ f0 [B, frames] with ``use_nsf``) → wav
     [B, frames · hop]."""

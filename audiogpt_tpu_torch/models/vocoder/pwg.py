@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from audiogpt_tpu_torch.ops.conv import FlaxConvTranspose1d
+from audiogpt_tpu_torch.registry import VOCODERS
 
 
 def _same_conv(cin: int, cout: int, k: int, dilation: int = 1,
@@ -82,6 +83,7 @@ class PWGResidualBlock(nn.Module):
             self.conv1x1_skip(z)
 
 
+@VOCODERS.register("pwg")
 class ConvInUpsample(nn.Module):
     """ConvInUpsampleNetwork (upsample.py:125): context conv over the mel,
     then per scale a nearest stretch in time and a one-channel (2s+1)
@@ -180,6 +182,7 @@ class MelGANResidualStack(nn.Module):
         return x + self.conv2(F.leaky_relu(h, 0.2))
 
 
+@VOCODERS.register("melgan")
 class MelGANGenerator(nn.Module):
     """mel [B, M, frames] → wav [B, frames · hop]."""
 

@@ -1,6 +1,7 @@
 """Text codecs of the port: the English TTS frontend (``frontend``,
 ``en_g2p``, ``norm_en``, ``encoder``), the SVS pinyin splitter (``zh``),
-byte-level BPE (``bpe.py``) and its bundled data (``data/``).
+byte-level BPE (``bpe.py``), the SentencePiece unigram codec of the T5
+tower (``sentencepiece.py``) and the bundled data (``data/``).
 
 Counterpart of ``audiogpt_tpu/text/__init__.py``; every module here is the
 port's own copy."""

@@ -1,6 +1,7 @@
 """Text frontend: raw text → (words, phones, tokens) for TTS/SVS.
 
-Copy of ``audiogpt_tpu/text/frontend.py`` without the registry decorator.
+Copy of ``audiogpt_tpu/text/frontend.py``; ``EnglishFrontend`` is the
+``en`` text processor of ``registry.py``, as in JAX.
 
 Mirrors the reference pipeline ``BasePreprocessor.txt_to_ph``
 (``data_gen/tts/base_preprocess.py:147``) + ``TxtProcessor.process``
@@ -14,6 +15,7 @@ import re
 import unicodedata
 from dataclasses import dataclass
 
+from audiogpt_tpu_torch.registry import TEXT_PROCESSORS
 from audiogpt_tpu_torch.text.en_g2p import EnG2P
 from audiogpt_tpu_torch.text.encoder import TokenTextEncoder
 from audiogpt_tpu_torch.text.norm_en import normalize_numbers
@@ -48,6 +50,7 @@ def preprocess_text(text: str) -> str:
     return text.strip()
 
 
+@TEXT_PROCESSORS.register("en")
 class EnglishFrontend:
     """``__call__(text)`` → :class:`ProcessedText`; ``encode`` → ids."""
 

@@ -20,7 +20,10 @@ into the f32 masters), ``z_t`` and the context go in as bf16 and ε comes
 back as f32; GroupNorm keeps f32 statistics and the time embedding stays
 f32, as in JAX. The flash kernel's bf16 entry runs the level-0
 attention. ``torch.autocast`` rounds at other points and is not the
-counterpart.
+counterpart. With ``unet.use_checkpoint`` too, each checkpointed block
+takes the bf16 parameters as inputs (``models/diffusion/unet.py``), so
+its recompute in the backward runs on the same bf16 tensors as its
+forward (JAX: ``nn.remat`` under the cast).
 """
 
 from __future__ import annotations
@@ -76,11 +79,6 @@ class LDMTask:
             # the JAX task keeps the flag but never optimizes the tower
             raise NotImplementedError("train_cond_stage: the CLAP tower "
                                       "trains in no recipe")
-        if cfg.bf16_compute and cfg.unet.use_checkpoint:
-            # functional_call's bf16 parameters are gone by the time the
-            # backward recomputes a checkpointed block
-            raise ValueError("bf16_compute needs unet.use_checkpoint "
-                             "false (as configs/t2a/ldm.yaml sets it)")
         self.cfg = cfg
         self.device = resolve_device(device)
         unet = seeded(rng_seed, lambda: UNetModel(cfg.unet))

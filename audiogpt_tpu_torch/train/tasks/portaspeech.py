@@ -12,7 +12,8 @@ The model runs its training branch (``PortaSpeech.train_forward``) on the
 ground-truth ``mel2word`` and mel; its one draw, the posterior's ε, comes
 from the trainer's generator or is replayed (``draws=``). The KL ramp
 reads ``batch["step"]``, which the trainer sets; without it the ramp is
-1. The module is grouped as ``{"model": PortaSpeech}`` with the posterior
+1. With ``model.num_spk > 0`` the batch's ``spk_ids`` pick the speaker
+style. The module is grouped as ``{"model": PortaSpeech}`` with the posterior
 encoder, the JAX task's tree. The phone and word ids must be below
 ``model.ph_vocab_size`` and ``model.word_vocab_size``: on the card an id
 past an embedding is a device-side assert (JAX's gather clamps it), so
@@ -118,10 +119,12 @@ class PortaSpeechTask:
             mel2word = L.uniform_mel2ph(batch["word_lengths"],
                                         batch["mel_lengths"],
                                         batch["mels"].shape[1])
+        spk = batch.get("spk_ids") if cfg.model.num_spk > 0 else None
         out = self.model.train_forward(
             batch["txt_tokens"].long(), batch["word_tokens"].long(),
             batch["ph2word"].long(), mel2word.long(), batch["mels"],
-            graph_adj=batch.get("graph_adj"), draws=draws)
+            graph_adj=batch.get("graph_adj"), draws=draws,
+            spk_id=None if spk is None else spk.long())
         w = batch.get("weight")
         target = batch["mels"]
         mel_mask = L.weights_nonzero_speech(target)

@@ -18,9 +18,10 @@ The reference's semantics that the JAX trainer keeps, kept here:
   with the ``1e30`` sentinel; SIGTERM / SIGINT stop the loop gracefully and
   checkpoint;
 * ``steps_per_sec``, ``grad_norm`` and ``mfu`` in the log: the FLOPs of a
-  step are counted once per batch shape with ``FlopCounterMode`` (JAX:
-  XLA's cost analysis, ``trainer.py:209-240``), plus what the flash kernel
-  reports of its own launches, which no aten op shows.
+  step are counted once per batch shape (``utils/flops.py``
+  ``count_flops``: ``FlopCounterMode`` plus the flash kernel's own
+  launches; JAX: XLA's cost analysis, ``trainer.py:209-240``) and divided
+  by the card's peak for the task's ``compute_dtype``.
 
 Left out, as TPU workarounds: the mesh, ``shard_batch`` and buffer
 donation. A batch goes to the device once, pinned and ``non_blocking``.
@@ -42,34 +43,11 @@ import torch
 from torch import nn
 
 from audiogpt_tpu_torch.engines.base import resolve_device
-from audiogpt_tpu_torch.ops.flash_attention import flash_attention
 from audiogpt_tpu_torch.train.checkpoint import CheckpointStore
 from audiogpt_tpu_torch.train.metrics import MeterBank, MetricsLogger
 from audiogpt_tpu_torch.train.optim import (OptimConfig, global_norm,
                                             make_optimizer)
-
-#: dense peaks in FLOP/s of the cards the trainer knows (NVIDIA's H100 SXM
-#: data sheet): bf16 on the tensor cores, TF32 on the tensor cores, f32 on
-#: the FMA units
-PEAK_FLOPS = {"H100": {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}}
-
-
-def peak_flops(device: torch.device, dtype: torch.dtype) -> float | None:
-    """The card's dense peak for a run in ``dtype``: bf16, else TF32 where
-    PyTorch lets matmuls or cuDNN use it, else f32. None for the CPU or an
-    unknown card."""
-    if device.type != "cuda":
-        return None
-    name = torch.cuda.get_device_name(device)
-    peaks = next((p for key, p in PEAK_FLOPS.items() if key in name), None)
-    if peaks is None:
-        return None
-    if dtype == torch.bfloat16:
-        return peaks["bf16"]
-    tf32 = torch.backends.cuda.matmul.allow_tf32 or \
-        torch.backends.cudnn.allow_tf32
-    return peaks["tf32" if tf32 else "f32"]
-
+from audiogpt_tpu_torch.utils.flops import count_flops, mfu
 
 class Task(Protocol):
     """A training recipe. ``modules`` maps every group that optimizes, and
@@ -246,13 +224,8 @@ class Trainer:
                                     str(getattr(v, "dtype", type(v))))
                                    for k, v in batch.items())))
         if key not in self._flops:
-            from torch.utils.flop_counter import FlopCounterMode
-
-            kernel = flash_attention.flops
-            with FlopCounterMode(display=False) as counter:
-                metrics = self.train_step(group, batch, seed)
-            self._flops[key] = float(counter.get_total_flops()
-                                     + flash_attention.flops - kernel)
+            metrics, self._flops[key] = count_flops(
+                lambda: self.train_step(group, batch, seed))
         else:
             metrics = self.train_step(group, batch, seed)
         self._flops_window += self._flops[key]
@@ -368,10 +341,11 @@ class Trainer:
                 avgs = bank.averages()
                 elapsed = max(time.time() - t0, 1e-9)
                 avgs["steps_per_sec"] = cfg.log_interval / elapsed
-                peak = peak_flops(self.device, getattr(
-                    self.task, "compute_dtype", torch.float32))
-                if self._flops_window and peak is not None:
-                    avgs["mfu"] = self._flops_window / elapsed / peak
+                util = mfu(self._flops_window, elapsed, self.device,
+                           getattr(self.task, "compute_dtype",
+                                   torch.float32))
+                if util is not None:
+                    avgs["mfu"] = util
                 self._flops_window = 0.0
                 self.logger.log(self.step, avgs, prefix="tr")
                 bank.reset()

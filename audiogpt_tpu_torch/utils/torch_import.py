@@ -6,9 +6,7 @@ trained weights (weight-norm convs, transposed convs, GRU layouts, EMA
 copies) into the JAX package's flax parameter trees. Each tree holds
 numpy leaves in the flax layout, which ``utils/jax_params.py``
 ``load_jax_params`` carries into the port's module of that family, so a
-port module gets the weights exactly as the JAX module does. ``convert_t5``
-is kept so that the family table equals JAX's; nothing in the port loads
-its tree until the T5 encoder is ported.
+port module gets the weights exactly as the JAX module does.
 
 All functions take a flat ``{name: np.ndarray}`` state dict (call
 ``{k: v.numpy() for k, v in torch_sd.items()}`` at the torch boundary, as
@@ -990,9 +988,9 @@ def convert_t5(sd: Mapping[str, np.ndarray], cfg) -> dict:
     package's ``models/textenc/t5.py`` ``T5Encoder`` params
     (``FrozenT5Embedder``/``FrozenFLANEmbedder`` towers,
     ``ldm/modules/encoders/modules.py:143,287``). All T5 Linears are
-    bias-free; layer norms are RMS (weight only). The port has no T5
-    encoder yet, so nothing here loads this tree; ``cfg`` needs
-    ``num_layers`` and ``feed_forward`` (``import_ckpt.T5Config``)."""
+    bias-free; layer norms are RMS (weight only). The tree loads into the
+    port's ``models/textenc/t5.py`` ``T5Encoder`` of the same ``cfg``
+    (``T5Config``)."""
     sd = {k: np.asarray(v) for k, v in sd.items()}
     emb_key = "shared.weight" if "shared.weight" in sd else \
         "encoder.embed_tokens.weight"

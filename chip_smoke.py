@@ -340,6 +340,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    device launches per decode step, K1 launches (0: a 16-token prefill
    is under 256² pairs); at a tiny config the card's greedy ids equal the
    CPU's.
+74. train_ldm_bf16_ckpt: ``train_ldm_bf16`` with ``model.unet.use_checkpoint``
+   (each block recomputed in the backward on the bf16 parameters of its
+   forward): step time, peak, K1 launches a step (10 at [16, 780, 780, 8,
+   40]: the five level-0 attentions' forwards and their recomputes).
+75. train_portaspeech_spk: ``configs/tts/portaspeech.yaml`` with
+   ``model.num_spk`` 400 on 48 word-level items of 16 speakers binarized
+   with their ids, 10 steps: step time, peak, neither kernel; the speaker
+   table's gradient non-zero exactly on the rows of one batch's speakers.
+76. t5: FLAN-T5-large's text tower at full width (seeded, HF-named) through
+   ``python -m audiogpt_tpu_torch.import_ckpt --family t5``, loaded into
+   ``T5Conditioner`` with a ``spiece.model`` written from the bundled
+   WordPiece vocabulary: 8 prompts at 77 tokens, cold and warm (CUDA
+   events), K1 0, peak, FLOPs and the bound; the first prompt's row is
+   within 4× the CPU's own f32 error of a float64 CPU encode.
+77. t5_vq_small_reference: a tiny T5 conditioner and GenerSpeech's EMA
+   quantizer (two training calls: the ``vq_ema`` path of the ``kernels``
+   line, no launch) on the card and on the CPU, TF32 off.
 
 The ``unet_bf16`` engine of phase 6 also inpaints (``inpaint_unet_bf16``):
 its f32 UNet gives the f32 engine's wav with the same draws.
@@ -372,11 +389,10 @@ import urllib.request
 from collections import Counter
 from pathlib import Path
 
+from audiogpt_tpu_torch.utils.flops import (BF16_FLOPS, F32_FLOPS,
+                                           HBM_BYTES_PER_S, TF32_FLOPS)
+
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12                     # FMA units, no tensor cores
-TF32_FLOPS = 495e12                   # tensor cores, dense
-BF16_FLOPS = 989e12
 #: the f32 flash entry does three TF32 products per product (3xTF32)
 FLASH_FLOPS = {"float32": TF32_FLOPS / 3, "bfloat16": BF16_FLOPS}
 CLIP_SECONDS = 624 * 256 / 16000      # T2AConfig.mel_len · hop / sample_rate
@@ -4782,19 +4798,23 @@ def ldm_step_shapes(task, batch: int, frames: int, mels: int) -> Counter:
                     for s, n in once.items()})
 
 
-def phase_train_ldm(tmp: str, bf16: bool) -> dict:
+def phase_train_ldm(tmp: str, bf16: bool, checkpoint: bool = False) -> dict:
     """``ldm.yaml`` at full width trained for ``TRAIN_STEPS`` steps through
     the CLI's builders and ``Trainer.fit`` (no valid split: every launch is
-    a training step's)."""
+    a training step's); with ``checkpoint`` the UNet's blocks are
+    recomputed in the backward (``model.unet.use_checkpoint``), which runs
+    each attention block's forward, K1 included, a second time."""
     import numpy as np
     import torch
 
     from audiogpt_tpu_torch import train_cli
 
     name = "train_ldm_bf16" if bf16 else "train_ldm"
+    name += "_ckpt" if checkpoint else ""
     root = Path(tmp) / name
     bin_dir = train_fixture(root, TRAIN_RECORDS, LDM_FRAMES, LDM_MELS, 21)
-    cfg = ldm_config(bin_dir, bf16)
+    cfg = ldm_config(bin_dir, bf16, "model.unet.use_checkpoint=true"
+                     if checkpoint else "")
     held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     task, trainer = ldm_trainer(cfg, str(root / "exp"), log_interval=1,
@@ -4806,7 +4826,8 @@ def phase_train_ldm(tmp: str, bf16: bool) -> dict:
     train_it, val_fn = train_cli.build_loaders(cfg, "ldm")
     batch = cfg["batch_size"]
     if val_fn is not None or batch != 16 or task.cfg.unet.model_channels \
-            != 320 or task.cfg.bf16_compute != bf16:
+            != 320 or task.cfg.bf16_compute != bf16 \
+            or task.cfg.unet.use_checkpoint != checkpoint:
         raise AssertionError(f"{name}: config {cfg.to_dict()}")
     per_step = ldm_step_shapes(task, batch, LDM_FRAMES, LDM_MELS)
     torch.cuda.reset_peak_memory_stats()
@@ -4841,6 +4862,7 @@ def phase_train_ldm(tmp: str, bf16: bool) -> dict:
     peak_rate = BF16_FLOPS if bf16 else F32_FLOPS
     res = {"phase": name, "steps": TRAIN_STEPS, "batch": batch,
            "mel": [LDM_MELS, LDM_FRAMES], "bf16_compute": bf16,
+           "use_checkpoint": checkpoint,
            "trainable_params": sum(p.numel() for p in trainer.params["unet"]),
            "frozen_params": sum(p.numel() for p in
                                 task.modules["frozen"].parameters()),
@@ -7187,6 +7209,306 @@ def phase_gpt2_refiner() -> dict:
     return {"launches": counts}
 
 
+# -- the T5 text tower, PortaSpeech's speakers, the bf16 LDM step with
+# -- checkpointing ------------------------------------------------------------
+
+T5_BATCH, T5_MAX_LEN, T5_WARM = 8, 77, 10
+T5_PROMPTS = (
+    "a dog barks in the rain while cars pass by",
+    "birds sing at dawn in a quiet forest",
+    "a crowd cheers as the final whistle blows",
+    "soft piano music with a gentle female voice",
+    "thunder rumbles over the sea and waves crash on rocks",
+    "an old train rattles along the tracks at night",
+    "children laugh and play in a busy school yard",
+    "a cat purrs next to a crackling fireplace")
+T5_TINY = dict(d_model=32, d_kv=8, d_ff=48, num_layers=2, num_heads=4)
+#: FLAN-T5-large's parameters (24 × 12 847 104, the embedding, the bias
+#: table and the final norm)
+T5_PARAMS = 341_231_104
+PS_SPK_ITEMS, PS_SPK_SPEAKERS, PS_SPK_STEPS = 48, 16, 10
+
+
+def t5_state_dict(cfg, gen) -> dict:
+    """A ``T5EncoderModel`` state dict under HF's names (v1.1, gated GELU;
+    the relative bias in block 0; ``encoder.embed_tokens`` the same tensor
+    as ``shared``), seeded: weights normal · fan_in^-½, the embedding
+    normal, the RMS norms' weights 1 + 0.1·N, the bias table 0.1·N."""
+    import torch
+
+    def w(out, inp):
+        return torch.randn(out, inp, generator=gen) / math.sqrt(inp)
+
+    def norm():
+        return 1.0 + 0.1 * torch.randn(cfg.d_model, generator=gen)
+
+    inner = cfg.num_heads * cfg.d_kv
+    shared = torch.randn(cfg.vocab_size, cfg.d_model, generator=gen)
+    sd = {"shared.weight": shared, "encoder.embed_tokens.weight": shared,
+          "encoder.final_layer_norm.weight": norm()}
+    for i in range(cfg.num_layers):
+        b = f"encoder.block.{i}.layer"
+        for n in "qkv":
+            sd[f"{b}.0.SelfAttention.{n}.weight"] = w(inner, cfg.d_model)
+        sd[f"{b}.0.SelfAttention.o.weight"] = w(cfg.d_model, inner)
+        if i == 0:
+            sd[f"{b}.0.SelfAttention.relative_attention_bias.weight"] = \
+                0.1 * torch.randn(cfg.rel_buckets, cfg.num_heads,
+                                  generator=gen)
+        sd[f"{b}.0.layer_norm.weight"] = norm()
+        sd[f"{b}.1.layer_norm.weight"] = norm()
+        sd[f"{b}.1.DenseReluDense.wi_0.weight"] = w(cfg.d_ff, cfg.d_model)
+        sd[f"{b}.1.DenseReluDense.wi_1.weight"] = w(cfg.d_ff, cfg.d_model)
+        sd[f"{b}.1.DenseReluDense.wo.weight"] = w(cfg.d_model, cfg.d_ff)
+    return sd
+
+
+def wordpiece_sp_model() -> bytes:
+    """A unigram ``spiece.model`` written by ``write_sp_model`` from the
+    port's bundled WordPiece vocabulary: ``<pad>``, ``</s>``, ``<unk>``,
+    then each word-initial token as ``▁token`` and each ``##`` tail as a
+    bare piece ([bracketed] specials left out), scored −(1 + rank / n), so
+    the fewest pieces win and the vocabulary's order breaks ties."""
+    import gzip
+
+    from audiogpt_tpu_torch.text.sentencepiece import (CONTROL, NORMAL,
+                                                       UNKNOWN,
+                                                       write_sp_model)
+
+    path = ROOT / "audiogpt_tpu_torch" / "text" / "data" / "wordpiece_en.txt.gz"
+    with gzip.open(path, "rt", encoding="utf-8") as f:
+        tokens = [t.rstrip("\n") for t in f]
+    tokens = [t for t in tokens if t and not t.startswith("[")]
+    pieces = [("<pad>", 0.0, CONTROL), ("</s>", 0.0, CONTROL),
+              ("<unk>", 0.0, UNKNOWN)]
+    for rank, tok in enumerate(tokens):
+        piece = tok[2:] if tok.startswith("##") else "▁" + tok
+        pieces.append((piece, -(1.0 + rank / len(tokens)), NORMAL))
+    return write_sp_model(pieces)
+
+
+def t5_bound(cfg, batch: int, length: int) -> dict:
+    """The encode's work from the config: 2 FLOPs a weight a token in the
+    projections and feed-forwards, Q·Kᵀ and P·V per layer; the bytes: the
+    layers' weights, the gathered embedding rows and the output, each once
+    → the bound on the f32 FMA units (TF32 off, as this script runs) and
+    on TF32's tensor cores."""
+    inner = cfg.num_heads * cfg.d_kv
+    per_layer = 4 * cfg.d_model * inner + 3 * cfg.d_model * cfg.d_ff
+    weights = cfg.num_layers * per_layer
+    tokens = batch * length
+    flop = 2 * weights * tokens + cfg.num_layers * 4 * batch \
+        * cfg.num_heads * length * length * cfg.d_kv
+    n_bytes = 4 * (weights + cfg.num_layers * 2 * cfg.d_model
+                   + cfg.num_heads * cfg.rel_buckets
+                   + 2 * tokens * cfg.d_model)
+    f32_ms, by = bound_ms(n_bytes, flop, F32_FLOPS)
+    tf32_ms, tf32_by = bound_ms(n_bytes, flop, TF32_FLOPS)
+    return {"layer_weights": weights, "tflop": flop / 1e12,
+            "bytes_gb": n_bytes / 1e9, "bound_ms": f32_ms, "bound_by": by,
+            "tf32_bound_ms": tf32_ms, "tf32_bound_by": tf32_by}
+
+
+def phase_t5(tmp: str) -> dict:
+    """The FLAN-T5-large text tower at full width (24 layers, d 1024, d_ff
+    2816, 16 heads, 32 128 ids; seeded weights: no checkpoint in the
+    repository): an HF-named ``T5EncoderModel`` state dict goes through
+    ``python -m audiogpt_tpu_torch.import_ckpt --family t5`` in a
+    subprocess; the port's ``T5Conditioner`` on the card loads that tree
+    strictly, with a ``spiece.model`` written from the bundled WordPiece
+    vocabulary, and encodes ``T5_BATCH`` prompts at ``max_length``
+    ``T5_MAX_LEN``: cold, warm (median of ``T5_WARM``, CUDA events), K1
+    launches (0: the position bias is a dense term, the plain path), the
+    peak memory, the FLOPs ``FlopCounterMode`` counts and the bound. The
+    card's first row is as close to a float64 CPU encode of it as the
+    CPU's own f32 encode is (within 4× that error)."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch import import_ckpt
+    from audiogpt_tpu_torch.models.textenc.t5 import (T5Conditioner,
+                                                      T5Config, T5Encoder)
+    from audiogpt_tpu_torch.text.sentencepiece import SentencePieceUnigram
+    from audiogpt_tpu_torch.utils.flops import count_flops
+    from audiogpt_tpu_torch.utils.jax_params import load_jax_params
+
+    root = Path(tmp) / "t5"
+    root.mkdir(parents=True)
+    cfg = T5Config.flan_t5_large()
+    t0 = time.perf_counter()
+    sd = t5_state_dict(cfg, torch.Generator().manual_seed(91))
+    ckpt = root / "flan_t5_large.bin"
+    torch.save(sd, ckpt)
+    n_params = sum(v.numel() for k, v in sd.items()
+                   if k != "encoder.embed_tokens.weight")
+    del sd
+    fixture_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "audiogpt_tpu_torch.import_ckpt", "--family",
+         "t5", "--ckpt", str(ckpt), "--out", str(root / "tree")],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+    import_s = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"t5 import: {proc.stderr[-2000:]}")
+    tree = import_ckpt.restore_params(str(root / "tree"))
+    spm = root / "spiece.model"
+    spm.write_bytes(wordpiece_sp_model())
+    codec = SentencePieceUnigram(str(spm))
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cond = T5Conditioner(cfg, params=tree, tokenizer=codec,
+                         max_length=T5_MAX_LEN)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    texts = list(T5_PROMPTS[:T5_BATCH])
+    ids, mask = cond.tokenize(texts)
+    torch.cuda.reset_peak_memory_stats()
+    out, cold_s, counts = counted(lambda: cond.encode(texts))
+    peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    warm = []
+    for _ in range(T5_WARM):
+        start.record()
+        cond.encode(texts)
+        end.record()
+        end.synchronize()
+        warm.append(start.elapsed_time(end))
+    warm_counts = counted(lambda: cond.encode(texts))[2]
+    _, counted_flop = count_flops(lambda: cond.encode(texts))
+    # the first prompt on the CPU from the same tree, in f32 and in float64
+    # (the norms' statistics and the softmax stay f32, as the module
+    # computes them): the card's f32 error against the CPU's own
+    cpu = T5Encoder(cfg).eval()
+    load_jax_params(cpu, tree)
+    args = (torch.from_numpy(ids[:1]).long(), torch.from_numpy(mask[:1]))
+    with torch.no_grad():
+        ref32 = cpu(*args)[0]
+        ref = cpu.double()(*args)[0]
+    err = float((out[0].cpu().double() - ref).abs().max())
+    cpu_err = float((ref32.double() - ref).abs().max())
+    scale = float(ref.abs().max())
+    bound = t5_bound(cfg, T5_BATCH, T5_MAX_LEN)
+    warm_ms = statistics.median(warm)
+    res = {"phase": "t5", "config": "flan_t5_large", "params": n_params,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "batch": T5_BATCH,
+           "max_length": T5_MAX_LEN, "tokens": int(mask.sum()),
+           "fixture_s": fixture_s, "ckpt_gb": ckpt.stat().st_size / 1e9,
+           "import_s": import_s, "import_log": proc.stdout.strip()
+           .splitlines()[-1], "setup_s": setup_s, "cold_s": cold_s,
+           "warm_ms": warm_ms, "warm_ms_min": min(warm),
+           "peak_mem_gb": peak, "k1_launches": counts["flash_attention"],
+           "k1_launches_warm": warm_counts["flash_attention"],
+           "k2_launches": counts["snake_aa"],
+           "counted_tflop": counted_flop / 1e12, **bound,
+           "bound_share": bound["bound_ms"] / warm_ms,
+           "shape": list(out.shape), "row0_f64_max_abs_err": err,
+           "cpu_f32_row0_f64_max_abs_err": cpu_err, "row0_max_abs": scale,
+           "spiece_pieces": codec.vocab_size,
+           "unk_tokens": int((ids == codec.unk_id).sum()),
+           "ids_row0": ids[0, :int(mask[0].sum())].tolist()}
+    emit(res)
+    if any(counts.values()) or any(warm_counts.values()) \
+            or tuple(out.shape) != (T5_BATCH, T5_MAX_LEN, cfg.d_model) \
+            or not bool(torch.isfinite(out).all()) \
+            or err > 4 * cpu_err + 1e-6 * scale \
+            or n_params != T5_PARAMS or res["unk_tokens"]:
+        raise AssertionError(f"t5: {res}")
+    return {"launches": counts}
+
+
+def phase_t5_vq_small_reference() -> dict:
+    """A tiny T5 conditioner and GenerSpeech's EMA quantizer on the card
+    and on the CPU with the same weights (TF32 off): the hidden states
+    within 1e-5 of their largest, and after two training calls of the
+    quantizer its codebook and statistics within 1e-6; the card's two
+    training calls (the VQ EMA path) launch neither kernel."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.models.textenc.t5 import T5Conditioner, T5Config
+    from audiogpt_tpu_torch.models.tts.generspeech import VQEmbeddingEMA
+    from audiogpt_tpu_torch.text.sentencepiece import SentencePieceUnigram
+
+    codec = SentencePieceUnigram(wordpiece_sp_model())
+    cfg = T5Config(vocab_size=codec.vocab_size, **T5_TINY)
+    conds = {dev: T5Conditioner(cfg, tokenizer=codec, max_length=T5_MAX_LEN,
+                                device=dev)
+             for dev in ("cpu", "cuda")}
+    fill_random(conds["cpu"].model, torch.Generator().manual_seed(93))
+    conds["cuda"].model.load_state_dict(conds["cpu"].model.state_dict())
+    out = {dev: c.encode(list(T5_PROMPTS[:3])).cpu()
+           for dev, c in conds.items()}
+    t5_err = float((out["cuda"] - out["cpu"]).abs().max())
+    t5_scale = float(out["cpu"].abs().max())
+    rng = np.random.default_rng(94)
+    xs = [torch.from_numpy(rng.normal(size=(4, 40, 256)).astype(np.float32))
+          for _ in range(2)]
+    vqs = {dev: VQEmbeddingEMA(64, 256).to(dev) for dev in ("cpu", "cuda")}
+    vqs["cuda"].load_state_dict(vqs["cpu"].state_dict())
+    before = vqs["cpu"].embedding.clone()
+    for x in xs:
+        vqs["cpu"](x, train=True)
+    _, _, counts = counted(lambda: [vqs["cuda"](x.cuda(), train=True)
+                                    for x in xs])
+    vq_err = {name: float((getattr(vqs["cuda"], name).cpu()
+                           - getattr(vqs["cpu"], name)).abs().max()
+                          / getattr(vqs["cpu"], name).abs().max())
+              for name in ("embedding", "ema_weight", "ema_count")}
+    moved = float((vqs["cpu"].embedding - before).abs().max())
+    res = {"phase": "t5_vq_small_reference", "t5_max_abs_err": t5_err,
+           "t5_max_abs": t5_scale, "vq_rel_err": vq_err,
+           "vq_codebook_moved": moved, "vq_launches": counts}
+    emit(res)
+    if t5_err > 1e-5 * t5_scale or max(vq_err.values()) > 1e-6 \
+            or moved < 1e-4 or any(counts.values()):
+        raise AssertionError(f"t5_vq_small_reference: {res}")
+    return {"launches": counts}
+
+
+def phase_train_portaspeech_spk(tmp: str) -> dict:
+    """``configs/tts/portaspeech.yaml`` at full width with ``model.num_spk
+    400`` (the VCTK preset's speakers) on ``PS_SPK_ITEMS`` word-level items
+    of ``PS_SPK_SPEAKERS`` speakers, binarized with their speaker ids, for
+    ``PS_SPK_STEPS`` steps: step time, peak, neither kernel; then on one
+    batch the speaker table's gradient is non-zero exactly on the rows of
+    the batch's real items' ids."""
+    import torch
+
+    from audiogpt_tpu_torch.data import BinarizeConfig, TTSBinarizer
+
+    items = tts_word_corpus(PS_SPK_ITEMS, 95)
+    for i, it in enumerate(items):
+        it.spk = f"p{225 + i % PS_SPK_SPEAKERS}"
+    bin_dir = str(Path(tmp) / "tts_bin" / "vctk_words")
+    t0 = time.perf_counter()
+    TTSBinarizer(BinarizeConfig(with_f0=True, with_words=True)).binarize(
+        items, bin_dir)
+    binarize_s = time.perf_counter() - t0
+    run = fit_run("train_portaspeech_spk", "tts/portaspeech.yaml", bin_dir,
+                  tmp, PS_SPK_STEPS, extra="model.num_spk=400")
+    task = run["task"]
+    batch = run["trainer"]._to_device(largest_batch(run))
+    loss, _ = task.loss(batch, torch.Generator(batch["mels"].device)
+                        .manual_seed(96))
+    table, = torch.autograd.grad(loss, [task.model.spk_embed.weight])
+    rows = sorted(torch.nonzero(table.abs().sum(1)).flatten().tolist())
+    real = batch["weight"] > 0
+    want = sorted(set(batch["spk_ids"][real].tolist()))
+    res = {"phase": "train_portaspeech_spk", "num_spk": task.cfg.model.num_spk,
+           "speakers": PS_SPK_SPEAKERS, "binarize_s": binarize_s,
+           **fit_report(run, ("mel", "kl_v", "wdur", "total_loss")),
+           "spk_table_rows": list(table.shape), "grad_rows": rows,
+           "batch_speakers": want}
+    emit(res)
+    if task.cfg.model.num_spk != 400 \
+            or tuple(table.shape) != (401, task.cfg.model.hidden_size) \
+            or rows != want or len(want) < 2 or res["nonfinite"]:
+        raise AssertionError(f"train_portaspeech_spk: {res}")
+    return {"launches": run["counts"]}
+
+
 def path_record(k: dict, path: str, shapes: Counter, launches: int) -> dict:
     """A kernel's share of one path: its launches, which the counters read
     and the configs must give (``shapes``), and per-call times, each the
@@ -7338,6 +7660,9 @@ def main() -> int:
                      infer_cli_tts=cli["infer_cli_tts"],
                      infer_cli_enhance=cli["infer_cli_enhance"],
                      gpt2_refiner=phase_gpt2_refiner())
+        train_ckpt = phase_train_ldm(tmp, bf16=True, checkpoint=True)
+        quiet.update(train_portaspeech_spk=phase_train_portaspeech_spk(tmp),
+                     t5=phase_t5(tmp), vq_ema=phase_t5_vq_small_reference())
 
     eng = main_path["engine"]
     t2a, inp = t2a_path(eng), inpaint_path(eng)
@@ -7358,9 +7683,10 @@ def main() -> int:
         the TTS, SVS, face, LDM-family and analysis training runs (FS2, the
         vocoder GAN, the PortaSpeech family, GenerSpeech, the pitch
         extractor, DiffSinger, VISinger, Audio2Motion, the VAE, CLAP, SED,
-        captioning, separation), the checkpoint import, ``infer_cli``'s
-        ``tts`` and ``enhance`` and the GPT-2 refiner, which launch neither
-        kernel."""
+        captioning, separation, PortaSpeech with 400 speakers), the
+        checkpoint import, ``infer_cli``'s ``tts`` and ``enhance``, the
+        GPT-2 refiner, the T5 text tower and the VQ's EMA update, which
+        launch neither kernel."""
         return [path_record(k, key, Counter(), f32(quiet[key]["launches"],
                                                    name))
                 for key in quiet]
@@ -7406,7 +7732,10 @@ def main() -> int:
                         t2i_bf16["launches"]["flash_attention_bf16"]),
             path_record(flash["bfloat16"], "train_ldm_bf16",
                         train_bf16["shapes"],
-                        train_bf16["launches"]["flash_attention_bf16"])],
+                        train_bf16["launches"]["flash_attention_bf16"]),
+            path_record(flash["bfloat16"], "train_ldm_bf16_ckpt",
+                        train_ckpt["shapes"],
+                        train_ckpt["launches"]["flash_attention_bf16"])],
             flash_src, flash_tpu),
         kernel_entry(snake["float32"], [
             path_record(snake["float32"], "main_path", t2a["snake"],
@@ -7425,7 +7754,8 @@ def main() -> int:
             *(path_record(snake["float32"], key, Counter(),
                           run["launches"]["snake_aa"])
               for key, run in (("train_ldm", train),
-                               ("train_ldm_bf16", train_bf16))),
+                               ("train_ldm_bf16", train_bf16),
+                               ("train_ldm_bf16_ckpt", train_ckpt))),
             *none_launched(snake["float32"], "snake_aa")],
             snake_src, snake_tpu),
         kernel_entry(snake["bfloat16"], [

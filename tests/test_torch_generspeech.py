@@ -3,7 +3,9 @@ generspeech.py``) against the JAX package on shared parameters and
 replayed draws, through one compiled JAX program: the local style branch
 (conv stack and VQ) and the global style encoder on an odd and an even
 reference length, a prosody aligner, the Glow post-flow (forward with its
-NLL, reverse, and the round trip). The whole model and
+NLL, reverse, and the round trip), and the VQ's EMA update of its
+codebook and statistics over two training calls (within 1e-6 of each
+array's largest). The whole model and
 ``StyleTransferEngine`` are in ``test_torch_style_transfer.py``, which
 shares this file's configs and parameters.
 
@@ -184,3 +186,45 @@ def test_glow_matches_jax(engines, jax_parts):
     np.testing.assert_allclose(back.numpy()[0, :22], GLOW[0][0, :22],
                                atol=ATOL, rtol=0)
     assert (back.numpy()[0, 22:] == 0).all()
+
+
+def test_vq_ema_update_matches_jax():
+    """Two training calls of the EMA quantizer (JAX: ``train=True`` with
+    the mutable ``vq_stats``) from random statistics: each call's code
+    vectors and straight-through output, then the codebook, ``ema_weight`` and
+    ``ema_count``, equal JAX's; an inference call leaves them as they
+    are. Each input's nearest code is checked to win by a margin."""
+    rng = np.random.default_rng(21)
+    jvq = jgs.VQEmbeddingEMA(n_codes=8, dim=16)
+    stats = {"embedding": rng.normal(size=(8, 16)),
+             "ema_weight": rng.normal(size=(8, 16)),
+             "ema_count": rng.uniform(0.5, 2.0, 8)}
+    stats = {k: v.astype(np.float32) for k, v in stats.items()}
+    xs = [rng.normal(size=(2, 12, 16)).astype(np.float32) for _ in range(2)]
+    step = jax.jit(lambda v, x: jvq.apply(v, x, train=True,
+                                          mutable=["vq_stats"]))
+    vq = pgs.VQEmbeddingEMA(n_codes=8, dim=16)
+    for name, arr in stats.items():
+        getattr(vq, name).copy_(torch.from_numpy(arr))
+    variables = {"vq_stats": stats}
+    for x in xs:
+        d = ((x.reshape(-1, 1, 16) - variables["vq_stats"]["embedding"]
+              ) ** 2).sum(-1)
+        gap = np.sort(d, axis=1)
+        assert (gap[:, 1] - gap[:, 0]).min() > 1e-3
+        (q_st, _, quant), variables = step(variables, x)
+        variables = jax.tree.map(np.asarray, variables)
+        got_st, got_q = vq(torch.from_numpy(x), train=True)
+        for got, want in ((got_q, quant), (got_st, q_st)):
+            want = np.asarray(want)
+            np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                       atol=1e-6 * np.abs(want).max())
+    for name, want in variables["vq_stats"].items():
+        got = getattr(vq, name).numpy()
+        assert np.abs(got - stats[name]).max() > 1e-4, name
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-6 * np.abs(want).max(),
+                                   err_msg=name)
+    before = vq.embedding.clone()
+    vq(torch.from_numpy(xs[0]))
+    assert torch.equal(vq.embedding, before)

@@ -7,8 +7,7 @@ and statistics filled with seeded numbers) is renamed key by key to the
 reference checkpoint's names (HiFi-GAN's convs as weight-norm pairs, the
 GRUs as one bidirectional ``nn.GRU``, the captioner's packed in-projection
 transposed, CLIP-HF's and BLIP's split or reshaped as the HF modules hold
-them; T5's from a name → shape table of ``T5EncoderModel``). The JAX converter and
-the port's give equal trees (names, shapes, dtypes, values: bitwise); the
+them). The JAX converter and the port's give equal trees (names, shapes, dtypes, values: bitwise); the
 tree loads strictly into a fresh port module, which then holds the first
 module's numbers (bitwise, the weight-norm folds within 1e-6). HiFi-GAN's
 and the captioner's forwards on the imported weights equal the JAX
@@ -56,6 +55,7 @@ from audiogpt_tpu_torch.models.textenc.clip import (CLIPTextConfig,
 from audiogpt_tpu_torch.models.textenc.gpt2 import GPT2Config, GPT2LM
 from audiogpt_tpu_torch.models.textenc.htsat import (HTSATAudioEncoder,
                                                      HTSATConfig)
+from audiogpt_tpu_torch.models.textenc.t5 import T5Config, T5Encoder
 from audiogpt_tpu_torch.models.tts.fastspeech2 import (FastSpeech2,
                                                        FastSpeech2Config)
 from audiogpt_tpu_torch.models.vocoder import (BigVGANConfig,
@@ -144,6 +144,8 @@ FAMILIES = {
                             eos_id=59)), BlipCaptioner),
     "gpt2": (GPT2Config(vocab_size=60, n_positions=32, width=16, layers=2,
                         heads=2, eos_id=59), GPT2LM),
+    "t5": (T5Config(vocab_size=50, d_model=16, d_kv=8, d_ff=32, num_layers=2,
+                    num_heads=2), T5Encoder),
 }
 
 
@@ -431,6 +433,19 @@ RENAMES = {
                    (r"^h(\d+)\.c_(attn|proj)\.", r"transformer.h.\1.attn.c_\2."),
                    (r"^h(\d+)\.c_fc\.", r"transformer.h.\1.mlp.c_fc."),
                    (r"^h(\d+)\.mlp_proj\.", r"transformer.h.\1.mlp.c_proj.")]),
+    # HF T5EncoderModel: the relative bias in block 0 only
+    "t5": _subs([(r"^embed\.", "shared."),
+                 (r"^final_ln\.", "encoder.final_layer_norm."),
+                 (r"^block_(\d+)\.attn\.rel_bias$", r"encoder.block.\1.layer.0"
+                  r".SelfAttention.relative_attention_bias.weight"),
+                 (r"^block_(\d+)\.attn\.", r"encoder.block.\1.layer.0"
+                  r".SelfAttention."),
+                 (r"^block_(\d+)\.attn_ln\.",
+                  r"encoder.block.\1.layer.0.layer_norm."),
+                 (r"^block_(\d+)\.ff_ln\.",
+                  r"encoder.block.\1.layer.1.layer_norm."),
+                 (r"^block_(\d+)\.(wi_0|wi_1|wi|wo)\.",
+                  r"encoder.block.\1.layer.1.DenseReluDense.\2.")]),
 }
 
 
@@ -522,30 +537,6 @@ def reference_state_dict(family, seed=0):
     return module, sd
 
 
-def t5_state_dict(d=16, inner=16, d_ff=32, heads=2, layers=2, vocab=50):
-    """A ``T5EncoderModel`` (v1.1, gated-GELU) state dict by its names and
-    shapes; the relative bias lives in block 0 only."""
-    rng = np.random.default_rng(5)
-    shapes = {"shared.weight": (vocab, d),
-              "encoder.embed_tokens.weight": (vocab, d),
-              "encoder.final_layer_norm.weight": (d,)}
-    for i in range(layers):
-        b = f"encoder.block.{i}.layer"
-        for n in "qkv":
-            shapes[f"{b}.0.SelfAttention.{n}.weight"] = (inner, d)
-        shapes[f"{b}.0.SelfAttention.o.weight"] = (d, inner)
-        if i == 0:
-            shapes[f"{b}.0.SelfAttention.relative_attention_bias.weight"] = \
-                (32, heads)
-        shapes[f"{b}.0.layer_norm.weight"] = (d,)
-        shapes[f"{b}.1.layer_norm.weight"] = (d,)
-        shapes[f"{b}.1.DenseReluDense.wi_0.weight"] = (d_ff, d)
-        shapes[f"{b}.1.DenseReluDense.wi_1.weight"] = (d_ff, d)
-        shapes[f"{b}.1.DenseReluDense.wo.weight"] = (d, d_ff)
-    return {k: rng.normal(size=s).astype(np.float32)
-            for k, s in shapes.items()}
-
-
 def _flat(tree, prefix=""):
     out = {}
     for k, v in tree.items():
@@ -569,20 +560,15 @@ def assert_trees_equal(got, want):
 @functools.lru_cache(maxsize=None)
 def converted(family):
     """(port module, reference sd, the port's tree, JAX's tree)."""
-    if family == "t5":
-        sd = t5_state_dict()
-        cfg = ic.T5Config(num_layers=2, feed_forward="gated-gelu")
-        module = None
-    else:
-        module, sd = reference_state_dict(family)
-        cfg = FAMILIES[family][0]
+    module, sd = reference_state_dict(family)
+    cfg = FAMILIES[family][0]
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         return module, sd, ic.convert(family, sd, cfg), \
             jic.convert(family, sd, cfg)
 
 
-ALL = sorted([*FAMILIES, "t5"])
+ALL = sorted(FAMILIES)
 
 
 def test_the_family_table_is_jax_s():
@@ -599,11 +585,9 @@ def test_the_family_table_is_jax_s():
 def test_converters_equal_jax_and_load_strictly(family):
     """The port's tree equals JAX's bitwise; it loads strictly into a
     fresh port module (other seed), which then holds the first module's
-    parameters and statistics (T5: no port module yet)."""
+    parameters and statistics."""
     module, _, tree, jtree = converted(family)
     assert_trees_equal(tree, jtree)
-    if module is None:
-        return
     fresh = filled_module(family, seed=1)
     load_jax_params(fresh, tree)
     want = module.state_dict()

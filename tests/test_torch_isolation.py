@@ -103,7 +103,9 @@ def test_import_loads_no_jax_and_no_jax_package():
                  "train.tasks.clap", "train.tasks.sed",
                  "train.tasks.caption", "train.tasks.separation",
                  "utils.torch_import", "import_ckpt", "infer_cli",
-                 "models.textenc.gpt2"):
+                 "models.textenc.gpt2", "models.textenc.t5",
+                 "text.sentencepiece", "utils.flops", "dsp.dtw",
+                 "registry"):
         assert f"audiogpt_tpu_torch.{name}" in result["modules"]
     assert result["bad"] == []
     # the BPE word splitters use the standard library's re: the card's
@@ -177,6 +179,11 @@ def test_entry_points_need_cuda_without_device(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         MagicPromptRefiner(GPT2Config(vocab_size=8, n_positions=4, width=8,
                                       layers=1, heads=1))
+    from audiogpt_tpu_torch.models.textenc.t5 import T5Conditioner, T5Config
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T5Conditioner(T5Config(vocab_size=8, d_model=8, d_kv=4, d_ff=8,
+                               num_layers=1, num_heads=2))
     with pytest.raises(RuntimeError, match="CUDA"):
         from audiogpt_tpu_torch import infer_cli
 

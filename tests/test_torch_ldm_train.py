@@ -3,10 +3,10 @@ tiny config of ``tests/test_train.py:514-525``: JAX's parameters (from
 ``jax.eval_shape``, filled with seeded numpy) loaded into the port, the four
 draws of JAX's ``_loss`` replayed, the f32 loss and every UNet gradient
 against JAX's ``value_and_grad`` and the ``bf16_compute`` loss (one
-compiled program for the module), two ``Trainer`` steps, and ``train_cli.main`` on a
-fixture dataset with a resume."""
+compiled program for the module), ``bf16_compute`` with
+``unet.use_checkpoint`` against the same task without it, two ``Trainer``
+steps, and ``train_cli.main`` on a fixture dataset with a resume."""
 
-import dataclasses
 import os
 
 import jax
@@ -60,11 +60,12 @@ def jax_cfg(bf16=False):
         bf16_compute=bf16, **TASK)
 
 
-def port_cfg(bf16=False):
-    # f32 runs the UNet under use_checkpoint (recomputed blocks); bf16
-    # needs it off
+def port_cfg(bf16=False, checkpoint=None):
+    # f32 runs the UNet under use_checkpoint (recomputed blocks), bf16
+    # without it unless asked
+    ckpt = not bf16 if checkpoint is None else checkpoint
     return LDMTaskConfig(
-        unet=UNetConfig(use_checkpoint=not bf16, **UNET), vae=VAEConfig(**VAE),
+        unet=UNetConfig(use_checkpoint=ckpt, **UNET), vae=VAEConfig(**VAE),
         clap=CLAPTextConfig(bert=BertConfig(**BERT), d_proj=24),
         bf16_compute=bf16, **TASK)
 
@@ -160,9 +161,35 @@ def test_bf16_compute_loss_matches_jax(shared):
     grads = torch.autograd.grad(loss, list(task.unet.parameters()))
     assert all(g.dtype == torch.float32 and torch.isfinite(g).all()
                for g in grads)
-    with pytest.raises(ValueError, match="use_checkpoint"):
-        LDMTask(dataclasses.replace(port_cfg(bf16=True),
-                                    unet=UNetConfig(**UNET)), device="cpu")
+
+
+def test_bf16_compute_with_use_checkpoint_equals_without(shared):
+    """``bf16_compute`` with ``unet.use_checkpoint`` (JAX: ``nn.remat``
+    under the cast): each block's recompute in the backward runs on the
+    bf16 parameters of its forward, so the loss equals the run without
+    checkpointing within ``BF16_LOSS_ATOL`` and every UNet gradient within
+    one bf16 step (2^-8) of the largest; the middle attention block runs
+    twice a step with checkpointing (the recompute), once without."""
+    runs = {}
+    for ckpt in (False, True):
+        task = LDMTask(port_cfg(bf16=True, checkpoint=ckpt),
+                       params=shared["params"], device="cpu")
+        calls, block = [], task.unet.mid_attn
+        forward = block.forward
+        block.forward = lambda *a: calls.append(1) or forward(*a)
+        loss, _ = task.loss(torch_batch(shared["batch"]),
+                            draws=shared["draws"])
+        grads = torch.autograd.grad(loss, list(task.unet.parameters()))
+        runs[ckpt] = float(loss), grads, len(calls)
+    (loss, grads, calls), (loss_c, grads_c, calls_c) = runs[False], runs[True]
+    assert (calls, calls_c) == (1, 2)
+    assert abs(loss_c - loss) <= BF16_LOSS_ATOL
+    assert abs(loss_c - shared["bf16_loss"]) <= BF16_LOSS_ATOL
+    scale = max(float(g.abs().max()) for g in grads)
+    for g, g_c in zip(grads, grads_c):
+        assert g_c.dtype == torch.float32
+        np.testing.assert_allclose(g_c.numpy(), g.numpy(), rtol=0,
+                                   atol=2 ** -8 * scale)
 
 
 def test_two_trainer_steps_move_only_the_unet(shared, tmp_path):

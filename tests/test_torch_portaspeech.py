@@ -4,7 +4,9 @@ portaspeech.py``, ``ops/rel_attention.py``, ``text/syntax.py`` and
 shared parameters and replayed draws: the word graphs exactly, the
 relative-window encoder, the GGNN layer, the prior flow both ways (and its
 round trip), the FVAE decoder, the model at inference with the graph on
-and off, the engine, and ``synthesize_stream``'s phone and word caps.
+and off, the engine, ``synthesize_stream``'s phone and word caps, JAX's
+tree for each of the config's four switches, and the training and
+inference branches with FFT encoders, no text postnet and no prior flow.
 
 Every leaf of the JAX trees is random (``test_torch_bigvgan.
 _random_params``), the layers JAX zero-initialises among them
@@ -15,7 +17,8 @@ a phone, so every word's rounded duration (1.7, 3.4, 5.1, … frames) sits
 at least 0.1 frame from a rounding edge.
 
 Tolerances: module outputs within 1e-4 absolute, the sampled mel and the
-wav within 5e-4 (through the prior flow and the decoder)."""
+wav within 5e-4 (through the prior flow and the decoder), the training
+branch's outputs within 1e-5 of each array's largest."""
 
 import itertools
 import types
@@ -55,6 +58,8 @@ PS = dict(ph_vocab_size=90, word_vocab_size=30, hidden_size=32,
           max_frames=64, latent_size=8)
 #: frames a phone from the duration head (softplus of its bias)
 PHONE_FRAMES = 1.7
+#: the training branch's outputs, relative to each array's largest
+FWD_RTOL = 1e-5
 
 
 def configs(**kw):
@@ -220,10 +225,89 @@ PHONES, WORDS = 32, 16                   # the engines' one bucket each
     dict(encoder_type="fft"), dict(text_encoder_postnet=False),
     dict(use_prior_flow=False), dict(num_spk=4)], ids=lambda d: next(iter(d)))
 def test_switches_away_from_the_app_are_refused(switch):
-    """The JAX config's switches that no engine or factory sets away from
-    the app's values are not ported: the model refuses them."""
-    with pytest.raises(ValueError, match="only the app's"):
-        pps.PortaSpeech(pps.PortaSpeechConfig(**PS, **switch))
+    """The JAX config's four switches away from the app's values are no
+    longer refused: the model builds what JAX builds (FFT blocks, the
+    phone-to-word encoder's without positions; ``dec_query_proj`` in place
+    of ``text_postnet``; no ``prior_flow``; ``spk_embed`` of ``num_spk +
+    1`` rows), so JAX's training tree loads strictly. (flax makes the
+    speaker table only when the init gets a speaker: this one does.)"""
+    jcfg, pcfg = configs(**switch)
+    toks = jnp.ones((1, 8), jnp.int32)
+    params = init_params(jps.PortaSpeech(jcfg), toks, toks[:, :4], toks,
+                         mel2word=toks, tgt_mels=jnp.zeros((1, 8, MELS)),
+                         spk_id=toks[:, 0], rng=jax.random.PRNGKey(0),
+                         seed=13)
+    tree = params["params"]
+    assert ("prior_flow" in tree) == pcfg.use_prior_flow
+    assert ("text_postnet" in tree) == pcfg.text_encoder_postnet
+    if pcfg.encoder_type == "fft":
+        assert "pos_alpha" not in tree["ph2word_encoder"]
+        assert "pos_alpha" in tree["encoder"]
+    if pcfg.num_spk:
+        assert tree["spk_embed"]["embedding"].shape == (5, PS["hidden_size"])
+    load_jax_params(pps.PortaSpeech(pcfg, posterior=True), params)
+
+
+def test_fft_no_postnet_no_prior_flow_matches_jax():
+    """One config with the three other switches flipped together, against
+    one compiled JAX program: the training forward (ε replayed) and the
+    inference branch on the same ground-truth ``mel2word`` (its draw
+    replayed): the mel, the KL, the durations, the attention, the
+    unflowed ``z_p`` (= ``z_q``) and the decoder input, each within
+    ``FWD_RTOL`` of its largest value (the random posterior's log-scales
+    put the training latent at ≈ 1e5), and the inference mel within
+    ``SAMPLE_ATOL``."""
+    kw = dict(encoder_type="fft", text_encoder_postnet=False,
+              use_prior_flow=False)
+    jcfg, pcfg = configs(**kw)
+    rng = np.random.default_rng(14)
+    txt = np.zeros((2, 12), np.int32)
+    txt[0], txt[1, :7] = rng.integers(3, 90, 12), rng.integers(3, 90, 7)
+    p2w = np.zeros((2, 12), np.int32)
+    p2w[0], p2w[1, :7] = np.arange(12) // 2 + 1, np.arange(7) // 2 + 1
+    words = np.zeros((2, 8), np.int32)
+    words[0, :6], words[1, :4] = rng.integers(1, 30, 6), rng.integers(1, 30,
+                                                                      4)
+    frames = PS["max_frames"]          # the inference branch's canvas
+    m2w = np.zeros((2, frames), np.int32)
+    m2w[0] = np.arange(frames) * 6 // frames + 1
+    m2w[1, :40] = np.arange(40) // 10 + 1
+    mels = (rng.normal(size=(2, frames, MELS)) * (m2w > 0)[..., None]
+            ).astype(np.float32)
+    model = jps.PortaSpeech(jcfg)
+    params = init_params(model, txt, words, p2w, mel2word=m2w,
+                         tgt_mels=mels, rng=jax.random.PRNGKey(0), seed=15)
+    key = jax.random.PRNGKey(16)
+
+    def both(p):
+        train = model.apply(p, txt, words, p2w, mel2word=m2w,
+                            tgt_mels=mels, rng=key)
+        infer = model.apply(p, txt, words, p2w, mel2word=m2w, infer=True,
+                            rng=key, noise_scale=0.8)
+        eps = jax.random.normal(key, train["m_q"].shape)
+        noise = jax.random.normal(key, (2, PS["max_frames"] // 4,
+                                        PS["latent_size"]))
+        return train, infer["mel_out"], eps, noise
+
+    train, infer, eps, noise = jax.tree.map(np.asarray,
+                                            jax.jit(both)(params))
+    net = pps.PortaSpeech(pcfg, posterior=True).eval()
+    load_jax_params(net, params)
+    args = [to_torch(a).long() for a in (txt, words, p2w, m2w)]
+    with torch.no_grad():
+        got = net.train_forward(*args, to_torch(mels),
+                                draws=to_torch(eps))
+        enc = net.encode(*args[:3], mel2word=args[3])
+        z = net.prior(enc["x"], args[3], None, to_torch(noise), 0.8)
+        mel = net.decode(z, enc["x"], args[3])
+    lat = to_torch(m2w[:, ::4] > 0).float()[..., None]
+    z_q = (got["m_q"] + got["logs_q"].exp() * to_torch(eps)) * lat
+    np.testing.assert_array_equal(got["z_p"].numpy(), z_q.numpy())
+    for k in ("mel_out", "kl", "dur", "attn", "z_p", "decoder_inp"):
+        np.testing.assert_allclose(got[k].numpy(), train[k], rtol=0,
+                                   atol=FWD_RTOL * np.abs(train[k]).max(),
+                                   err_msg=k)
+    np.testing.assert_allclose(mel.numpy(), infer, atol=SAMPLE_ATOL, rtol=0)
 
 
 @pytest.fixture(scope="module", params=[False, True],

@@ -1,5 +1,6 @@
 """The PortaSpeech training recipes against the JAX package's on the CPU:
-the posterior encoder, the training forward with the graph off and on,
+the posterior encoder, the training forward with the graph off and on
+(the model has three speakers and the batch's items carry speaker ids),
 ``PortaSpeechTask``'s loss terms (the KL at three points of its ramp, the
 sentence-duration term) and every gradient against JAX's
 ``value_and_grad``, the multi-window critic, both groups of
@@ -76,8 +77,9 @@ PS = dict(ph_vocab_size=PH_VOCAB, word_vocab_size=20, hidden_size=16,
           enc_ffn_kernel_size=3, dur_predictor_layers=1, n_mels=M,
           max_frames=64, latent_size=4, fvae_hidden=8, fvae_enc_layers=2,
           fvae_dec_layers=1, prior_flow_hidden=8, prior_flow_blocks=2,
-          graph_steps=2)
+          graph_steps=2, num_spk=3)
 KL_START = 100
+SPK_IDS = (1, 3, 1, 0)
 STEPS = (0, 50, 250)                    # the ramp at 0, ½ and past it
 WINDOWS, DISC_HIDDEN = (8, 16), 8
 B, T, W, F = 4, 12, 6, 64
@@ -87,8 +89,9 @@ KEY = jax.random.PRNGKey(7)
 
 def ps_batch(seed=1, graph=False):
     """Three items (12, 9 and 7 phones over 6, 4 and 3 words; 64, 48 and
-    36 frames) and a padded row of zeros, as ``collate_tts`` pads a batch
-    to its rung (weight 0, mel length 0)."""
+    36 frames; speakers 1, 3 and 1) and a padded row of zeros, as
+    ``collate_tts`` pads a batch to its rung (weight 0, mel length 0,
+    speaker 0)."""
     rng = np.random.default_rng(seed)
     batch = {k: np.zeros(s, np.int32) for k, s in (
         ("txt_tokens", (B, T)), ("ph2word", (B, T)),
@@ -112,6 +115,7 @@ def ps_batch(seed=1, graph=False):
     batch["mel_lengths"] = np.asarray(n_fr, np.int32)
     batch["word_lengths"] = np.asarray(n_w, np.int32)
     batch["weight"] = np.asarray([1, 1, 1, 0], np.float32)
+    batch["spk_ids"] = np.asarray(SPK_IDS, np.int32)
     if graph:
         words = np.arange(W)[None] < batch["word_lengths"][:, None]
         adj = rng.random((B, 6, W, W)) < 0.3
@@ -140,9 +144,16 @@ def jax_starts(key, mel_len, windows=WINDOWS):
 
 
 def ps_params(jtask, seed):
+    """JAX's task tree, filled; JAX's ``init_params`` calls the model
+    without a speaker, so flax makes no speaker table and JAX's recipe
+    cannot train at ``num_spk > 0`` (``ROADMAP.md`` §C): the table is
+    added here, as the port's model builds it."""
     params = jax.tree.map(np.array, _random_params(
         jax.eval_shape(jtask.init_params, KEY), seed=seed))
     tree = params["model"]["params"]
+    assert "spk_embed" not in tree
+    tree["spk_embed"] = {"embedding": np.random.default_rng(seed).normal(
+        size=(PS["num_spk"] + 1, PS["hidden_size"])).astype(np.float32)}
     for leaf in (tree["fvae_enc"]["proj"]["kernel"],
                  tree["prior_flow"]["f0"]["post"]["kernel"]):
         assert np.abs(leaf).min() > 0       # zero-initialised in JAX
@@ -152,7 +163,8 @@ def ps_params(jtask, seed):
 def assert_grads(module, loss, jax_grads, build):
     """Every gradient of ``module``'s params within ``GRAD_RTOL`` of its
     tensor's largest; JAX's gradient tree goes through ``load_jax_params``
-    into ``build()``, so the layouts match by name."""
+    into ``build()``, so the layouts match by name. → the gradients by
+    name."""
     names = [n for n, _ in module.named_parameters()]
     grads = torch.autograd.grad(loss, list(module.parameters()),
                                 allow_unused=True)
@@ -167,6 +179,7 @@ def assert_grads(module, loss, jax_grads, build):
         np.testing.assert_allclose(
             g, r, rtol=0, atol=max(GRAD_RTOL * np.abs(r).max(), floor),
             err_msg=n)
+    return dict(zip(names, grads))
 
 
 def assert_metrics(got, ref):
@@ -285,8 +298,9 @@ def test_fvae_encoder_matches_jax():
 
 
 def test_training_forward_matches_jax():
-    """The training branch with ε replayed (the graph off): the mel, the
-    KL, the word durations, the posterior and the prior-space latent."""
+    """The training branch with ε replayed (the graph off, speakers on):
+    the mel, the KL, the word durations, the posterior and the
+    prior-space latent."""
     shared = ps_reference()
     task = ps_task(shared["params"])
     batch = torch_batch(shared["batch"])
@@ -294,7 +308,8 @@ def test_training_forward_matches_jax():
         out = task.model.train_forward(
             batch["txt_tokens"].long(), batch["word_tokens"].long(),
             batch["ph2word"].long(), batch["mel2word"].long(),
-            batch["mels"], draws=shared["eps"])
+            batch["mels"], draws=shared["eps"],
+            spk_id=batch["spk_ids"].long())
     ref = shared["runs"][STEPS[0]][1]
     for k in OUT_KEYS:
         assert_close(out[k], ref[k], k)
@@ -340,12 +355,18 @@ def test_portaspeech_task_losses_match_jax(step):
 
 
 def test_portaspeech_task_grads_match_jax():
+    """Every gradient; the speaker table's is non-zero exactly on the rows
+    of the batch's real items (1 and 3; the padded row's speaker 0 reaches
+    no loss)."""
     shared = ps_reference()
     task = ps_task(shared["params"])
     batch = dict(torch_batch(shared["batch"]), step=STEPS[1])
     loss, _ = task.loss(batch, draws=shared["eps"])
-    assert_grads(task.model, loss, shared["runs"][STEPS[1]][2],
-                 lambda: pps.PortaSpeech(task.cfg.model, posterior=True))
+    grads = assert_grads(task.model, loss, shared["runs"][STEPS[1]][2],
+                         lambda: pps.PortaSpeech(task.cfg.model,
+                                                 posterior=True))
+    table = grads["spk_embed.weight"]
+    assert torch.nonzero(table.abs().sum(1)).flatten().tolist() == [1, 3]
 
 
 @pytest.mark.parametrize("lengths", [(24, 17, 0), (24, 20, 19), (40, 40, 40)],
@@ -489,7 +510,7 @@ def test_training_and_inference_trees_and_the_engine():
     inference = jax.eval_shape(lambda: jps.PortaSpeech(
         jps.PortaSpeechConfig(**PS)).init(
         KEY, *(jnp.ones((1, n), jnp.int32) for n in (8, 4, 8)), infer=True,
-        rng=KEY))
+        spk_id=jnp.zeros((1,), jnp.int32), rng=KEY))
     assert "fvae_enc" not in inference["params"]
     assert set(params["params"]) - set(inference["params"]) == {"fvae_enc"}
     model = pps.PortaSpeech(cfg).eval()

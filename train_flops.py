@@ -28,7 +28,6 @@ import os
 import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-F32_FLOPS = 67e12
 
 
 def _meta(*shape, dtype=None):
@@ -40,17 +39,19 @@ def _meta(*shape, dtype=None):
 def _step_flops(task, batch: dict, draws: dict) -> dict:
     """Each group's forward and gradient on meta tensors → TFLOP."""
     import torch
-    from torch.utils.flop_counter import FlopCounterMode
+
+    from audiogpt_tpu_torch.utils.flops import count_flops
+
+    def step(fn, params, kw):
+        loss, _ = fn(batch, None, **kw)
+        torch.autograd.grad(loss, params, allow_unused=True)
 
     out = {}
     for grp, fn in task.loss_fns.items():
         params = [p for p in task.modules[grp].parameters()
                   if p.requires_grad]
         kw = {} if draws.get(grp) is None else {"draws": draws[grp]}
-        with FlopCounterMode(display=False) as counter:
-            loss, _ = fn(batch, None, **kw)
-            torch.autograd.grad(loss, params, allow_unused=True)
-        out[grp] = counter.get_total_flops() / 1e12
+        out[grp] = count_flops(lambda: step(fn, params, kw))[1] / 1e12
     return out
 
 
@@ -60,6 +61,7 @@ def count(name: str, config: str, batch: dict, draws: dict,
 
     from audiogpt_tpu_torch import train_cli
     from audiogpt_tpu_torch.config import load_config
+    from audiogpt_tpu_torch.utils.flops import F32_FLOPS
 
     cfg = load_config(os.path.join(ROOT, "configs", config),
                       overrides=overrides)
