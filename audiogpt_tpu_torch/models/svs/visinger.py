@@ -31,6 +31,7 @@ from audiogpt_tpu_torch.models.tts.fastspeech2 import (
     conv_time,
     length_regulator,
 )
+from audiogpt_tpu_torch.parallel.reduce import global_sums
 from audiogpt_tpu_torch.models.vocoder.hifigan import (
     HifiGANConfig,
     HifiGANGenerator,
@@ -198,8 +199,9 @@ class VISinger(nn.Module):
         kl = logs_p - logs_q - 0.5 + 0.5 * (torch.exp(2 * logs_q)
                                             + (z_p - m_p) ** 2) \
             * torch.exp(-2 * logs_p)
-        kl = (kl * mask[..., None]).sum() \
-            / (mask.sum() * kl.shape[-1]).clamp_min(1.0)
+        # over the global batch of a data-parallel run
+        num, den = global_sums((kl * mask[..., None]).sum(), mask.sum())
+        kl = num / (den * kl.shape[-1]).clamp_min(1.0)
         wav = self.decoder(z.transpose(1, 2))
         return {"wav": wav, "kl": kl, "dur": dur_log, "nonpad": nonpad,
                 "z": z, "mask": mask}

@@ -50,6 +50,9 @@ from audiogpt_tpu_torch.models.tts.fastspeech2 import (
 )
 from audiogpt_tpu_torch.ops.attention import attention
 from audiogpt_tpu_torch.ops.conv import pad_same
+from audiogpt_tpu_torch.parallel.reduce import (gather_rows, global_mean,
+                                                global_rows, global_sums,
+                                                local_rows)
 
 # ---------------------------------------------------------------------------
 # Style modules
@@ -164,9 +167,9 @@ class LocalStyleAdaptor(nn.Module):
         """The training branch → (the coded style, its VQ loss)."""
         h = self.encoder(ref_mel, ref_nonpad)
         quant_st, quant = self.vq(h, train=True)
-        commit = ((h - quant.detach()) ** 2).mean()
+        commit = global_mean((h - quant.detach()) ** 2)
         if not self.vq.ema:
-            commit = commit + ((h.detach() - quant) ** 2).mean()
+            commit = commit + global_mean((h.detach() - quant) ** 2)
         return quant_st, commit
 
 
@@ -236,8 +239,9 @@ class ProsodyAligner(nn.Module):
                     / math.sqrt(q.shape[-1])
                 probs = torch.softmax(logits.masked_fill(
                     style_nonpad[:, None, :] <= 0, -1e30), -1)
-                guided = guided + (probs * w * pair).sum() \
-                    / pair.sum().clamp_min(1.0)
+                num, den = global_sums((probs * w * pair).sum(),
+                                       pair.sum())
+                guided = guided + num / den.clamp_min(1.0)
             x = layer("ln1_")(x + layer("o")(out.reshape(x.shape)))
             h = torch.relu(layer("ff1_")(x))
             x = layer("ln2_")(x + layer("ff2_")(h))
@@ -253,7 +257,11 @@ class MixStyle(nn.Module):
     The std is the population one, as ``jnp.var``'s.
 
     ``draws`` come from an explicit generator (:meth:`draws`) or are
-    replayed. ``torch.distributions.Beta`` and ``torch._standard_gamma``
+    replayed. In a data-parallel run the permutation and λ are drawn for
+    the global batch and cut to the rank's rows, and the permuted
+    statistics are every rank's (``gather_rows``), as JAX's step mixes
+    across the whole sharded batch. ``torch.distributions.Beta`` and
+    ``torch._standard_gamma``
     take no generator, so λ is drawn by Jöhnk's method in the log domain:
     from uniforms u, v, log X = log(u)/α and log Y = log(v)/α; the pair is
     accepted when X + Y ≤ 1, and then λ = X / (X + Y) is Beta(α, α)
@@ -265,16 +273,20 @@ class MixStyle(nn.Module):
 
     def draws(self, batch: int, generator: torch.Generator,
               device: torch.device) -> dict:
-        """{"perm": [B] long, "lam": [B, 1, 1], "apply": bool scalar}."""
-        perm = torch.randperm(batch, generator=generator, device=device)
-        u, v = (torch.rand((self.TRIES, batch), generator=generator,
+        """{"perm": [B] long, "lam": [B, 1, 1], "apply": bool scalar} for
+        ``batch`` rows: the global batch's draws at this rank's rows
+        (``perm`` indexes the global batch)."""
+        rows = global_rows(batch)
+        perm = torch.randperm(rows, generator=generator, device=device)
+        u, v = (torch.rand((self.TRIES, rows), generator=generator,
                            device=device, dtype=torch.float64)
                 for _ in "uv")
         lx, ly = torch.log(u) / self.ALPHA, torch.log(v) / self.ALPHA
         first = (torch.logaddexp(lx, ly) <= 0).to(torch.uint8).argmax(0)
         lam = torch.sigmoid(lx - ly).gather(0, first[None])[0]
         apply = torch.rand((), generator=generator, device=device) < self.P
-        return {"perm": perm, "lam": lam.float()[:, None, None],
+        return {"perm": local_rows(perm),
+                "lam": local_rows(lam.float())[:, None, None],
                 "apply": apply}
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor,
@@ -285,8 +297,9 @@ class MixStyle(nn.Module):
         mu = x.mean(1, keepdim=True)
         sig = torch.sqrt(x.var(1, keepdim=True, correction=0) + self.EPS)
         perm, lam = draws["perm"], draws["lam"]
-        mixed = (x - mu) / sig * (lam * sig + (1 - lam) * sig[perm]) \
-            + (lam * mu + (1 - lam) * mu[perm])
+        sig_all, mu_all = gather_rows(sig), gather_rows(mu)
+        mixed = (x - mu) / sig * (lam * sig + (1 - lam) * sig_all[perm]) \
+            + (lam * mu + (1 - lam) * mu_all[perm])
         return torch.where(draws["apply"], mixed, x)
 
 
@@ -446,9 +459,12 @@ class Glow(nn.Module):
         for i in range(self.n_steps):
             x, ld = getattr(self, f"step{i}")(x, g, m)
             logdet = logdet + ld
-        n_elem = (m.sum() * x.shape[-1]).clamp_min(1.0)
-        nll = (0.5 * x ** 2 * m[..., None]).sum() / n_elem \
-            + 0.5 * math.log(2 * math.pi) - logdet / n_elem
+        # over the global batch of a data-parallel run: the log-dets are
+        # sums over the rows too
+        sq, count, logdet = global_sums((0.5 * x ** 2 * m[..., None]).sum(),
+                                        m.sum(), logdet)
+        n_elem = (count * x.shape[-1]).clamp_min(1.0)
+        nll = sq / n_elem + 0.5 * math.log(2 * math.pi) - logdet / n_elem
         return x, nll
 
     def reverse(self, cond: torch.Tensor, mask: torch.Tensor,

@@ -53,6 +53,7 @@ from audiogpt_tpu_torch.models.tts.fastspeech2 import (
 )
 from audiogpt_tpu_torch.ops.conv import FlaxConvTranspose1d, pad_same
 from audiogpt_tpu_torch.ops.rel_attention import RelTransformerEncoder
+from audiogpt_tpu_torch.parallel.reduce import global_sums
 
 
 @dataclasses.dataclass(frozen=True)
@@ -550,9 +551,10 @@ class PortaSpeech(nn.Module):
         z_p = self.prior_flow(z_q, cond, lat_mask) if cfg.use_prior_flow \
             else z_q
         kl = -logs_q + 0.5 * (z_p ** 2 - eps ** 2)
-        denom = (lat_mask.sum() * cfg.latent_size).clamp_min(1.0)
+        # over the global batch of a data-parallel run
+        num, den = global_sums((kl * lat_mask).sum(), lat_mask.sum())
         return {"z_q": z_q, "z_p": z_p, "m_q": m_q, "logs_q": logs_q,
-                "kl": (kl * lat_mask).sum() / denom}
+                "kl": num / (den * cfg.latent_size).clamp_min(1.0)}
 
     def eps_shape(self, batch: int, frames: int) -> tuple:
         """The posterior's draw for mels of ``frames`` frames."""

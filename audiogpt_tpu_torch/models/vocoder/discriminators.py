@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from audiogpt_tpu_torch.ops.conv import pad_same
+from audiogpt_tpu_torch.parallel.reduce import global_means
 
 
 def _lrelu(x: torch.Tensor) -> torch.Tensor:
@@ -142,27 +143,31 @@ class HifiGANDiscriminator(nn.Module):
 
 
 def lsgan_d_loss(real_logits, fake_logits) -> torch.Tensor:
-    """LSGAN discriminator objective (hifigan.py training loop)."""
+    """LSGAN discriminator objective (hifigan.py training loop); each mean
+    over the global batch of a data-parallel run (all in one
+    all-reduce)."""
+    pairs = list(zip(real_logits, fake_logits))
+    means = global_means(*((r - 1.0) ** 2 for r, _ in pairs),
+                         *(f ** 2 for _, f in pairs))
     loss = 0.0
-    for r, f in zip(real_logits, fake_logits):
-        loss = loss + ((r - 1.0) ** 2).mean() + (f ** 2).mean()
+    for mr, mf in zip(means[:len(pairs)], means[len(pairs):]):
+        loss = loss + mr + mf
     return loss
 
 
 def lsgan_g_loss(fake_logits) -> torch.Tensor:
     loss = 0.0
-    for f in fake_logits:
-        loss = loss + ((f - 1.0) ** 2).mean()
+    for m in global_means(*((f - 1.0) ** 2 for f in fake_logits)):
+        loss = loss + m
     return loss
 
 
 def feature_matching_loss(real_fmaps, fake_fmaps) -> torch.Tensor:
     """L1 across all discriminator feature maps (hifigan feature loss): the
     mean over maps of each map's mean."""
+    diffs = [(r - f).abs() for rf, ff in zip(real_fmaps, fake_fmaps)
+             for r, f in zip(rf, ff)]
     loss = 0.0
-    n = 0
-    for rf, ff in zip(real_fmaps, fake_fmaps):
-        for r, f in zip(rf, ff):
-            loss = loss + (r - f).abs().mean()
-            n += 1
-    return loss / max(n, 1)
+    for m in global_means(*diffs):
+        loss = loss + m
+    return loss / max(len(diffs), 1)

@@ -12,7 +12,9 @@ Counterpart of ``audiogpt_tpu/train/checkpoint.py`` (an orbax
   ``keep_checkpoints_without_metrics``); without one, the ``num_keep``
   newest (``LatestN``);
 * resume from the newest step; ``best_step`` the best by the metric, the
-  newest without a monitor.
+  newest without a monitor;
+* in a process group, rank 0 writes and prunes and every rank reads (the
+  trainer puts a barrier before a restore).
 
 Layout: ``<work_dir>/ckpt/<step>.pt`` holds the state; ``<step>.json``
 beside it holds the metrics and the EMA groups of that state, so listing,
@@ -60,6 +62,12 @@ class CheckpointStore:
 
     def save(self, step: int, state: Mapping[str, Any],
              metrics: Mapping[str, float] | None = None) -> None:
+        """Write the checkpoint of ``step`` (rank 0 only; the other ranks
+        return at once)."""
+        from audiogpt_tpu_torch.parallel.mesh import is_main
+
+        if not is_main():
+            return
         meta = {"metrics": dict(metrics) if metrics else None,
                 "ema_groups": sorted(state.get("ema") or {})}
 

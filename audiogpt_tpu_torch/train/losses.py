@@ -4,7 +4,10 @@ Counterpart of ``audiogpt_tpu/train/losses.py`` (the reference's
 ``NeuralSeq/tasks/tts/fs2.py:140-286``: mel L1 / SSIM with nonzero-speech
 weights, log-domain duration MSE, f0 L1 + uv BCE, energy MSE). Every loss
 takes explicit masks: the static-shape batches carry padded frames AND
-whole dummy rows (``batch['weight']``), and both must zero out.
+whole dummy rows (``batch['weight']``), and both must zero out. Every
+reduction over the batch's rows sums its numerator and its count over the
+data-parallel ranks (``parallel/reduce.py``), so each rank gets the loss of
+the global batch, as JAX's step on the sharded batch does.
 """
 
 from __future__ import annotations
@@ -12,9 +15,20 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from audiogpt_tpu_torch.parallel.reduce import global_mean, global_sums
+
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    return (x * mask).sum() / mask.sum().clamp_min(1.0)
+    """Σ x·mask / Σ mask over the global batch."""
+    num, den = global_sums((x * mask).sum(), mask.sum())
+    return num / den.clamp_min(1.0)
+
+
+def weighted_mean(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Σ x·w / Σ w over the global batch, ``w`` broadcast over ``x``'s
+    trailing axes per row ([B] weights of [B] values: a row mean)."""
+    num, den = global_sums((x * w).sum(), w.sum())
+    return num / den.clamp_min(1.0)
 
 
 def weights_nonzero_speech(target: torch.Tensor) -> torch.Tensor:
@@ -28,8 +42,9 @@ def mel_l1_loss(pred: torch.Tensor, target: torch.Tensor,
     w = weights_nonzero_speech(target)
     if row_weight is not None:
         w = w * row_weight[:, None]
-    return ((pred - target).abs() * w[..., None]).sum() / \
-        (w.sum() * target.shape[-1]).clamp_min(1.0)
+    num, den = global_sums(((pred - target).abs() * w[..., None]).sum(),
+                           w.sum())
+    return num / (den * target.shape[-1]).clamp_min(1.0)
 
 
 def uniform_mel2ph(txt_lengths: torch.Tensor, mel_lengths: torch.Tensor,
@@ -73,10 +88,8 @@ def dur_loss(dur_pred_log: torch.Tensor, mel2ph: torch.Tensor,
         sent_p = (torch.exp(dur_pred_log) - 1.0).clamp_min(0) * nonpad
         sdur = (torch.log(sent_p.sum(-1) + 1.0)
                 - torch.log(dur_gt.sum(-1) + 1.0)) ** 2
-        if row_weight is not None:
-            sdur = (sdur * row_weight).sum() / row_weight.sum().clamp_min(1.0)
-        else:
-            sdur = sdur.mean()
+        sdur = weighted_mean(sdur, row_weight) if row_weight is not None \
+            else global_mean(sdur)
         losses["sdur"] = sdur * lambda_sent
     return losses
 

@@ -4,7 +4,8 @@ Counterpart of ``audiogpt_tpu/train/metrics.py``. ``AvgrageMeter``
 (``NeuralSeq/utils/__init__.py:28``) skips non-finite values;
 ``metrics.jsonl`` in the work dir gets one line per log event with the keys
 of JAX's (``step``, ``t``, ``prefix`` and the scalars); TensorBoard scalars
-go beside it when ``torch.utils.tensorboard`` imports. One process writes.
+go beside it when ``torch.utils.tensorboard`` imports. Only rank 0 of a
+process group writes (``is_main``; JAX: process 0, ``metrics.py:59``).
 ``log_mel_figure`` writes the validation mel figure of the TTS recipes
 (``save_valid_result``), drawn with PIL: the card's machine has no
 matplotlib.
@@ -67,13 +68,20 @@ def _floats(metrics: Mapping[str, Any]) -> dict[str, float]:
 
 
 class MetricsLogger:
-    """JSONL + optional TensorBoard."""
+    """JSONL + optional TensorBoard, rank 0 only: on another rank every
+    method does nothing."""
 
     def __init__(self, work_dir: str, use_tensorboard: bool = True):
+        from audiogpt_tpu_torch.parallel.mesh import is_main
+
         self.work_dir = work_dir
+        self.is_main = is_main()
+        self._f = None
+        self._tb = None
+        if not self.is_main:
+            return
         os.makedirs(work_dir, exist_ok=True)
         self._f = open(os.path.join(work_dir, "metrics.jsonl"), "a")
-        self._tb = None
         if use_tensorboard:
             try:
                 from torch.utils.tensorboard import SummaryWriter
@@ -83,6 +91,8 @@ class MetricsLogger:
                 self._tb = SummaryWriter(os.path.join(work_dir, "tb"))
 
     def log(self, step: int, metrics: Mapping[str, Any], prefix: str = "tr"):
+        if not self.is_main:
+            return
         scalars = _floats(metrics)
         self._f.write(json.dumps(
             {"step": step, "t": time.time(), "prefix": prefix, **scalars})
@@ -102,6 +112,8 @@ class MetricsLogger:
         scale, mel bin 0 at the bottom; drawn here with PIL (jet colours,
         4 pixels a frame and a bin). JAX's title calls the panels top and
         bottom; they lie side by side, and this title says so."""
+        if not self.is_main:
+            return
         import numpy as np
         from PIL import Image, ImageDraw
 
@@ -130,6 +142,8 @@ class MetricsLogger:
                                dataformats="HWC")
 
     def close(self):
+        if not self.is_main:
+            return
         self._f.close()
         if self._tb is not None:
             self._tb.close()

@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from audiogpt_tpu_torch.parallel.reduce import global_sums
+
 
 @functools.lru_cache(maxsize=8)
 def _gaussian_window(size: int, sigma: float) -> np.ndarray:
@@ -50,8 +52,10 @@ def ssim(x: torch.Tensor, y: torch.Tensor, window_size: int = 11,
 
 def ssim_loss(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
               bias: float = 6.0) -> torch.Tensor:
-    """1 − SSIM, masked mean: ``FastSpeech2Task.ssim_loss``
-    (``fs2.py:164-173``). pred/target [B, T, M], mask [B, T]."""
+    """1 − SSIM, masked mean over the global batch:
+    ``FastSpeech2Task.ssim_loss`` (``fs2.py:164-173``). pred/target [B, T,
+    M], mask [B, T]."""
     s = ssim(pred + bias, target + bias)
     w = mask[..., None]
-    return ((1.0 - s) * w).sum() / (w.sum() * pred.shape[-1]).clamp_min(1.0)
+    num, den = global_sums(((1.0 - s) * w).sum(), w.sum())
+    return num / (den * pred.shape[-1]).clamp_min(1.0)

@@ -7,7 +7,8 @@ Frobenius norm over the whole batch) plus the log-magnitude L1, each
 averaged over the resolutions (1024/120/600, 2048/240/1200, 512/50/240),
 on the port's ``dsp/stft.py`` (centred frames, the Hann window of
 ``win_length`` centred and zero-padded to ``n_fft``). The magnitude is
-clipped at 1e-7 in power before its root and the log.
+clipped at 1e-7 in power before its root and the log. Both run over the
+global batch of a data-parallel run (``parallel/reduce.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from audiogpt_tpu_torch.dsp.stft import stft
+from audiogpt_tpu_torch.parallel.reduce import global_l2, global_mean
 
 RESOLUTIONS = ((1024, 120, 600), (2048, 240, 1200), (512, 50, 240))
 
@@ -33,8 +35,7 @@ def stft_loss(fake: torch.Tensor, real: torch.Tensor,
     for n_fft, hop, win in resolutions:
         mf = _magnitude(fake, n_fft, hop, win)
         mr = _magnitude(real, n_fft, hop, win)
-        sc = sc + torch.linalg.vector_norm(mr - mf) \
-            / torch.linalg.vector_norm(mr).clamp_min(1e-7)
-        mag = mag + (torch.log(mr) - torch.log(mf)).abs().mean()
+        sc = sc + global_l2(mr - mf) / global_l2(mr).clamp_min(1e-7)
+        mag = mag + global_mean((torch.log(mr) - torch.log(mf)).abs())
     n = len(resolutions)
     return sc / n, mag / n

@@ -26,6 +26,8 @@ from audiogpt_tpu_torch.engines.base import resolve_device, seeded
 from audiogpt_tpu_torch.models.face.audio2motion import (Audio2MotionConfig,
                                                          Audio2MotionVAE,
                                                          kl_gauss)
+from audiogpt_tpu_torch.parallel.reduce import (global_rows, global_sums,
+                                                local_rows)
 from audiogpt_tpu_torch.train.optim import OptimConfig
 from audiogpt_tpu_torch.utils.jax_params import load_jax_params
 
@@ -60,10 +62,13 @@ class Audio2MotionTask:
 
     def draws(self, batch: Mapping[str, torch.Tensor],
               generator: torch.Generator | None) -> torch.Tensor:
-        """The posterior's ε [B, T_v, latent] for ``batch``'s motion."""
+        """The posterior's ε [B, T_v, latent] for ``batch``'s motion (drawn
+        for the global batch, cut to this rank's rows)."""
         motion = batch["motion"]
-        return torch.randn((*motion.shape[:2], self.cfg.model.latent),
-                           generator=generator, device=motion.device)
+        return local_rows(torch.randn(
+            (global_rows(motion.shape[0]), motion.shape[1],
+             self.cfg.model.latent), generator=generator,
+            device=motion.device))
 
     def loss(self, batch: Mapping[str, torch.Tensor],
              generator: torch.Generator | None = None,
@@ -77,15 +82,17 @@ class Audio2MotionTask:
         w = batch.get("weight")
         rw = w[:, None, None] if w is not None \
             else torch.ones(mels.shape[0], 1, 1, device=mels.device)
-        denom = (rw.sum() * motion.shape[1]).clamp_min(1.0)
-        l_rec = ((recon - motion).abs() * rw).sum() \
-            / (denom * motion.shape[-1])
-        l_kl = (kl_gauss(mu_q, lv_q, mu_p, lv_p) * rw).sum() \
-            / (denom * mu_q.shape[-1])
         vel_r = recon[:, 1:] - recon[:, :-1]
         vel_g = motion[:, 1:] - motion[:, :-1]
-        l_vel = ((vel_r - vel_g).abs() * rw).sum() \
-            / (denom * motion.shape[-1])
+        # the global batch's sums (every rank's rows)
+        rec, kl, vel, rows = global_sums(
+            ((recon - motion).abs() * rw).sum(),
+            (kl_gauss(mu_q, lv_q, mu_p, lv_p) * rw).sum(),
+            ((vel_r - vel_g).abs() * rw).sum(), rw.sum())
+        denom = (rows * motion.shape[1]).clamp_min(1.0)
+        l_rec = rec / (denom * motion.shape[-1])
+        l_kl = kl / (denom * mu_q.shape[-1])
+        l_vel = vel / (denom * motion.shape[-1])
         total = l_rec + cfg.lambda_kl * l_kl + cfg.lambda_vel * l_vel
         return total, {"recon_loss": l_rec.detach(),
                        "kl_loss": l_kl.detach(),

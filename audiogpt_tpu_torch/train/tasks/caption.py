@@ -30,6 +30,7 @@ from torch import nn
 from audiogpt_tpu_torch.engines.base import resolve_device, seeded
 from audiogpt_tpu_torch.models.caption.captioner import (CaptionConfig,
                                                          CaptionModel)
+from audiogpt_tpu_torch.parallel.reduce import global_sums
 from audiogpt_tpu_torch.train.optim import OptimConfig
 from audiogpt_tpu_torch.utils.jax_params import load_jax_params
 
@@ -94,9 +95,12 @@ class CaptionTask:
         w = batch.get("weight")
         if w is not None:
             mask = mask * w[:, None]
-        denom = mask.sum().clamp_min(1.0)
-        loss = (nll * mask).sum() / denom
-        acc = ((logits.argmax(-1) == target) * mask).sum() / denom
+        nll_sum, hits, count = global_sums(
+            (nll * mask).sum(), ((logits.argmax(-1) == target) * mask).sum(),
+            mask.sum())
+        denom = count.clamp_min(1.0)
+        loss = nll_sum / denom
+        acc = hits / denom
         return loss, {"ce": loss.detach(), "token_acc": acc.detach(),
                       "total_loss": loss.detach()}
 

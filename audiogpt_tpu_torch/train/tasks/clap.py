@@ -16,7 +16,10 @@ running statistics while the gradients flow. :class:`CLAPModel` keeps the
 tower in eval mode whatever mode it is put in, so a step neither reads the
 batch's statistics nor moves the buffers. The text tower is the BERT CLS
 projection of the ranking path's ``CLAPScorer``; its dense key mask keeps
-it on the plain attention. The loss draws nothing.
+it on the plain attention. The loss draws nothing. In a data-parallel
+run the logits are the global batch's B×B: each rank gathers every rank's
+embeddings and weights (``gather_rows``), as JAX's step scores the whole
+sharded batch.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from audiogpt_tpu_torch.models.caption.cnn14 import Cnn14Config
 from audiogpt_tpu_torch.models.textenc.clap import (CLAPAudioEncoder,
                                                     CLAPTextConfig,
                                                     CLAPTextEncoder)
+from audiogpt_tpu_torch.parallel.reduce import gather_rows
 from audiogpt_tpu_torch.train.optim import OptimConfig
 from audiogpt_tpu_torch.utils.jax_params import load_jax_params
 
@@ -131,6 +135,8 @@ class CLAPTask:
         w = batch.get("weight")
         if w is None:
             w = torch.ones(a.shape[0], dtype=a.dtype, device=a.device)
+        # the global batch's B×B logits: every rank's embeddings
+        a, t, w = gather_rows(a), gather_rows(t), gather_rows(w)
         logits_at = scale * (a @ t.T)
         loss_a = masked_infonce(logits_at, w)
         loss_t = masked_infonce(logits_at.T, w)

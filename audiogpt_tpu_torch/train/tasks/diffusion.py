@@ -30,6 +30,8 @@ from audiogpt_tpu_torch.engines.base import resolve_device, seeded
 from audiogpt_tpu_torch.models.svs.diffsinger import (DiffSinger,
                                                       DiffSingerConfig)
 from audiogpt_tpu_torch.models.tts.fastspeech2 import norm_f0
+from audiogpt_tpu_torch.parallel.reduce import (global_rows, global_sums,
+                                                local_rows)
 from audiogpt_tpu_torch.train import losses as L
 from audiogpt_tpu_torch.train.optim import OptimConfig
 from audiogpt_tpu_torch.utils.jax_params import load_jax_params
@@ -73,14 +75,15 @@ class DiffSingerTask:
     def draws(self, batch: Mapping[str, torch.Tensor],
               generator: torch.Generator | None) -> dict:
         """``t`` [B] uniform in [0, K_step) and ``noise`` [B, F, M] for
-        ``batch``'s mels."""
+        ``batch``'s mels (drawn for the global batch, cut to this rank's
+        rows)."""
         mels = batch["mels"]
-        b, f = mels.shape[:2]
+        b, f = global_rows(mels.shape[0]), mels.shape[1]
         t = torch.randint(0, self.cfg.model.K_step, (b,),
                           generator=generator, device=mels.device)
         noise = torch.randn((b, f, self.cfg.model.net.mel_bins),
                             generator=generator, device=mels.device)
-        return {"t": t, "noise": noise}
+        return {"t": local_rows(t), "noise": local_rows(noise)}
 
     def loss(self, batch: Mapping[str, torch.Tensor],
              generator: torch.Generator | None = None,
@@ -119,8 +122,10 @@ class DiffSingerTask:
         frame_mask = (mel2ph > 0).float()
         if w is not None:
             frame_mask = frame_mask * w[:, None]
-        metrics = {"diff": ((eps - noise).abs() * frame_mask[..., None]).sum()
-                   / (frame_mask.sum() * x0.shape[-1]).clamp_min(1.0)
+        num, den = global_sums(
+            ((eps - noise).abs() * frame_mask[..., None]).sum(),
+            frame_mask.sum())
+        metrics = {"diff": num / (den * x0.shape[-1]).clamp_min(1.0)
                    * cfg.lambda_diff}
         metrics.update(L.dur_loss(
             aux["dur"], mel2ph, tokens, w, lambda_ph=cfg.lambda_ph_dur,

@@ -14,6 +14,7 @@ tree, so :meth:`FS2Task.load_jax_params` maps it straight across. The
 token ids must be below ``model.vocab_size``: on the card an id past the
 embedding is a device-side assert (JAX's gather clamps it silently), so
 ``train_cli.build_loaders`` checks the binarized phone set against it.
+Every masked mean runs over the global batch (``train/losses.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from audiogpt_tpu_torch.engines.base import resolve_device, seeded
 from audiogpt_tpu_torch.models.tts.fastspeech2 import (FastSpeech2,
                                                        FastSpeech2Config,
                                                        norm_f0)
+from audiogpt_tpu_torch.parallel.reduce import global_sums
 from audiogpt_tpu_torch.train import losses as L
 from audiogpt_tpu_torch.train.optim import OptimConfig
 from audiogpt_tpu_torch.train.ssim import ssim_loss
@@ -121,9 +123,9 @@ class FS2Task:
             if w is not None:
                 nonpad = nonpad * w[:, None]
             cwt_pred = out["cwt"][..., :10]
-            metrics["cwt"] = ((cwt_pred - batch["cwt_spec"]).abs()
-                              * nonpad[..., None]).sum() \
-                / (nonpad.sum() * 10).clamp_min(1.0) * cfg.lambda_f0
+            num, den = global_sums(((cwt_pred - batch["cwt_spec"]).abs()
+                                    * nonpad[..., None]).sum(), nonpad.sum())
+            metrics["cwt"] = num / (den * 10).clamp_min(1.0) * cfg.lambda_f0
             if mcfg.use_uv and uv is not None:
                 metrics["uv"] = L.masked_mean(
                     L.bce_with_logits(out["cwt"][..., -1], uv), nonpad) \
@@ -131,8 +133,8 @@ class FS2Task:
             if "f0_mean" in batch:
                 rw = w if w is not None else torch.ones_like(out["f0_mean"])
                 for key in ("f0_mean", "f0_std"):
-                    metrics[key] = ((out[key] - batch[key]).abs() * rw).sum() \
-                        / rw.sum().clamp_min(1.0) * cfg.lambda_f0
+                    metrics[key] = L.weighted_mean(
+                        (out[key] - batch[key]).abs(), rw) * cfg.lambda_f0
         elif mcfg.use_pitch_embed and f0n is not None:
             metrics.update(L.f0_loss(
                 out["pitch_pred"], f0n, uv, mel2ph, w,

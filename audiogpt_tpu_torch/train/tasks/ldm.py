@@ -40,6 +40,8 @@ from audiogpt_tpu_torch.models.diffusion import (AutoencoderKL,
                                                  UNetConfig, UNetModel,
                                                  VAEConfig)
 from audiogpt_tpu_torch.models.textenc import CLAPTextConfig, CLAPTextEncoder
+from audiogpt_tpu_torch.parallel.reduce import (global_mean, global_rows,
+                                                global_sums, local_rows)
 from audiogpt_tpu_torch.train.optim import OptimConfig
 from audiogpt_tpu_torch.utils.jax_params import load_jax_params
 
@@ -120,15 +122,18 @@ class LDMTask:
               generator: torch.Generator | None) -> dict:
         """The loss's four draws for latents of ``shape`` [B, z, h, w] from
         ``generator``: the posterior's normals, the CFG drop, the timesteps
-        and the noise (JAX: ``split(rng, 4)``)."""
-        b, dev = shape[0], self.device
-        return {
+        and the noise (JAX: ``split(rng, 4)``); made for the global batch
+        and cut to this rank's rows."""
+        b, dev = global_rows(shape[0]), self.device
+        shape = (b, *shape[1:])
+        draws = {
             "post": torch.randn(shape, generator=generator, device=dev),
             "drop": torch.rand(b, generator=generator, device=dev)
             < self.cfg.cond_drop_prob,
             "t": torch.randint(0, self.cfg.timesteps, (b,),
                                generator=generator, device=dev),
             "noise": torch.randn(shape, generator=generator, device=dev)}
+        return {k: local_rows(v) for k, v in draws.items()}
 
     def loss(self, batch: Mapping[str, torch.Tensor],
              generator: torch.Generator | None = None,
@@ -163,11 +168,12 @@ class LDMTask:
             else (eps - noise).abs()
         w = batch.get("weight")
         if w is not None:
-            err = err * w[:, None, None, None]
-            denom = torch.clamp(w.sum() * noise[0].numel(), min=1.0)
+            # the global batch's weight: every rank's rows (JAX's denom)
+            num, wsum = global_sums((err * w[:, None, None, None]).sum(),
+                                    w.sum())
+            loss = num / torch.clamp(wsum * noise[0].numel(), min=1.0)
         else:
-            denom = err.numel()
-        loss = err.sum() / denom
+            loss = global_mean(err)
         return loss, {"diff": loss.detach(), "total_loss": loss.detach()}
 
     @property

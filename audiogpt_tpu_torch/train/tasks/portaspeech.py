@@ -10,7 +10,9 @@ graph-augmented model (``model.use_graph``).
 
 The model runs its training branch (``PortaSpeech.train_forward``) on the
 ground-truth ``mel2word`` and mel; its one draw, the posterior's ε, comes
-from the trainer's generator or is replayed (``draws=``). The KL ramp
+from the trainer's generator (for the global batch, cut to a rank's rows)
+or is replayed (``draws=``). Every mean runs over the global batch. The KL
+ramp
 reads ``batch["step"]``, which the trainer sets; without it the ramp is
 1. With ``model.num_spk > 0`` the batch's ``spk_ids`` pick the speaker
 style. The module is grouped as ``{"model": PortaSpeech}`` with the posterior
@@ -33,6 +35,7 @@ from audiogpt_tpu_torch.engines.base import resolve_device, seeded
 from audiogpt_tpu_torch.models.tts.portaspeech import (PortaSpeech,
                                                        PortaSpeechConfig,
                                                        mel2word_to_dur)
+from audiogpt_tpu_torch.parallel.reduce import global_rows, local_rows
 from audiogpt_tpu_torch.train import losses as L
 from audiogpt_tpu_torch.train.optim import OptimConfig
 from audiogpt_tpu_torch.train.ssim import ssim_loss
@@ -77,8 +80,9 @@ class PortaSpeechTask:
               generator: torch.Generator | None) -> torch.Tensor:
         """The posterior's ε [B, ⌈F/s⌉, latent] for ``batch``'s mels."""
         b, f = batch["mels"].shape[:2]
-        return torch.randn(self.model.eps_shape(b, f), generator=generator,
-                           device=batch["mels"].device)
+        return local_rows(torch.randn(
+            self.model.eps_shape(global_rows(b), f), generator=generator,
+            device=batch["mels"].device))
 
     def _word_dur_loss(self, dur_pred, mel2word, word_tokens, weight):
         """log(1 + d) L1 over the words, and the sentence totals' L1 with
@@ -88,15 +92,14 @@ class PortaSpeechTask:
         nonpad = (word_tokens > 0).float()
         if weight is not None:
             nonpad = nonpad * weight[:, None]
-        wdur = (torch.log1p(dur_pred) - torch.log1p(dur_gt)).abs() * nonpad
-        out = {"wdur": wdur.sum() / nonpad.sum().clamp_min(1.0)
-               * cfg.lambda_word_dur}
+        wdur = (torch.log1p(dur_pred) - torch.log1p(dur_gt)).abs()
+        out = {"wdur": L.masked_mean(wdur, nonpad) * cfg.lambda_word_dur}
         if cfg.lambda_sent_dur > 0:
             sent_p = (dur_pred * nonpad).sum(-1)
             sent_g = (dur_gt * nonpad).sum(-1)
             rw = weight if weight is not None else torch.ones_like(sent_p)
-            out["sdur"] = ((sent_p - sent_g).abs() * rw).sum() \
-                / rw.sum().clamp_min(1.0) * cfg.lambda_sent_dur
+            out["sdur"] = L.weighted_mean((sent_p - sent_g).abs(), rw) \
+                * cfg.lambda_sent_dur
         return out
 
     def kl_ramp(self, batch: Mapping) -> float:

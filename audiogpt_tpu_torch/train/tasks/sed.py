@@ -12,7 +12,10 @@ the framewise BCE when a batch carries strong labels.
 Mixup draws λ ~ Beta(α, α) and a batch permutation from the task's
 generator on the batch's device (:meth:`SEDTask.draws`); ``loss(batch,
 draws=)`` takes them from the caller instead, which is how the tests
-replay JAX's ``beta`` and ``permutation`` of ``split(rng)``.
+replay JAX's ``beta`` and ``permutation`` of ``split(rng)``. In a
+data-parallel run the permutation is the global batch's (cut to the rank's
+rows) and mixes in any rank's clips (``gather_rows``), and the means run
+over the global batch, as JAX's step sees the whole sharded batch.
 
 Batch schema: ``wav`` [B, T], ``wav_len`` [B], the multi-hot ``target``
 [B, 527], optional ``frame_target`` [B, frames, 527], ``weight`` [B]
@@ -29,6 +32,9 @@ from torch import nn
 
 from audiogpt_tpu_torch.engines.base import resolve_device, seeded
 from audiogpt_tpu_torch.models.sed.panns_sed import SEDConfig, SEDModel
+from audiogpt_tpu_torch.parallel.reduce import (gather_rows, global_mean,
+                                                global_rows, global_sums,
+                                                local_rows)
 from audiogpt_tpu_torch.train.optim import OptimConfig
 from audiogpt_tpu_torch.utils.jax_params import load_jax_params
 
@@ -108,12 +114,13 @@ class SEDTask:
 
     def draws(self, batch: Mapping[str, torch.Tensor],
               generator: torch.Generator | None) -> dict:
-        """Mixup's ``lam`` (a 0-d tensor) and ``perm`` [B] for the batch."""
+        """Mixup's ``lam`` (a 0-d tensor) and ``perm`` [B] for the batch:
+        the global batch's permutation at this rank's rows."""
         wav = batch["wav"]
         g = standard_gamma(self.cfg.mixup_alpha, 2, generator, wav.device)
-        perm = torch.randperm(wav.shape[0], generator=generator,
+        perm = torch.randperm(global_rows(wav.shape[0]), generator=generator,
                               device=wav.device)
-        return {"lam": g[0] / (g[0] + g[1]), "perm": perm}
+        return {"lam": g[0] / (g[0] + g[1]), "perm": local_rows(perm)}
 
     def loss(self, batch: Mapping[str, torch.Tensor],
              generator: torch.Generator | None = None,
@@ -127,25 +134,25 @@ class SEDTask:
             if draws is None:
                 draws = self.draws(batch, generator)
             lam, perm = draws["lam"], draws["perm"].long()
-            wav = lam * wav + (1 - lam) * wav[perm]
-            target = lam * target + (1 - lam) * target[perm]
+            wav = lam * wav + (1 - lam) * gather_rows(wav)[perm]
+            target = lam * target + (1 - lam) * gather_rows(target)[perm]
         wav_len = batch.get("wav_len")
         out = self.model(wav, None if wav_len is None else wav_len.long())
         w = batch.get("weight")
         err = _bce(out["clipwise_output"], target)
         if w is not None:
-            err = err * w[:, None]
-            denom = (w.sum() * target.shape[-1]).clamp_min(1.0)
+            num, rows = global_sums((err * w[:, None]).sum(), w.sum())
+            clip = num / (rows * target.shape[-1]).clamp_min(1.0)
         else:
-            denom = err.numel()
-        metrics = {"clip_bce": err.sum() / denom}
+            clip = global_mean(err)
+        metrics = {"clip_bce": clip}
         if "frame_target" in batch and cfg.lambda_frame > 0:
             ft = batch["frame_target"].float()
             fw = out["framewise_output"][:, :ft.shape[1]]
             ferr = _bce(fw, ft)
             if w is not None:
                 ferr = ferr * w[:, None, None]
-            metrics["frame_bce"] = ferr.mean() * cfg.lambda_frame
+            metrics["frame_bce"] = global_mean(ferr) * cfg.lambda_frame
         total = sum(metrics.values())
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["total_loss"] = total.detach()

@@ -24,6 +24,7 @@ from torch import nn
 from audiogpt_tpu_torch.engines.base import resolve_device, seeded
 from audiogpt_tpu_torch.models.separation.convtasnet import (
     ConvTasNet, ConvTasNetConfig)
+from audiogpt_tpu_torch.parallel.reduce import global_mean, global_sums
 from audiogpt_tpu_torch.train.optim import OptimConfig
 from audiogpt_tpu_torch.utils.jax_params import load_jax_params
 
@@ -83,9 +84,10 @@ class SeparationTask:
         snr = pit_si_snr(est, batch["sources"])          # [B]
         w = batch.get("weight")
         if w is not None:
-            loss = -(snr * w).sum() / w.sum().clamp_min(1.0)
+            num, den = global_sums((snr * w).sum(), w.sum())
+            loss = -num / den.clamp_min(1.0)
         else:
-            loss = -snr.mean()
+            loss = -global_mean(snr)
         return loss, {"neg_si_snr": loss.detach(),
                       "total_loss": loss.detach()}
 

@@ -17,7 +17,9 @@ start is drawn below ``max(min(mel_lengths) − win, 0)`` (at least 1), the
 batch's shortest length, so the zero-length rows that ``collate_tts`` pads
 a batch with put every crop at frame 0; the start is clamped to
 ``T − win`` as ``dynamic_slice`` clamps it, and the LSGAN means run over
-the padded rows too. One draw of each window's start per step, shared by
+the padded rows too; in a data-parallel run the shortest length and the
+means are the global batch's. One draw of each window's start per step,
+shared by
 the generator's ε: both groups' steps seed the trainer's generator alike
 and draw ε then the starts, so they see the same crops, as JAX's one key
 a step gives. A start is drawn on the device (a uniform scaled by the
@@ -35,6 +37,7 @@ from torch import nn
 
 from audiogpt_tpu_torch.engines.base import resolve_device, seeded
 from audiogpt_tpu_torch.ops.conv import pad_same
+from audiogpt_tpu_torch.parallel.reduce import gather_rows, global_mean
 from audiogpt_tpu_torch.train.optim import OptimConfig
 from audiogpt_tpu_torch.train.tasks.fs2 import FS2Task, FS2TaskConfig
 from audiogpt_tpu_torch.train.tasks.portaspeech import (PortaSpeechTask,
@@ -83,10 +86,11 @@ class MultiWindowDiscriminator(nn.Module):
     def draw_starts(self, mel_len: torch.Tensor,
                     generator: torch.Generator | None) -> torch.Tensor:
         """Each window's start [n_windows] (long, on the device), uniform
-        below ``max(min(mel_len) − win, 0)`` or 1: JAX's
-        ``randint(0, max(max_start, 1))``, before its clamp."""
+        below ``max(min(mel_len) − win, 0)`` or 1, the minimum over the
+        global batch: JAX's ``randint(0, max(max_start, 1))``, before its
+        clamp."""
         wins = torch.tensor(self.time_lengths, device=mel_len.device)
-        bound = (mel_len.min() - wins).clamp_min(1)
+        bound = (gather_rows(mel_len).min() - wins).clamp_min(1)
         u = torch.rand(len(wins), generator=generator, device=mel_len.device,
                        dtype=torch.float64)
         return (u * bound).floor().long()
@@ -108,11 +112,11 @@ class MultiWindowDiscriminator(nn.Module):
 
 
 def lsgan_g(v: torch.Tensor) -> torch.Tensor:
-    return ((v - 1.0) ** 2).mean()
+    return global_mean((v - 1.0) ** 2)
 
 
 def lsgan_d(v_real: torch.Tensor, v_fake: torch.Tensor) -> torch.Tensor:
-    return ((v_real - 1.0) ** 2).mean() + (v_fake ** 2).mean()
+    return global_mean((v_real - 1.0) ** 2) + global_mean(v_fake ** 2)
 
 
 #: the critic's AdamW (ps_adv.py's disc optimizer)

@@ -13,10 +13,11 @@ step reads the reconstruction under ``no_grad`` (JAX's
 in its group, so no step of the model moves it.
 
 The one draw, the posterior's sample, is drawn in each group from the
-trainer's generator (both groups seed it alike, as JAX's one key a step)
-or replayed (``draws=``, [B, z, h, w]). Batch schema: {"mels": [B, H, W, 1]
-in the VAE domain [−1, 1]} (``collate_mel_image``, NHWC as JAX's; the task
-transposes). The VAE's one attention (the mid block's, a single head at
+trainer's generator (both groups seed it alike, as JAX's one key a step;
+for the global batch, cut to a rank's rows) or replayed (``draws=``, [B,
+z, h, w]). Every mean runs over the global batch. Batch schema: {"mels":
+[B, H, W, 1] in the VAE domain [−1, 1]} (``collate_mel_image``, NHWC as
+JAX's; the task transposes). The VAE's one attention (the mid block's, a single head at
 ``ch · ch_mult[-1]`` wide) is the plain product, never the flash kernel.
 """
 
@@ -34,6 +35,8 @@ from audiogpt_tpu_torch.models.diffusion.vae import (AutoencoderKL,
                                                      GaussianMoments,
                                                      VAEConfig)
 from audiogpt_tpu_torch.ops.conv import pad_same
+from audiogpt_tpu_torch.parallel.reduce import (global_mean, global_rows,
+                                                local_rows)
 from audiogpt_tpu_torch.train.optim import OptimConfig
 from audiogpt_tpu_torch.utils.jax_params import load_jax_params
 
@@ -114,6 +117,11 @@ class VAETask:
         """x [B, C, H, W] → (the decoded posterior sample, the posterior);
         ``draws`` the sample's ε [B, z, h, w] or a generator."""
         post = self.vae.encode(x)
+        if not isinstance(draws, torch.Tensor):
+            shape = post.mean.shape
+            draws = local_rows(torch.randn(
+                (global_rows(shape[0]), *shape[1:]), generator=draws,
+                device=post.mean.device, dtype=post.mean.dtype))
         return self.vae.decode(post.sample(draws)), post
 
     def model_loss(self, batch: Mapping[str, torch.Tensor],
@@ -125,9 +133,9 @@ class VAETask:
         x = self._image(batch)
         rec, post = self.reconstruct(x, generator if draws is None
                                      else draws)
-        rec_loss = (x - rec).abs().mean()
-        kl = post.kl().mean() / x[0].numel()
-        g_adv = ((self.disc(rec) - 1.0) ** 2).mean() * cfg.disc_weight
+        rec_loss = global_mean((x - rec).abs())
+        kl = global_mean(post.kl()) / x[0].numel()
+        g_adv = global_mean((self.disc(rec) - 1.0) ** 2) * cfg.disc_weight
         total = rec_loss + cfg.kl_weight * kl + g_adv
         return total, {"rec": rec_loss.detach(), "kl": kl.detach(),
                        "g_adv": g_adv.detach(), "total_loss": total.detach()}
@@ -141,14 +149,15 @@ class VAETask:
         with torch.no_grad():
             rec, _ = self.reconstruct(x, generator if draws is None
                                       else draws)
-        loss = ((self.disc(x) - 1.0) ** 2).mean() + (self.disc(rec) ** 2).mean()
+        loss = global_mean((self.disc(x) - 1.0) ** 2) \
+            + global_mean(self.disc(rec) ** 2)
         return loss, {"d_loss": loss.detach()}
 
     def val_loss_fn(self, batch: Mapping[str, torch.Tensor],
                     generator: torch.Generator | None = None):
         x = self._image(batch)
         rec, _ = self.reconstruct(x, generator)
-        rec_loss = (x - rec).abs().mean()
+        rec_loss = global_mean((x - rec).abs())
         return rec_loss, {"val_rec": rec_loss, "total_loss": rec_loss}
 
     @property

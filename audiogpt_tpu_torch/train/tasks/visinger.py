@@ -36,6 +36,7 @@ from audiogpt_tpu_torch.models.svs.visinger import VISinger, VISingerConfig
 from audiogpt_tpu_torch.models.vocoder.discriminators import (
     DiscriminatorConfig, HifiGANDiscriminator, feature_matching_loss,
     lsgan_d_loss, lsgan_g_loss)
+from audiogpt_tpu_torch.parallel.reduce import global_rows, local_rows
 from audiogpt_tpu_torch.train import losses as L
 from audiogpt_tpu_torch.train.optim import OptimConfig
 from audiogpt_tpu_torch.train.stft_loss import stft_loss
@@ -88,10 +89,13 @@ class VISingerTask:
 
     def draws(self, batch: Mapping[str, torch.Tensor],
               generator: torch.Generator | None) -> torch.Tensor:
-        """The posterior's ε [B, F, latent] for ``batch``'s spec."""
+        """The posterior's ε [B, F, latent] for ``batch``'s spec (drawn
+        for the global batch, cut to this rank's rows)."""
         spec = batch["spec"]
-        return torch.randn((*spec.shape[:2], self.cfg.model.latent_dim),
-                           generator=generator, device=spec.device)
+        return local_rows(torch.randn(
+            (global_rows(spec.shape[0]), spec.shape[1],
+             self.cfg.model.latent_dim), generator=generator,
+            device=spec.device))
 
     def forward(self, batch: Mapping[str, torch.Tensor],
                 draws: torch.Tensor | torch.Generator) -> dict:

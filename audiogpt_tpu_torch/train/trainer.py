@@ -1,5 +1,5 @@
-"""Training loop — counterpart of ``audiogpt_tpu/train/trainer.py`` on one
-card.
+"""Training loop — counterpart of ``audiogpt_tpu/train/trainer.py``, on one
+card or data-parallel over a process group (``parallel/``).
 
 The reference's semantics that the JAX trainer keeps, kept here:
 
@@ -23,7 +23,22 @@ The reference's semantics that the JAX trainer keeps, kept here:
   launches; JAX: XLA's cost analysis, ``trainer.py:209-240``) and divided
   by the card's peak for the task's ``compute_dtype``.
 
-Left out, as TPU workarounds: the mesh, ``shard_batch`` and buffer
+Data parallelism keeps JAX's global-batch semantics (``trainer.py:73``,
+``:272``, ``:334``): every rank runs the same loader with the same seed and
+so holds the global batch; ``shard_batch`` cuts its rows, and its draws
+are made for the global batch from the step's shared seed and cut the
+same way (each task's ``draws``, ``parallel/reduce.py`` ``local_rows``).
+A loss reduces over ranks through ``global_sum`` / ``gather_rows``, so
+every rank computes the global loss; each group's gradients are averaged
+over the ``data`` ranks in one flat all-reduce (an explicit all-reduce:
+the gradients come from ``torch.autograd.grad``, which DDP's hooks never
+see), and ``finite``, ``grad_norm``, the update and the EMA come out
+identical on every rank. Validation runs on every rank (its reductions are
+collective) with the global batch's ``n``; only rank 0 logs and writes
+checkpoints, and every rank waits at a barrier before it restores. The
+stop flag is all-reduced each step, so every rank stops at the same step.
+``mfu`` is each rank's FLOPs over its card's peak (JAX: the global FLOPs
+over ``mesh.size`` × peak). Left out, as a TPU workaround: buffer
 donation. A batch goes to the device once, pinned and ``non_blocking``.
 
 A :class:`Task` owns its modules (built on its device), the loss of each
@@ -40,9 +55,13 @@ from typing import Any, Callable, Iterable, Mapping, Protocol
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from audiogpt_tpu_torch.engines.base import resolve_device
+from audiogpt_tpu_torch.parallel.mesh import (axis_group, axis_size,
+                                              bind_data_axis, make_mesh,
+                                              replicate, shard_batch)
 from audiogpt_tpu_torch.train.checkpoint import CheckpointStore
 from audiogpt_tpu_torch.train.metrics import MeterBank, MetricsLogger
 from audiogpt_tpu_torch.train.optim import (OptimConfig, global_norm,
@@ -79,15 +98,31 @@ class TrainerConfig:
 
 class Trainer:
     """``device=None`` is the card, and raises without one; the task's
-    modules are moved there."""
+    modules are moved there. ``mesh`` (default ``make_mesh()``: every rank
+    of the process group on ``data``, or a one-process mesh without a
+    group) is what the batches are sharded over and what the losses'
+    reductions run on; the modules are broadcast from rank 0."""
 
     def __init__(self, task: Task, cfg: TrainerConfig | None = None,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, mesh=None):
         self.task = task
         self.cfg = cfg or TrainerConfig()
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh()
+        bind_data_axis(self.mesh)
+        self.data_size = axis_size(self.mesh, "data")
+        # the gradient all-reduce runs wherever a process group exists,
+        # one rank included (its values are then the rank's own)
+        self._grad_group = axis_group(self.mesh, "data") \
+            if dist.is_initialized() else None
+        #: time the gradient all-reduce of each step (CUDA events;
+        #: ``comm_ms`` gets one entry a step)
+        self.time_comm = False
+        self.comm_ms: list[float] = []
+        self._comm_events: list = []
         for module in task.modules.values():
             module.to(self.device)
+            replicate(module, self.mesh)
         self.groups = list(task.loss_fns)
         self.named = {g: [(n, p) for n, p in
                           task.modules[g].named_parameters()
@@ -124,10 +159,13 @@ class Trainer:
     def restore_or_init(self) -> None:
         """Restore the newest checkpoint when there is one; else keep the
         state as built."""
+        if dist.is_initialized():
+            dist.barrier()      # rank 0's writes land before any rank reads
         latest = self.store.latest_step()
         if latest is not None:
             self._restore(latest)
-            print(f"| resumed from step {latest}")
+            if self.logger.is_main:
+                print(f"| resumed from step {latest}")
 
     @torch.no_grad()
     def _restore(self, step: int) -> None:
@@ -198,9 +236,12 @@ class Trainer:
             # gradient: the update still decays the moments, as optax's
             # does (out of place: autograd may return an expanded view)
             finite = torch.isfinite(loss.detach())
-            grads = [torch.zeros_like(p) if g is None
-                     else torch.where(finite, g, 0.0)
-                     for g, p in zip(grads, params)]
+            if self._grad_group is None:
+                grads = [torch.zeros_like(p) if g is None
+                         else torch.where(finite, g, 0.0)
+                         for g, p in zip(grads, params)]
+            else:
+                grads = self._all_reduce_grads(grads, params, finite)
             norm = global_norm(grads)
             self.opt[group].step(grads)
             if group in self.ema:
@@ -214,6 +255,55 @@ class Trainer:
         metrics["grad_norm"] = norm
         metrics["nonfinite"] = 1.0 - finite.float()
         return metrics
+
+    def _all_reduce_grads(self, grads, params, finite) -> list:
+        """The ranks' mean of each gradient (zeros for an unused parameter,
+        all zeros where the global loss is not finite), through one flat
+        all-reduce a dtype; → views of the flat buffer."""
+        out = [None] * len(params)
+        by_dtype: dict[torch.dtype, list[int]] = {}
+        for i, p in enumerate(params):
+            by_dtype.setdefault(p.dtype, []).append(i)
+        timed = self.time_comm and self.device.type == "cuda"
+        for idx in by_dtype.values():
+            flat = torch.cat([params[i].new_zeros(params[i].numel())
+                              if grads[i] is None else grads[i].reshape(-1)
+                              for i in idx])
+            if timed:
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
+            dist.all_reduce(flat, group=self._grad_group)
+            if timed:
+                end.record()
+                self._comm_events.append((start, end))
+            flat.masked_fill_(~finite, 0.0)
+            if self.data_size > 1:
+                flat.div_(self.data_size)
+            for i, g in zip(idx, flat.split([params[i].numel()
+                                             for i in idx])):
+                out[i] = g.view_as(params[i])
+        return out
+
+    def _read_comm(self) -> None:
+        """Move the finished all-reduce timings of the last step into
+        ``comm_ms`` (the step's metrics were copied to the host: every
+        event has completed)."""
+        if self._comm_events:
+            self.comm_ms.append(sum(s.elapsed_time(e)
+                                    for s, e in self._comm_events))
+            self._comm_events = []
+
+    def _stop_requested(self, stop) -> bool:
+        """The stop flag, any rank's (a MAX all-reduce each step), so every
+        rank leaves the loop at the same step."""
+        if not dist.is_initialized():
+            return stop["flag"]
+        dev = self.device if dist.get_backend() == "nccl" else "cpu"
+        flag = torch.tensor(float(stop["flag"]), device=dev)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        stop["flag"] = bool(flag.item())
+        return stop["flag"]
 
     def _run_step(self, group: str, batch: Mapping[str, Any],
                   seed: int) -> dict[str, torch.Tensor]:
@@ -253,28 +343,32 @@ class Trainer:
                     self.step, name, pred.float().cpu().numpy(),
                     None if gt is None else gt.float().cpu().numpy())
         except Exception as e:  # plots must never kill training (JAX's rule)
-            print(f"| visualize failed: {e!r}")
+            if self.logger.is_main:
+                print(f"| visualize failed: {e!r}")
 
     # -- loops ---------------------------------------------------------------
     def validate(self, val_batches: Iterable, max_batches: int | None = None
                  ) -> dict[str, float]:
         """Average metrics over ``val_batches`` on the EMA params, every
-        batch drawing from the generator seeded with 0; then a task with
-        ``visualize(batch, generator) -> {name: (pred, gt | None)}`` draws
-        its figures of the first batch (``MetricsLogger.log_mel_figure``;
-        JAX's ``trainer.py:280-295``)."""
+        batch drawing from the generator seeded with 0 and weighted by the
+        global batch's ``n``; then a task with ``visualize(batch,
+        generator) -> {name: (pred, gt | None)}`` draws its figures of the
+        first batch (``MetricsLogger.log_mel_figure``; JAX's
+        ``trainer.py:280-295``). Every rank runs it: the losses' reductions
+        are collective."""
         bank = MeterBank()
         first = None
         with self.ema_scope(), torch.no_grad():
             for i, batch in enumerate(val_batches):
                 if max_batches is not None and i >= max_batches:
                     break
-                batch = self._to_device(batch)
+                n = int(np.asarray(batch["weight"]).sum()) \
+                    if "weight" in batch \
+                    else next(iter(batch.values())).shape[0]
+                batch = self._to_device(shard_batch(batch, self.mesh))
                 first = batch if first is None else first
                 self.generator.manual_seed(0)
                 metrics = self._val_metrics(batch, self.generator)
-                n = int(batch["weight"].sum()) if "weight" in batch \
-                    else next(iter(batch.values())).shape[0]
                 bank.update(metrics, n=max(n, 1))
             if first is not None and hasattr(self.task, "visualize"):
                 self._visualize(first)
@@ -327,14 +421,16 @@ class Trainer:
         bank = MeterBank()
         t0 = time.time()
         for batch in train_batches:
-            if self.step >= max_updates or stop["flag"]:
+            if self.step >= max_updates or self._stop_requested(stop):
                 break
-            batch = self._to_device(batch)
+            batch = self._to_device(shard_batch(batch, self.mesh))
             batch.setdefault("step", self.step)
-            # one seed a step, shared by its groups (JAX: one key a step)
+            # one seed a step, shared by its groups and the ranks (JAX: one
+            # key a step)
             seed = int(rng.integers(2 ** 62))
             for group in self.groups:
                 bank.update(self._run_step(group, batch, seed))
+            self._read_comm()
             self.step += 1
 
             if self.step % cfg.log_interval == 0:
@@ -364,5 +460,5 @@ class Trainer:
             # large finite sentinel: never wins best-by-monitor, stays
             # JSON-safe
             self.save({cfg.monitor: 1e30})
-        if stop["flag"]:
+        if stop["flag"] and self.logger.is_main:
             print(f"| graceful stop at step {self.step} (checkpoint saved)")

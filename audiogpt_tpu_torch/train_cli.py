@@ -6,9 +6,18 @@ Counterpart of ``audiogpt_tpu/train_cli.py``:
     python -m audiogpt_tpu_torch.train_cli --config configs/t2a/ldm.yaml \\
         --exp_name exp/ldm --hparams "optim.lr=2e-4,max_updates=100000"
 
-trains on the card (``--device cpu`` for a run on the CPU). The resolved
-config persists to ``<exp_name>/config.yaml`` (hparams.py:109 behaviour)
-and the work dir holds checkpoints and ``metrics.jsonl``. The port's
+trains on the card (``--device cpu`` for a run on the CPU). Launched by
+torchrun it trains data-parallel on every process, as the JAX CLI trains
+over every local chip, with no other flag:
+
+    python -m torch.distributed.run --nproc-per-node N \\
+        -m audiogpt_tpu_torch.train_cli --config ... --exp_name ...
+
+(NCCL between the cards; with ``--device cpu``, gloo). Every rank reads
+the same batches and trains on its rows of each (``parallel/``); rank 0
+logs, checkpoints and exports. The resolved config persists to
+``<exp_name>/config.yaml`` (hparams.py:109 behaviour) and the work dir
+holds checkpoints and ``metrics.jsonl``. The port's
 recipes: the LDM family, ``ldm``, ``vae`` and ``clap``
 (``configs/t2a/{ldm,vae,clap}.yaml``); ``fs2`` (``configs/tts/fs2.yaml``,
 ``fs2_cwt.yaml``) and ``vocoder_gan`` (``configs/vocoder/hifigan.yaml``);
@@ -370,6 +379,11 @@ def main(argv=None):
     ap.add_argument("--max_updates", type=int, default=None)
     ap.add_argument("--device", default=None,
                     help="'cuda' (the default) or 'cpu'")
+    ap.add_argument("--report", default=None, metavar="PATH",
+                    help="after training, write a JSON run report to PATH "
+                         "(rank 0): steps, ranks, backend, each kernel's "
+                         "launches during the run, peak device memory and "
+                         "the gradient all-reduce's ms a step")
     ap.add_argument("--export", default=None, metavar="PATH",
                     help="after training, write the weights (each group's "
                          "EMA shadows where the recipe keeps them) to PATH "
@@ -377,18 +391,81 @@ def main(argv=None):
                          "load with app.py --ckpt or infer_cli --params")
     args = ap.parse_args(argv)
 
+    import torch.distributed as dist
+
+    from audiogpt_tpu_torch.parallel import distributed_init, is_main
+
+    # torchrun's environment joins the group (NCCL on the card, gloo for
+    # the CPU); a plain run stays one process
+    joined = not dist.is_initialized()
+    distributed_init(backend="gloo" if args.device == "cpu" else None)
+    joined = joined and dist.is_initialized()
+
     cfg = load_config(args.config, overrides=args.hparams)
-    cfg.save(os.path.join(args.exp_name, "config.yaml"))
+    if is_main():
+        cfg.save(os.path.join(args.exp_name, "config.yaml"))
 
     task = build_task(cfg, device=args.device)
     trainer = Trainer(task, trainer_config(cfg, args.exp_name,
                                            args.max_updates),
                       device=args.device)
     train_it, val_fn = build_loaders(cfg, cfg.get("task", "fs2"))
+    if args.report:
+        trainer.time_comm = True
+        _reset_counts(trainer.device)
     trainer.fit(train_it, val_fn)
     trainer.logger.close()
-    if args.export:
+    if args.report and is_main():
+        write_report(trainer, args.report)
+    if args.export and is_main():
         print(f"| exported weights -> {export_weights(trainer, args.export)}")
+    if joined:
+        dist.destroy_process_group()
+
+
+def _reset_counts(device) -> None:
+    """Every kernel's launch count to 0 and the device's peak memory to
+    what it holds, just before the run."""
+    import torch
+
+    from audiogpt_tpu_torch.ops.flash_attention import flash_attention
+    from audiogpt_tpu_torch.ops.snake_aa import snake_aa
+
+    flash_attention.launches = flash_attention.bf16_launches = 0
+    snake_aa.launches = snake_aa.bf16_launches = 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def write_report(trainer, path: str) -> None:
+    """The run report of ``--report``: this rank's view of the run just
+    ended (``launches`` counted from ``_reset_counts`` on)."""
+    import json
+
+    import torch
+    import torch.distributed as dist
+
+    from audiogpt_tpu_torch.ops.flash_attention import flash_attention
+    from audiogpt_tpu_torch.ops.snake_aa import snake_aa
+
+    dev = trainer.device
+    report = {
+        "steps": trainer.step, "data_size": trainer.data_size,
+        "world": dist.get_world_size() if dist.is_initialized() else 1,
+        "backend": dist.get_backend() if dist.is_initialized() else None,
+        "device": str(dev),
+        "launches": {"flash_attention": flash_attention.launches,
+                     "flash_attention_bf16": flash_attention.bf16_launches,
+                     "snake_aa": snake_aa.launches,
+                     "snake_aa_bf16": snake_aa.bf16_launches},
+        "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9
+        if dev.type == "cuda" else None,
+        "comm_ms": trainer.comm_ms,
+        "grad_numel": {g: sum(p.numel() for p in trainer.params[g])
+                       for g in trainer.groups}}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(report, f)
 
 
 if __name__ == "__main__":

@@ -211,7 +211,7 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    ``model.bf16_compute=false``, on a fixture of 64 seeded records written
    by the port's ``RecordWriter`` (mel [624, 80] in [0, 1], BERT ids),
    driven through ``train_cli.build_task``, ``build_loaders`` and
-   ``Trainer.fit`` for 40 steps: the trainable and frozen parameter counts,
+   ``Trainer.fit`` for 20 steps: the trainable and frozen parameter counts,
    the median step time over the steady steps (each step ends in the
    metrics' copy to the host), samples/s, peak memory, K1 launches a step
    by shape (5 at [16, 780, 780, 8, 40]) and K2's (0), the mean loss of
@@ -357,6 +357,21 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 77. t5_vq_small_reference: a tiny T5 conditioner and GenerSpeech's EMA
    quantizer (two training calls: the ``vq_ema`` path of the ``kernels``
    line, no launch) on the card and on the CPU, TF32 off.
+78. train_ddp_ldm: ``configs/t2a/ldm.yaml`` at full width through
+   ``python -m torch.distributed.run --standalone --nproc-per-node 1 -m
+   audiogpt_tpu_torch.train_cli`` (one rank on NCCL, TF32 off by
+   ``NVIDIA_TF32_OVERRIDE=0``) on ``train_ldm``'s records, 8 steps: each
+   step's loss against ``train_ldm``'s (the same seed, in process, no
+   group) within 1e-6 relative, both step times, the flat gradient
+   all-reduce's time a step (CUDA events; 160.2 M × 4 B), both peaks, K1's
+   launches (5 a step at [16, 780, 780, 8, 40], from the run's report).
+79. train_ddp_gloo_small: two processes on the one card over gloo (NCCL
+   refuses two ranks on one GPU), each on half of every batch of a tiny
+   LDM task (level 0 at 256 tokens: K1 on both ranks) and a tiny FS2
+   task, 3 steps, against one process on the whole batch: losses within
+   1e-6 relative, the first step's gradients and the updated parameters
+   within 5e-5 of each tensor's largest, the ranks' parameters equal;
+   each rank's K1 launches.
 
 The ``unet_bf16`` engine of phase 6 also inpaints (``inpaint_unet_bf16``):
 its f32 UNet gives the f32 engine's wav with the same draws.
@@ -560,7 +575,8 @@ BF16_FLASH_TOL = (1e-2, 2 ** -7)          # absolute, relative
 #: vision self-attention (577 tokens); PVT SED's spatial-reduction attention
 #: (one head at stage 0, Tq >> Tk, 100 or 200 keys) on a 10 s clip (stages
 #: 0, 1) and a 32 s clip (stages 0-2); the LDM recipe's training step at
-#: batch 16 (level-0 self-attention); the key-mask and causal code no path
+#: batch 16 (level-0 self-attention); one rank's level 0 of
+#: ``train_ddp_gloo_small``'s tiny LDM; the key-mask and causal code no path
 #: reaches
 FLASH_CASES = {
     "unet_level0": ((6, 780, 780, 8, 40), None, False),
@@ -583,6 +599,7 @@ FLASH_CASES = {
     "pvt_s1_32s": ((1, 3200, 200, 2, 64), None, False),
     "pvt_s2_32s": ((1, 800, 200, 5, 64), None, False),
     "train_level0": ((16, 780, 780, 8, 40), None, False),
+    "ddp_small_level0": ((2, 256, 256, 4, 40), None, False),
     "kv_mask": ((2, 1500, 1500, 6, 64), (1500, 1100), False),
     "causal": ((1, 256, 256, 2, 80), None, True),
 }
@@ -1198,18 +1215,18 @@ def phase_small_reference() -> None:
         raise AssertionError("a CPU run counted kernel launches")
 
 
-def profile_call(name: str, fn, warm_s: float, cpu: bool = True) -> None:
-    """One warm call of ``fn`` under torch.profiler: device time by kernel
-    and the device's busy share, of the traced call (tracing slows the host)
-    and of the untraced warm median ``warm_s``. ``cpu=False`` traces the
-    device alone (a call of tens of thousands of kernels: the host's
-    operator events would triple what ``key_averages`` sorts)."""
+def profile_call(name: str, fn, warm_s: float) -> None:
+    """One warm call of ``fn`` under torch.profiler, the device traced
+    alone: device time by kernel and the device's busy share, of the traced
+    call (tracing slows the host) and of the untraced warm median
+    ``warm_s``. The host's operator events are left out: they triple what
+    ``key_averages`` sorts, and sorting them took ≈ 100 s of the script for
+    the T2A and inpaint calls (PR 7) that no number here reads."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    activities = [ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * cpu
-    with profile(activities=activities) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2523,7 +2540,7 @@ def phase_t2i(gen, tmp: str) -> dict:
     stages = [t2i_stage_ms(eng) for _ in range(T2I_WARM_CALLS)]
     emit({"phase": "t2i_stages", "runs": T2I_WARM_CALLS,
           **{k: statistics.median(r[k] for r in stages) for k in stages[0]}})
-    profile_call("t2i_profile", call, median, cpu=False)
+    profile_call("t2i_profile", call, median)
     return {"engine": eng, "launches": runs[-1][2], "image": img}
 
 
@@ -3635,7 +3652,7 @@ def phase_svs(gen) -> dict:
           "diffnet_eval_flop": diffnet_flop(cfg, cond.shape[1]),
           "diffnet_eval_f32_bound_ms": diffnet_flop(cfg, cond.shape[1])
           / F32_FLOPS * 1e3})
-    profile_call("svs_profile", call, runs["warm_s"], cpu=False)
+    profile_call("svs_profile", call, runs["warm_s"])
     return {"engine": eng, "launches": runs["launches"], "wav": wav}
 
 
@@ -4719,13 +4736,14 @@ def tool_text_tsd(eng, wav) -> str:
     return "; ".join(f"({s:.2f}s, {t:.2f}s)" for s, t in spans)
 
 
-#: the training phases: steps of each full-width run (40, cut from 60 to
-#: keep the whole script inside its time limit), its fixture's size,
+#: the training phases: steps of each full-width run (20, cut from 60 to
+#: 40 and then to 20 to keep the whole script inside its time limit), its
+#: fixture's size,
 #: the loss windows compared (the first and the last steps), the steps left
 #: out of the step-time median (the FLOP-counted step, the allocator's
 #: first blocks), and the bound on the UNet gradients with K1 against the
 #: plain attention path (f32, TF32 off): max|Δg| / max|g|
-TRAIN_STEPS, TRAIN_RECORDS, TRAIN_WINDOW, TRAIN_WARM_SKIP = 40, 64, 10, 3
+TRAIN_STEPS, TRAIN_RECORDS, TRAIN_WINDOW, TRAIN_WARM_SKIP = 20, 64, 10, 3
 TRAIN_GRAD_TOL = 1e-4
 #: the mel canvas of ldm.yaml (``data.width``) and its mel bins
 LDM_FRAMES, LDM_MELS = 624, 80
@@ -4887,8 +4905,8 @@ def phase_train_ldm(tmp: str, bf16: bool, checkpoint: bool = False) -> dict:
     shutil.rmtree(root / "exp")        # the checkpoint: ≈ 2.6 GB
     return {"task": task, "trainer": trainer, "shapes": per_step,
             "launches": {k: v // TRAIN_STEPS for k, v in counts.items()},
-            "step_ms": res["step_ms"], "batch": next(iter(
-                train_cli.build_loaders(cfg, "ldm")[0]))}
+            "step_ms": res["step_ms"], "peak_mem_gb": peak, "losses": loss,
+            "batch": next(iter(train_cli.build_loaders(cfg, "ldm")[0]))}
 
 
 def unet_grads(task, batch, seed: int) -> list:
@@ -4985,6 +5003,343 @@ def phase_train_grad_check(train: dict, gen) -> None:
           * attention["float32"]["recompute_backward_ms"],
           "recompute_share_of_step": per_step
           * attention["float32"]["recompute_backward_ms"] / train["step_ms"]})
+
+
+#: data parallelism (PR 17): ``train_ddp_ldm``'s steps against
+#: ``train_ldm``'s first; ``train_ddp_gloo_small``'s steps. Losses within
+#: 1e-6 relative; the first step's gradients within 5e-5 of each tensor's
+#: largest, floored at 1e-7 of the group's largest gradient; the updated
+#: parameters within 5e-5 of each tensor's largest, but an element whose
+#: first gradient is under that floor (rounding noise: a true gradient of
+#: 0 or next to it) within Adam's move of up to the rate a step either
+#: way, which normalises that noise
+DDP_STEPS, DDP_SMALL_STEPS = 8, 3
+DDP_LOSS_RTOL, DDP_PARAM_RTOL, DDP_ZERO_GRAD_TOL = 1e-6, 5e-5, 1e-7
+#: the tiny LDM of ``train_ddp_gloo_small``: a 32 × 32 mel's latent holds
+#: 16 · 16 = 256 tokens at level 0, so its self-attention reaches K1
+#: (256² pairs), at D = 40 as the full UNet's; no block recomputed in the
+#: backward, as ``ldm.yaml``'s
+TINY_DDP_UNET = dict(model_channels=160, num_res_blocks=1,
+                     channel_mult=(1, 2), num_heads=4, context_dim=24,
+                     use_checkpoint=False)
+TINY_DDP_MEL = 32
+
+
+def phase_train_ddp_ldm(tmp: str, train: dict) -> dict:
+    """``ldm.yaml`` at full width trained by ``python -m
+    torch.distributed.run --standalone --nproc-per-node 1 -m
+    audiogpt_tpu_torch.train_cli`` (NCCL, one rank) on ``train_ldm``'s
+    records for ``DDP_STEPS`` steps: each step's loss against
+    ``train_ldm``'s first steps (the same config, seed and records, in
+    process and without a group), the step times, the flat gradient
+    all-reduce's time a step, the peaks and K1's launches, from the CLI's
+    ``--report``. The subprocess turns TF32 off through
+    ``NVIDIA_TF32_OVERRIDE=0``, as this process has it off, and grows its
+    allocator's segments (``expandable_segments``): its ≈ 50 GB then fit
+    beside what this process holds."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    gc.collect()
+    # cuBLAS's workspaces (≈ 65 MB) pin the earlier steps' segments
+    # (≈ 14 GB after train_ldm) in this process's cache
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    held = (torch.cuda.memory_allocated() / 1e9,
+            torch.cuda.memory_reserved() / 1e9)
+    root = Path(tmp) / "train_ddp_ldm"
+    report = root / "report.json"
+    hp = ",".join(["model.bf16_compute=false",
+                   f"data.binary_dir={Path(tmp) / 'train_ldm' / 'bin'}",
+                   "log_interval=1", "num_sanity_val_steps=0",
+                   "val_check_interval=1000000000", "use_tensorboard=false"])
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "audiogpt_tpu_torch.train_cli",
+           "--config", str(ROOT / "configs" / "t2a" / "ldm.yaml"),
+           "--exp_name", str(root / "exp"), "--hparams", hp,
+           "--max_updates", str(DDP_STEPS), "--report", str(report)]
+    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0",
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT), os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"train_ddp_ldm: torchrun exit "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    rep = json.loads(report.read_text())
+    tr = [line for line in map(json.loads, open(root / "exp" /
+                                               "metrics.jsonl"))
+          if line["prefix"] == "tr"]
+    loss = [line["diff"] for line in tr]
+    ref = train["losses"][:DDP_STEPS]
+    rel = [abs(a - b) / abs(b) for a, b in zip(loss, ref)]
+    per_step = train["shapes"]
+    expected = expected_counts(
+        Counter({s: n * DDP_STEPS for s, n in per_step.items()}), Counter())
+    if rep["launches"] != expected or rep["steps"] != DDP_STEPS \
+            or rep["world"] != 1 or rep["backend"] != "nccl" \
+            or len(loss) != DDP_STEPS or not np.isfinite(loss).all() \
+            or max(rel) > DDP_LOSS_RTOL \
+            or len(rep["comm_ms"]) != DDP_STEPS:
+        raise AssertionError(f"train_ddp_ldm: report {rep['launches']}, "
+                             f"steps {rep['steps']}, world {rep['world']}, "
+                             f"backend {rep['backend']}; losses {loss} "
+                             f"against {ref}")
+    steady = tr[TRAIN_WARM_SKIP:]
+    step_ms = statistics.median(1e3 / line["steps_per_sec"]
+                                for line in steady)
+    comm = statistics.median(rep["comm_ms"][TRAIN_WARM_SKIP:])
+    grad_bytes = 4 * rep["grad_numel"]["unet"]
+    emit({"phase": "train_ddp_ldm", "steps": DDP_STEPS,
+          "launcher": "torch.distributed.run --standalone "
+                      "--nproc-per-node 1", "backend": rep["backend"],
+          "world": rep["world"], "wall_s": wall,
+          "parent_allocated_gb": held[0], "parent_reserved_gb": held[1],
+          "losses": loss,
+          "reference_losses": ref, "loss_max_rel_diff": max(rel),
+          "loss_rtol": DDP_LOSS_RTOL, "step_ms": step_ms,
+          "reference_step_ms": train["step_ms"],
+          "step_ms_ratio": step_ms / train["step_ms"],
+          "allreduce_ms": comm, "allreduce_ms_min": min(rep["comm_ms"]),
+          "allreduce_bytes": grad_bytes,
+          "allreduce_share_of_step": comm / step_ms,
+          "peak_mem_gb": rep["peak_mem_gb"],
+          "reference_peak_mem_gb": train["peak_mem_gb"],
+          "k1_launches_per_step": rep["launches"]["flash_attention"]
+          // DDP_STEPS,
+          "k1_shapes_per_step": {str(list(s)): n
+                                 for s, n in per_step.items()},
+          "k2_launches": rep["launches"]["snake_aa"]})
+    shutil.rmtree(root)                 # the checkpoint: ≈ 2.6 GB
+    return {"shapes": per_step,
+            "launches": {k: v // DDP_STEPS
+                         for k, v in rep["launches"].items()}}
+
+
+def tiny_ldm_batch(seed: int) -> dict:
+    """A batch of 4 mel images [4, 32, 32, 1] in [−1, 1] with 6-token
+    texts, the last row of weight 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    m = TINY_DDP_MEL
+    return {"mels": np.tanh(rng.normal(size=(4, m, m, 1))).astype(np.float32),
+            "text_ids": rng.integers(1, 100, (4, 6)).astype(np.int32),
+            "text_mask": np.ones((4, 6), np.int32),
+            "weight": np.asarray([1, 1, 1, 0], np.float32)}
+
+
+def ddp_small_run(name: str, work: Path, mesh) -> dict:
+    """The tiny ``ldm`` or ``fs2`` task on the card (seeded noise in every
+    weight), ``DDP_SMALL_STEPS`` steps through ``Trainer.fit`` on ``mesh``
+    (None: no group) with the launch counts set to 0 just before and read
+    just after; → the logged losses (rank 0), the parameters, the first
+    step's gradients and rates, the launches."""
+    import torch
+
+    from audiogpt_tpu_torch.models.diffusion import UNetConfig, VAEConfig
+    from audiogpt_tpu_torch.models.textenc import CLAPTextConfig
+    from audiogpt_tpu_torch.models.textenc.bert import BertConfig
+    from audiogpt_tpu_torch.models.tts import FastSpeech2Config
+    from audiogpt_tpu_torch.train import Trainer, TrainerConfig
+    from audiogpt_tpu_torch.train.tasks import (FS2Task, FS2TaskConfig,
+                                                LDMTask, LDMTaskConfig)
+
+    if name == "ldm":
+        task = LDMTask(LDMTaskConfig(
+            unet=UNetConfig(**TINY_DDP_UNET),
+            vae=VAEConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1,
+                          attn_resolutions=()),
+            clap=CLAPTextConfig(bert=BertConfig(**TINY_BERT), d_proj=24),
+            timesteps=50))
+        batches = [tiny_ldm_batch(s) for s in range(DDP_SMALL_STEPS)]
+        key = "diff"
+    else:
+        task = FS2Task(FS2TaskConfig(model=FastSpeech2Config(**TINY_FS2)))
+        batches = [tiny_fs2_batch(s) for s in range(DDP_SMALL_STEPS)]
+        key = "total_loss"
+    gen = torch.Generator("cuda").manual_seed(17)
+    for group in sorted(task.modules):
+        fill_random(task.modules[group], gen)
+    trainer = Trainer(task, TrainerConfig(
+        work_dir=str(work), log_interval=1, val_check_interval=10 ** 9,
+        num_sanity_val_steps=0, use_tensorboard=False), mesh=mesh)
+    grads, lrs = {}, {}
+    for g, opt in trainer.opt.items():
+        def step(gs, g=g, opt=opt, real=opt.step):
+            if g not in grads:
+                grads[g] = [x.detach().cpu().clone() for x in gs]
+            lrs.setdefault(g, []).append(float(opt.schedule(opt.count)))
+            real(gs)
+        opt.step = step
+    _, fit_s, counts = counted(lambda: trainer.fit(
+        batches, max_updates=DDP_SMALL_STEPS))
+    losses = None
+    if trainer.logger.is_main:
+        trainer.logger.close()
+        losses = [line[key] for line in map(json.loads, open(
+            work / "metrics.jsonl")) if line["prefix"] == "tr"]
+    return {"losses": losses, "grads": grads, "lr": lrs,
+            "launches": counts, "fit_s": fit_s,
+            "params": {g: {n: p.detach().cpu().clone()
+                           for n, p in trainer.named[g]}
+                       for g in trainer.groups}}
+
+
+def ddp_small_child(argv: list) -> int:
+    """``chip_smoke.py --gloo-rank R --port P --out DIR``: one of the two
+    gloo ranks of ``train_ddp_gloo_small`` on the one card; writes
+    ``DIR/rank{R}.pt``."""
+    import argparse
+
+    import torch
+    import torch.distributed as dist
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--gloo-rank", type=int, required=True)
+    ap.add_argument("--port", type=int, required=True)
+    ap.add_argument("--out", required=True)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from audiogpt_tpu_torch.parallel import distributed_init, make_mesh
+
+    r = args.gloo_rank
+    distributed_init(f"127.0.0.1:{args.port}", 2, r, backend="gloo")
+    mesh = make_mesh()
+    out = Path(args.out)
+    res = {name: ddp_small_run(name, out / f"{name}_rank{r}", mesh)
+           for name in ("ldm", "fs2")}
+    torch.save(res, out / f"rank{r}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def ddp_compare(name: str, single: dict, ranks: list) -> dict:
+    """``train_ddp_gloo_small``'s checks of one task (module comment
+    above ``DDP_STEPS``); → the largest differences."""
+    import torch
+
+    res = {"loss_max_rel_diff": max(
+        abs(a - b) / abs(b) for a, b in zip(ranks[0]["losses"],
+                                            single["losses"]))}
+    if len(ranks[0]["losses"]) != DDP_SMALL_STEPS \
+            or res["loss_max_rel_diff"] > DDP_LOSS_RTOL:
+        raise AssertionError(f"{name}: losses {ranks[0]['losses']} against "
+                             f"{single['losses']}")
+    worst_grad = worst_param = 0.0
+    noise_elements = 0
+    for g, params in single["params"].items():
+        names = list(params)
+        top = max(float(x.abs().max()) for x in single["grads"][g])
+        for n, s, d in zip(names, single["grads"][g], ranks[0]["grads"][g]):
+            bound = max(DDP_PARAM_RTOL * float(s.abs().max()),
+                        DDP_ZERO_GRAD_TOL * top)
+            err = float((d - s).abs().max())
+            worst_grad = max(worst_grad, err / bound)
+            if err > bound:
+                raise AssertionError(f"{name}: first gradient of {g}.{n} "
+                                     f"{err} past {bound}")
+        adam = 2.0 * sum(single["lr"][g])
+        for n, grad in zip(names, single["grads"][g]):
+            s = params[n]
+            for rank in ranks:
+                if not torch.equal(rank["params"][g][n],
+                                   ranks[0]["params"][g][n]):
+                    raise AssertionError(f"{name}: the ranks' {g}.{n} "
+                                         f"differ")
+            noise = grad.abs() <= DDP_ZERO_GRAD_TOL * top
+            noise_elements += int(noise.sum())
+            bound = torch.where(noise, adam, DDP_PARAM_RTOL * float(
+                s.abs().max()))
+            err = (ranks[0]["params"][g][n] - s).abs()
+            worst_param = max(worst_param, float(
+                (err / bound.clamp_min(1e-30)).max()))
+            if bool((err > bound).any()):
+                raise AssertionError(f"{name}: parameter {g}.{n} "
+                                     f"{float(err.max())} past its bound")
+    res.update(grad_worst_share_of_bound=worst_grad,
+               param_worst_share_of_bound=worst_param,
+               noise_elements=noise_elements)
+    return res
+
+
+def phase_train_ddp_gloo_small(tmp: str) -> dict:
+    """Two processes on the one card joined over gloo, each training its
+    half of every batch of the tiny ``ldm`` and ``fs2`` tasks, against
+    this process training them on the whole batches without a group
+    (``ddp_compare``); each rank's K1 launches against the configs'."""
+    import socket
+
+    import torch
+
+    root = Path(tmp) / "train_ddp_gloo_small"
+    root.mkdir(parents=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--gloo-rank", str(r),
+         "--port", str(port), "--out", str(root)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        single = {name: ddp_small_run(name, root / f"{name}_single", None)
+                  for name in ("ldm", "fs2")}
+        logs = [p.communicate(timeout=300)[0].decode(errors="replace")
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode:
+            raise AssertionError(f"train_ddp_gloo_small rank {r} exit "
+                                 f"{p.returncode}:\n{logs[r][-3000:]}")
+    ranks = [torch.load(root / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    from audiogpt_tpu_torch.models.diffusion import UNetConfig
+
+    # the VAE's factor 2: a 16 × 16 latent; 6 text tokens
+    per_rank = Counter({s: n * DDP_SMALL_STEPS for s, n in unet_flash_shapes(
+        UNetConfig(**TINY_DDP_UNET), 2, (TINY_DDP_MEL // 2,) * 2,
+        6).items()})
+    res = {"phase": "train_ddp_gloo_small", "steps": DDP_SMALL_STEPS,
+           "backend": "gloo", "world": 2, "wall_s": wall,
+           "batch": 4, "rows_per_rank": 2}
+    for name in ("ldm", "fs2"):
+        res[name] = ddp_compare(name, single[name],
+                                [rank[name] for rank in ranks])
+        want = expected_counts(per_rank if name == "ldm" else Counter(),
+                               Counter())
+        got = [rank[name]["launches"] for rank in ranks]
+        if any(c != want for c in got):
+            raise AssertionError(f"train_ddp_gloo_small {name}: launches "
+                                 f"{got}, expected {want} a rank")
+        res[name].update(
+            k1_launches_per_rank=[c["flash_attention"] for c in got],
+            single_k1_launches=single[name]["launches"]["flash_attention"],
+            fit_s_per_rank=[rank[name]["fit_s"] for rank in ranks],
+            single_fit_s=single[name]["fit_s"], losses=ranks[0][name][
+                "losses"], single_losses=single[name]["losses"])
+    res["k1_shapes_per_rank_step"] = {
+        str(list(s)): n // DDP_SMALL_STEPS for s, n in per_rank.items()}
+    emit(res)
+    return {"shapes": Counter({s: n // DDP_SMALL_STEPS
+                               for s, n in per_rank.items()}),
+            "launches": {k: v // DDP_SMALL_STEPS
+                         for k, v in ranks[0]["ldm"]["launches"].items()}}
 
 
 def phase_train_resume(tmp: str) -> None:
@@ -7628,6 +7983,11 @@ def main() -> int:
         train_bf16 = phase_train_ldm(tmp, bf16=True)
         phase_train_grad_check(train, gen)
         phase_train_resume(tmp)
+        for run in (train, train_bf16):     # ≈ 3.3 GB of the card each
+            run.pop("task")
+            run.pop("trainer")
+        ddp = phase_train_ddp_ldm(tmp, train)
+        ddp_small = phase_train_ddp_gloo_small(tmp)
         bins = phase_binarize_tts(tmp)
         quiet.update(train_fs2=phase_train_fs2(bins, tmp),
                      train_fs2_cwt=phase_train_fs2_cwt(bins, tmp),
@@ -7717,6 +8077,11 @@ def main() -> int:
                         f32(t2a_htsat["launches"], "flash_attention")),
             path_record(flash["float32"], "train_ldm", train["shapes"],
                         f32(train["launches"], "flash_attention")),
+            path_record(flash["float32"], "train_ddp_ldm", ddp["shapes"],
+                        f32(ddp["launches"], "flash_attention")),
+            path_record(flash["float32"], "train_ddp_gloo_small",
+                        ddp_small["shapes"],
+                        f32(ddp_small["launches"], "flash_attention")),
             path_record(flash["float32"], "infer_cli_t2a",
                         cli["t2a"]["flash"],
                         f32(cli["t2a"]["launches"], "flash_attention")),
@@ -7755,7 +8120,9 @@ def main() -> int:
                           run["launches"]["snake_aa"])
               for key, run in (("train_ldm", train),
                                ("train_ldm_bf16", train_bf16),
-                               ("train_ldm_bf16_ckpt", train_ckpt))),
+                               ("train_ldm_bf16_ckpt", train_ckpt),
+                               ("train_ddp_ldm", ddp),
+                               ("train_ddp_gloo_small", ddp_small))),
             *none_launched(snake["float32"], "snake_aa")],
             snake_src, snake_tpu),
         kernel_entry(snake["bfloat16"], [
@@ -7770,4 +8137,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gloo-rank"]:
+        sys.exit(ddp_small_child(sys.argv[1:]))
     sys.exit(main())
