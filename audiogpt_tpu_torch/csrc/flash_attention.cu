@@ -70,6 +70,9 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <mutex>
+
 #include <type_traits>
 
 namespace {
@@ -528,17 +531,40 @@ struct Args {
   int* blocks_per_sm;  // set: report occupancy instead of launching
 };
 
+// the most devices one process configures the kernels on
+constexpr int kMaxDevices = 64;
+
+// The dynamic shared memory a launch of flash_fwd_kernel<T, DP> may take is
+// an attribute of the kernel on one device (its context), so it is set once
+// for each device the process launches on, on that device: the caller's
+// current one, where the launch goes too. A process may launch from several
+// threads, one per card or several on one card, so the check is an atomic
+// flag and the set-up runs under a lock.
+template <typename T, int DP>
+cudaError_t configure(int smem) {
+  static std::atomic<bool> done[kMaxDevices];
+  static std::mutex mu;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  std::lock_guard<std::mutex> lock(mu);
+  if (!done[dev].load(std::memory_order_relaxed)) {
+    err = cudaFuncSetAttribute(flash_fwd_kernel<T, DP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    done[dev].store(true, std::memory_order_release);
+  }
+  return cudaSuccess;
+}
+
 template <typename T, int DP>
 int run(const Args& a) {
   constexpr int smem = Layout<T, DP>::kBytes;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  const cudaError_t err = configure<T, DP>(smem);
+  if (err != cudaSuccess) return (int)err;
   if (a.blocks_per_sm != nullptr)
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         a.blocks_per_sm, flash_fwd_kernel<T, DP>, kThreads, smem);
@@ -586,6 +612,9 @@ Args make_args(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// Each entry launches on the calling thread's current device, on `stream`,
+// which must be a stream of that device: the wrapper
+// (ops/flash_attention.py) makes the tensors' card current first.
 extern "C" {
 
 int flash_attention_f32(const void* q, const void* k, const void* v,

@@ -241,6 +241,10 @@ int launch(const void* x, const void* alpha, const void* beta, void* out,
 
 }  // namespace
 
+// Each entry launches on the calling thread's current device, on `stream`,
+// which must be a stream of that device: the wrapper (ops/snake_aa.py)
+// makes the tensor's card current first. The kernel takes no dynamic shared
+// memory, so it needs no set-up on any device.
 extern "C" {
 
 int snake_aa_f32(const void* x, const void* alpha, const void* beta,

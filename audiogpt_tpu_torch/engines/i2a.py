@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-from audiogpt_tpu_torch.engines.base import ParamsEntry, resolve_device
+from audiogpt_tpu_torch.engines.base import (ParamsEntry, resolve_device,
+                                             same_device)
 from audiogpt_tpu_torch.engines.t2a import T2AEngine
 from audiogpt_tpu_torch.models.textenc.clip import (
     CLIPTextConfig,
@@ -37,9 +38,10 @@ class I2AEngine(ParamsEntry):
                  device: str | torch.device | None = None):
         """``vision_params`` / ``text_params``: the JAX towers' param trees
         as numpy arrays; ``None`` keeps a seeded random init. ``device`` is
-        the T2A engine's (``None`` is the card, and raises without one)."""
+        the T2A engine's (``None`` is the card, and raises without one); on
+        a T2A engine with a mesh, its first card, whose modules I2A runs."""
         self.device = resolve_device(device)
-        if t2a.device != self.device:
+        if not same_device(t2a.device, self.device):
             raise ValueError(f"T2A engine on {t2a.device}, I2A engine on "
                              f"{self.device}")
         self.t2a = t2a

@@ -1,12 +1,23 @@
 """Text → audio latent-diffusion engine (Make-An-Audio class).
 
-Counterpart of ``audiogpt_tpu/engines/t2a.py:44-455`` without the mesh
-branches. The reference flow (``audio-chatgpt.py:158-199``): CLAP text
-context → sampler with the CFG pair batched → VAE decode → (x+1)/2 mel →
-BigVGAN → best-of-n CLAP ranking; the n candidates are the batch axis, and
-only the winner and the scores leave the device. Inpainting
-(``audio-chatgpt.py:418-559``) encodes the original's mel with the VAE and
-regenerates the masked region with the samplers' mask blend.
+Counterpart of ``audiogpt_tpu/engines/t2a.py:44-455``. The reference flow
+(``audio-chatgpt.py:158-199``): CLAP text context → sampler with the CFG
+pair batched → VAE decode → (x+1)/2 mel → BigVGAN → best-of-n CLAP
+ranking; the n candidates are the batch axis, and only the winner and the
+scores leave the device. Inpainting (``audio-chatgpt.py:418-559``) encodes
+the original's mel with the VAE and regenerates the masked region with the
+samplers' mask blend.
+
+With ``mesh=`` (a ``parallel.device_mesh``) the candidates shard over its
+cards as the JAX engine's ``mesh`` shards them (``t2a.py:92-118``,
+``_prep_candidates`` ``:296-321``): n rounds up to the ``data`` axis, the
+text is encoded and the initial noise drawn once on the first card, and
+each replica (its own UNet, VAE, vocoder generator and CLAP audio tower,
+``engines/base.py`` ``Replicated``) runs sampler → VAE → vocoder → audio
+embedding on its rows, on its own thread and stream; only the scores and
+the winner leave the cards (``_sample_vocode_rank_fn`` ``:215-245``).
+Inpainting and the I2A engine run on the first card's modules, as JAX runs
+them on unsharded inputs.
 """
 
 from __future__ import annotations
@@ -17,8 +28,8 @@ import numpy as np
 import torch
 
 from audiogpt_tpu_torch.dsp.mel import LDM_MEL_16K, ldm_normalize, log_mel
-from audiogpt_tpu_torch.engines.base import (ParamsEntry, resolve_device,
-                                             run_copy)
+from audiogpt_tpu_torch.engines.base import (ParamsEntry, Replicated,
+                                             run_copy, same_device)
 from audiogpt_tpu_torch.engines.vocoder import VocoderEngine
 from audiogpt_tpu_torch.models.diffusion.samplers import (
     DiffusionSchedule,
@@ -81,24 +92,31 @@ class T2AConfig:
 
 
 @ENGINES.register("t2a")
-class T2AEngine(ParamsEntry):
+class T2AEngine(Replicated, ParamsEntry):
     name = "t2a"
     #: a trainer checkpoint's groups load by name (``ldm``'s ``unet``)
     train_group = None
+    #: each replica's own copies (the vocoder and the scorer keep theirs)
+    replicated = ("unet", "vae", "_run")
 
     def __init__(self, cfg: T2AConfig | None = None, params: dict | None = None,
                  vocoder: VocoderEngine | None = None,
                  scorer: CLAPScorer | None = None,
-                 rng_seed: int = 0,
+                 rng_seed: int = 0, mesh=None,
                  device: str | torch.device | None = None):
         """``params``: the JAX engine's ``{"unet", "vae", "clap"}`` trees as
         numpy arrays (loaded with :func:`load_jax_params`); ``None`` keeps a
         seeded random init. ``scorer``: the CLAP scorer that ranks
         ``txt2audio_best``'s candidates, on the engine's device.
-        ``device=None`` is the card, and raises without one."""
-        self.device = resolve_device(device)
+        ``mesh``: a ``parallel.device_mesh`` over which a call's candidates
+        shard (JAX's ``mesh=``); the engine, its vocoder and its scorer
+        live on its first device, and the engine builds their replicas.
+        ``device=None`` is the card (the mesh's first with a mesh), and
+        raises without one."""
+        self.device = self._bind_mesh(mesh, device)
         for part in (vocoder, scorer):
-            if part is not None and part.device != self.device:
+            if part is not None and not same_device(part.device,
+                                                    self.device):
                 raise ValueError(f"{type(part).__name__} on {part.device}, "
                                  f"engine on {self.device}")
         self.cfg = cfg = cfg or T2AConfig()
@@ -118,6 +136,10 @@ class T2AEngine(ParamsEntry):
         self.tokenizer = WordPieceTokenizer(vocab_size=cfg.clap.bert.vocab_size)
         self.vocoder = vocoder
         self.scorer = scorer
+        if mesh is not None:
+            for part in (vocoder, scorer):
+                if part is not None:
+                    part.replicas(mesh)
         self._generator = torch.Generator(self.device).manual_seed(rng_seed)
 
     def load_jax_params(self, params: dict) -> None:
@@ -135,8 +157,21 @@ class T2AEngine(ParamsEntry):
         self._weights_loaded()
 
     def _weights_loaded(self) -> None:
-        # the UNet the samplers of txt2audio run (inpaint runs ``unet``)
+        # the UNet the samplers of txt2audio run (inpaint runs ``unet``),
+        # and each replica's copies
         self._run = run_copy(self.unet, self.cfg.unet_bf16)
+        self._replicate()
+
+    def replica(self, i: int) -> "T2AEngine":
+        """The engine as replica ``i`` of the mesh sees it: its UNet, VAE,
+        vocoder and scorer views on its card."""
+        view = super().replica(i)
+        if self.mesh is not None:
+            if self.vocoder is not None:
+                view.vocoder = self.vocoder.replicas(self.mesh)[i]
+            if self.scorer is not None:
+                view.scorer = self.scorer.replicas(self.mesh)[i]
+        return view
 
     # -- conditioning -------------------------------------------------------
     @torch.inference_mode()
@@ -171,8 +206,11 @@ class T2AEngine(ParamsEntry):
 
     # -- public API ---------------------------------------------------------
     def _prep_candidates(self, text: str, n_samples: int, seed: int | None):
-        """One batched cond+uncond encode and the initial noise."""
+        """One batched cond+uncond encode and the initial noise of the
+        whole batch, on the first device, for ``n_samples`` rounded up to
+        the mesh's ``data`` axis."""
         cfg = self.cfg
+        n_samples = self._rows(n_samples)
         both = self.encode_text([text] * n_samples + [""] * n_samples)
         ctx, uc = both[:n_samples], both[n_samples:]
         gen = (self._generator if seed is None
@@ -186,14 +224,22 @@ class T2AEngine(ParamsEntry):
                   scale: float = 1.5, seed: int | None = None,
                   sampler: str = "ddim"):
         """→ candidate mels [n, frames, mel_bins] in [0, 1], and with a
-        vocoder attached ``(mels, wavs [n, samples])``, as numpy arrays."""
+        vocoder attached ``(mels, wavs [n, samples])``, as numpy arrays; n
+        rounded up to the mesh's ``data`` axis."""
         ctx, uc, x_T = self._prep_candidates(text, n_samples, seed)
-        mel01 = self.sample_core(ctx, uc, x_T, scale, ddim_steps,
-                                 sampler)[:, 0]             # [n, bins, frames]
-        mels = mel01.transpose(1, 2).cpu().numpy()
+
+        def run(rep, ctx, uc, x_T):
+            mel01 = rep.sample_core(ctx, uc, x_T, scale, ddim_steps,
+                                    sampler)[:, 0]         # [n, bins, frames]
+            return mel01, (None if rep.vocoder is None
+                           else rep.vocoder.vocode(mel01))
+
+        outs = self._on_replicas(run, self._shard(ctx, uc, x_T))
+        mels = np.concatenate([m.transpose(1, 2).cpu().numpy()
+                               for m, _ in outs])
         if self.vocoder is None:
             return mels
-        return mels, self.vocoder.vocode(mel01).cpu().numpy()
+        return mels, np.concatenate([w.cpu().numpy() for _, w in outs])
 
     @torch.inference_mode()
     def sample_vocode_rank(self, text: str, context: torch.Tensor,
@@ -203,13 +249,27 @@ class T2AEngine(ParamsEntry):
         """The ranked core (the JAX engine's ``_sample_vocode_rank_fn``):
         sampler → VAE decode → vocoder → CLAP scores of all candidates at
         their full length → argmax. → ``(mel01 [mel_bins, frames], wav [T])``
-        of the winner and ``scores [n]``, on the device."""
-        mel01 = self.sample_core(context, uncond, x_T, guidance, n_steps,
-                                 sampler)[:, 0]
-        wavs = self.vocoder.vocode(mel01)
-        scores = self.scorer.similarity(text, wavs)
-        best = scores.argmax()
-        return mel01[best], wavs[best], scores
+        of the winner, on its card, and ``scores [n]`` on the first.
+
+        With a mesh the rows of ``context``, ``uncond`` and ``x_T`` (n a
+        multiple of its ``data`` axis) shard over the replicas, as
+        ``P("data")`` shards them: each runs the whole chain on its rows
+        with the text embedding (computed once, on the first card) copied
+        to its card; the scores are gathered on the first card."""
+        t = self.scorer.text_embedding(text)
+
+        def run(rep, ctx, uc, x_T):
+            mel01 = rep.sample_core(ctx, uc, x_T, guidance, n_steps,
+                                    sampler)[:, 0]
+            wavs = rep.vocoder.vocode(mel01)
+            return mel01, wavs, rep.scorer.audio_similarity(
+                t.to(rep.device), wavs)
+
+        outs = self._on_replicas(run, self._shard(context, uncond, x_T))
+        scores = torch.cat([s.to(self.device) for _, _, s in outs])
+        replica, row = divmod(int(scores.argmax()), outs[0][0].shape[0])
+        mel01, wavs, _ = outs[replica]
+        return mel01[row], wavs[row], scores
 
     def select_best(self, text: str, wavs) -> int:
         """Best-of-n CLAP re-ranking (``select_best_audio``,
@@ -225,8 +285,9 @@ class T2AEngine(ParamsEntry):
         engine's production sampler (``cfg.tool_sampler`` /
         ``cfg.tool_steps``). → ``(mel [frames, mel_bins], wav [T] or None,
         scores [n])`` as numpy; ``scores`` are the candidates' CLAP
-        similarities. Without a vocoder or a scorer it returns candidate 0
-        with zero scores, as the JAX engine does."""
+        similarities, one per candidate (n rounded up to the mesh's ``data``
+        axis). Without a vocoder or a scorer it returns candidate 0 with
+        zero scores, as the JAX engine does."""
         cfg = self.cfg
         ddim_steps = cfg.tool_steps if ddim_steps is None else ddim_steps
         sampler = cfg.tool_sampler if sampler is None else sampler
@@ -234,7 +295,7 @@ class T2AEngine(ParamsEntry):
             out = self.txt2audio(text, n_samples=n_samples,
                                  ddim_steps=ddim_steps, scale=scale,
                                  seed=seed, sampler=sampler)
-            scores = np.zeros(n_samples, np.float32)
+            scores = np.zeros(self._rows(n_samples), np.float32)
             if self.vocoder is None:
                 return out[0], None, scores
             return out[0][0], out[1][0], scores

@@ -1,8 +1,13 @@
 """Text → image engine: a StableDiffusion-class LDM on the shared diffusion
 stack (the agent's "Generate Image From User Input Text" tool).
 
-Counterpart of ``audiogpt_tpu/engines/t2i.py:38-221`` without the mesh
-branches. The reference's T2I tool calls a hosted SD-1.5 pipeline
+Counterpart of ``audiogpt_tpu/engines/t2i.py:38-221``, the mesh included:
+with ``mesh=`` (a ``parallel.device_mesh``) ``txt2img`` rounds n up to its
+``data`` axis, encodes the prompt and draws the initial noise once on the
+first card and runs each replica's rows on its own UNet and VAE, thread
+and stream (``t2i.py:183-205``; ``engines/base.py`` ``Replicated``); the
+CLIP text tower and the prompt refiner run on the first card. The
+reference's T2I tool calls a hosted SD-1.5 pipeline
 (``audio-chatgpt.py``'s ``T2I``); here the UNet, VAE and samplers that
 serve T2A are built at the SD-1.x shape with a CLIP ViT-L/14 text tower as
 the conditioner: the CLIP tower's post-LN token states (77 × 768) are the
@@ -24,7 +29,7 @@ import os
 import numpy as np
 import torch
 
-from audiogpt_tpu_torch.engines.base import (ParamsEntry, resolve_device,
+from audiogpt_tpu_torch.engines.base import (ParamsEntry, Replicated,
                                              run_copy)
 from audiogpt_tpu_torch.models.diffusion.samplers import (
     DiffusionSchedule,
@@ -79,24 +84,29 @@ class T2IConfig:
         return self.height // self.vae_factor, self.width // self.vae_factor
 
 
-class T2IEngine(ParamsEntry):
+class T2IEngine(Replicated, ParamsEntry):
     name = "t2i"
     #: a trainer checkpoint's groups load by name (``unet``, ``vae``,
     #: ``text``)
     train_group = None
+    #: each replica's own copies
+    replicated = ("unet", "vae", "_run")
 
     def __init__(self, cfg: T2IConfig | None = None,
                  params: dict | None = None,
-                 tokenizer="auto", media_root: str = ".", rng_seed: int = 0,
-                 text_refiner=None, device: str | torch.device | None = None):
+                 tokenizer="auto", mesh=None, media_root: str = ".",
+                 rng_seed: int = 0, text_refiner=None,
+                 device: str | torch.device | None = None):
         """``params``: the JAX engine's ``{"unet", "vae", "text"}`` trees as
         numpy arrays; ``None`` keeps a seeded random init. ``tokenizer``:
         text → bare CLIP BPE ids; ``"auto"`` loads the bundled CLIP merges
         (:class:`~audiogpt_tpu_torch.text.bpe.ClipTokenizer`), ``None``
-        drops the prompt (with a warning). ``text_refiner``: any
-        ``str → str`` run over the prompt first (the reference's MagicPrompt
-        stage). ``device=None`` is the card, and raises without one."""
-        self.device = resolve_device(device)
+        drops the prompt (with a warning). ``mesh``: a
+        ``parallel.device_mesh`` over which a call's images shard (JAX's
+        ``mesh=``). ``text_refiner``: any ``str → str`` run over the prompt
+        first (the reference's MagicPrompt stage). ``device=None`` is the
+        card (the mesh's first with a mesh), and raises without one."""
+        self.device = self._bind_mesh(mesh, device)
         self.cfg = cfg = cfg or T2IConfig()
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(rng_seed)
@@ -136,6 +146,7 @@ class T2IEngine(ParamsEntry):
 
     def _weights_loaded(self) -> None:
         self._run = run_copy(self.unet, self.cfg.unet_bf16)
+        self._replicate()
 
     # -- conditioning -------------------------------------------------------
     @torch.inference_mode()
@@ -188,10 +199,13 @@ class T2IEngine(ParamsEntry):
     def txt2img(self, text: str, n_samples: int = 1, steps: int = 50,
                 scale: float = 7.5, seed: int | None = None,
                 sampler: str = "ddim") -> np.ndarray:
-        """→ images [n, H, W, 3] float32 in [0, 1]. The initial noise comes
-        from the engine's generator, or one seeded with ``seed``."""
+        """→ images [n, H, W, 3] float32 in [0, 1], n rounded up to the
+        mesh's ``data`` axis. The initial noise of the whole batch comes
+        from the engine's generator, or one seeded with ``seed``, on the
+        first card; each replica samples its rows."""
         if self.text_refiner is not None and text:
             text = self.text_refiner(text)
+        n_samples = self._rows(n_samples)
         both = self.encode_ids(self._tokenize([text] * n_samples
                                               + [""] * n_samples))
         ctx, uc = both[:n_samples], both[n_samples:]
@@ -200,12 +214,16 @@ class T2IEngine(ParamsEntry):
         h, w = self.cfg.latent_hw
         x_T = torch.randn((n_samples, self.cfg.unet.in_channels, h, w),
                           generator=gen, device=self.device)
-        img = self.sample(ctx, uc, x_T, scale, steps, sampler)
-        return img.permute(0, 2, 3, 1).cpu().numpy()
+        imgs = self._on_replicas(
+            lambda rep, c, u, x: rep.sample(c, u, x, scale, steps, sampler),
+            self._shard(ctx, uc, x_T))
+        return np.concatenate([img.permute(0, 2, 3, 1).cpu().numpy()
+                               for img in imgs])
 
     def __call__(self, text: str) -> str:
         """The toolset's ``t2i`` slot: text → the saved PNG's path, relative
-        to ``media_root`` (``image/<uuid8>.png``)."""
+        to ``media_root`` (``image/<uuid8>.png``). On a mesh every replica
+        draws an image and the first is saved, as in JAX."""
         from PIL import Image
 
         from audiogpt_tpu_torch.agent.tools import new_media_path

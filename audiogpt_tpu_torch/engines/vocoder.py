@@ -16,6 +16,7 @@ import torch
 from audiogpt_tpu_torch.engines.base import (
     Bucketer,
     ParamsEntry,
+    device_views,
     resolve_device,
     run_copy,
 )
@@ -82,13 +83,37 @@ class VocoderEngine(ParamsEntry):
         self.n_mels = getattr(self.cfg, "in_channels", None) \
             or getattr(self.cfg, "num_mels", 80)
         self.bf16 = bf16
+        self._gen = torch.Generator(self.device).manual_seed(rng_seed)
+        self._replica_sets: dict[tuple, list] = {}
         self._weights_loaded()
         self.bucketer = Bucketer(buckets)
-        self._gen = torch.Generator(self.device).manual_seed(rng_seed)
 
     def _weights_loaded(self) -> None:
-        # ``model`` keeps the f32 parameters; the run copy is cast again
+        # ``model`` keeps the f32 parameters; the run copy is cast again,
+        # and every mesh's replicas are copied again
         self._run = run_copy(self.model, self.bf16)
+        self._replica_sets = {mesh: self._views(mesh)
+                              for mesh in self._replica_sets}
+
+    def replicas(self, mesh) -> list["VocoderEngine"]:
+        """The engine on every entry of ``mesh`` (a
+        ``parallel.device_mesh`` whose first entry is the engine's device),
+        for a diffusion engine whose candidates shard over it: the engine
+        itself, then views with their own copy of the generator and of its
+        bf16 run copy on their device. Built at a mesh's first call and
+        again at every weight load."""
+        key = tuple(mesh)
+        if key not in self._replica_sets:
+            self._replica_sets[key] = self._views(key)
+        return self._replica_sets[key]
+
+    def _views(self, devices: tuple) -> list["VocoderEngine"]:
+        views = device_views(self, devices, ("model", "_run"))
+        for view in views[1:]:
+            view._gen = torch.Generator(view.device).manual_seed(
+                self._gen.initial_seed())
+            view._replica_sets = {}
+        return views
 
     @property
     def hop_size(self) -> int:

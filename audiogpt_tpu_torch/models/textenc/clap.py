@@ -263,32 +263,72 @@ class CLAPScorer:
             torch.manual_seed(rng_seed)
             self.text = CLAPTextEncoder(self.cfg)
             self.audio = tower(audio_cfg)
-        if text_params is not None:
-            load_jax_params(self.text, text_params)
-        if audio_params is not None:
-            load_jax_params(self.audio, audio_params)
         for m in (self.text, self.audio):
             m.to(self.device).eval()
+        self._replica_sets: dict[tuple, list] = {}
+        self.load_jax_params(text_params, audio_params)
         self.tokenizer = tokenizer or WordPieceTokenizer(
             vocab_size=self.cfg.bert.vocab_size)
         self.sample_rate = sample_rate
 
+    def load_jax_params(self, text_params=None, audio_params=None) -> None:
+        """Load the JAX scorer's trees (numpy leaves) into the towers given
+        one, strictly; the audio tower's replicas are copied again."""
+        if text_params is not None:
+            load_jax_params(self.text, text_params)
+        if audio_params is not None:
+            load_jax_params(self.audio, audio_params)
+        self._weights_loaded()
+
+    def _weights_loaded(self) -> None:
+        # imported here: engines/ imports this module
+        from audiogpt_tpu_torch.engines.base import device_views
+
+        self._replica_sets = {mesh: device_views(self, mesh, ("audio",))
+                              for mesh in self._replica_sets}
+
+    def replicas(self, mesh) -> list["CLAPScorer"]:
+        """The scorer on every entry of ``mesh`` (a ``parallel.device_mesh``
+        whose first entry is the scorer's device), for a T2A engine whose
+        candidates shard over it: the scorer itself, then views with their
+        own copy of the audio tower on their device (the text tower runs
+        once, on the first: :meth:`text_embedding`). Built at a mesh's
+        first call and again at every weight load."""
+        from audiogpt_tpu_torch.engines.base import device_views
+
+        key = tuple(mesh)
+        if key not in self._replica_sets:
+            self._replica_sets[key] = device_views(self, key, ("audio",))
+        return self._replica_sets[key]
+
     @torch.inference_mode()
-    def similarity(self, text: str, wavs: torch.Tensor) -> torch.Tensor:
-        """wavs [n, T] on the scorer's device → cosine similarity [n] there,
-        each candidate's length taken as T."""
+    def text_embedding(self, text: str) -> torch.Tensor:
+        """The text's CLS projection, unit norm → [1, d_proj] on the
+        scorer's device."""
         # non_blocking: the candidates' work is still queued, and a blocking
         # host-to-device copy would wait for it before the towers are queued
         ids, mask = (torch.from_numpy(a).long()[None].to(self.device,
                                                          non_blocking=True)
                      for a in self.tokenizer.encode(text, self.cfg.max_length))
         t = self.text.cls_embedding(ids, mask)
+        return t / torch.linalg.vector_norm(t, dim=-1, keepdim=True)
+
+    @torch.inference_mode()
+    def audio_similarity(self, t: torch.Tensor,
+                         wavs: torch.Tensor) -> torch.Tensor:
+        """wavs [n, T] and a unit text embedding ``t`` [1, d_proj], both on
+        the scorer's device → cosine similarity [n] there, each
+        candidate's length taken as T."""
         wav_len = torch.full((wavs.shape[0],), wavs.shape[1],
                              dtype=torch.int64, device=wavs.device)
         a = self.audio(wavs, wav_len)
-        t = t / torch.linalg.vector_norm(t, dim=-1, keepdim=True)
         a = a / torch.linalg.vector_norm(a, dim=-1, keepdim=True)
         return (a @ t.T)[:, 0]
+
+    def similarity(self, text: str, wavs: torch.Tensor) -> torch.Tensor:
+        """wavs [n, T] on the scorer's device → cosine similarity [n] there,
+        each candidate's length taken as T."""
+        return self.audio_similarity(self.text_embedding(text), wavs)
 
     def score(self, text: str, wavs) -> np.ndarray:
         """→ similarity per candidate waveform ([n, T] or [T], numpy)."""

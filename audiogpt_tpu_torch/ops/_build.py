@@ -7,17 +7,23 @@ interface, loaded with :mod:`ctypes`. The build happens at the first call of
 carries a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads at once. Nothing here runs at import time: the CPU tests
 import every module on a machine that has no ``nvcc``.
+
+The kernels may launch from several threads of one process (one per card,
+or several streams of one card: ``engines/base.py`` ``ReplicaRunner``), so
+the first load is guarded by a lock, and the wrappers update their launch
+counters under :data:`COUNT_LOCK`.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
+from collections import Counter
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -100,15 +106,53 @@ def build() -> Path:
     return lib
 
 
-@functools.cache
+_LOAD_LOCK = threading.Lock()
+_LIBRARY: ctypes.CDLL | None = None
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    """The loaded kernel library, built on first use. Two threads' first
+    calls build and load it once: the second waits for the first."""
+    global _LIBRARY
+    if _LIBRARY is None:
+        with _LOAD_LOCK:
+            if _LIBRARY is None:
+                lib = ctypes.CDLL(str(build()))
+                for name, argtypes in SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                _LIBRARY = lib
+    return _LIBRARY
+
+
+#: guards every wrapper's launch counters: ``+=`` on an attribute is not
+#: atomic between threads
+COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper, device: int, stream: int, bf16: bool,
+                 flops: int = 0) -> None:
+    """Count one launch of ``wrapper``'s kernel in its totals (``launches``,
+    ``bf16_launches`` and, given, ``flops``), on its card
+    (``launches_by_device``, by device index) and on its stream
+    (``launches_by_stream``, by (device index, stream handle): the replicas
+    of one card run on streams of their own)."""
+    with COUNT_LOCK:
+        wrapper.launches += 1
+        wrapper.bf16_launches += bf16
+        if flops:
+            wrapper.flops += flops
+        wrapper.launches_by_device[device] += 1
+        wrapper.launches_by_stream[(device, stream)] += 1
+
+
+def reset_counts(wrapper) -> None:
+    """Set every launch counter of ``wrapper`` to 0."""
+    with COUNT_LOCK:
+        wrapper.launches = wrapper.bf16_launches = 0
+        wrapper.launches_by_device = Counter()
+        wrapper.launches_by_stream = Counter()
 
 
 def check(err: int, name: str) -> None:

@@ -150,36 +150,41 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = kv_mask.to(torch.float32).contiguous()
     out = torch.empty_like(q)
     name = _ENTRY[q.dtype]
-    err = getattr(_build.library(), name)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(),
-        b, tq, tk, h, d, d ** -0.5, int(causal),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    lib = _build.library()
+    # the C entry launches on the calling thread's current device: make
+    # q's card current, and hand it that card's current stream
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            b, tq, tk, h, d, d ** -0.5, int(causal), stream)
     _build.check(err, name)
-    flash_attention.launches += 1
-    flash_attention.bf16_launches += q.dtype == torch.bfloat16
-    flash_attention.flops += 4 * b * tq * tk * h * d
+    _build.count_launch(flash_attention, q.device.index, stream,
+                        q.dtype == torch.bfloat16, 4 * b * tq * tk * h * d)
     return out
 
 
 #: launches of the CUDA kernel in this process (the main path's evidence),
-#: of both entries and of the bf16 entry alone; and the FLOPs of those
-#: launches (4·B·Tq·Tk·H·D each, the Pallas call's ``cost_estimate``),
-#: which ``FlopCounterMode`` cannot see: the trainer adds them to its count
-flash_attention.launches = 0
-flash_attention.bf16_launches = 0
+#: of both entries and of the bf16 entry alone, by card and by stream
+#: (``_build.count_launch``); and the FLOPs of those launches
+#: (4·B·Tq·Tk·H·D each, the Pallas call's ``cost_estimate``), which
+#: ``FlopCounterMode`` cannot see: the trainer adds them to its count
+_build.reset_counts(flash_attention)
 flash_attention.flops = 0
 
 
-def launch_grid(b: int, tq: int, h: int, d: int, dtype: torch.dtype) -> dict:
-    """The kernel's grid at a shape: blocks, resident blocks per SM and the
-    waves they make on the current card."""
+def launch_grid(q: torch.Tensor) -> dict:
+    """The kernel's grid for q [B, Tq, H, D] on its card: blocks, resident
+    blocks per SM and the waves they make there."""
+    b, tq, h, d = q.shape
     n = ctypes.c_int(0)
-    err = _build.library().flash_attention_occupancy(
-        d, int(dtype == torch.bfloat16), ctypes.byref(n))
+    lib = _build.library()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_occupancy(
+            d, int(q.dtype == torch.bfloat16), ctypes.byref(n))
     _build.check(err, "flash_attention_occupancy")
     blocks = -(-tq // BLOCK_Q) * h * b
-    sms = torch.cuda.get_device_properties(
-        torch.cuda.current_device()).multi_processor_count
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     return {"blocks": blocks, "blocks_per_sm": n.value, "sms": sms,
             "waves": blocks / (n.value * sms) if n.value else None}

@@ -141,16 +141,20 @@ def snake_aa(x: torch.Tensor, alpha: torch.Tensor,
     bt = beta.to(torch.float32).contiguous()
     out = torch.empty_like(x)
     name = _ENTRY[x.dtype]
-    err = getattr(_build.library(), name)(
-        x.data_ptr(), a.data_ptr(), bt.data_ptr(), out.data_ptr(), b, c, t,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    lib = _build.library()
+    # the C entry launches on the calling thread's current device: make
+    # x's card current, and hand it that card's current stream
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = getattr(lib, name)(x.data_ptr(), a.data_ptr(), bt.data_ptr(),
+                                 out.data_ptr(), b, c, t, stream)
     _build.check(err, name)
-    snake_aa.launches += 1
-    snake_aa.bf16_launches += x.dtype == torch.bfloat16
+    _build.count_launch(snake_aa, x.device.index, stream,
+                        x.dtype == torch.bfloat16)
     return out
 
 
 #: launches of the CUDA kernel in this process (the main path's evidence),
-#: of both entries and of the bf16 entry alone
-snake_aa.launches = 0
-snake_aa.bf16_launches = 0
+#: of both entries and of the bf16 entry alone, by card and by stream
+#: (``_build.count_launch``)
+_build.reset_counts(snake_aa)

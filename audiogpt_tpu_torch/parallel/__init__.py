@@ -1,12 +1,15 @@
 """Data- and tensor-parallel runtime — counterpart of
 ``audiogpt_tpu/parallel`` over ``torch.distributed`` (torchrun, NCCL on the
 card, gloo on the CPU), with the port-only collectives of
-``parallel/reduce.py`` that keep a loss's global-batch semantics."""
+``parallel/reduce.py`` that keep a loss's global-batch semantics; and the
+serving engines' one-process mesh of cards (``device_mesh``)."""
 
 from audiogpt_tpu_torch.parallel.mesh import (  # noqa: F401
     LocalMesh,
     MeshSpec,
+    ReplicaMesh,
     bind_data_axis,
+    device_mesh,
     distributed_init,
     is_main,
     local_batch_slice,

@@ -18,6 +18,12 @@ gloo for runs on the CPU:
   the ``data`` axis, which is how a loss reduces over the global batch.
 
 Only rank 0 logs and writes (``jax.process_index() == 0`` in JAX).
+
+Serving keeps JAX's other mesh: one process over its own chips, the
+engines' ``mesh=`` (``audiogpt_tpu/engines/t2a.py:92-118``), where the
+candidates of one call shard over ``data``. :func:`device_mesh` is its
+counterpart, an ordered tuple of the process's cards; the engines run one
+replica of their modules on each (``engines/base.py``).
 """
 
 from __future__ import annotations
@@ -154,6 +160,47 @@ def make_mesh(spec: MeshSpec | None = None):
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return DeviceMesh(device_type, torch.arange(n).reshape(d, m),
                       mesh_dim_names=tuple(spec.axis_names))
+
+
+class ReplicaMesh(tuple):
+    """One process's cards, in order, as a JAX ``Mesh`` of one process's
+    chips with axes ``data`` (one entry a card) and ``model`` (1). A card
+    may appear more than once: each entry is one replica, so one card can
+    hold two (each on a stream of its own)."""
+
+    @property
+    def shape(self) -> dict:
+        return {"data": len(self), "model": 1}
+
+    def __repr__(self) -> str:
+        return f"ReplicaMesh({', '.join(map(str, self))})"
+
+
+def device_mesh(devices) -> ReplicaMesh:
+    """The mesh of ``devices`` (``torch.device``s or their names, all CUDA
+    or all CPU). ``"cuda"`` without an index is the current card. A card
+    the machine lacks, CUDA without a card, or a mix of types raises:
+    nothing falls back to the CPU or to fewer cards."""
+    devs = [torch.device(d) for d in devices]
+    if not devs:
+        raise ValueError("device_mesh: no devices")
+    types = {d.type for d in devs}
+    if len(types) > 1 or types - {"cuda", "cpu"}:
+        raise ValueError(f"device_mesh: all CUDA or all CPU, not {devs}")
+    if "cuda" in types:
+        if not torch.cuda.is_available():
+            raise RuntimeError("device_mesh: CUDA is not available; name "
+                               "'cpu' devices to run on the CPU")
+        count = torch.cuda.device_count()
+        devs = [torch.device("cuda", torch.cuda.current_device()
+                             if d.index is None else d.index) for d in devs]
+        missing = [d for d in devs if d.index >= count]
+        if missing:
+            raise ValueError(f"device_mesh: {missing} not on this machine "
+                             f"({count} cards)")
+    else:
+        devs = [torch.device("cpu")] * len(devs)
+    return ReplicaMesh(devs)
 
 
 def _dim(mesh, axis: str) -> int:

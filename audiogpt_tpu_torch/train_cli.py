@@ -428,11 +428,12 @@ def _reset_counts(device) -> None:
     what it holds, just before the run."""
     import torch
 
+    from audiogpt_tpu_torch.ops import _build
     from audiogpt_tpu_torch.ops.flash_attention import flash_attention
     from audiogpt_tpu_torch.ops.snake_aa import snake_aa
 
-    flash_attention.launches = flash_attention.bf16_launches = 0
-    snake_aa.launches = snake_aa.bf16_launches = 0
+    _build.reset_counts(flash_attention)
+    _build.reset_counts(snake_aa)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
 

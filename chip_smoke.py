@@ -372,6 +372,16 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
    1e-6 relative, the first step's gradients and the updated parameters
    within 5e-5 of each tensor's largest, the ranks' parameters equal;
    each rank's K1 launches.
+80. t2a_mesh (after profile): the main path's weights in ``T2AEngine(...,
+   mesh=device_mesh(["cuda:0", "cuda:0"]))``, two replicas of the one card
+   with their own streams: ``txt2audio_best`` with the tool's sampler, n = 3
+   rounded up to 4; each replica's K1 (65 at [4, 780, 780, 8, 40]) and K2
+   (73 at batch 2) launches by stream, against the one-replica engine at
+   n = 4 and the same seed (``MESH_TOL``); both warm walls.
+81. t2i_mesh (after t2i_bf16): the T2I phase's weights on two replicas of
+   the card, ``txt2img`` at 512² with n = 2, DDIM-10 (cut from the tool's
+   DDIM-50 for the time limit): K1 250 a replica (50 at each of five
+   shapes), the images against the one-replica engine's; both warm walls.
 
 The ``unet_bf16`` engine of phase 6 also inpaints (``inpaint_unet_bf16``):
 its f32 UNet gives the f32 engine's wav with the same draws.
@@ -466,6 +476,16 @@ FACE_WARM_CALLS = 3                   # warm GeneFace, HTSAT-ranked T2A,
 #: its weights scaled by 0.25 and its bias softplus⁻¹(6), ≈ 6 frames a
 #: phone (untouched random weights give ≈ 0.7)
 PS_DUR_SCALE, PS_PHONE_FRAMES = 0.25, 6.0
+#: the mesh phases: two replicas on the one card (a mesh that names it
+#: twice); T2A's n = 3 rounds up to 4, 2 rows a replica; T2I's n = 2, one
+#: image a replica, with the sampler cut from DDIM-50 to DDIM-10
+MESH_REPLICAS, MESH_N, MESH_ROWS = 2, 3, 2
+T2I_MESH_N, T2I_MESH_STEPS = 2, 10
+MESH_WARM_CALLS = 3
+#: two replicas against one at the same seed and rounded n: each replica
+#: runs its rows at half the batch, and cuBLAS / cuDNN may pick other
+#: algorithms (another summation order) at another batch, TF32 off
+MESH_TOL = {"mel": 1e-3, "wav": 1e-3, "scores": 1e-4, "image": 1e-3}
 
 
 def emit(obj: dict) -> None:
@@ -575,7 +595,8 @@ BF16_FLASH_TOL = (1e-2, 2 ** -7)          # absolute, relative
 #: vision self-attention (577 tokens); PVT SED's spatial-reduction attention
 #: (one head at stage 0, Tq >> Tk, 100 or 200 keys) on a 10 s clip (stages
 #: 0, 1) and a 32 s clip (stages 0-2); the LDM recipe's training step at
-#: batch 16 (level-0 self-attention); one rank's level 0 of
+#: batch 16 (level-0 self-attention); a replica's level 0 in ``t2a_mesh``
+#: (2 of 4 candidates and their CFG pair); one rank's level 0 of
 #: ``train_ddp_gloo_small``'s tiny LDM; the key-mask and causal code no path
 #: reaches
 FLASH_CASES = {
@@ -599,6 +620,7 @@ FLASH_CASES = {
     "pvt_s1_32s": ((1, 3200, 200, 2, 64), None, False),
     "pvt_s2_32s": ((1, 800, 200, 5, 64), None, False),
     "train_level0": ((16, 780, 780, 8, 40), None, False),
+    "t2a_mesh_level0": ((4, 780, 780, 8, 40), None, False),
     "ddp_small_level0": ((2, 256, 256, 4, 40), None, False),
     "kv_mask": ((2, 1500, 1500, 6, 64), (1500, 1100), False),
     "causal": ((1, 256, 256, 2, 80), None, True),
@@ -673,7 +695,7 @@ def phase_flash(gen) -> dict:
                    "library_ms": lib, "bound_ms": bms,
                    "bound_by": by, "bound_share": bms / ms,
                    "fma_bound_ms": fma_bms,
-                   **launch_grid(b, tq, h, d, dtype)}
+                   **launch_grid(q)}
             emit(res)
             results.append(res)
         kernels[dname] = {"name": f"flash_attention_{dname}",
@@ -683,7 +705,8 @@ def phase_flash(gen) -> dict:
 
 def phase_snake(gen) -> dict:
     """Both snake entries at the BigVGAN stage shapes of the T2A call, the
-    inpaint call and the I2A call; → {dtype name: kernel record}."""
+    inpaint call, the I2A call and a ``t2a_mesh`` replica's rows; →
+    {dtype name: kernel record}."""
     import torch
 
     from audiogpt_tpu_torch.models.vocoder import BigVGANConfig
@@ -692,7 +715,8 @@ def phase_snake(gen) -> dict:
     cases = {}
     for prefix, batch, frames in (("stage", 3, 624),
                                   ("inpaint_stage", 1, 848),
-                                  ("i2a_stage", 1, 624)):
+                                  ("i2a_stage", 1, 624),
+                                  ("mesh_stage", MESH_ROWS, 624)):
         for i, shape in enumerate(snake_shapes(BigVGANConfig(), batch,
                                                frames)):
             cases[f"{prefix}{i}"] = shape
@@ -836,11 +860,12 @@ def counted(fn):
     after; → (output, seconds, counts)."""
     import torch
 
+    from audiogpt_tpu_torch.ops import _build
     from audiogpt_tpu_torch.ops.flash_attention import flash_attention
     from audiogpt_tpu_torch.ops.snake_aa import snake_aa
 
-    flash_attention.launches = flash_attention.bf16_launches = 0
-    snake_aa.launches = snake_aa.bf16_launches = 0
+    _build.reset_counts(flash_attention)
+    _build.reset_counts(snake_aa)
     t = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
@@ -2382,27 +2407,44 @@ def phase_i2a_small_reference() -> None:
 # ---------------------------------------------------------------------------
 
 
-def recorded_flash(fn):
+def recorded_flash_streams(fn):
     """``fn()`` with every call that ``ops/attention.py`` hands the flash
-    kernel's wrapper recorded by shape (B, Tq, Tk, H, D) → (output,
-    Counter). The wrapper and its launch count are untouched: this says at
-    which shapes the counted launches were made."""
+    kernel's wrapper recorded by the stream it was queued on (its handle)
+    and its shape (B, Tq, Tk, H, D) → (output, Counter of (stream, shape)).
+    The wrapper and its launch count are untouched: this says at which
+    shapes, and on which replica's stream, the counted launches were made.
+    Replicas call from threads of their own, so the record is locked."""
     import importlib
+    import threading
+
+    import torch
 
     # the module (``ops/__init__.py`` exports a function of its name)
     attn = importlib.import_module("audiogpt_tpu_torch.ops.attention")
-    real, shapes = attn.flash_attention, Counter()
+    real, seen, lock = attn.flash_attention, Counter(), threading.Lock()
 
     def recorder(q, k, v, **kw):
-        shapes[(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
-                q.shape[3])] += 1
+        key = (torch.cuda.current_stream(q.device).cuda_stream,
+               (q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3]))
+        with lock:
+            seen[key] += 1
         return real(q, k, v, **kw)
 
     attn.flash_attention = recorder
     try:
-        return fn(), shapes
+        return fn(), seen
     finally:
         attn.flash_attention = real
+
+
+def recorded_flash(fn):
+    """:func:`recorded_flash_streams` summed over the streams → (output,
+    Counter of shapes)."""
+    out, seen = recorded_flash_streams(fn)
+    shapes = Counter()
+    for (_, shape), n in seen.items():
+        shapes[shape] += n
+    return out, shapes
 
 
 def t2i_path(eng, steps: int = T2I_STEPS) -> dict:
@@ -7864,6 +7906,218 @@ def phase_train_portaspeech_spk(tmp: str) -> dict:
     return {"launches": run["counts"]}
 
 
+# ---------------------------------------------------------------------------
+# The engines' candidate sharding: two replicas on the one card
+# ---------------------------------------------------------------------------
+
+
+def replica_launches(eng) -> list:
+    """Each replica's launches of both kernels, read from the counts by
+    stream (a replica queues on its runner's stream)."""
+    from audiogpt_tpu_torch.ops.flash_attention import flash_attention
+    from audiogpt_tpu_torch.ops.snake_aa import snake_aa
+
+    keys = [(s.device.index, s.cuda_stream) for s in eng.runner.streams]
+    return [{"flash_attention": flash_attention.launches_by_stream[k],
+             "snake_aa": snake_aa.launches_by_stream[k]} for k in keys]
+
+
+def check_replicas(what: str, eng, seen: Counter, flash: Counter,
+                   per_replica: dict, counts: dict) -> dict:
+    """Each replica's launches (by stream) and recorded K1 shapes against
+    one replica's derived ones, and the call's totals against their sum;
+    → the shapes each replica recorded."""
+    streams = [s.cuda_stream for s in eng.runner.streams]
+    shapes = {i: Counter({shape: n for (st, shape), n in seen.items()
+                          if st == stream})
+              for i, stream in enumerate(streams)}
+    per = replica_launches(eng)
+    r = len(streams)
+    total = {k: r * v for k, v in per_replica.items()}
+    if per != [per_replica] * r or any(shapes[i] != flash for i in shapes) \
+            or sum(seen.values()) != total["flash_attention"] \
+            or {k: counts[k] for k in total} != total \
+            or counts["flash_attention_bf16"] or counts["snake_aa_bf16"]:
+        raise AssertionError(f"{what}: replica launches {per}, shapes "
+                             f"{shapes}, totals {counts}; expected "
+                             f"{per_replica} and {dict(flash)} a replica")
+    return shapes
+
+
+def warm_replica_runs(what: str, eng, fn, counts: dict,
+                      per_replica: dict) -> list:
+    """``MESH_WARM_CALLS`` counted calls of ``fn``, each with the cold
+    call's totals and ``per_replica`` on every replica's stream."""
+    runs = []
+    for _ in range(MESH_WARM_CALLS):
+        runs.append(counted(fn))
+        per = replica_launches(eng)
+        if runs[-1][2] != counts or per != [per_replica] * len(per):
+            raise AssertionError(f"{what} warm launches {runs[-1][2]}, "
+                                 f"{per}; cold {counts}")
+    return runs
+
+
+def phase_t2a_mesh(main: dict) -> dict:
+    """``txt2audio_best`` at full width on a mesh that names the card twice
+    (``device_mesh(["cuda:0", "cuda:0"])``: two replicas, each with its own
+    UNet, VAE, BigVGAN and Cnn14 copy, thread and stream) with the main
+    path's weights, loaded, not filled anew; the tool's sampler
+    (DPM-Solver++(2M)-12), n = 3 rounded up to 4, two rows a replica. Each
+    replica's stream must launch K1 at [4, 780, 780, 8, 40] and K2 at batch
+    2 as ``flash_shapes`` / ``snake_shapes`` give them for its rows (65 and
+    73); the call is held against the main path's one-replica engine at
+    n = 4 and the same seed (scores, argmax, the winner's mel and wav,
+    within ``MESH_TOL``); cold and warm (median of 3) walls of both."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.engines import T2AEngine
+    from audiogpt_tpu_torch.parallel import device_mesh
+
+    eng = main["engine"]
+    cfg = eng.cfg
+    t0 = time.perf_counter()
+    meng = T2AEngine(cfg, vocoder=eng.vocoder, scorer=eng.scorer,
+                     mesh=device_mesh(["cuda:0"] * MESH_REPLICAS))
+    meng.load_state_dict({name: getattr(eng, name).state_dict()
+                          for name in ("unet", "vae", "clap")})
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n = MESH_ROWS * MESH_REPLICAS
+    flash = flash_shapes(cfg, 2 * MESH_ROWS, cfg.latent_hw, cfg.tool_steps,
+                         cfg.clap.max_length)
+    snake = snake_shapes(eng.vocoder.cfg, MESH_ROWS, cfg.mel_len)
+    per_replica = {"flash_attention": sum(flash.values()),
+                   "snake_aa": sum(snake.values())}
+
+    def one():
+        return eng.txt2audio_best(TEXT, n_samples=n, seed=0)
+
+    def two():
+        return meng.txt2audio_best(TEXT, n_samples=MESH_N, seed=0)
+
+    ref, one_cold_s, _ = counted(one)
+    (out, seen), cold_s, counts = counted(lambda: recorded_flash_streams(two))
+    shapes = check_replicas("t2a_mesh", meng, seen, flash, per_replica,
+                            counts)
+    runs = warm_replica_runs("t2a_mesh", meng, two, counts, per_replica)
+    per = replica_launches(meng)
+    one_warm = sorted(counted(one)[1] for _ in range(MESH_WARM_CALLS))
+    (mel, wav, scores), (mel1, wav1, scores1) = out, ref
+    if scores.shape != (n,) or not np.isfinite(scores).all() \
+            or np.ptp(scores) == 0.0 or wav.shape != (159744,) \
+            or not np.isfinite(wav).all():
+        raise AssertionError(f"t2a_mesh scores {scores}, wav {wav.shape}")
+    diff = {"mel": float(np.abs(mel - mel1).max()),
+            "wav": float(np.abs(wav - wav1).max()),
+            "scores": float(np.abs(scores - scores1).max())}
+    top = np.sort(scores1)[-2:]
+    same_winner = int(scores.argmax()) == int(scores1.argmax())
+    warm = sorted(r[1] for r in runs)
+    emit({"phase": "t2a_mesh", "card": card_line(),
+          "call": "txt2audio_best", "mesh": "cuda:0 x 2",
+          "replicas": MESH_REPLICAS, "n_samples": MESH_N, "rounded_n": n,
+          "sampler": cfg.tool_sampler, "steps": cfg.tool_steps,
+          "setup_s": setup_s, "cold_s": cold_s,
+          "warm_s": statistics.median(warm), "warm_max_s": warm[-1],
+          "warm_calls": len(warm), "one_replica_n": n,
+          "one_replica_cold_s": one_cold_s,
+          "one_replica_warm_s": statistics.median(one_warm),
+          "launches": counts, "launches_per_replica": per,
+          "flash_shapes_per_replica": {
+              i: {str(list(k)): v for k, v in sh.items()}
+              for i, sh in shapes.items()},
+          "snake_shapes_per_replica": {str(list(k)): v
+                                       for k, v in snake.items()},
+          "max_abs_diff_from_one_replica": diff, "tolerance": MESH_TOL,
+          "winner": int(scores.argmax()),
+          "one_replica_winner": int(scores1.argmax()),
+          "one_replica_top2_gap": float(top[1] - top[0]),
+          "scores": scores.tolist()})
+    if any(diff[k] > MESH_TOL[k] for k in diff) or not (
+            same_winner or top[1] - top[0] <= MESH_TOL["scores"]):
+        raise AssertionError(f"t2a_mesh against one replica: {diff}, "
+                             f"winners {int(scores.argmax())}, "
+                             f"{int(scores1.argmax())}")
+    return {"launches": counts,
+            "flash": Counter({k: MESH_REPLICAS * v for k, v in flash.items()}),
+            "snake": Counter({k: MESH_REPLICAS * v for k, v in snake.items()})}
+
+
+def phase_t2i_mesh(t2i: dict) -> dict:
+    """``txt2img`` at full width (512², f32) on a mesh that names the card
+    twice, with the T2I phase's weights loaded: n = 2, one image a replica,
+    the sampler cut from the tool's DDIM-50 to DDIM-10 (the script's time
+    limit; the cut is printed). Each replica's stream must launch K1 250
+    times, 50 at each of the five shapes of batch 2 (the CFG pair), and K2
+    never; the images are held against the T2I engine's at n = 2 and the
+    same seed; cold and warm (median of 3) walls of both."""
+    import numpy as np
+    import torch
+
+    from audiogpt_tpu_torch.engines import T2IEngine
+    from audiogpt_tpu_torch.parallel import device_mesh
+
+    base = t2i["engine"]
+    cfg = base.cfg
+    t0 = time.perf_counter()
+    meng = T2IEngine(cfg, tokenizer=base.tokenizer,
+                     mesh=device_mesh(["cuda:0"] * MESH_REPLICAS),
+                     media_root=base.media_root)
+    meng.load_state_dict({name: getattr(base, name).state_dict()
+                          for name in ("unet", "vae", "text")})
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rows = T2I_MESH_N // MESH_REPLICAS
+    flash = flash_shapes(cfg, 2 * rows, cfg.latent_hw, T2I_MESH_STEPS,
+                         cfg.text.context_length)
+    per_replica = {"flash_attention": sum(flash.values()), "snake_aa": 0}
+
+    def one():
+        return base.txt2img(T2I_TEXT, n_samples=T2I_MESH_N,
+                            steps=T2I_MESH_STEPS, seed=0)
+
+    def two():
+        return meng.txt2img(T2I_TEXT, n_samples=T2I_MESH_N,
+                            steps=T2I_MESH_STEPS, seed=0)
+
+    ref, one_cold_s, _ = counted(one)
+    (img, seen), cold_s, counts = counted(lambda: recorded_flash_streams(two))
+    shapes = check_replicas("t2i_mesh", meng, seen, flash, per_replica,
+                            counts)
+    runs = warm_replica_runs("t2i_mesh", meng, two, counts, per_replica)
+    per = replica_launches(meng)
+    one_warm = sorted(counted(one)[1] for _ in range(MESH_WARM_CALLS))
+    if img.shape != (T2I_MESH_N, 512, 512, 3) or not np.isfinite(img).all():
+        raise AssertionError(f"t2i_mesh images {img.shape}")
+    diff = float(np.abs(img - ref).max())
+    warm = sorted(r[1] for r in runs)
+    emit({"phase": "t2i_mesh", "card": card_line(), "call": "txt2img",
+          "mesh": "cuda:0 x 2", "replicas": MESH_REPLICAS,
+          "n_samples": T2I_MESH_N, "size": "512x512", "sampler": "ddim",
+          "steps": T2I_MESH_STEPS,
+          "sampler_cut": f"DDIM-{T2I_STEPS} -> DDIM-{T2I_MESH_STEPS}, for "
+                         f"the script's time limit",
+          "scale": 7.5, "setup_s": setup_s, "cold_s": cold_s,
+          "warm_s": statistics.median(warm), "warm_max_s": warm[-1],
+          "warm_calls": len(warm), "one_replica_cold_s": one_cold_s,
+          "one_replica_warm_s": statistics.median(one_warm),
+          "launches": counts, "launches_per_replica": per,
+          "flash_shapes_per_replica": {
+              i: {str(list(k)): v for k, v in sh.items()}
+              for i, sh in shapes.items()},
+          "image_max_abs_diff_from_one_replica": diff,
+          "image_mean_abs_diff_from_one_replica": float(
+              np.abs(img - ref).mean()),
+          "tolerance": MESH_TOL["image"],
+          "rows_differ": float(np.abs(img[0] - img[1]).max())})
+    if diff > MESH_TOL["image"]:
+        raise AssertionError(f"t2i_mesh against one replica: {diff}")
+    return {"launches": counts,
+            "flash": Counter({k: MESH_REPLICAS * v for k, v in flash.items()})}
+
+
 def path_record(k: dict, path: str, shapes: Counter, launches: int) -> dict:
     """A kernel's share of one path: its launches, which the counters read
     and the configs must give (``shapes``), and per-call times, each the
@@ -7938,6 +8192,7 @@ def main() -> int:
     vocoder_bf16 = phase_vocoder_bf16(main_path)
     phase_small_reference()
     phase_profile(main_path["engine"], main_path["warm_s"])
+    t2a_mesh = phase_t2a_mesh(main_path)
     asr = phase_asr(gen)
     asr_long = phase_asr_long(asr)
     asr_bf16 = phase_asr_bf16(asr)
@@ -7953,6 +8208,7 @@ def main() -> int:
         phase_i2a_small_reference()
         t2i = phase_t2i(gen, tmp)
         t2i_bf16 = phase_t2i_bf16(t2i)
+        t2i_mesh = phase_t2i_mesh(t2i)
         phase_t2i_small_reference()
         i2t = phase_i2t(gen, tmp)
         phase_i2t_small_reference()
@@ -8075,6 +8331,10 @@ def main() -> int:
               for key in ("sed_pvt", "sed_pvt_32s")),
             path_record(flash["float32"], "t2a_htsat", t2a["flash"],
                         f32(t2a_htsat["launches"], "flash_attention")),
+            path_record(flash["float32"], "t2a_mesh", t2a_mesh["flash"],
+                        f32(t2a_mesh["launches"], "flash_attention")),
+            path_record(flash["float32"], "t2i_mesh", t2i_mesh["flash"],
+                        f32(t2i_mesh["launches"], "flash_attention")),
             path_record(flash["float32"], "train_ldm", train["shapes"],
                         f32(train["launches"], "flash_attention")),
             path_record(flash["float32"], "train_ddp_ldm", ddp["shapes"],
@@ -8113,6 +8373,10 @@ def main() -> int:
                         f32(i2a["launches"], "snake_aa")),
             path_record(snake["float32"], "t2a_htsat", t2a["snake"],
                         f32(t2a_htsat["launches"], "snake_aa")),
+            path_record(snake["float32"], "t2a_mesh", t2a_mesh["snake"],
+                        f32(t2a_mesh["launches"], "snake_aa")),
+            path_record(snake["float32"], "t2i_mesh", Counter(),
+                        f32(t2i_mesh["launches"], "snake_aa")),
             path_record(snake["float32"], "infer_cli_t2a",
                         cli["t2a"]["snake"],
                         f32(cli["t2a"]["launches"], "snake_aa")),

@@ -6,7 +6,10 @@ cross-attention of 1060 queries on 77 keys among them), causal masking with
 Tq != Tk, fully masked rows, rows shorter than one tile, rows whose length
 is not a multiple of 16 bytes or is shorter than one thread's run, f32 and
 bf16, up to the T2I UNet's widest head (D = 160); BLIP's fused-qkv views;
-PVT's spatial-reduction attention (one head, Tq >> Tk, a ragged key tail).
+PVT's spatial-reduction attention (one head, Tq >> Tk, a ragged key tail);
+both kernels from a worker thread on its own stream, on a card that is not
+the current one (with two cards), and a T2A engine on a mesh that names
+the card twice.
 
 These tests need an NVIDIA card and ``nvcc``; elsewhere they skip. They
 import neither JAX nor the JAX package, so they run where only PyTorch is
@@ -16,6 +19,8 @@ installed::
 """
 
 import importlib
+import threading
+from collections import Counter
 
 import pytest
 import torch
@@ -285,6 +290,170 @@ def test_snake_rejects_what_the_kernel_does_not_take(gen):
         snake_aa(x.half(), ones, ones)
     with pytest.raises(ValueError):
         snake_aa(x, torch.ones(3, device="cuda"), ones)
+
+
+def _on_worker(fn):
+    """``fn()`` on a new thread under a CUDA stream of its own, as an
+    engine replica runs (``engines/base.py`` ``ReplicaRunner``) →
+    (output, the stream's handle)."""
+    box = {}
+
+    def work():
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            box["out"] = fn()
+        stream.synchronize()
+        box["stream"] = stream.cuda_stream
+
+    thread = threading.Thread(target=work)
+    thread.start()
+    thread.join()
+    return box["out"], box["stream"]
+
+
+def _snake_inputs(gen, b, c, t, dtype, device="cuda"):
+    x = torch.randn(b, c, t, generator=gen, device="cuda").to(dtype)
+    alpha = torch.exp(0.3 * torch.randn(c, generator=gen, device="cuda"))
+    beta = torch.exp(0.3 * torch.randn(c, generator=gen, device="cuda"))
+    return tuple(a.to(device) for a in (x, alpha, beta))
+
+
+def _close(out, ref, dtype):
+    if dtype == torch.float32:
+        return (out.float() - ref.float()).abs().max().item() <= 1e-5
+    return bool(torch.all((out.float() - ref.float()).abs()
+                          <= 2 ** -7 * ref.float().abs() + 1e-3))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernels_launch_from_a_worker_thread_on_its_stream(gen, dtype):
+    """Both kernels called from another thread under its own stream (the
+    T2I D = 160 shape for K1): they launch there, count on that stream and
+    match their plain versions."""
+    q, k, v = _qkv(gen, 2, 256, 256, 8, 160, dtype)
+    x, alpha, beta = _snake_inputs(gen, 2, 64, 4993, dtype)
+    dev = torch.cuda.current_device()
+    flash_before = Counter(flash_attention.launches_by_stream)
+    snake_before = Counter(snake_aa.launches_by_stream)
+    (out, y), stream = _on_worker(
+        lambda: (flash_attention(q, k, v), snake_aa(x, alpha, beta)))
+    assert flash_attention.launches_by_stream[(dev, stream)] \
+        == flash_before[(dev, stream)] + 1
+    assert snake_aa.launches_by_stream[(dev, stream)] \
+        == snake_before[(dev, stream)] + 1
+    torch.testing.assert_close(out.float(), flash_attention_reference(
+        q, k, v).float(), **FLASH_TOL[dtype])
+    assert _close(y, snake_aa_reference(x, alpha, beta), dtype)
+
+
+def _second_card():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    return torch.device("cuda", 1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_d160_on_the_second_card_after_the_first(gen, dtype):
+    """K1 at D = 160 (209 KB of dynamic shared memory in f32) on cuda:1
+    after a launch on cuda:0, with cuda:0 current and from a worker thread:
+    the shared-memory set-up holds on each card."""
+    card1 = _second_card()
+    _flash_check(*_qkv(gen, 2, 256, 256, 8, 160, dtype))
+    q, k, v = (t.to(card1) for t in _qkv(gen, 2, 256, 256, 8, 160, dtype))
+    before = flash_attention.launches_by_device[1]
+    with torch.cuda.device(0):
+        out = flash_attention(q, k, v)
+    thread_out, _ = _on_worker(lambda: flash_attention(q, k, v))
+    torch.cuda.synchronize(card1)
+    assert out.device == card1 and thread_out.device == card1
+    assert flash_attention.launches_by_device[1] == before + 2
+    ref = flash_attention_reference(q, k, v)
+    for o in (out, thread_out):
+        torch.testing.assert_close(o.float(), ref.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_snake_on_a_card_that_is_not_current(gen, dtype):
+    card1 = _second_card()
+    x, alpha, beta = _snake_inputs(gen, 2, 64, 4993, dtype, device=card1)
+    before = snake_aa.launches_by_device[1]
+    with torch.cuda.device(0):
+        y = snake_aa(x, alpha, beta)
+    torch.cuda.synchronize(card1)
+    assert y.device == card1
+    assert snake_aa.launches_by_device[1] == before + 1
+    assert _close(y, snake_aa_reference(x, alpha, beta), dtype)
+
+
+def test_t2a_mesh_of_one_card_twice_matches_one_replica(gen):
+    """A narrow T2A engine (K1 at its level 0, K2 in BigVGAN) on a mesh
+    that names the card twice: each replica's stream launches both kernels
+    as one replica does at the rounded n, and the ranked call equals the
+    one-replica call (TF32 off)."""
+    from audiogpt_tpu_torch.engines import T2AConfig, T2AEngine, VocoderEngine
+    from audiogpt_tpu_torch.models.caption import Cnn14Config
+    from audiogpt_tpu_torch.models.diffusion import UNetConfig, VAEConfig
+    from audiogpt_tpu_torch.models.textenc import (BertConfig, CLAPScorer,
+                                                   CLAPTextConfig)
+    from audiogpt_tpu_torch.models.vocoder import BigVGANConfig
+    from audiogpt_tpu_torch.ops import _build
+    from audiogpt_tpu_torch.parallel import device_mesh
+
+    bert = BertConfig(vocab_size=2000, hidden_size=32, num_layers=1,
+                      num_heads=2, intermediate_size=64, max_position=80)
+    cfg = T2AConfig(
+        unet=UNetConfig(model_channels=32, num_res_blocks=1,
+                        channel_mult=(1, 2), num_heads=4, context_dim=32),
+        vae=VAEConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1,
+                      attn_resolutions=()),
+        clap=CLAPTextConfig(bert=bert, d_proj=32, max_length=16),
+        mel_bins=16, mel_len=64, timesteps=100)
+    voc = VocoderEngine("bigvgan", cfg=BigVGANConfig(
+        num_mels=16, upsample_initial_channel=16, upsample_rates=(8, 8, 4),
+        upsample_kernel_sizes=(16, 16, 8), resblock_kernel_sizes=(3,),
+        resblock_dilation_sizes=((1, 2),)), buckets=(64,), device="cuda")
+    scorer = CLAPScorer(CLAPTextConfig(bert=bert, d_proj=32, max_length=16),
+                        audio_cfg=Cnn14Config(channels=(4, 4, 8, 8, 16, 16)),
+                        sample_rate=16000, device="cuda")
+    eng = T2AEngine(cfg, vocoder=voc, scorer=scorer, device="cuda")
+    # seeded noise in every parameter (weights · fan_in^-½, norm scales
+    # 1 + 0.1·N, other vectors 0.1·N): no zero-initialised out conv leaves
+    # the candidates equal
+    fill = torch.Generator("cuda").manual_seed(5)
+    norms = (torch.nn.LayerNorm, torch.nn.GroupNorm, torch.nn.BatchNorm2d)
+    with torch.no_grad():
+        for top in (eng.unet, eng.vae, eng.clap, voc.model, scorer.text,
+                    scorer.audio):
+            for mod in top.modules():
+                for name, p in mod.named_parameters(recurse=False):
+                    z = torch.randn(p.shape, generator=fill, device="cuda")
+                    if isinstance(mod, norms) and name == "weight":
+                        p.copy_(1.0 + 0.1 * z)
+                    elif p.ndim >= 2:
+                        p.copy_(z / p[0].numel() ** 0.5)
+                    else:
+                        p.copy_(0.1 * z)
+    mesh = device_mesh(["cuda", "cuda"])
+    meng = T2AEngine(cfg, vocoder=voc, scorer=scorer, mesh=mesh)
+    meng.load_state_dict({name: getattr(eng, name).state_dict()
+                          for name in ("unet", "vae", "clap")})
+    for w in (flash_attention, snake_aa):
+        _build.reset_counts(w)
+    one = eng.txt2audio_best("a dog barks", n_samples=4, seed=3)
+    torch.cuda.synchronize()
+    single = {w: w.launches for w in (flash_attention, snake_aa)}
+    for w in (flash_attention, snake_aa):
+        _build.reset_counts(w)
+    two = meng.txt2audio_best("a dog barks", n_samples=3, seed=3)
+    torch.cuda.synchronize()
+    dev = torch.cuda.current_device()
+    for w in (flash_attention, snake_aa):
+        assert single[w] > 0
+        assert [w.launches_by_stream[(dev, s.cuda_stream)]
+                for s in meng.runner.streams] == [single[w]] * 2
+    assert two[2].shape == (4,)
+    for a, b in zip(one, two):
+        np.testing.assert_allclose(b, a, atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
