@@ -1,40 +1,35 @@
-// Blockwise (flash) attention forward on the tensor cores, for q/k/v
-// [B, T, H, D] in f32 or bf16.
+// Blockwise (flash) attention forward on the tensor cores, for f32 q/k/v
+// [B, T, H, D]; the bf16 entry is csrc/flash_attention_sm90.cu.
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` / `_flash_forward` of
-// audiogpt_tpu/ops/flash_attention.py. Semantics follow `_flash_kernel`:
-// scale D^-0.5, an optional key-padding mask [B, Tk] (> 0 = valid), causal
-// masking aligned top-left (key j is visible to query i when j <= i), key
-// tiles wholly above the diagonal skipped, f32 running max, sum and output
-// accumulators. bf16 inputs multiply into f32 accumulators and the
-// probabilities are rounded to bf16 before P.V, as `_flash_kernel:75-77`
-// does. A query row with no valid key returns 0: masked logits are -inf and
-// never enter the sums, and the exponent base of such a row is taken as 0.
+// audiogpt_tpu/ops/flash_attention.py for f32 inputs. Semantics follow
+// `_flash_kernel`: scale D^-0.5, an optional key-padding mask [B, Tk] (> 0 =
+// valid), causal masking aligned top-left (key j is visible to query i when
+// j <= i), key tiles wholly above the diagonal skipped, f32 running max, sum
+// and output accumulators. A query row with no valid key returns 0: masked
+// logits are -inf and never enter the sums, and the exponent base of such a
+// row is taken as 0.
 //
 // Bound on the H100: operations. At the UNet shape [6, 780, 8, 40] the two
-// products do 4*B*H*Tq*Tk*D = 4.7 GFLOP on 24 MB (f32), ~195 FLOP per byte.
-// Both products run on the tensor cores with `mma.sync`:
-//  * bf16 entry: m16n8k16 bf16 -> f32, 989 TFLOP/s peak.
-//  * f32 entry: m16n8k8 TF32 -> f32, three products per tile pair ("3xTF32":
-//    each operand x = hi + lo, and a.b ~ hi.hi + hi.lo + lo.hi, dropping only
-//    lo.lo), so the f32 contract (1e-4 against the plain version) holds where
-//    one TF32 product (~2^-10 relative per operand) would not. The split
-//    truncates: hi = x with its low 13 mantissa bits cleared (one LOP), lo =
-//    x - hi (exact), which the tensor core reads as TF32 by dropping its own
-//    low 13 bits, so each product is off by ~2^-20 relative (5e-6 max abs
-//    at the UNet shape). Rounding both halves with cvt.rna.tf32 (~2^-22)
-//    takes 0.164 ms there against 0.115 (`kernel_variants.py`), for no need
-//    of the contract. Bound: 495/3 TFLOP/s.
+// products do 4*B*H*Tq*Tk*D = 4.7 GFLOP on 24 MB, ~195 FLOP per byte. Both
+// products run on the tensor cores with `mma.sync` m16n8k8 TF32 -> f32,
+// three products per tile pair ("3xTF32": each operand x = hi + lo, and a.b
+// ~ hi.hi + hi.lo + lo.hi, dropping only lo.lo), so the f32 contract (1e-4
+// against the plain version) holds where one TF32 product (~2^-10 relative
+// per operand) would not. The split truncates: hi = x with its low 13
+// mantissa bits cleared (one LOP), lo = x - hi (exact), which the tensor
+// core reads as TF32 by dropping its own low 13 bits, so each product is
+// off by ~2^-20 relative (5e-6 max abs at the UNet shape). Rounding both
+// halves with cvt.rna.tf32 (~2^-22) takes 0.164 ms there against 0.115
+// (`kernel_variants.py`), for no need of the contract. Bound: 495/3
+// TFLOP/s.
 // `mma.sync` rather than `wgmma`: TF32 `wgmma` takes only K-major operands
 // from shared memory, so P.V would need V transposed on its way in (which a
 // 16-byte `cp.async` of a V row cannot do) and P written back to shared
-// memory; `mma.sync` takes A from registers in both types, so S = Q.K^T
-// stays in registers and becomes P, the A operand of P.V, with no round trip
-// (for TF32 the key order inside each 8-key step is permuted to match the
-// accumulator layout: logical k = c <-> key 2c, k = c + 4 <-> key 2c + 1).
-// bf16 `wgmma` could take P from registers and V from swizzled shared
-// memory; the bf16 entry keeps `mma.sync` so that both entries are one
-// kernel with one fragment layout, and `wgmma` is its next step.
+// memory; `mma.sync` takes A from registers, so S = Q.K^T stays in
+// registers and becomes P, the A operand of P.V, with no round trip (the
+// key order inside each 8-key step is permuted to match the accumulator
+// layout: logical k = c <-> key 2c, k = c + 4 <-> key 2c + 1).
 //
 // Design: a block of 4 warps owns 64 query rows (16 per warp, Q fragments
 // held in registers for the whole pass, but see D > 128 below) and streams
@@ -44,36 +39,31 @@
 // the products of tile j. Up to 5 blocks share an SM (`Layout::kMinBlocks`),
 // and tiles whose keys the mask drops entirely are skipped. The head dim is
 // padded with zeros in shared memory to DP, a multiple of the MMA's k step
-// (8 for TF32, 16 for bf16), so D = 40, 80 or 160 work; rows are copied in
-// 16-byte pieces, so D * sizeof(T) must be a multiple of 16 (the wrapper
-// raises otherwise). Row strides in shared memory are padded so that every
-// fragment load is free of bank conflicts. The online softmax (running max
-// and sum per row) is computed on the accumulator fragments, with the row
-// max reduced over the 4 lanes that share a row.
+// 8, so D = 40, 80 or 160 work; rows are copied in 16-byte pieces, so D
+// must be a multiple of 4 (the wrapper raises otherwise). Row strides in
+// shared memory are padded so that every fragment load is free of bank
+// conflicts. The online softmax (running max and sum per row) is computed
+// on the accumulator fragments, with the row max reduced over the 4 lanes
+// that share a row.
 //
-// D > 128 (DP = 160, the SD UNet's 1280-channel level at 8 heads): the f32
-// entry would hold Q (20 k steps x 4 = 80 registers), the O accumulator
-// (160 / 8 x 4 = 80) and the S tile (32) live together, 192 registers
-// before any address or split temporary, which ptxas can hold only by
-// spilling at 255. So for f32 at DP > 128 the block copies its 64 Q rows
-// into shared memory once, with the first K/V tile (64 x 168 x 4 B = 42 KB
-// beside the ring's 2 x 85 KB: 209 KB of the 227 KB a block may take, one
-// block per SM), and each warp reads its A fragments from there at every
-// key tile, as it reads K: 10 KB a tile against K's 40 KB, read with the
-// same conflict-free stride. The bf16 entry keeps Q in registers at every
-// width (40 at DP = 160). Nothing wider than 160 is compiled: no path of
-// the JAX package runs a wider head (whisper 64, CLIP 80, UNet 40/80/160,
-// BLIP 64/96).
+// D > 128 (DP = 160, the SD UNet's 1280-channel level at 8 heads): holding
+// Q (20 k steps x 4 = 80 registers), the O accumulator (160 / 8 x 4 = 80)
+// and the S tile (32) live together takes 192 registers before any address
+// or split temporary, which ptxas can hold only by spilling at 255. So at
+// DP > 128 the block copies its 64 Q rows into shared memory once, with the
+// first K/V tile (64 x 168 x 4 B = 42 KB beside the ring's 2 x 85 KB: 209
+// KB of the 227 KB a block may take, one block per SM), and each warp reads
+// its A fragments from there at every key tile, as it reads K: 10 KB a tile
+// against K's 40 KB, read with the same conflict-free stride. Nothing wider
+// than 160 is compiled: no path of the JAX package runs a wider head
+// (whisper 64, CLIP 80, UNet 40/80/160, BLIP 64/96).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <atomic>
 #include <mutex>
-
-#include <type_traits>
 
 namespace {
 
@@ -82,8 +72,6 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kBQ = 16 * kWarps;  // query rows per block, 16 per warp
 constexpr int kBK = 64;           // keys per tile
 constexpr int kStages = 2;        // K/V tiles in flight
-
-using bf16 = __nv_bfloat16;
 
 // ---- copies -------------------------------------------------------------
 
@@ -136,31 +124,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// d += a . b, m16n8k16, bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
 // 2^x, one MUFU op (ex2.approx: ~2^-22 relative; 2^-inf = 0)
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -168,59 +131,50 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&t);
-}
-
 // ---- shared-memory layout -----------------------------------------------
 
-// Per stage: K [kBK][SK] then V [kBK][SV] in T; after all stages, the tile's
-// key mask [kStages][kBK] in f32. Strides (in elements) keep fragment loads
-// conflict-free: f32 K is read as float2 by (key g, dims 2c..2c+1), which
-// needs SK = 8 or 24 mod 32; f32 V as scalars at (keys 2c, 2c+1, dim g),
-// which needs SV = 4 mod 8; bf16 rows are read by `ldmatrix` 16 bytes at a
-// time, which needs an odd number of 16-byte units per row.
-template <typename T, int DP>
+// Per stage: K [kBK][SK] then V [kBK][SV]; after all stages, the tile's
+// key mask [kStages][kBK]. Strides (in elements) keep fragment loads
+// conflict-free: K is read as float2 by (key g, dims 2c..2c+1), which needs
+// SK = 8 or 24 mod 32; V as scalars at (keys 2c, 2c+1, dim g), which needs
+// SV = 4 mod 8.
+template <int DP>
 struct Layout {
-  static constexpr bool kF32 = std::is_same<T, float>::value;
-  static constexpr int kSK = kF32 ? (DP % 16 == 0 ? DP + 8 : DP) : DP + 8;
-  static constexpr int kSV = kF32 ? DP + 4 : DP + 8;
+  static constexpr int kSK = DP % 16 == 0 ? DP + 8 : DP;
+  static constexpr int kSV = DP + 4;
   static constexpr int kStage = kBK * (kSK + kSV);
-  // f32 at DP > 128 keeps Q in shared memory (rows read like K's)
-  static constexpr bool kQSmem = kF32 && DP > 128;
+  // at DP > 128 Q is kept in shared memory (rows read like K's)
+  static constexpr bool kQSmem = DP > 128;
   static constexpr int kSQ = kSK;
   static constexpr int kQOffset =
-      kStages * (kStage * (int)sizeof(T) + kBK * (int)sizeof(float));
+      kStages * (kStage * (int)sizeof(float) + kBK * (int)sizeof(float));
   static constexpr int kBytes =
       kQOffset + (kQSmem ? kBQ * kSQ * (int)sizeof(float) : 0);
   // resident blocks asked of ptxas: as many as the SM's 228 KB of shared
   // memory holds (1 KB reserved per block), at most 5. Five blocks of 4
   // warps put the UNet's 624-block grid in one wave (3 would need 1.6), at
   // the price of a few spilled registers. `kernel_variants.py` measures the
-  // rule against no request: bf16 at the UNet shape 0.040 against 0.051 ms,
-  // f32 at [2, 1500, 6, 64] 0.185 against 0.233; f32 at the UNet shape is
-  // 5 % faster without it, bf16 at [2, 1500, 6, 64] 10 %.
+  // rule against no request: at [2, 1500, 6, 64] 0.185 against 0.233 ms; at
+  // the UNet shape 5 % faster without it.
   static constexpr int kFit = 233472 / (kBytes + 1024);
   static constexpr int kMinBlocks = kFit < 5 ? (kFit < 1 ? 1 : kFit) : 5;
 };
 
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads, Layout<T, DP>::kMinBlocks)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ kv_mask,
-                 T* __restrict__ out, int Tq, int Tk, int H, int D,
-                 float scale_log2, int causal) {
-  using L = Layout<T, DP>;
-  constexpr bool kF32 = L::kF32;
-  constexpr int kStep = kF32 ? 8 : 16;          // MMA k step (head dim)
-  constexpr int kPerChunk = 16 / sizeof(T);     // elements per 16-byte copy
+template <int DP>
+__global__ void __launch_bounds__(kThreads, Layout<DP>::kMinBlocks)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v,
+                 const float* __restrict__ kv_mask, float* __restrict__ out,
+                 int Tq, int Tk, int H, int D, float scale_log2, int causal) {
+  using L = Layout<DP>;
+  constexpr int kStep = 8;                      // MMA k step (head dim)
+  constexpr int kPerChunk = 4;                  // elements per 16-byte copy
   static_assert(DP % kStep == 0, "head dim pad");
 
   extern __shared__ __align__(16) unsigned char smem[];
-  T* kv_s = reinterpret_cast<T*>(smem);
+  float* kv_s = reinterpret_cast<float*>(smem);
   float* mask_s = reinterpret_cast<float*>(
-      smem + kStages * L::kStage * sizeof(T));
+      smem + kStages * L::kStage * sizeof(float));
   [[maybe_unused]] float* q_s =
       reinterpret_cast<float*>(smem + L::kQOffset);  // kQSmem only
 
@@ -228,10 +182,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int g = lane >> 2, c = lane & 3;  // fragment row group, column pair
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
   const int64_t rs = (int64_t)H * D;      // stride of one time step
-  const T* qb = q + (int64_t)b * Tq * rs + (int64_t)h * D;
-  const T* kb = k + (int64_t)b * Tk * rs + (int64_t)h * D;
-  const T* vb = v + (int64_t)b * Tk * rs + (int64_t)h * D;
-  T* ob = out + (int64_t)b * Tq * rs + (int64_t)h * D;
+  const float* qb = q + (int64_t)b * Tq * rs + (int64_t)h * D;
+  const float* kb = k + (int64_t)b * Tk * rs + (int64_t)h * D;
+  const float* vb = v + (int64_t)b * Tk * rs + (int64_t)h * D;
+  float* ob = out + (int64_t)b * Tq * rs + (int64_t)h * D;
   const float* mb = kv_mask ? kv_mask + (int64_t)b * Tk : nullptr;
   const int chunks = D / kPerChunk;       // 16-byte copies per row
 
@@ -240,8 +194,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = tid; i < kStages * 2 * kBK * pad; i += kThreads) {
     const int row = i / pad, ch = chunks + i % pad;
     const int st = row / (2 * kBK), r = row % kBK;
-    T* base = kv_s + st * L::kStage +
-              ((row / kBK) & 1 ? kBK * L::kSK + r * L::kSV : r * L::kSK);
+    float* base = kv_s + st * L::kStage +
+                  ((row / kBK) & 1 ? kBK * L::kSK + r * L::kSV : r * L::kSK);
     *reinterpret_cast<float4*>(base + ch * kPerChunk) =
         make_float4(0.f, 0.f, 0.f, 0.f);
   }
@@ -261,8 +215,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   auto load_tile = [&](int tile, int st) {
     const int k0 = tile * kBK;
-    T* ks = kv_s + st * L::kStage;
-    T* vs = ks + kBK * L::kSK;
+    float* ks = kv_s + st * L::kStage;
+    float* vs = ks + kBK * L::kSK;
     for (int i = tid; i < kBK * chunks; i += kThreads) {
       const int r = i / chunks, ch = i - r * chunks;
       const bool in = k0 + r < Tk;  // the ragged tail is zero-filled
@@ -280,38 +234,22 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // this thread's two query rows
   const int r_lo = q0 + warp * 16 + g, r_hi = r_lo + 8;
 
-  // Q fragments, held for the whole pass (A operand of S = Q.K^T): f32
-  // values for the f32 entry (split into TF32 halves once per k step and
-  // tile, which keeps 20 fewer registers live than holding both halves),
-  // packed bf16 pairs for the bf16 entry; none where Q is in shared memory
+  // Q fragments, held for the whole pass (A operand of S = Q.K^T), as f32
+  // values (split into TF32 halves once per k step and tile, which keeps 20
+  // fewer registers live than holding both halves); none where Q is in
+  // shared memory
   constexpr int kQS = DP / kStep;
-  std::conditional_t<kF32, float, uint32_t> qa[L::kQSmem ? 1 : kQS][4];
+  float qa[L::kQSmem ? 1 : kQS][4];
 #pragma unroll
   for (int s = 0; s < (L::kQSmem ? 0 : kQS); ++s) {
-    if constexpr (kF32) {
-      // a0 = (g, k=c) <-> dim 2c, a2 = (g, k=c+4) <-> dim 2c+1; a1, a3 row g+8
-      const int d = s * 8 + 2 * c;
-      float2 lo = make_float2(0.f, 0.f), hi = lo;
-      if (d < D && r_lo < Tq)
-        lo = *reinterpret_cast<const float2*>(qb + r_lo * rs + d);
-      if (d < D && r_hi < Tq)
-        hi = *reinterpret_cast<const float2*>(qb + r_hi * rs + d);
-      qa[s][0] = lo.x, qa[s][1] = hi.x, qa[s][2] = lo.y, qa[s][3] = hi.y;
-    } else {
-      // reg 2*half + (row g+8): dims 16s + 8*half + 2c, 2c+1
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int d = s * 16 + half * 8 + 2 * c;
-        qa[s][2 * half] =
-            d < D && r_lo < Tq
-                ? *reinterpret_cast<const uint32_t*>(qb + r_lo * rs + d)
-                : 0u;
-        qa[s][2 * half + 1] =
-            d < D && r_hi < Tq
-                ? *reinterpret_cast<const uint32_t*>(qb + r_hi * rs + d)
-                : 0u;
-      }
-    }
+    // a0 = (g, k=c) <-> dim 2c, a2 = (g, k=c+4) <-> dim 2c+1; a1, a3 row g+8
+    const int d = s * 8 + 2 * c;
+    float2 lo = make_float2(0.f, 0.f), hi = lo;
+    if (d < D && r_lo < Tq)
+      lo = *reinterpret_cast<const float2*>(qb + r_lo * rs + d);
+    if (d < D && r_hi < Tq)
+      hi = *reinterpret_cast<const float2*>(qb + r_hi * rs + d);
+    qa[s][0] = lo.x, qa[s][1] = hi.x, qa[s][2] = lo.y, qa[s][3] = hi.y;
   }
 
   float acc[DP / 8][4];
@@ -341,8 +279,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     if (tile + 1 < n_tiles) load_tile(tile + 1, st ^ 1);
     if (!any) continue;
-    const T* ks = kv_s + st * L::kStage;
-    const T* vs = ks + kBK * L::kSK;
+    const float* ks = kv_s + st * L::kStage;
+    const float* vs = ks + kBK * L::kSK;
 
     // S = Q.K^T for this warp's 16 rows and the tile's 64 keys: s[n] is the
     // accumulator of keys 8n..8n+7 (c0, c1: row g, keys 2c, 2c+1; c2, c3:
@@ -352,50 +290,33 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int n = 0; n < kBK / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    if constexpr (kF32) {
 #pragma unroll
-      for (int t = 0; t < kQS; ++t) {
-        float qf[4];
-        if constexpr (L::kQSmem) {
-          // the a0..a3 layout of the register path, from this warp's rows
-          const float* qr = q_s + (warp * 16 + g) * L::kSQ + t * 8 + 2 * c;
-          const float2 lo = *reinterpret_cast<const float2*>(qr);
-          const float2 hi = *reinterpret_cast<const float2*>(qr + 8 * L::kSQ);
-          qf[0] = lo.x, qf[1] = hi.x, qf[2] = lo.y, qf[3] = hi.y;
-        } else {
+    for (int t = 0; t < kQS; ++t) {
+      float qf[4];
+      if constexpr (L::kQSmem) {
+        // the a0..a3 layout of the register path, from this warp's rows
+        const float* qr = q_s + (warp * 16 + g) * L::kSQ + t * 8 + 2 * c;
+        const float2 lo = *reinterpret_cast<const float2*>(qr);
+        const float2 hi = *reinterpret_cast<const float2*>(qr + 8 * L::kSQ);
+        qf[0] = lo.x, qf[1] = hi.x, qf[2] = lo.y, qf[3] = hi.y;
+      } else {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) qf[i] = qa[t][i];
-        }
-        uint32_t ah[4], al[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) split_tf32(qf[i], ah[i], al[i]);
-#pragma unroll
-        for (int n = 0; n < kBK / 8; ++n) {
-          // b0 = (k=c, key g) <-> dim 2c, b1 = (k=c+4, key g) <-> dim 2c+1
-          const float2 kv = *reinterpret_cast<const float2*>(
-              ks + (n * 8 + g) * L::kSK + t * 8 + 2 * c);
-          uint32_t bh[2], bl[2];
-          split_tf32(kv.x, bh[0], bl[0]);
-          split_tf32(kv.y, bh[1], bl[1]);
-          mma_tf32(s[n], al, bh);
-          mma_tf32(s[n], ah, bl);
-          mma_tf32(s[n], ah, bh);
-        }
+        for (int i = 0; i < 4; ++i) qf[i] = qa[t][i];
       }
-    } else {
-      const int mat = lane >> 3, mrow = lane & 7;
+      uint32_t ah[4], al[4];
 #pragma unroll
-      for (int np = 0; np < kBK / 16; ++np) {
+      for (int i = 0; i < 4; ++i) split_tf32(qf[i], ah[i], al[i]);
 #pragma unroll
-        for (int t = 0; t < kQS; ++t) {
-          // matrices: (keys 16np+0..7 | +8..15) x (dims 16t+0..7 | +8..15)
-          uint32_t r[4];
-          ldmatrix_x4(r, ks + (np * 16 + 8 * (mat >> 1) + mrow) * L::kSK +
-                             t * 16 + 8 * (mat & 1));
-          const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-          mma_bf16(s[2 * np], qa[t], b0);
-          mma_bf16(s[2 * np + 1], qa[t], b1);
-        }
+      for (int n = 0; n < kBK / 8; ++n) {
+        // b0 = (k=c, key g) <-> dim 2c, b1 = (k=c+4, key g) <-> dim 2c+1
+        const float2 kv = *reinterpret_cast<const float2*>(
+            ks + (n * 8 + g) * L::kSK + t * 8 + 2 * c);
+        uint32_t bh[2], bl[2];
+        split_tf32(kv.x, bh[0], bl[0]);
+        split_tf32(kv.y, bh[1], bl[1]);
+        mma_tf32(s[n], al, bh);
+        mma_tf32(s[n], ah, bl);
+        mma_tf32(s[n], ah, bh);
       }
     }
 
@@ -448,47 +369,23 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
 
     // acc += P.V; P (the S accumulators) is the A operand, from registers
-    if constexpr (kF32) {
 #pragma unroll
-      for (int n = 0; n < kBK / 8; ++n) {
-        // logical k = c <-> key 8n+2c, k = c+4 <-> key 8n+2c+1
-        uint32_t ah[4], al[4];
-        split_tf32(s[n][0], ah[0], al[0]);
-        split_tf32(s[n][2], ah[1], al[1]);
-        split_tf32(s[n][1], ah[2], al[2]);
-        split_tf32(s[n][3], ah[3], al[3]);
-        const T* v0 = vs + (n * 8 + 2 * c) * L::kSV + g;
+    for (int n = 0; n < kBK / 8; ++n) {
+      // logical k = c <-> key 8n+2c, k = c+4 <-> key 8n+2c+1
+      uint32_t ah[4], al[4];
+      split_tf32(s[n][0], ah[0], al[0]);
+      split_tf32(s[n][2], ah[1], al[1]);
+      split_tf32(s[n][1], ah[2], al[2]);
+      split_tf32(s[n][3], ah[3], al[3]);
+      const float* v0 = vs + (n * 8 + 2 * c) * L::kSV + g;
 #pragma unroll
-        for (int j = 0; j < DP / 8; ++j) {
-          uint32_t bh[2], bl[2];
-          split_tf32(v0[j * 8], bh[0], bl[0]);
-          split_tf32(v0[L::kSV + j * 8], bh[1], bl[1]);
-          mma_tf32(acc[j], al, bh);
-          mma_tf32(acc[j], ah, bl);
-          mma_tf32(acc[j], ah, bh);
-        }
-      }
-    } else {
-      const int mat = lane >> 3, mrow = lane & 7;
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        // P rounded to bf16 (`_flash_kernel:76`); regs: (g, keys 2c..) of
-        // n-tile 2kk, (g+8, ..), then the same of n-tile 2kk+1
-        const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-        for (int jp = 0; jp < DP / 16; ++jp) {
-          // matrices: (keys 16kk+0..7 | +8..15) x (dims 16jp+0..7 | +8..15),
-          // transposed into (key pair, dim) fragments
-          uint32_t r[4];
-          ldmatrix_x4_trans(r, vs + (kk * 16 + 8 * (mat & 1) + mrow) * L::kSV +
-                                   jp * 16 + 8 * (mat >> 1));
-          const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-          mma_bf16(acc[2 * jp], a, b0);
-          mma_bf16(acc[2 * jp + 1], a, b1);
-        }
+      for (int j = 0; j < DP / 8; ++j) {
+        uint32_t bh[2], bl[2];
+        split_tf32(v0[j * 8], bh[0], bl[0]);
+        split_tf32(v0[L::kSV + j * 8], bh[1], bl[1]);
+        mma_tf32(acc[j], al, bh);
+        mma_tf32(acc[j], ah, bl);
+        mma_tf32(acc[j], ah, bh);
       }
     }
   }
@@ -510,20 +407,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int row = i ? r_hi : r_lo;
       if (row >= Tq) continue;
       const float o0 = acc[j][2 * i] * inv[i], o1 = acc[j][2 * i + 1] * inv[i];
-      if constexpr (kF32) {
-        *reinterpret_cast<float2*>(ob + row * rs + d) = make_float2(o0, o1);
-      } else {
-        *reinterpret_cast<__nv_bfloat162*>(ob + row * rs + d) =
-            __floats2bfloat162_rn(o0, o1);
-      }
+      *reinterpret_cast<float2*>(ob + row * rs + d) = make_float2(o0, o1);
     }
   }
 }
 
 struct Args {
-  const void *q, *k, *v;
+  const float *q, *k, *v;
   const float* mask;
-  void* out;
+  float* out;
   int B, Tq, Tk, H, D;
   float scale_log2;
   int causal;
@@ -534,13 +426,13 @@ struct Args {
 // the most devices one process configures the kernels on
 constexpr int kMaxDevices = 64;
 
-// The dynamic shared memory a launch of flash_fwd_kernel<T, DP> may take is
+// The dynamic shared memory a launch of flash_fwd_kernel<DP> may take is
 // an attribute of the kernel on one device (its context), so it is set once
 // for each device the process launches on, on that device: the caller's
 // current one, where the launch goes too. A process may launch from several
 // threads, one per card or several on one card, so the check is an atomic
 // flag and the set-up runs under a lock.
-template <typename T, int DP>
+template <int DP>
 cudaError_t configure(int smem) {
   static std::atomic<bool> done[kMaxDevices];
   static std::mutex mu;
@@ -551,7 +443,7 @@ cudaError_t configure(int smem) {
   if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
   std::lock_guard<std::mutex> lock(mu);
   if (!done[dev].load(std::memory_order_relaxed)) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<T, DP>,
+    err = cudaFuncSetAttribute(flash_fwd_kernel<DP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return err;
@@ -560,59 +452,39 @@ cudaError_t configure(int smem) {
   return cudaSuccess;
 }
 
-template <typename T, int DP>
+template <int DP>
 int run(const Args& a) {
-  constexpr int smem = Layout<T, DP>::kBytes;
-  const cudaError_t err = configure<T, DP>(smem);
+  constexpr int smem = Layout<DP>::kBytes;
+  const cudaError_t err = configure<DP>(smem);
   if (err != cudaSuccess) return (int)err;
   if (a.blocks_per_sm != nullptr)
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        a.blocks_per_sm, flash_fwd_kernel<T, DP>, kThreads, smem);
+        a.blocks_per_sm, flash_fwd_kernel<DP>, kThreads, smem);
   const dim3 grid((a.Tq + kBQ - 1) / kBQ, a.H, a.B);
-  flash_fwd_kernel<T, DP><<<grid, kThreads, smem, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, a.mask, (T*)a.out, a.Tq,
-      a.Tk, a.H, a.D, a.scale_log2, a.causal);
+  flash_fwd_kernel<DP><<<grid, kThreads, smem, a.stream>>>(
+      a.q, a.k, a.v, a.mask, a.out, a.Tq, a.Tk, a.H, a.D, a.scale_log2,
+      a.causal);
   return (int)cudaGetLastError();
 }
 
 // the head dim padded up to one of the compiled widths
-int dispatch_f32(const Args& a) {
-  if (a.D <= 8) return run<float, 8>(a);
-  if (a.D <= 16) return run<float, 16>(a);
-  if (a.D <= 32) return run<float, 32>(a);
-  if (a.D <= 40) return run<float, 40>(a);
-  if (a.D <= 48) return run<float, 48>(a);
-  if (a.D <= 64) return run<float, 64>(a);
-  if (a.D <= 80) return run<float, 80>(a);
-  if (a.D <= 96) return run<float, 96>(a);
-  if (a.D <= 128) return run<float, 128>(a);
-  if (a.D <= 160) return run<float, 160>(a);
+int dispatch(const Args& a) {
+  if (a.D <= 8) return run<8>(a);
+  if (a.D <= 16) return run<16>(a);
+  if (a.D <= 32) return run<32>(a);
+  if (a.D <= 40) return run<40>(a);
+  if (a.D <= 48) return run<48>(a);
+  if (a.D <= 64) return run<64>(a);
+  if (a.D <= 80) return run<80>(a);
+  if (a.D <= 96) return run<96>(a);
+  if (a.D <= 128) return run<128>(a);
+  if (a.D <= 160) return run<160>(a);
   return (int)cudaErrorInvalidValue;
-}
-
-int dispatch_bf16(const Args& a) {
-  if (a.D <= 16) return run<bf16, 16>(a);
-  if (a.D <= 32) return run<bf16, 32>(a);
-  if (a.D <= 48) return run<bf16, 48>(a);
-  if (a.D <= 64) return run<bf16, 64>(a);
-  if (a.D <= 80) return run<bf16, 80>(a);
-  if (a.D <= 96) return run<bf16, 96>(a);
-  if (a.D <= 128) return run<bf16, 128>(a);
-  if (a.D <= 160) return run<bf16, 160>(a);
-  return (int)cudaErrorInvalidValue;
-}
-
-Args make_args(const void* q, const void* k, const void* v,
-               const void* kv_mask, void* out, int B, int Tq, int Tk, int H,
-               int D, float scale, int causal, void* stream) {
-  return Args{q, k, v, (const float*)kv_mask, out, B, Tq, Tk, H, D,
-              scale * 1.4426950408889634f, causal, (cudaStream_t)stream,
-              nullptr};
 }
 
 }  // namespace
 
-// Each entry launches on the calling thread's current device, on `stream`,
+// The entry launches on the calling thread's current device, on `stream`,
 // which must be a stream of that device: the wrapper
 // (ops/flash_attention.py) makes the tensors' card current first.
 extern "C" {
@@ -620,24 +492,19 @@ extern "C" {
 int flash_attention_f32(const void* q, const void* k, const void* v,
                         const void* kv_mask, void* out, int B, int Tq, int Tk,
                         int H, int D, float scale, int causal, void* stream) {
-  return dispatch_f32(make_args(q, k, v, kv_mask, out, B, Tq, Tk, H, D, scale,
-                                causal, stream));
+  return dispatch(Args{(const float*)q, (const float*)k, (const float*)v,
+                       (const float*)kv_mask, (float*)out, B, Tq, Tk, H, D,
+                       scale * 1.4426950408889634f, causal,
+                       (cudaStream_t)stream, nullptr});
 }
 
-int flash_attention_bf16(const void* q, const void* k, const void* v,
-                         const void* kv_mask, void* out, int B, int Tq, int Tk,
-                         int H, int D, float scale, int causal, void* stream) {
-  return dispatch_bf16(make_args(q, k, v, kv_mask, out, B, Tq, Tk, H, D,
-                                 scale, causal, stream));
-}
-
-// resident blocks per SM of the kernel that takes head dim D (bf16 != 0:
-// the bf16 entry's), for the launch report (blocks and waves)
-int flash_attention_occupancy(int D, int bf16, int* blocks_per_sm) {
+// resident blocks per SM of the kernel that takes head dim D, for the
+// launch report (blocks and waves)
+int flash_attention_occupancy(int D, int* blocks_per_sm) {
   Args a{};
   a.D = D;
   a.blocks_per_sm = blocks_per_sm;
-  return bf16 ? dispatch_bf16(a) : dispatch_f32(a);
+  return dispatch(a);
 }
 
 }  // extern "C"

@@ -7,8 +7,9 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 
 1. probe: CUDA must be present; the card's name and power limit; TF32 off.
 2. build: ``nvcc`` compiles ``audiogpt_tpu_torch/csrc/*.cu`` for sm_90a;
-   ptxas' registers and spills; whether ``cuobjdump -sass`` shows tensor-core
-   instructions (HMMA / HGMMA) in the flash kernel.
+   ptxas' registers and spills per flash kernel instance, and its warnings;
+   ``cuobjdump -sass`` must show HGMMA (``wgmma``) and no HMMA in the bf16
+   flash kernel, HMMA TF32 in the f32 one.
 3. flash_attention: both entries (f32, bf16) against their plain versions at
    the T2A UNet shape, the three inpaint shapes (level-0 self- and
    cross-attention, level-1 self-attention at D = 80), whisper-base's
@@ -541,23 +542,48 @@ def bound_ms(n_bytes: float, flops: float,
     return max(t_bytes, t_ops) * 1e3, by
 
 
+#: the flash kernels' function names in the SASS and ptxas' report
+FLASH_KERNELS = {"flash_fwd_kernel": "float32", "flash_fwd_sm90": "bfloat16"}
+
+
 def tensor_core_sass(lib: Path) -> dict:
-    """Tensor-core instructions (HMMA, HGMMA) in the flash kernel's SASS,
-    counted by opcode from ``cuobjdump -sass``."""
+    """Tensor-core instructions (HMMA, HGMMA) in each flash kernel's SASS
+    (``flash_fwd_kernel``: the f32 entry's, ``flash_fwd_sm90``: the bf16
+    entry's), counted by opcode from ``cuobjdump -sass``; → {dtype name:
+    {opcode: count}}."""
     from audiogpt_tpu_torch.ops import _build
 
     cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    counts: dict = {}
-    in_flash = False
+    counts: dict = {dtype: {} for dtype in FLASH_KERNELS.values()}
+    kernel = None
     for line in sass.splitlines():
         if "Function :" in line:
-            in_flash = "flash_fwd_kernel" in line
-        elif in_flash and (m := re.search(r"\b(HGMMA|HMMA)[\w.]*", line)):
-            counts[m.group(0)] = counts.get(m.group(0), 0) + 1
+            kernel = next((dtype for name, dtype in FLASH_KERNELS.items()
+                           if name in line), None)
+        elif kernel and (m := re.search(r"\b(HGMMA|HMMA)[\w.]*", line)):
+            counts[kernel][m.group(0)] = counts[kernel].get(m.group(0), 0) + 1
     return counts
+
+
+def ptxas_report(log: str) -> dict:
+    """ptxas' registers and spill stores of each flash kernel instance,
+    named by its template arguments (``flash_fwd_sm90<48, 2>``: head dim
+    48, two consumer warpgroups)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(flash_fwd_(?:kernel|sm90))I((?:Li\d+E)+)", line)
+            name = m and (f"{m.group(1)}<"
+                          + ", ".join(re.findall(r"Li(\d+)E", m.group(2)))
+                          + ">")
+        elif name and (m := re.search(r"(\d+) bytes spill stores", line)):
+            out.setdefault(name, {})["spill_stores"] = int(m.group(1))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
 
 
 def phase_build() -> None:
@@ -567,15 +593,24 @@ def phase_build() -> None:
     lib = _build.build()
     _build.library()
     seconds = time.perf_counter() - t0
-    ptxas = [line.strip() for line in
-             (_build.BUILD_DIR / "build.log").read_text().splitlines()
+    log = (_build.BUILD_DIR / "build.log").read_text()
+    ptxas = [line.strip() for line in log.splitlines()
              if "entry function" in line or "registers" in line
              or "spill" in line]
+    warnings = sorted({line.strip() for line in log.splitlines()
+                       if "warning" in line.lower()
+                       or "performance loss" in line.lower()})
     sass = tensor_core_sass(lib)
     emit({"phase": "build", "seconds": seconds, "library": lib.name,
-          "ptxas": ptxas, "flash_sass_tensor_core": sass})
-    if not sass:
-        raise AssertionError("no HMMA/HGMMA in the flash kernel's SASS")
+          "ptxas": ptxas, "ptxas_warnings": warnings,
+          "flash_instances": ptxas_report(log),
+          "flash_sass_tensor_core": sass})
+    bf16, f32 = sass["bfloat16"], sass["float32"]
+    if not any(op.startswith("HGMMA") for op in bf16) or any(
+            op.startswith("HMMA") for op in bf16):
+        raise AssertionError(f"the bf16 flash kernel's SASS: {bf16}")
+    if not any(op.startswith("HMMA") and "TF32" in op for op in f32):
+        raise AssertionError(f"the f32 flash kernel's SASS: {f32}")
 
 
 #: bf16 kernel vs bf16 plain version: both round the output to bf16 (2^-7
@@ -8287,6 +8322,7 @@ def main() -> int:
     counts, counts_bf16 = main_path["launches"], bf16_path["launches"]
     wcfg = asr["engine"].cfg
     flash_src = "audiogpt_tpu_torch/csrc/flash_attention.cu"
+    flash_bf16_src = "audiogpt_tpu_torch/csrc/flash_attention_sm90.cu"
     flash_tpu = "audiogpt_tpu/ops/flash_attention.py:143"
     snake_src = "audiogpt_tpu_torch/csrc/snake_aa.cu"
     snake_tpu = "audiogpt_tpu/ops/snake_aa.py:117"
@@ -8361,7 +8397,7 @@ def main() -> int:
             path_record(flash["bfloat16"], "train_ldm_bf16_ckpt",
                         train_ckpt["shapes"],
                         train_ckpt["launches"]["flash_attention_bf16"])],
-            flash_src, flash_tpu),
+            flash_bf16_src, flash_tpu),
         kernel_entry(snake["float32"], [
             path_record(snake["float32"], "main_path", t2a["snake"],
                         f32(counts, "snake_aa")),

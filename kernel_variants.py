@@ -2,15 +2,17 @@
 """Times the design alternatives the two Hopper kernels turned down, against
 the kernels as they are, on one card.
 
-    python3 kernel_variants.py
+    python3 kernel_variants.py [SOURCE ...]
 
 Each variant is a kernel source of ``audiogpt_tpu_torch/csrc/`` with one
 textual change, built by ``nvcc`` (all builds started together) into a
-library of its own. Every variant runs at the main path's shapes in f32 and
-bf16, is checked against the plain version, and is timed over a CUDA graph
-of 50 launches (device time), in two rounds, the second in reverse order.
-Prints one JSON line per variant and round, then the card's name and power
-limit. Needs the card and ``nvcc``.
+library of its own. Every variant runs at its kernel's cases in the dtypes
+its source takes (``flash_attention.cu``: f32; ``flash_attention_sm90.cu``:
+bf16; ``snake_aa.cu``: both), is checked against the plain version, and is
+timed over a CUDA graph of 50 launches (device time), in two rounds, the
+second in reverse order. Prints one JSON line per variant and round, then
+the card's name and power limit. Names of sources (``flash_attention_sm90.cu``)
+limit the run to their variants. Needs the card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-#: source → variant → [(text in the source, replacement)]
+#: the bf16 kernel's choice of consumer warpgroups a block
+_CONSUMERS = "  return best;\n}"
+#: source → variant → [(text in the source, replacement[, times the text
+#: occurs, if not once])]
 VARIANTS = {
     "flash_attention.cu": {
         "as is": [],
@@ -37,10 +42,33 @@ VARIANTS = {
             "  const float rest = x - __uint_as_float(hi);\n"
             '  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));')],
         # no minimum of resident blocks asked of ptxas
-        "no min blocks": [("__launch_bounds__(kThreads, Layout<T, DP>::"
+        "no min blocks": [("__launch_bounds__(kThreads, Layout<DP>::"
                            "kMinBlocks)", "__launch_bounds__(kThreads)")],
         "exp2f": [('  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : '
                    '"f"(x));', "  y = exp2f(x);")],
+    },
+    "flash_attention_sm90.cu": {
+        "as is": [],
+        "two stages": [("constexpr int kStages = 3;   // K/V tiles in flight",
+                        "constexpr int kStages = 2;")],
+        # a block's consumer warpgroups issue their products without taking
+        # turns
+        "no turns": [
+            ("  if (NC > 1 && wg == NC - 1) named_arrive(1, 256);\n", ""),
+            ("    if (NC > 1) named_sync(1 + wg, 256);\n", ""),
+            ("if (NC > 1) named_arrive(next_turn, 256);", ";", 3)],
+        # D = 40 padded to 64 (one 128-byte column block) instead of 48
+        # (three of 32 bytes), D = 80 to 96 (three of 64) instead of 80
+        "D 40 at 64": [("  if (D <= 48) return f(std::integral_constant<int, "
+                        "48>());\n", "")],
+        "D 80 at 96": [("  if (D <= 80) return f(std::integral_constant<int, "
+                        "80>());\n", "")],
+        "L2 256B": [("CU_TENSOR_MAP_L2_PROMOTION_L2_128B",
+                     "CU_TENSOR_MAP_L2_PROMOTION_L2_256B")],
+        # the block's rows fixed, not chosen by the cost rule
+        "64-row blocks": [(_CONSUMERS, "  return 1;\n}")],
+        "128-row blocks": [(_CONSUMERS, "  return 2;\n}")],
+        "192-row blocks": [(_CONSUMERS, "  return 3;\n}")],
     },
     "snake_aa.cu": {
         "as is": [],
@@ -48,23 +76,34 @@ VARIANTS = {
                    "  const float n = rintf(arg * kInvTwoPi);")],
     },
 }
-FLASH_CASES = [("unet_level0", (6, 780, 8, 40), None),
-               ("kv_mask", (2, 1500, 6, 64), (1500, 1100))]
+#: name, (B, Tq, Tk, H, D), key lengths or None (``chip_smoke.py``'s
+#: cases of the same names)
+FLASH_CASES = [("unet_level0", (6, 780, 780, 8, 40), None),
+               ("kv_mask", (2, 1500, 1500, 6, 64), (1500, 1100)),
+               ("t2i_self_ds1", (2, 4096, 4096, 8, 40), None),
+               ("t2i_cross_ds1", (2, 4096, 77, 8, 40), None),
+               ("t2i_self_ds2", (2, 1024, 1024, 8, 80), None),
+               ("asr_encoder", (1, 1500, 1500, 8, 64), None),
+               ("asr_long_encoder", (4, 1500, 1500, 8, 64), None),
+               ("t2a_mesh_level0", (4, 780, 780, 8, 40), None),
+               ("i2a_unet_level0", (2, 780, 780, 8, 40), None)]
 SNAKE_CASES = [("stage0", 256, 4992), ("stage1", 128, 39936)]
-ENTRIES = {("flash", "float32"): "flash_attention_f32",
-           ("flash", "bfloat16"): "flash_attention_bf16",
-           ("snake", "float32"): "snake_aa_f32",
-           ("snake", "bfloat16"): "snake_aa_bf16"}
+#: source → (kind, its entries by dtype name)
+ENTRIES = {"flash_attention.cu": ("flash", {"float32": "flash_attention_f32"}),
+           "flash_attention_sm90.cu": (
+               "flash", {"bfloat16": "flash_attention_bf16"}),
+           "snake_aa.cu": ("snake", {"float32": "snake_aa_f32",
+                                     "bfloat16": "snake_aa_bf16"})}
 
 
 def build(src: str, name: str, edits: list, out_dir: Path) -> Path:
     from audiogpt_tpu_torch.ops import _build
 
     text = (_build.CSRC_DIR / src).read_text()
-    for old, new in edits:
-        if old not in text:
+    for old, new, *count in edits:
+        if text.count(old) != (count[0] if count else 1):
             raise RuntimeError(f"{src} / {name}: the source no longer has "
-                               f"{old!r}")
+                               f"{old!r} as often")
         text = text.replace(old, new)
     stem = f"{Path(src).stem}_{name.replace(' ', '_')}"
     cu, lib = out_dir / f"{stem}.cu", out_dir / f"lib{stem}.so"
@@ -107,11 +146,11 @@ def inputs(gen) -> dict:
     data = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
-        for case, (b, t, h, d), lens in FLASH_CASES:
+        for case, (b, tq, tk, h, d), lens in FLASH_CASES:
             q, k, v = (torch.randn(b, t, h, d, generator=gen, device="cuda")
-                       .to(dtype) for _ in range(3))
+                       .to(dtype) for t in (tq, tk, tk))
             mask = None if lens is None else (
-                torch.arange(t, device="cuda")[None]
+                torch.arange(tk, device="cuda")[None]
                 < torch.tensor(lens, device="cuda")[:, None]).float()
             ref = flash_attention_reference(q, k, v, kv_mask=mask)
             data["flash", dname, case] = ((q, k, v, mask), ref.float())
@@ -124,30 +163,31 @@ def inputs(gen) -> dict:
     return data
 
 
-def run_variant(lib_path: Path, kind: str, data: dict) -> dict:
+def run_variant(lib_path: Path, src: str, data: dict) -> dict:
     import torch
 
     from audiogpt_tpu_torch.ops import _build
 
     lib = ctypes.CDLL(str(lib_path))
     stream = torch.cuda.current_stream
+    kind, entries = ENTRIES[src]
     row = {}
     for (k, dname, case), (args, ref) in data.items():
-        if k != kind:
+        if k != kind or dname not in entries:
             continue
-        entry = ENTRIES[kind, dname]
+        entry = entries[dname]
         fn = getattr(lib, entry)
         fn.argtypes = _build.SIGNATURES[entry]
         if kind == "flash":
             q, k_, v, mask = args
-            b, t, h, d = q.shape
+            b, tq, h, d = q.shape
             out = torch.empty_like(q)
 
             def call():
                 return fn(q.data_ptr(), k_.data_ptr(), v.data_ptr(),
                           None if mask is None else mask.data_ptr(),
-                          out.data_ptr(), b, t, t, h, d, d ** -0.5, 0,
-                          stream().cuda_stream)
+                          out.data_ptr(), b, tq, k_.shape[1], h, d,
+                          d ** -0.5, 0, stream().cuda_stream)
         else:
             x, alpha, beta = args
             out = torch.empty_like(x)
@@ -175,8 +215,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from audiogpt_tpu_torch.ops import _build
 
-    jobs = [(src, name, edits) for src, variants in VARIANTS.items()
-            for name, edits in variants.items()]
+    chosen = sys.argv[1:] or list(VARIANTS)
+    jobs = [(src, name, edits) for src in chosen
+            for name, edits in VARIANTS[src].items()]
     _build.BUILD_DIR.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp, \
             ThreadPoolExecutor(
@@ -186,10 +227,9 @@ def main() -> int:
         order = list(zip(jobs, libs))
         for rnd, seq in enumerate((order, order[::-1])):
             for (src, name, _), lib in seq:
-                kind = "flash" if src.startswith("flash") else "snake"
                 print(json.dumps({"source": src, "variant": name,
                                   "round": rnd,
-                                  **run_variant(lib, kind, data)}),
+                                  **run_variant(lib, src, data)}),
                       flush=True)
     print(card_line(), flush=True)
     return 0

@@ -2,10 +2,12 @@
 against the JAX package on the same numpy inputs: the plain flash version
 vs the Pallas kernel in interpret mode, and ``attention()`` on both
 dispatch branches, in f32 and bf16, at head dims up to the T2I UNet's 160.
-The CUDA kernel's tile loop (64-row blocks, online softmax in base 2 over
-64-key tiles, causal tile skipping, -inf masking, per-lane partial sums) is
-replayed in numpy here, with its tensor-core arithmetic emulated: 3xTF32
-products for f32 inputs, p rounded to bf16 for bf16 inputs.
+The CUDA kernels' tile loops (online softmax in base 2, causal tile
+skipping, -inf masking, per-lane partial sums) are replayed in numpy here,
+with their tensor-core arithmetic emulated: the f32 kernel's 64-row blocks
+and 64-key tiles with 3xTF32 products (``mma.sync``), and the bf16 kernel's
+(``wgmma``) 64- or 128-row blocks, 128- or 64-key tiles and head dim padded
+to its compiled width, p rounded to bf16.
 
 JAX's two flash versions agree with each other only with no fully masked
 row and with causal at Tq == Tk, so the JAX comparisons stay there; the
@@ -166,50 +168,89 @@ def _bf16(x):
         .numpy()
 
 
+#: the bf16 kernel's tiles (``csrc/flash_attention_sm90.cu`` ``Tile``,
+#: ``consumers``; change them together): the compiled head dims, the query
+#: rows an SM computes per unit of time with 1, 2, 3 consumer warpgroups a
+#: block (64, 128, 192 rows) by padded head dim, and the card's SMs
+WGMMA_WIDTHS = (16, 32, 48, 64, 80, 96, 128, 160)
+WGMMA_RATES = {48: (1.0, 1.82, 2.17), 64: (1.0, 0.96, 1.21),
+               96: (1.0, 1.19, 1.56), 160: (1.0, 1.19, 1.41)}
+H100_SMS = 132
+
+
+def _wgmma_tiles(b, tq, h, d):
+    """(padded head dim, keys a tile, query rows a block) of the bf16
+    kernel for q [b, tq, h, d] on a card of ``H100_SMS`` SMs: the block's
+    rows cost the least ceil(blocks / SMs) * rows / rate."""
+    dp = next(w for w in WGMMA_WIDTHS if w >= d)
+    rate = next(r for top, r in WGMMA_RATES.items() if dp <= top)
+    cost = {n: -(-(-(-tq // (64 * n)) * h * b) // H100_SMS) * 64 * n
+            / rate[n - 1] for n in (3, 2, 1)}
+    return dp, 128 if dp <= 96 else 64, 64 * min(
+        cost, key=lambda n: (cost[n], -n))
+
+
 def _kernel_replay(q, k, v, kv_mask, causal, mode="tf32x3", bq=64, bk=64):
     """numpy replay of ``csrc/flash_attention.cu`` for one (batch, head):
     q [Tq, D], k/v [Tk, D], kv_mask [Tk] or None. Per 64-row block, 64-key
     tiles (the ragged tail zero-filled and masked), logits scaled to base 2,
     the exponent base 0 while a row has no valid key, the row sum kept as 4
-    per-lane partials (lane c holds keys 8n + 2c, 2c + 1)."""
+    per-lane partials (lane c holds keys 8n + 2c, 2c + 1).
+
+    ``mode="wgmma"`` replays ``csrc/flash_attention_sm90.cu`` instead: q, k
+    and v zero-padded to the compiled head dim (TMA's fill), ``bq`` query
+    rows a block (64, 128 or 192) in warpgroups of 64, the tile width of that
+    head dim (``bk`` is not read), tiles past the block's last row not
+    loaded, a tile above a warpgroup's rows or whose keys the mask all
+    drops not computed, bf16 products and p rounded to bf16."""
     tq, d = q.shape
     tk = k.shape[0]
     out = np.zeros((tq, d), np.float32)
     scale_log2 = np.float32(d ** -0.5) * np.float32(1.4426950408889634)
+    wgmma = mode == "wgmma"
+    if wgmma:
+        dp, bk, _ = _wgmma_tiles(1, 1, 1, d)
+        q, k, v = (np.pad(a, ((0, 0), (0, dp - d))) for a in (q, k, v))
+        mode = "bf16"
     lane = (np.arange(bk) % 8) // 2
     for q0 in range(0, tq, bq):
-        rows = np.arange(q0, min(q0 + bq, tq))
-        acc = np.zeros((len(rows), d), np.float32)
-        m = np.full(len(rows), -np.inf, np.float32)
-        l_part = np.zeros((len(rows), 4), np.float32)
         n_tiles = -(-tk // bk)
         if causal:
             n_tiles = min(n_tiles, (q0 + bq - 1) // bk + 1)
-        for k0 in range(0, n_tiles * bk, bk):
-            cols = np.arange(k0, k0 + bk)
-            inside = cols < tk
-            kt = np.where(inside[:, None], k[np.minimum(cols, tk - 1)], 0)
-            vt = np.where(inside[:, None], v[np.minimum(cols, tk - 1)], 0)
-            valid = np.broadcast_to(inside, (len(rows), bk)).copy()
-            if kv_mask is not None:
-                valid &= kv_mask[np.minimum(cols, tk - 1)][None] > 0
-            if causal:
-                valid &= cols[None] <= rows[:, None]
-            x = np.where(valid, _mma(q[rows], kt.T, mode) * scale_log2,
-                         np.float32(-np.inf))
-            m_new = np.maximum(m, x.max(axis=1))
-            base = np.where(m_new == -np.inf, np.float32(0), m_new)
-            alpha = np.exp2(m - base)
-            p = np.exp2(x - base[:, None])
-            l_part = alpha[:, None] * l_part + np.stack(
-                [p[:, lane == c].sum(axis=1) for c in range(4)], axis=1)
-            if mode == "bf16":
-                p = _bf16(p)
-            acc = acc * alpha[:, None] + _mma(p, vt, mode)
-            m = m_new
-        l = l_part.sum(axis=1)
-        out[rows] = acc * np.where(l == 0, 0, 1 / np.where(l == 0, 1, l))[
-            :, None]
+        # the f32 kernel's block, or one wgmma warpgroup's 64 rows
+        for w0 in range(q0, min(q0 + bq, tq), 64 if wgmma else bq):
+            rows = np.arange(w0, min(w0 + (64 if wgmma else bq), tq))
+            acc = np.zeros((len(rows), q.shape[1]), np.float32)
+            m = np.full(len(rows), -np.inf, np.float32)
+            l_part = np.zeros((len(rows), 4), np.float32)
+            for k0 in range(0, n_tiles * bk, bk):
+                cols = np.arange(k0, k0 + bk)
+                inside = cols < tk
+                kt = np.where(inside[:, None], k[np.minimum(cols, tk - 1)], 0)
+                vt = np.where(inside[:, None], v[np.minimum(cols, tk - 1)], 0)
+                keys = inside.copy()
+                if kv_mask is not None:
+                    keys &= kv_mask[np.minimum(cols, tk - 1)] > 0
+                if wgmma and ((causal and k0 > w0 + 63) or not keys.any()):
+                    continue
+                valid = np.broadcast_to(keys, (len(rows), bk)).copy()
+                if causal:
+                    valid &= cols[None] <= rows[:, None]
+                x = np.where(valid, _mma(q[rows], kt.T, mode) * scale_log2,
+                             np.float32(-np.inf))
+                m_new = np.maximum(m, x.max(axis=1))
+                base = np.where(m_new == -np.inf, np.float32(0), m_new)
+                alpha = np.exp2(m - base)
+                p = np.exp2(x - base[:, None])
+                l_part = alpha[:, None] * l_part + np.stack(
+                    [p[:, lane == c].sum(axis=1) for c in range(4)], axis=1)
+                if mode == "bf16":
+                    p = _bf16(p)
+                acc = acc * alpha[:, None] + _mma(p, vt, mode)
+                m = m_new
+            l = l_part.sum(axis=1)
+            out[rows] = (acc * np.where(l == 0, 0, 1 / np.where(l == 0, 1, l))[
+                :, None])[:, :d]
     return out
 
 
@@ -271,6 +312,72 @@ def test_kernel_tile_loop_bf16_matches_reference(causal, masked):
         assert np.all(got[0] == 0) and torch.all(ref[0, 0, 0] == 0)
     np.testing.assert_allclose(_bf16(got), ref[0, :, 0].float().numpy(),
                                **BF16_TOL)
+
+
+#: the bf16 paths' attention shapes (``chip_smoke.py`` ``FLASH_CASES``),
+#: cut to one head: (B, Tq, Tk, H, D) as the card runs them (the block's
+#: rows follow from B and H), replayed at one (batch, head)
+WGMMA_PATH_SHAPES = {
+    "unet_level0": (6, 780, 780, 8, 40),
+    "inpaint_cross_l0": (1, 1060, 77, 8, 40),
+    "t2i_self_ds2": (2, 1024, 1024, 8, 80),
+    "t2i_self_ds4": (2, 256, 256, 8, 160),
+    "asr_encoder": (1, 1500, 1500, 8, 64),
+    "blip_vision": (1, 577, 577, 12, 64),
+}
+
+
+def _wgmma_check(got, q, k, v, mask=None, causal=False):
+    ref = flash_attention_reference(
+        *_t(q, k, v, dtype=torch.bfloat16),
+        kv_mask=None if mask is None else torch.from_numpy(mask),
+        causal=causal)
+    np.testing.assert_allclose(_bf16(got), ref[0, :, 0].float().numpy(),
+                               **BF16_TOL)
+
+
+@pytest.mark.parametrize("case", list(WGMMA_PATH_SHAPES))
+def test_wgmma_tile_loop_matches_reference_at_path_shapes(case):
+    """The bf16 kernel's replay (its block rows, its key tile and head-dim
+    padding at each width) at the paths' shapes, one head, against the
+    plain version on the same bf16 inputs."""
+    b, tq, tk, h, d = WGMMA_PATH_SHAPES[case]
+    q, k, v = (_bf16(a) for a in _qkv(1, tq, tk, 1, d, seed=tq + d))
+    got = _kernel_replay(q[0, :, 0], k[0, :, 0], v[0, :, 0], None, False,
+                         "wgmma", bq=_wgmma_tiles(b, tq, h, d)[2])
+    _wgmma_check(got, q, k, v)
+
+
+@pytest.mark.parametrize("bq", [64, 128, 192])
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True),
+                                           (True, True)])
+def test_wgmma_tile_loop_masks(causal, masked, bq):
+    """The bf16 kernel's replay with Tq != Tk, causal top-left, a key mask
+    that drops a whole 128-key tile and leaves query row 0 no key under
+    causal (its output is 0), at both block shapes."""
+    q, k, v = (_bf16(a) for a in _qkv(1, 300, 340, 1, 40, seed=21))
+    mask = None
+    if masked:
+        mask = (np.random.RandomState(2).rand(1, 340) > 0.5).astype(
+            np.float32)
+        mask[0, :2] = [0.0, 1.0]
+        mask[0, 128:256] = 0.0
+    got = _kernel_replay(q[0, :, 0], k[0, :, 0], v[0, :, 0],
+                         None if mask is None else mask[0], causal, "wgmma",
+                         bq=bq)
+    if causal and masked:
+        assert np.all(got[0] == 0)
+    _wgmma_check(got, q, k, v, mask, causal)
+
+
+@pytest.mark.parametrize("d", list(range(8, 161, 8)))
+def test_wgmma_tile_loop_every_head_dim(d):
+    """Every head dim the bf16 kernel takes, zero-padded to its compiled
+    width, on lengths that are no multiple of a tile."""
+    q, k, v = (_bf16(a) for a in _qkv(1, 77, 129, 1, d, seed=d))
+    got = _kernel_replay(q[0, :, 0], k[0, :, 0], v[0, :, 0], None, False,
+                         "wgmma")
+    _wgmma_check(got, q, k, v)
 
 
 @pytest.mark.parametrize("mode", ["tf32x3", "tf32x1"])

@@ -9,7 +9,9 @@ bf16, up to the T2I UNet's widest head (D = 160); BLIP's fused-qkv views;
 PVT's spatial-reduction attention (one head, Tq >> Tk, a ragged key tail);
 both kernels from a worker thread on its own stream, on a card that is not
 the current one (with two cards), and a T2A engine on a mesh that names
-the card twice.
+the card twice. The bf16 flash kernel (``wgmma`` fed by TMA) at every head
+dim it takes, every pair of lengths around its tiles, one and two consumer
+warpgroups a block, and a CUDA graph's replay against the eager call.
 
 These tests need an NVIDIA card and ``nvcc``; elsewhere they skip. They
 import neither JAX nor the JAX package, so they run where only PyTorch is
@@ -77,9 +79,12 @@ def _flash_check(q, k, v, kv_mask=None, causal=False):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", [8, 16, 32, 40, 48, 64, 80, 96, 128, 144,
-                               160])
+@pytest.mark.parametrize("d", list(range(8, 161, 8)))
 def test_flash_head_dims_unaligned(gen, d, dtype):
+    """Every head dim both kernels take in steps of 8 (the bf16 kernel pads
+    each to its compiled width, 16 to 160, by TMA's zero fill, in column
+    blocks of 16, 32 or 64 dims: a swizzle of 32, 64 or 128 bytes), on
+    lengths no multiple of any tile."""
     _flash_check(*_qkv(gen, 2, 100, 200, 3, d, dtype))
 
 
@@ -89,12 +94,19 @@ def test_flash_causal_top_left(gen, tq, tk, dtype):
     _flash_check(*_qkv(gen, 2, tq, tk, 2, 64, dtype), causal=True)
 
 
+#: lengths around the tiles: 64 query rows a warpgroup, 64 or 128 keys
+FLASH_LENGTHS = [1, 63, 64, 65, 77, 129, 1060]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("tq,tk", [(1060, 77), (300, 77), (77, 300),
-                                   (130, 1), (65, 1000)])
+                                   (130, 1), (65, 1000)]
+                         + [(tq, tk) for tq in FLASH_LENGTHS
+                            for tk in FLASH_LENGTHS])
 def test_flash_unequal_lengths(gen, tq, tk, dtype):
-    """Non-causal Tq != Tk with a partial last key tile (the inpaint path's
-    level-0 cross-attention is [1, 1060, 8, 40] on 77 keys)."""
+    """Tq and Tk with partial tiles: the inpaint path's level-0
+    cross-attention ([1, 1060, 8, 40] on 77 keys) and every pair of the
+    lengths around the tiles."""
     _flash_check(*_qkv(gen, 1, tq, tk, 8, 40, dtype))
 
 
@@ -119,6 +131,88 @@ def test_flash_kv_mask_with_fully_masked_row(gen, dtype):
     mask = (torch.arange(300, device="cuda")[None] < lens[:, None]).float()
     out = _flash_check(q, k, v, kv_mask=mask)
     assert torch.all(out[2] == 0)
+
+
+# -- the bf16 kernel (``csrc/flash_attention_sm90.cu``: wgmma fed by TMA) ----
+
+
+@pytest.mark.parametrize("b,tq,h", [(1, 300, 2), (2, 1024, 8), (4, 1500, 8)])
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+def test_flash_bf16_masked_row_and_causal(gen, b, tq, h, d):
+    """A key mask that drops one row's keys wholly (its output is 0), and
+    causal with Tq != Tk, aligned top-left, on grids of one, two and three
+    consumer warpgroups a block (the rule picks by head dim)."""
+    q, k, v = _qkv(gen, b, tq, tq + 37, h, d, torch.bfloat16)
+    lens = torch.tensor([tq + 37, 0, 130, 1][:b], device="cuda")
+    mask = (torch.arange(tq + 37, device="cuda")[None]
+            < lens[:, None]).float()
+    out = _flash_check(q, k, v, kv_mask=mask)
+    if b > 1:
+        assert torch.all(out[1] == 0)
+    _flash_check(q, k, v, causal=True)
+    _flash_check(*_qkv(gen, b, tq + 37, tq, h, d, torch.bfloat16),
+                 causal=True)
+
+
+#: the bf16 kernel's rule for its block's rows (``csrc/flash_attention_sm90.cu``
+#: ``consumers``; change them together): query rows an SM computes per unit
+#: of time with 1, 2, 3 consumer warpgroups, by padded head dim
+BF16_RATES = {48: (1.0, 1.82, 2.17), 64: (1.0, 0.96, 1.21),
+              96: (1.0, 1.19, 1.56), 160: (1.0, 1.19, 1.41)}
+
+
+def _bf16_block_rows(b, tq, h, d, sms):
+    dp = next(w for w in (16, 32, 48, 64, 80, 96, 128, 160) if w >= d)
+    rate = next(r for top, r in BF16_RATES.items() if dp <= top)
+    cost = {n: -(-(-(-tq // (64 * n)) * h * b) // sms) * 64 * n / rate[n - 1]
+            for n in (3, 2, 1)}
+    return 64 * min(cost, key=lambda n: (cost[n], -n))
+
+
+#: shapes whose grids take one, two and three consumer warpgroups a block
+BF16_BLOCK_SHAPES = [(1, 1500, 1500, 8, 64), (2, 1024, 1024, 8, 80),
+                     (4, 1500, 1500, 8, 64)]
+
+
+def test_flash_bf16_block_shape(gen):
+    """The bf16 kernel's block takes 64, 128 or 192 query rows (one to three
+    consumer warpgroups) by its cost rule; each shape of
+    ``BF16_BLOCK_SHAPES`` takes another."""
+    from audiogpt_tpu_torch.ops.flash_attention import launch_grid
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for b, tq, tk, h, d in BF16_BLOCK_SHAPES:
+        q = torch.empty(b, tq, h, d, device="cuda", dtype=torch.bfloat16)
+        rows.append(launch_grid(q)["block_q"])
+        assert rows[-1] == _bf16_block_rows(b, tq, h, d, sms)
+    if sms == 132:
+        assert rows == [64, 128, 192]
+
+
+@pytest.mark.parametrize("shape", BF16_BLOCK_SHAPES + [(2, 256, 256, 8, 160)])
+def test_flash_bf16_graph_replay_is_bitwise_eager(gen, shape):
+    """The TMA descriptors are kernel parameters, encoded at each call: a
+    CUDA graph captures them with the launch, and its replay gives the
+    eager call's output bit for bit."""
+    b, tq, tk, h, d = shape
+    q, k, v = _qkv(gen, b, tq, tk, h, d, torch.bfloat16)
+    mask = (torch.arange(tk, device="cuda")[None]
+            < torch.tensor([tk - 100 * i for i in range(b)],
+                           device="cuda")[:, None]).float()
+    eager = flash_attention(q, k, v, kv_mask=mask)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        flash_attention(q, k, v, kv_mask=mask)    # warm-up off the capture
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph, stream=stream):
+            replayed = flash_attention(q, k, v, kv_mask=mask)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, eager)
 
 
 def test_flash_rejects_what_the_kernel_does_not_take(gen):
@@ -326,11 +420,14 @@ def _close(out, ref, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_kernels_launch_from_a_worker_thread_on_its_stream(gen, dtype):
-    """Both kernels called from another thread under its own stream (the
-    T2I D = 160 shape for K1): they launch there, count on that stream and
-    match their plain versions."""
-    q, k, v = _qkv(gen, 2, 256, 256, 8, 160, dtype)
+@pytest.mark.parametrize("shape", [(2, 256, 256, 8, 160),
+                                   (4, 1500, 1500, 8, 64)])
+def test_kernels_launch_from_a_worker_thread_on_its_stream(gen, dtype,
+                                                           shape):
+    """Both kernels called from another thread under its own stream (K1 at
+    the T2I D = 160 shape and whisper's batch of 4): they launch there,
+    count on that stream and match their plain versions."""
+    q, k, v = _qkv(gen, *shape, dtype)
     x, alpha, beta = _snake_inputs(gen, 2, 64, 4993, dtype)
     dev = torch.cuda.current_device()
     flash_before = Counter(flash_attention.launches_by_stream)
@@ -353,13 +450,16 @@ def _second_card():
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_flash_d160_on_the_second_card_after_the_first(gen, dtype):
-    """K1 at D = 160 (209 KB of dynamic shared memory in f32) on cuda:1
-    after a launch on cuda:0, with cuda:0 current and from a worker thread:
-    the shared-memory set-up holds on each card."""
+@pytest.mark.parametrize("shape", [(2, 256, 256, 8, 160),
+                                   (4, 1500, 1500, 8, 64)])
+def test_flash_d160_on_the_second_card_after_the_first(gen, dtype, shape):
+    """K1 at D = 160 (209 KB of dynamic shared memory in f32; one consumer
+    warpgroup a block in bf16) and at whisper's batch of 4 (two in bf16)
+    on cuda:1 after a launch on cuda:0, with cuda:0 current and from a
+    worker thread: the shared-memory set-up holds on each card."""
     card1 = _second_card()
-    _flash_check(*_qkv(gen, 2, 256, 256, 8, 160, dtype))
-    q, k, v = (t.to(card1) for t in _qkv(gen, 2, 256, 256, 8, 160, dtype))
+    _flash_check(*_qkv(gen, *shape, dtype))
+    q, k, v = (t.to(card1) for t in _qkv(gen, *shape, dtype))
     before = flash_attention.launches_by_device[1]
     with torch.cuda.device(0):
         out = flash_attention(q, k, v)
