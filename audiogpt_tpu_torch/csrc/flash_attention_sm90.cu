@@ -5,13 +5,14 @@
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` / `_flash_forward` of
 // audiogpt_tpu/ops/flash_attention.py for bf16 inputs; the f32 entry is
-// csrc/flash_attention.cu. Semantics follow `_flash_kernel`: scale D^-0.5,
-// an optional key-padding mask [B, Tk] (> 0 = valid), causal masking
-// aligned top-left (key j is visible to query i when j <= i), f32 running
-// max, sum and output accumulators, the probabilities rounded to bf16
-// before P.V (`_flash_kernel:75-77`), and 0 for a query row with no valid
-// key (masked logits are -inf and never enter the sums; the exponent base
-// of such a row is taken as 0).
+// csrc/flash_attention_sm90_f32.cu, and csrc/sm90.cuh holds the barrier,
+// TMA and `wgmma` helpers both share. Semantics follow `_flash_kernel`:
+// scale D^-0.5, an optional key-padding mask [B, Tk] (> 0 = valid), causal
+// masking aligned top-left (key j is visible to query i when j <= i), f32
+// running max, sum and output accumulators, the probabilities rounded to
+// bf16 before P.V (`_flash_kernel:75-77`), and 0 for a query row with no
+// valid key (masked logits are -inf and never enter the sums; the exponent
+// base of such a row is taken as 0).
 //
 // Bound on the H100: operations at the attention paths' shapes (the UNet's
 // [6, 780, 8, 40] does 4*B*H*Tq*Tk*D = 4.7 GFLOP on 12 MB), but at D <= 64
@@ -58,24 +59,20 @@
 // `wgmma` of the kernel (its C7514-C7518 notes, which `chip_smoke.py`'s
 // build phase reports).
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
-#include <atomic>
-#include <mutex>
 #include <type_traits>
+
+#include "sm90.cuh"
 
 namespace {
 
+using namespace sm90;
 using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 64;    // query rows of a consumer warpgroup (M)
 constexpr int kStages = 3;   // K/V tiles in flight
-// a wait longer than 2^34 clocks (~9 s) traps instead of hanging the card
-constexpr long long kTrapClocks = 1ll << 34;
 
 // Per padded head dim DP: the column blocks and the key tile.
 template <int DP>
@@ -111,126 +108,7 @@ struct Smem {
   static constexpr int kBytes = kBar + (2 * kStages + 1) * 8 + 1024;
 };
 
-// ---- barriers, TMA, wgmma ----------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  long long t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0) {
-      t0 = clock64();
-    } else if (clock64() - t0 > kTrapClocks) {
-      __trap();
-    }
-  }
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// 4 bytes global -> shared; zero-filled when !valid (src must stay legal)
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-// one arrival on `bar` once this thread's earlier cp.asyncs have landed
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   bar)
-               : "memory");
-}
-
-// named barrier `id` of `n` threads: wait for it, or only arrive on it
-__device__ __forceinline__ void named_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void named_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// wait until at most N of this warpgroup's committed groups are pending
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// pins accumulator registers in place around the asynchronous products:
-// no read of them may move above the wait, nor a write below the fence
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets (16-byte units), swizzle layout type.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
+// ---- operands, wgmma ------------------------------------------------------
 
 // K-major operand (Q as A, K as B of S = Q.K^T): `rows` rows a column
 // block; k step kk (head dims 16kk..16kk+15) lies in block 16kk / kW, at
@@ -252,13 +130,6 @@ __device__ __forceinline__ uint64_t desc_v(uint32_t addr, int kk) {
   constexpr int kW = Tile<DP>::kW, kBK = Tile<DP>::kBK;
   return make_desc(addr + kk * 16 * kW * 2, kBK * kW * 2, 16 * kW,
                    Tile<DP>::kLayout);
-}
-
-// 2^x, one MUFU op (ex2.approx: ~2^-22 relative; 2^-inf = 0)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -716,33 +587,6 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
 
 // ---- host side ------------------------------------------------------------
 
-// cuTensorMapEncodeTiled from the driver through the runtime's entry-point
-// query, so the library needs no link against libcuda
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 struct Args {
   const void *q, *k, *v;
   const float* mask;
@@ -772,37 +616,11 @@ bool encode_rows(CUtensorMap* map, const void* ptr, const Args& a, int T,
                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// the most devices one process configures the kernels on
-constexpr int kMaxDevices = 64;
-
-// The dynamic shared memory a launch of flash_fwd_sm90<DP, NC> may take is
-// an attribute of the kernel on one device, set once for each device the
-// process launches on (the caller's current one), under a lock: a process
-// may launch from several threads, one per card or several on one card.
-template <int DP, int NC>
-cudaError_t configure() {
-  static std::atomic<bool> done[kMaxDevices];
-  static std::mutex mu;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
-  std::lock_guard<std::mutex> lock(mu);
-  if (!done[dev].load(std::memory_order_relaxed)) {
-    err = cudaFuncSetAttribute(flash_fwd_sm90<DP, NC>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               Smem<DP, NC>::kBytes);
-    if (err != cudaSuccess) return err;
-    done[dev].store(true, std::memory_order_release);
-  }
-  return cudaSuccess;
-}
-
 template <int DP, int NC>
 int launch(const Args& a) {
   if (encoder() == nullptr) return (int)cudaErrorNotSupported;
-  const cudaError_t err = configure<DP, NC>();
+  const cudaError_t err = configure<Smem<DP, NC>>(flash_fwd_sm90<DP, NC>,
+                                                  Smem<DP, NC>::kBytes);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tq{}, tk{}, tv{};
   if (!encode_rows<DP>(&tq, a.q, a, a.Tq, kRows) ||
@@ -834,11 +652,8 @@ constexpr float kRate[4][3] = {
 
 template <int DP>
 int consumers(int B, int Tq, int H) {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return 1;
+  const int sms = sm_count();
+  if (sms == 0) return 1;
   const float* rate = kRate[DP <= 48 ? 0 : DP == 64 ? 1 : DP <= 96 ? 2 : 3];
   int best = 1;
   float best_cost = 0.f;
@@ -868,7 +683,8 @@ int run(const Args& a) {
 template <int DP, int NC>
 int occupancy(int* block_q, int* blocks_per_sm) {
   *block_q = kRows * NC;
-  const cudaError_t err = configure<DP, NC>();
+  const cudaError_t err = configure<Smem<DP, NC>>(flash_fwd_sm90<DP, NC>,
+                                                  Smem<DP, NC>::kBytes);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, flash_fwd_sm90<DP, NC>, 128 * (NC + 1),

@@ -7,9 +7,10 @@ interface, loaded with :mod:`ctypes`. The build happens at the first call of
 carries a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads at once. Nothing here runs at import time: the CPU tests
 import every module on a machine that has no ``nvcc``. The link needs no
-``-lcuda``: ``flash_attention_sm90.cu`` fetches the driver's
-``cuTensorMapEncodeTiled`` (its TMA descriptors) through the runtime's
-``cudaGetDriverEntryPoint``.
+``-lcuda``: both flash kernels fetch the driver's
+``cuTensorMapEncodeTiled`` (their TMA descriptors) through the runtime's
+``cudaGetDriverEntryPoint`` (``csrc/sm90.cuh``). A ``*.cuh`` header is
+hashed with the sources.
 
 The kernels may launch from several threads of one process (one per card,
 or several streams of one card: ``engines/base.py`` ``ReplicaRunner``), so
@@ -44,9 +45,10 @@ SIGNATURES = {
                                                            _VOID_P),
     "flash_attention_bf16": (_VOID_P,) * 5 + (_INT,) * 5 + (_FLOAT, _INT,
                                                             _VOID_P),
-    # D, &blocks_per_sm (the f32 kernel)
-    "flash_attention_occupancy": (_INT, ctypes.POINTER(ctypes.c_int)),
-    # B, Tq, H, D, &rows_per_block, &blocks_per_sm (the bf16 kernel)
+    # B, Tq, H, D, &rows_per_block, &blocks_per_sm (the f32 kernel; the
+    # bf16 kernel's)
+    "flash_attention_occupancy": (_INT,) * 4
+    + (ctypes.POINTER(ctypes.c_int),) * 2,
     "flash_attention_bf16_occupancy": (_INT,) * 4
     + (ctypes.POINTER(ctypes.c_int),) * 2,
     # x, alpha, beta, out, B, C, T, stream

@@ -1,6 +1,7 @@
-"""Blockwise (flash) attention: the Hopper kernels ``csrc/flash_attention.cu``
-(f32: ``mma.sync``, 3xTF32) and ``csrc/flash_attention_sm90.cu`` (bf16:
-``wgmma`` fed by TMA) and their plain PyTorch version.
+"""Blockwise (flash) attention: the Hopper kernels
+``csrc/flash_attention_sm90_f32.cu`` (f32: 3xTF32 on ``wgmma``) and
+``csrc/flash_attention_sm90.cu`` (bf16: ``wgmma``), both fed by TMA, and
+their plain PyTorch version.
 
 Counterpart of ``audiogpt_tpu/ops/flash_attention.py``. Both versions follow
 the Pallas kernel's semantics: scale ``D^-0.5``, an optional key-padding mask
@@ -29,10 +30,11 @@ from audiogpt_tpu_torch.ops import _build
 
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
-#: rows per block of the f32 kernel (4 warps of 16 query rows); the bf16
-#: kernel's (64, 128 or 192: one to three consumer warpgroups) is its own
-#: choice, which :func:`launch_grid` reads
-BLOCK_Q = 64
+#: each entry's block shape (query rows a block: 64, 128 or 192, one to
+#: three consumer warpgroups, the kernel's own choice per call; resident
+#: blocks per SM), which :func:`launch_grid` reads
+_OCCUPANCY = {torch.float32: "flash_attention_occupancy",
+              torch.bfloat16: "flash_attention_bf16_occupancy"}
 
 
 def _dtypes_taken(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
@@ -181,16 +183,11 @@ def launch_grid(q: torch.Tensor) -> dict:
     """The kernel's grid for q [B, Tq, H, D] on its card: query rows a
     block, blocks, resident blocks per SM and the waves they make there."""
     b, tq, h, d = q.shape
-    n, rows = ctypes.c_int(0), ctypes.c_int(BLOCK_Q)
-    lib = _build.library()
+    n, rows = ctypes.c_int(0), ctypes.c_int(0)
+    name = _OCCUPANCY[q.dtype]
     with torch.cuda.device(q.device):
-        if q.dtype == torch.bfloat16:
-            name = "flash_attention_bf16_occupancy"
-            err = lib.flash_attention_bf16_occupancy(
-                b, tq, h, d, ctypes.byref(rows), ctypes.byref(n))
-        else:
-            name = "flash_attention_occupancy"
-            err = lib.flash_attention_occupancy(d, ctypes.byref(n))
+        err = getattr(_build.library(), name)(
+            b, tq, h, d, ctypes.byref(rows), ctypes.byref(n))
     _build.check(err, name)
     blocks = -(-tq // rows.value) * h * b
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count

@@ -8,8 +8,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 1. probe: CUDA must be present; the card's name and power limit; TF32 off.
 2. build: ``nvcc`` compiles ``audiogpt_tpu_torch/csrc/*.cu`` for sm_90a;
    ptxas' registers and spills per flash kernel instance, and its warnings;
-   ``cuobjdump -sass`` must show HGMMA (``wgmma``) and no HMMA in the bf16
-   flash kernel, HMMA TF32 in the f32 one.
+   ``cuobjdump -sass`` must show HGMMA (``wgmma``) and no HMMA in both
+   flash kernels, HGMMA TF32 in the f32 one.
 3. flash_attention: both entries (f32, bf16) against their plain versions at
    the T2A UNet shape, the three inpaint shapes (level-0 self- and
    cross-attention, level-1 self-attention at D = 80), whisper-base's
@@ -543,12 +543,15 @@ def bound_ms(n_bytes: float, flops: float,
 
 
 #: the flash kernels' function names in the SASS and ptxas' report
-FLASH_KERNELS = {"flash_fwd_kernel": "float32", "flash_fwd_sm90": "bfloat16"}
+FLASH_KERNELS = {"flash_fwd_sm90_f32": "float32", "flash_fwd_sm90": "bfloat16"}
+#: a flash kernel's name as it stands, mangled, before its template
+#: arguments (``flash_fwd_sm90_f32ILi40ELi3EE``)
+FLASH_KERNEL_RE = re.compile(r"(flash_fwd_sm90(?:_f32)?)I((?:Li\d+E)+)")
 
 
 def tensor_core_sass(lib: Path) -> dict:
     """Tensor-core instructions (HMMA, HGMMA) in each flash kernel's SASS
-    (``flash_fwd_kernel``: the f32 entry's, ``flash_fwd_sm90``: the bf16
+    (``flash_fwd_sm90_f32``: the f32 entry's, ``flash_fwd_sm90``: the bf16
     entry's), counted by opcode from ``cuobjdump -sass``; → {dtype name:
     {opcode: count}}."""
     from audiogpt_tpu_torch.ops import _build
@@ -561,8 +564,8 @@ def tensor_core_sass(lib: Path) -> dict:
     kernel = None
     for line in sass.splitlines():
         if "Function :" in line:
-            kernel = next((dtype for name, dtype in FLASH_KERNELS.items()
-                           if name in line), None)
+            m = FLASH_KERNEL_RE.search(line)
+            kernel = m and FLASH_KERNELS[m.group(1)]
         elif kernel and (m := re.search(r"\b(HGMMA|HMMA)[\w.]*", line)):
             counts[kernel][m.group(0)] = counts[kernel].get(m.group(0), 0) + 1
     return counts
@@ -575,7 +578,7 @@ def ptxas_report(log: str) -> dict:
     out, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"(flash_fwd_(?:kernel|sm90))I((?:Li\d+E)+)", line)
+            m = FLASH_KERNEL_RE.search(line)
             name = m and (f"{m.group(1)}<"
                           + ", ".join(re.findall(r"Li(\d+)E", m.group(2)))
                           + ">")
@@ -609,7 +612,8 @@ def phase_build() -> None:
     if not any(op.startswith("HGMMA") for op in bf16) or any(
             op.startswith("HMMA") for op in bf16):
         raise AssertionError(f"the bf16 flash kernel's SASS: {bf16}")
-    if not any(op.startswith("HMMA") and "TF32" in op for op in f32):
+    if not any(op.startswith("HGMMA") and "TF32" in op for op in f32) or any(
+            op.startswith("HMMA") for op in f32):
         raise AssertionError(f"the f32 flash kernel's SASS: {f32}")
 
 
@@ -8321,7 +8325,7 @@ def main() -> int:
     t2i_p, i2t_p = t2i_path(t2i["engine"]), i2t_path(i2t["engine"])
     counts, counts_bf16 = main_path["launches"], bf16_path["launches"]
     wcfg = asr["engine"].cfg
-    flash_src = "audiogpt_tpu_torch/csrc/flash_attention.cu"
+    flash_src = "audiogpt_tpu_torch/csrc/flash_attention_sm90_f32.cu"
     flash_bf16_src = "audiogpt_tpu_torch/csrc/flash_attention_sm90.cu"
     flash_tpu = "audiogpt_tpu/ops/flash_attention.py:143"
     snake_src = "audiogpt_tpu_torch/csrc/snake_aa.cu"

@@ -4,10 +4,11 @@ vs the Pallas kernel in interpret mode, and ``attention()`` on both
 dispatch branches, in f32 and bf16, at head dims up to the T2I UNet's 160.
 The CUDA kernels' tile loops (online softmax in base 2, causal tile
 skipping, -inf masking, per-lane partial sums) are replayed in numpy here,
-with their tensor-core arithmetic emulated: the f32 kernel's 64-row blocks
-and 64-key tiles with 3xTF32 products (``mma.sync``), and the bf16 kernel's
-(``wgmma``) 64- or 128-row blocks, 128- or 64-key tiles and head dim padded
-to its compiled width, p rounded to bf16.
+with their tensor-core arithmetic emulated: both kernels' (``wgmma``) 64-,
+128- or 192-row blocks in warpgroups of 64, their key tiles and head dims
+padded to their compiled widths; the f32 kernel's 3xTF32 products (each
+operand split into a truncated TF32 part and the rest, P split in
+registers), the bf16 kernel's p rounded to bf16.
 
 JAX's two flash versions agree with each other only with no fully masked
 row and with causal at Tq == Tk, so the JAX comparisons stay there; the
@@ -190,34 +191,64 @@ def _wgmma_tiles(b, tq, h, d):
         cost, key=lambda n: (cost[n], -n))
 
 
-def _kernel_replay(q, k, v, kv_mask, causal, mode="tf32x3", bq=64, bk=64):
-    """numpy replay of ``csrc/flash_attention.cu`` for one (batch, head):
-    q [Tq, D], k/v [Tk, D], kv_mask [Tk] or None. Per 64-row block, 64-key
-    tiles (the ragged tail zero-filled and masked), logits scaled to base 2,
-    the exponent base 0 while a row has no valid key, the row sum kept as 4
-    per-lane partials (lane c holds keys 8n + 2c, 2c + 1).
+#: the f32 kernel's tiles (``csrc/flash_attention_sm90_f32.cu`` ``Tile``,
+#: ``consumers``; change them together): the compiled head dims, and by
+#: padded head dim the keys a tile, the most consumer warpgroups a block
+#: and the query rows an SM computes per unit of time with 1, 2, 3 of them
+F32_WIDTHS = (8, 16, 32, 40, 48, 64, 80, 96, 128, 160)
+F32_RATES = {48: (1.0, 1.53, 1.81), 64: (1.0, 1.45, 1.81),
+             160: (1.0, 1.54)}
 
-    ``mode="wgmma"`` replays ``csrc/flash_attention_sm90.cu`` instead: q, k
-    and v zero-padded to the compiled head dim (TMA's fill), ``bq`` query
-    rows a block (64, 128 or 192) in warpgroups of 64, the tile width of that
-    head dim (``bk`` is not read), tiles past the block's last row not
-    loaded, a tile above a warpgroup's rows or whose keys the mask all
-    drops not computed, bf16 products and p rounded to bf16."""
+
+def _f32_tiles(b, tq, h, d):
+    """(padded head dim, keys a tile, query rows a block) of the f32
+    kernel for q [b, tq, h, d] on a card of ``H100_SMS`` SMs: at most 3
+    consumer warpgroups to DP = 64, 2 to 96, 1 above; the block's rows cost
+    the least ceil(blocks / SMs) * rows / rate."""
+    dp = next(w for w in F32_WIDTHS if w >= d)
+    bk = 64 if dp <= 48 else 32 if dp <= 128 else 16
+    most = 3 if dp <= 64 else 2 if dp <= 96 else 1
+    rate = next(r for top, r in F32_RATES.items() if dp <= top)
+    cost = {n: -(-(-(-tq // (64 * n)) * h * b) // H100_SMS) * 64 * n
+            / rate[n - 1] for n in range(most, 0, -1)}
+    return dp, bk, 64 * min(cost, key=lambda n: (cost[n], -n))
+
+
+def _kernel_replay(q, k, v, kv_mask, causal, mode="tf32x3", bq=64, bk=64):
+    """numpy replay of ``csrc/flash_attention_sm90_f32.cu`` (``mode``
+    "tf32x3"; "tf32x1" takes one TF32 product in place of three) for one
+    (batch, head): q [Tq, D], k/v [Tk, D], kv_mask [Tk] or None. q, k and v
+    zero-padded to the compiled head dim (TMA's fill), ``bq`` query rows a
+    block (64, 128 or 192) in warpgroups of 64, the key tile of that head
+    dim (the ragged tail zero-filled and masked; ``bk`` is not read), tiles
+    past the block's last row not loaded, a tile above a warpgroup's rows or
+    whose keys the mask all drops not computed, logits scaled to base 2, the
+    exponent base 0 while a row has no valid key, the row sum kept as 4
+    per-lane partials (lane c holds keys 8n + 2c, 2c + 1); both products
+    3xTF32 with the truncating split, P split as it leaves the softmax.
+
+    ``mode="wgmma"`` replays ``csrc/flash_attention_sm90.cu`` (the bf16
+    kernel: its widths and tiles, bf16 products and p rounded to bf16);
+    ``mode="bf16"`` the same arithmetic in plain ``bq``-row blocks and
+    ``bk``-key tiles, every tile computed."""
     tq, d = q.shape
     tk = k.shape[0]
     out = np.zeros((tq, d), np.float32)
     scale_log2 = np.float32(d ** -0.5) * np.float32(1.4426950408889634)
-    wgmma = mode == "wgmma"
-    if wgmma:
+    wgmma = mode != "bf16"
+    if mode == "wgmma":
         dp, bk, _ = _wgmma_tiles(1, 1, 1, d)
-        q, k, v = (np.pad(a, ((0, 0), (0, dp - d))) for a in (q, k, v))
         mode = "bf16"
+    elif wgmma:
+        dp, bk, _ = _f32_tiles(1, 1, 1, d)
+    if wgmma:
+        q, k, v = (np.pad(a, ((0, 0), (0, dp - d))) for a in (q, k, v))
     lane = (np.arange(bk) % 8) // 2
     for q0 in range(0, tq, bq):
         n_tiles = -(-tk // bk)
         if causal:
             n_tiles = min(n_tiles, (q0 + bq - 1) // bk + 1)
-        # the f32 kernel's block, or one wgmma warpgroup's 64 rows
+        # one warpgroup's 64 rows, or the plain loop's block
         for w0 in range(q0, min(q0 + bq, tq), 64 if wgmma else bq):
             rows = np.arange(w0, min(w0 + (64 if wgmma else bq), tq))
             acc = np.zeros((len(rows), q.shape[1]), np.float32)
@@ -380,12 +411,95 @@ def test_wgmma_tile_loop_every_head_dim(d):
     _wgmma_check(got, q, k, v)
 
 
+#: the f32 paths' attention shapes (``chip_smoke.py`` ``FLASH_CASES``),
+#: cut to one head as ``WGMMA_PATH_SHAPES`` is, with the key mask and the
+#: causal cell: (B, Tq, Tk, H, D), key length of the one head or None,
+#: causal
+F32_PATH_SHAPES = {
+    "unet_level0": ((6, 780, 780, 8, 40), None, False),
+    "inpaint_cross_l0": ((1, 1060, 77, 8, 40), None, False),
+    "t2i_self_ds2": ((2, 1024, 1024, 8, 80), None, False),
+    "t2i_self_ds4": ((2, 256, 256, 8, 160), None, False),
+    "asr_encoder": ((1, 1500, 1500, 8, 64), None, False),
+    "pvt_s2_32s": ((1, 800, 200, 5, 64), None, False),
+    "kv_mask": ((2, 1500, 1500, 6, 64), 1100, False),
+    "causal": ((1, 256, 256, 2, 80), None, True),
+}
+
+
+@pytest.mark.parametrize("case", list(F32_PATH_SHAPES))
+def test_f32_tile_loop_matches_reference_at_path_shapes(case):
+    """The f32 kernel's replay (its block rows by the cost rule, its key
+    tile and head-dim padding at each width, 3xTF32) at the paths' shapes,
+    one head, against the plain version on the same f32 inputs."""
+    (b, tq, tk, h, d), length, causal = F32_PATH_SHAPES[case]
+    q, k, v = _qkv(1, tq, tk, 1, d, seed=tq + d)
+    mask = None
+    if length is not None:
+        mask = (np.arange(tk)[None] < length).astype(np.float32)
+    got = _kernel_replay(q[0, :, 0], k[0, :, 0], v[0, :, 0],
+                         None if mask is None else mask[0], causal,
+                         bq=_f32_tiles(b, tq, h, d)[2])
+    ref = flash_attention_reference(
+        *_t(q, k, v), kv_mask=None if mask is None else torch.from_numpy(mask),
+        causal=causal)
+    np.testing.assert_allclose(got, ref[0, :, 0].numpy(), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("bq", [64, 128, 192])
+@pytest.mark.parametrize("causal,masked", [(True, False), (False, True),
+                                           (True, True)])
+def test_f32_tile_loop_masks_against_pallas(causal, masked, bq):
+    """The f32 kernel's replay at the three block shapes, with Tq != Tk
+    under a key mask that drops a whole 64-key tile, and causal at Tq == Tk
+    (where JAX's flash versions agree), against the Pallas kernel in
+    interpret mode; and a mask that leaves query row 0 no key under causal
+    (its output is 0), against the plain version."""
+    tq, tk = (200, 200) if causal else (150, 260)
+    q, k, v = _qkv(1, tq, tk, 1, 40, seed=31)
+    mask = None
+    if masked:
+        mask = (np.random.RandomState(3).rand(1, tk) > 0.4).astype(np.float32)
+        mask[0, 0] = 1.0
+        mask[0, 64:128] = 0.0
+    got = _kernel_replay(q[0, :, 0], k[0, :, 0], v[0, :, 0],
+                         None if mask is None else mask[0], causal, bq=bq)
+    ref = jax_flash_attention(
+        *_j(q, k, v), kv_mask=None if mask is None else jnp.asarray(mask),
+        causal=causal, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(ref)[0, :, 0], atol=ATOL,
+                               rtol=0)
+    if causal and masked:
+        mask[0, :2] = [0.0, 1.0]
+        got = _kernel_replay(q[0, :, 0], k[0, :, 0], v[0, :, 0], mask[0],
+                             True, bq=bq)
+        ref = flash_attention_reference(*_t(q, k, v),
+                                        kv_mask=torch.from_numpy(mask),
+                                        causal=True)
+        assert np.all(got[0] == 0) and torch.all(ref[0, 0, 0] == 0)
+        np.testing.assert_allclose(got, ref[0, :, 0].numpy(), atol=ATOL,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("d", list(range(4, 161, 4)))
+def test_f32_tile_loop_every_head_dim(d):
+    """Every head dim the f32 kernel takes (a multiple of 4: rows of 16
+    bytes), zero-padded to its compiled width, on lengths that are no
+    multiple of a tile."""
+    q, k, v = _qkv(1, 77, 129, 1, d, seed=d)
+    got = _kernel_replay(q[0, :, 0], k[0, :, 0], v[0, :, 0], None, False)
+    ref = flash_attention_reference(*_t(q, k, v))
+    np.testing.assert_allclose(got, ref[0, :, 0].numpy(), atol=ATOL, rtol=0)
+
+
 @pytest.mark.parametrize("mode", ["tf32x3", "tf32x1"])
 @pytest.mark.parametrize("d", [40, 64, 80])
 def test_tf32_split_error_against_f64(d, mode):
-    """The f32 entry's 3xTF32 products keep the replay within 1e-5 of the
-    float64 softmax at the UNet's 780 keys; one TF32 product (~2^-10 per
-    operand) does not, which is why the kernel pays for three."""
+    """The f32 entry's 3xTF32 products (the kernel's tile loop: Q, K, P
+    and V split with the tensor core's truncation) keep the replay within
+    1e-5 of the float64 softmax at the UNet's 780 keys; one TF32 product
+    (~2^-10 per operand) does not, which is why the kernel pays for
+    three."""
     q, k, v = (a[0, :, 0].astype(np.float64) for a in
                _qkv(1, 128, 780, 1, d, seed=d + 1))
     logits = q @ k.T * d ** -0.5

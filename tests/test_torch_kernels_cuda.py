@@ -9,9 +9,10 @@ bf16, up to the T2I UNet's widest head (D = 160); BLIP's fused-qkv views;
 PVT's spatial-reduction attention (one head, Tq >> Tk, a ragged key tail);
 both kernels from a worker thread on its own stream, on a card that is not
 the current one (with two cards), and a T2A engine on a mesh that names
-the card twice. The bf16 flash kernel (``wgmma`` fed by TMA) at every head
-dim it takes, every pair of lengths around its tiles, one and two consumer
-warpgroups a block, and a CUDA graph's replay against the eager call.
+the card twice. Both flash kernels (``wgmma`` fed by TMA) at every head
+dim they take, every pair of lengths around their tiles, one to three
+consumer warpgroups a block, and a CUDA graph's replay against the eager
+call.
 
 These tests need an NVIDIA card and ``nvcc``; elsewhere they skip. They
 import neither JAX nor the JAX package, so they run where only PyTorch is
@@ -78,13 +79,15 @@ def _flash_check(q, k, v, kv_mask=None, causal=False):
     return out
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", list(range(8, 161, 8)))
+@pytest.mark.parametrize("d,dtype", [
+    (d, dtype) for dtype in DTYPES for d in range(8, 161, 8)]
+    + [(d, torch.float32) for d in (4, 12, 36, 44, 156)])
 def test_flash_head_dims_unaligned(gen, d, dtype):
-    """Every head dim both kernels take in steps of 8 (the bf16 kernel pads
-    each to its compiled width, 16 to 160, by TMA's zero fill, in column
-    blocks of 16, 32 or 64 dims: a swizzle of 32, 64 or 128 bytes), on
-    lengths no multiple of any tile."""
+    """Every head dim both kernels take in steps of 8, and the f32 head dims
+    that are 4 mod 8 (16-byte rows of f32): each kernel pads D to its
+    compiled width by TMA's zero fill (bf16 16 to 160, in column blocks of
+    16, 32 or 64 dims; f32 8 to 160, in blocks of 8, 16 or 32 dims: a
+    swizzle of 32, 64 or 128 bytes), on lengths no multiple of any tile."""
     _flash_check(*_qkv(gen, 2, 100, 200, 3, d, dtype))
 
 
@@ -136,13 +139,8 @@ def test_flash_kv_mask_with_fully_masked_row(gen, dtype):
 # -- the bf16 kernel (``csrc/flash_attention_sm90.cu``: wgmma fed by TMA) ----
 
 
-@pytest.mark.parametrize("b,tq,h", [(1, 300, 2), (2, 1024, 8), (4, 1500, 8)])
-@pytest.mark.parametrize("d", [40, 64, 80, 160])
-def test_flash_bf16_masked_row_and_causal(gen, b, tq, h, d):
-    """A key mask that drops one row's keys wholly (its output is 0), and
-    causal with Tq != Tk, aligned top-left, on grids of one, two and three
-    consumer warpgroups a block (the rule picks by head dim)."""
-    q, k, v = _qkv(gen, b, tq, tq + 37, h, d, torch.bfloat16)
+def _masked_row_and_causal(gen, b, tq, h, d, dtype):
+    q, k, v = _qkv(gen, b, tq, tq + 37, h, d, dtype)
     lens = torch.tensor([tq + 37, 0, 130, 1][:b], device="cuda")
     mask = (torch.arange(tq + 37, device="cuda")[None]
             < lens[:, None]).float()
@@ -150,8 +148,28 @@ def test_flash_bf16_masked_row_and_causal(gen, b, tq, h, d):
     if b > 1:
         assert torch.all(out[1] == 0)
     _flash_check(q, k, v, causal=True)
-    _flash_check(*_qkv(gen, b, tq + 37, tq, h, d, torch.bfloat16),
-                 causal=True)
+    _flash_check(*_qkv(gen, b, tq + 37, tq, h, d, dtype), causal=True)
+
+
+@pytest.mark.parametrize("b,tq,h", [(1, 300, 2), (2, 1024, 8), (4, 1500, 8)])
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+def test_flash_bf16_masked_row_and_causal(gen, b, tq, h, d):
+    """A key mask that drops one row's keys wholly (its output is 0), and
+    causal with Tq != Tk, aligned top-left, on grids of one, two and three
+    consumer warpgroups a block (the rule picks by head dim)."""
+    _masked_row_and_causal(gen, b, tq, h, d, torch.bfloat16)
+
+
+# -- the f32 kernel (``csrc/flash_attention_sm90_f32.cu``: 3xTF32 on wgmma) --
+
+
+@pytest.mark.parametrize("b,tq,h", [(1, 300, 2), (2, 1024, 8), (4, 1500, 8)])
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+def test_flash_f32_masked_row_and_causal(gen, b, tq, h, d):
+    """The f32 twin: a wholly masked row (0) and causal with Tq != Tk on
+    grids of the f32 kernel's block shapes at its 64-, 32- and 16-key
+    tiles."""
+    _masked_row_and_causal(gen, b, tq, h, d, torch.float32)
 
 
 #: the bf16 kernel's rule for its block's rows (``csrc/flash_attention_sm90.cu``
@@ -190,13 +208,50 @@ def test_flash_bf16_block_shape(gen):
         assert rows == [64, 128, 192]
 
 
-@pytest.mark.parametrize("shape", BF16_BLOCK_SHAPES + [(2, 256, 256, 8, 160)])
-def test_flash_bf16_graph_replay_is_bitwise_eager(gen, shape):
-    """The TMA descriptors are kernel parameters, encoded at each call: a
-    CUDA graph captures them with the launch, and its replay gives the
-    eager call's output bit for bit."""
+#: the f32 kernel's rule for its block's rows
+#: (``csrc/flash_attention_sm90_f32.cu`` ``Tile``, ``consumers``; change
+#: them together): the most consumer warpgroups by padded head dim, and the
+#: query rows an SM computes per unit of time with 1, 2, 3 of them
+F32_MOST = {64: 3, 96: 2, 160: 1}
+F32_RATES = {48: (1.0, 1.53, 1.81), 64: (1.0, 1.45, 1.81),
+             160: (1.0, 1.54)}
+
+
+def _f32_block_rows(b, tq, h, d, sms):
+    dp = next(w for w in (8, 16, 32, 40, 48, 64, 80, 96, 128, 160) if w >= d)
+    most = next(n for top, n in F32_MOST.items() if dp <= top)
+    rate = next(r for top, r in F32_RATES.items() if dp <= top)
+    cost = {n: -(-(-(-tq // (64 * n)) * h * b) // sms) * 64 * n / rate[n - 1]
+            for n in range(most, 0, -1)}
+    return 64 * min(cost, key=lambda n: (cost[n], -n))
+
+
+#: shapes whose f32 grids take one, two and three consumer warpgroups a
+#: block on 132 SMs
+F32_BLOCK_SHAPES = [(2, 256, 256, 8, 160), (2, 1024, 1024, 8, 80),
+                    (6, 780, 780, 8, 40)]
+
+
+def test_flash_f32_block_shape(gen):
+    """The f32 kernel's block takes 64, 128 or 192 query rows (one to three
+    consumer warpgroups, fewer where the head dim leaves no shared memory
+    for more) by its cost rule; each shape of ``F32_BLOCK_SHAPES`` takes
+    another."""
+    from audiogpt_tpu_torch.ops.flash_attention import launch_grid
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for b, tq, tk, h, d in F32_BLOCK_SHAPES:
+        q = torch.empty(b, tq, h, d, device="cuda")
+        rows.append(launch_grid(q)["block_q"])
+        assert rows[-1] == _f32_block_rows(b, tq, h, d, sms)
+    if sms == 132:
+        assert rows == [64, 128, 192]
+
+
+def _graph_replay_is_bitwise_eager(gen, shape, dtype):
     b, tq, tk, h, d = shape
-    q, k, v = _qkv(gen, b, tq, tk, h, d, torch.bfloat16)
+    q, k, v = _qkv(gen, b, tq, tk, h, d, dtype)
     mask = (torch.arange(tk, device="cuda")[None]
             < torch.tensor([tk - 100 * i for i in range(b)],
                            device="cuda")[:, None]).float()
@@ -213,6 +268,22 @@ def test_flash_bf16_graph_replay_is_bitwise_eager(gen, shape):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(replayed, eager)
+
+
+@pytest.mark.parametrize("shape", BF16_BLOCK_SHAPES + [(2, 256, 256, 8, 160)])
+def test_flash_bf16_graph_replay_is_bitwise_eager(gen, shape):
+    """The TMA descriptors are kernel parameters, encoded at each call: a
+    CUDA graph captures them with the launch, and its replay gives the
+    eager call's output bit for bit."""
+    _graph_replay_is_bitwise_eager(gen, shape, torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", F32_BLOCK_SHAPES + [(4, 1500, 1500, 8, 64)])
+def test_flash_f32_graph_replay_is_bitwise_eager(gen, shape):
+    """The f32 twin: a CUDA graph's replay of the f32 kernel (its TMA
+    descriptors captured as parameters) equals the eager call bit for
+    bit."""
+    _graph_replay_is_bitwise_eager(gen, shape, torch.float32)
 
 
 def test_flash_rejects_what_the_kernel_does_not_take(gen):
